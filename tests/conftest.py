@@ -25,3 +25,9 @@ def session_with_data(wisconsin_small):
     sess.create_dataset("Data", t, dataverse="demo",
                         indexes=["onePercent", "unique1"], primary="unique2")
     return sess, raw
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips elsewhere "
+        "(run on the card with -m cuda)")

@@ -1,0 +1,39 @@
+"""The PyTorch port stands alone: it imports with jax blocked, and neither a
+module under src/repro_torch nor chip_smoke.py imports jax or the JAX
+package."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+PORT = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+MODULES = ["repro_torch.core.frame", "repro_torch.engine.session",
+           "repro_torch.data.wisconsin", "repro_torch.kernels.ops",
+           "repro_torch.kernels._build", "repro_torch.runtime.telemetry"]
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            + "".join(f"import {m}\n" for m in MODULES) +
+            "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
+            "sys.modules.items() if v is not None)\n"
+            "print('ok')\n")
+    env_path = str(PORT.parent)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": env_path})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_module_imports_the_jax_package():
+    pat = re.compile(r"^\s*(import\s+(repro|jax)\b|from\s+(repro|jax)[\s.])",
+                     re.MULTILINE)
+    files = sorted(PORT.rglob("*.py")) + [PORT.parents[1] / "chip_smoke.py"]
+    assert len(files) > 15
+    offenders = [p.name for p in files if pat.search(p.read_text())]
+    assert not offenders, offenders
