@@ -3,25 +3,37 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py            # the paper's XL size: 5,000,000 rows
+    python3 chip_smoke.py            # Wisconsin at 5,000,000 rows; the
+                                     # model UDF over 32,768 x 128 tokens
 
 Phases (any mismatch raises; nothing is caught):
   1. header — the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (build time is set-up);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path launches, plus block-id lists, deliberate ties
-     and duplicate-heavy join keys;
-  3. the slice: the paper's 12 Wisconsin expressions through AFrame →
+     shapes the main paths launch, plus block-id lists, deliberate ties,
+     duplicate-heavy join keys, and for the attention kernels (unit-scale
+     inputs, a tolerance per row, planted faults refused) the reference's
+     sweep shapes, GQA at S=1024, a ragged S and decode lengths 0, 1 and S;
+  3. the first slice: the paper's 12 Wisconsin expressions through AFrame →
      Session(mode="kernel"), 3 rounds of randomized literals, held against
      the port's gspmd mode and a numpy oracle (dtypes included), plus two
      clustered ``unique2`` range queries that run the block-skipping paths;
-     every kernel's launch counter must have moved in this phase;
-  4. timings — per expression, kernel vs gspmd mode: host-clock wall time
-     and the device time of a torch.profiler trace (the device-busy share);
+     every relational kernel's launch counter must have moved in this phase;
+  4. the second slice: the paper's model-UDF pipeline (Figs. 4-6) with
+     paper-lm at full width (attn_impl="flash") registered as a sentiment
+     UDF over a 32,768-row token column, in kernel mode: head, count of one
+     class, persist + group-by. Held against the direct application of the
+     model, numpy, and the port's blocked attention (the reference's
+     default); flash_mha_fwd must launch 8 layers x 16 microbatches per
+     full pass, segment_agg on the group-by. Then flash_decode's own entry
+     point (``ops.flash_decode``, on no model path yet) once;
+  5. timings — per expression and per UDF query: host-clock wall time and
+     the device time of a torch.profiler trace (the device-busy share);
+     rows/s and tokens/s of the UDF count, and its device time per kernel;
      per kernel, the device time of the kernel alone (by name in a profiler
-     trace) beside its wrapper's, its plain version's, a one-call PyTorch
-     yardstick's where one exists, the CUDA-event time of back-to-back
-     wrapper calls, and the bytes / operations bound.
+     trace) checked by CUDA events over back-to-back wrapper calls, beside
+     the CUDA-event time of one call of its plain version and of a one-call
+     PyTorch yardstick where one exists, and the bytes / operations bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -43,8 +55,20 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor float32 peak (data sheet)
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak (data sheet)
 ROUNDS = 3
 ROWS = 5_000_000            # the paper's XL size (src/repro/data/wisconsin.py)
+RELATIONAL = ("filter_count", "segment_agg", "block_topk", "merge_join_count")
+UDF_ROWS = 32_768           # tweets in demo.Tweets
+UDF_SEQ = 128               # tokens per tweet: the usual cap for sentence
+                            # classification
+UDF_MICROBATCH = 2_048      # rows per model call
+UDF_LAYERS = 8              # paper-lm (src/repro_torch/configs/paper_lm.py)
+# Flash (the CUDA kernel) vs blocked (the plain path) logits of the 3
+# classes differ by bf16 rounding in other places — up to a few 1e-2 over
+# 8 layers; a row whose top-2 margin is within this may flip its argmax.
+MARGIN = 0.1
+DECODE_SHAPE = (32, 8, 4096, 64)   # B, H, S, D of the flash_decode checks
 
 
 def nvidia_smi() -> str:
@@ -54,8 +78,9 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -87,26 +112,76 @@ def host_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str | None = None, iters: int = 1) -> float | None:
-    """Device time per call of ``fn`` from a torch.profiler trace of
-    ``iters`` calls, after one untraced call: of every CUDA kernel and copy,
-    or, given ``kernel``, only of the kernels whose name holds it. Host issue
-    time and idle gaps are not in it. None when the trace holds no such
-    event."""
+def _profile(fn, iters: int) -> list[tuple[str, float, int]]:
+    """(name, device µs, records) of every CUDA kernel and copy in a
+    torch.profiler trace of ``iters`` calls of ``fn``, after one call in the
+    profiler's warm-up step. The trace may miss records: on the H100 one of
+    20 calls of a kernel held 15-18 of them, so a per-call time is taken
+    per record, and a sum of records is a lower bound. The schedule's
+    ``ProfilerStep`` annotation carries the device time of everything in
+    its step and is left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (kernel is None or kernel in e.key))
+        prof.step()
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
+def _traced(fn, kernel: str | None, iters: int) -> tuple[float, int]:
+    """(device µs, records) of every CUDA kernel and copy of ``iters``
+    calls of ``fn`` or, given ``kernel``, of the kernels whose name holds
+    it."""
+    hits = [(us, n) for key, us, n in _profile(fn, iters)
+            if kernel is None or kernel in key]
+    return sum(us for us, _ in hits), sum(n for _, n in hits)
+
+
+def device_ms(fn, kernel: str | None = None, iters: int = 1) -> float | None:
+    """Device time per call of ``fn`` from a torch.profiler trace (see
+    ``_traced``). Host issue time and idle gaps are not in it. None when the
+    trace holds no such event."""
+    us, _ = _traced(fn, kernel, iters)
     return us / iters / 1e3 if us > 0 else None
+
+
+def single_call_ms(fn, reps: int = 10) -> float:
+    """Median CUDA-event time of one call of ``fn`` with the stream idle
+    before and after it (launch latency included)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def smi_clocks() -> str:
+    """The card's SM clock (now / max), power draw and temperature."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                          "power.draw,temperature.gpu", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def same(got, want, label: str) -> None:
@@ -378,7 +453,7 @@ def run_slice(table, raw: dict, dev) -> dict:
           f"({cnt_plan.blocks_scanned}/{cnt_plan.blocks_total} blocks in the "
           f"last round)", flush=True)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = {k: _build.LAUNCHES[k] for k in RELATIONAL}
     print(f"  kernel launches on the main path: {launches}", flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -401,36 +476,341 @@ def run_slice(table, raw: dict, dev) -> dict:
             "expr_ms": times}
 
 
-# -- phase 4: kernel timings --------------------------------------------------------
+# -- phase 2 (attention): the model zoo's kernels against their plain versions --
+
+def check_attention_kernels(dev) -> dict:
+    """flash_mha_fwd and flash_decode vs their plain versions on the card:
+    at the model-UDF path's shape, the reference's sweep shapes, GQA at
+    S=1024, a ragged S, and decode at B=32, S=4096 with lengths 0, 1, S.
+    Returns the main-shape inputs and the largest error seen per kernel."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    errs = {"flash_mha_fwd": 0.0, "flash_decode": 0.0}
+
+    # unit-variance inputs, as the projections give after RMS norm: the
+    # scores (std 1 after the 1/sqrt(D) scale) then matter to the output
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def row_close(got, want, t) -> bool:
+        """|got - want| <= t * (|want| + the row's largest |want|): an
+        attention output is a weighted mean of V, its scale falls with the
+        length, so each row is held to its own."""
+        g, w = got.float(), want.float()
+        bound = t * (w.abs() + w.abs().amax(dim=-1, keepdim=True))
+        return bool(torch.isfinite(g).all()) and bool(((g - w).abs() <= bound).all())
+
+    def close(name, label, got, want, t, plain):
+        """Kernel vs plain within ``t``; and the same check must refuse the
+        plain version run on planted faults — q taken from the neighbouring
+        head, and q = 0 (scores skipped) — or it could not see such a
+        kernel fault."""
+        err = float((got.float() - want.float()).abs().max())
+        if not row_close(got, want, t):
+            raise AssertionError(f"{name} {label}: kernel vs plain max abs err "
+                                 f"{err} beyond {t} x row scale")
+        for fault, bad in (("wrong q head", plain(lambda q: q.roll(1, dims=1))),
+                           ("q = 0", plain(torch.zeros_like))):
+            if row_close(bad, want, t):
+                raise AssertionError(f"{name} {label}: the check passes a planted "
+                                     f"fault ({fault})")
+        errs[name] = max(errs[name], err)
+        print(f"  {name} {label}: max abs err {err:.3g} (tolerance {t} x row "
+              f"scale; planted faults refused)", flush=True)
+
+    def flash(label, B, H, KV, S, D, dtype, causal):
+        q = rand((B, H, S, D), dtype)
+        k, v = rand((B, KV, S, D), dtype), rand((B, KV, S, D), dtype)
+        out, lse = fa.flash_mha_fwd(q, k, v, causal=causal)
+        pout, plse = fa.flash_mha_fwd_plain(q, k, v, causal=causal)
+        close("flash_mha_fwd", f"{label} out", out, pout, tol[dtype],
+              lambda f: fa.flash_mha_fwd_plain(f(q), k, v, causal=causal)[0])
+        err = float((lse - plse).abs().max())
+        if not bool(torch.isclose(lse, plse, rtol=tol[dtype], atol=tol[dtype]).all()):
+            raise AssertionError(f"flash_mha_fwd {label} lse: max abs err {err}")
+        errs["flash_mha_fwd"] = max(errs["flash_mha_fwd"], err)
+        return q, k, v
+
+    # the model-UDF path: one call per layer and microbatch
+    main = flash(f"main path ({UDF_MICROBATCH}, 8, {UDF_SEQ}, 64) bf16 causal",
+                 UDF_MICROBATCH, 8, 8, UDF_SEQ, 64, torch.bfloat16, True)
+    for B, H, KV, S, D in [(1, 2, 2, 128, 16), (2, 4, 2, 256, 32),
+                           (1, 8, 1, 64, 64)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                flash(f"sweep ({B},{H},{KV},{S},{D}) {str(dtype)[6:]} "
+                      f"causal={causal}", B, H, KV, S, D, dtype, causal)
+    flash("GQA S=1024 bf16 causal", 4, 8, 2, 1024, 64, torch.bfloat16, True)
+    flash("GQA S=1024 D=128 f32", 2, 8, 2, 1024, 128, torch.float32, False)
+    flash("ragged S=1000 bf16 causal", 3, 8, 8, 1000, 64, torch.bfloat16, True)
+    flash("ragged S=77 f32", 2, 4, 2, 77, 32, torch.float32, False)
+    flash("B*H = 65,600 (past one grid dimension)", 8200, 8, 8, 16, 16,
+          torch.bfloat16, True)
+
+    B, H, S, D = DECODE_SHAPE
+    decode_main = None
+    for KV in (8, 2):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = rand((B, H, D), dtype)
+            k, v = rand((B, KV, S, D), dtype), rand((B, KV, S, D), dtype)
+            lens = torch.randint(2, S, (B,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            lens[:3] = torch.tensor([0, 1, S], dtype=torch.int32, device=dev)
+            got = da.flash_decode(q, k, v, lens)
+            close("flash_decode", f"(B={B}, H={H}, KV={KV}, S={S}, D={D}) "
+                  f"{str(dtype)[6:]}, lengths 0/1/S/random",
+                  got, da.flash_decode_plain(q, k, v, lens), tol[dtype],
+                  lambda f: da.flash_decode_plain(f(q), k, v, lens))
+            if KV == 8 and dtype == torch.bfloat16:
+                decode_main = (q, k, v, lens)
+    torch.cuda.synchronize()
+    return {"flash_mha_fwd": main, "flash_decode": decode_main, "errs": errs}
+
+
+# -- phase 4: the model-UDF slice ----------------------------------------------------
+
+def _persist_groupby(df):
+    neg = df[df["sentiment"] == 0][["id", "hour", "sentiment"]]
+    saved = neg.persist("negTweets")
+    return saved, saved.groupby("hour").agg("count")
+
+
+def run_udf_slice(dev, seed: int) -> dict:
+    """The paper's Figs. 4-6 on the port: paper-lm at full width with
+    flash attention, registered as a 3-class sentiment UDF, applied inside
+    kernel-mode queries over demo.Tweets."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import physical as PH
+    from repro_torch.core import plan as P
+    from repro_torch.core.frame import AFrame
+    from repro_torch.engine.session import Session
+    from repro_torch.engine.table import Table
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as ttf
+    from repro_torch.udf import model_udf
+
+    cfg = dataclasses.replace(get_config("paper-lm"), attn_impl="flash")
+    if cfg.n_layers != UDF_LAYERS:
+        raise AssertionError(f"paper-lm has {cfg.n_layers} layers")
+    t0 = time.perf_counter()
+    model = ttf.init_lm(cfg, torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    cols = {"id": np.arange(UDF_ROWS, dtype=np.int32),
+            "text_tokens": rng.integers(0, cfg.vocab, (UDF_ROWS, UDF_SEQ),
+                                        dtype=np.int32),
+            "hour": rng.integers(0, 24, UDF_ROWS, dtype=np.int32)}
+    model_udf.clear_registry()
+    model_udf.register_model("sentiment", model, cfg, classes=3,
+                             microbatch=UDF_MICROBATCH)
+    sess = Session(mode="kernel", device=dev)
+    sess.create_dataset("Tweets", Table(cols), dataverse="demo")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  paper-lm ({n_params:,} parameters, attn_impl=flash) and "
+          f"{UDF_ROWS} x {UDF_SEQ} tokens on {dev} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def frame():
+        df = AFrame("demo", "Tweets", session=sess)
+        df["sentiment"] = df["text_tokens"].map("sentiment")
+        return df
+
+    def count_negative():
+        df = frame()
+        return len(df[df["sentiment"] == 0])
+
+    queries = {"1_map_head": lambda: frame().head(5),
+               "2_count_negative": count_negative,
+               "3_persist_groupby": lambda: _persist_groupby(frame())}
+
+    passes = UDF_LAYERS * -(-UDF_ROWS // UDF_MICROBATCH)
+    _build.reset_launches()
+    head = queries["1_map_head"]()
+    opt = sess.last_optimized
+    flash_q1 = _build.LAUNCHES["flash_mha_fwd"]
+    n_neg = queries["2_count_negative"]()
+    flash_q2 = _build.LAUNCHES["flash_mha_fwd"] - flash_q1
+    seg_before = _build.LAUNCHES["segment_agg"]
+    saved, by_hour = queries["3_persist_groupby"]()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    grp_plan = sess.last_physical
+    print(f"  kernel launches on the model-UDF path: "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if not (isinstance(opt, P.Project) and isinstance(opt.children[0], P.Limit)):
+        raise AssertionError("head(5) did not put the model above the limit")
+    if flash_q1 != UDF_LAYERS or flash_q2 != passes:
+        raise AssertionError(f"flash_mha_fwd launches: head {flash_q1} (want "
+                             f"{UDF_LAYERS}), full pass {flash_q2} (want {passes})")
+    if launches["segment_agg"] == seg_before or not isinstance(
+            grp_plan, PH.KernelSegmentAgg):
+        raise AssertionError("the group-by on the persisted set did not run "
+                             "segment_agg")
+
+    # checks, outside the counted run
+    tokens = sess.catalog.get("demo", "Tweets").table.columns["text_tokens"]
+    direct = model_udf.get_udf("sentiment")(tokens).cpu().numpy()
+    same({"sentiment": head["sentiment"]}, {"sentiment": direct[:5]},
+         "head(5) predictions")
+    if not np.all((direct >= 0) & (direct < 3)):
+        raise AssertionError("predictions outside [0, 3)")
+    same(n_neg, int((direct == 0).sum()), "count of sentiment == 0")
+    got = saved.collect()
+    same(got, {"id": np.nonzero(direct == 0)[0].astype(np.int32),
+               "hour": cols["hour"][direct == 0],
+               "sentiment": np.zeros(n_neg, np.int32)}, "persisted negTweets")
+    k, c = np.unique(cols["hour"][direct == 0], return_counts=True)
+    same(by_hour, {"hour": k.astype(np.int32), "count": c.astype(np.int32)},
+         "group-by count of negTweets")
+    print(f"  {n_neg} of {UDF_ROWS} rows predicted class 0; persisted count, "
+          f"ids and per-hour counts equal the direct application and numpy",
+          flush=True)
+
+    # flash (CUDA kernel) vs blocked (the plain path, the reference's default)
+    blocked = dataclasses.replace(cfg, attn_impl="blocked")
+    with torch.no_grad():
+        logits = torch.cat([
+            ttf.lm_prefill(model, {"tokens": tokens[s:s + UDF_MICROBATCH]},
+                           blocked, cache=False)[1][:, -1, :3]
+            for s in range(0, UDF_ROWS, UDF_MICROBATCH)]).cpu().numpy()
+    if not np.isfinite(logits).all():
+        raise AssertionError("blocked-attention logits not finite")
+    top = np.sort(logits, axis=1)
+    margin = top[:, 2] - top[:, 1]
+    pred_blocked = logits.argmax(axis=1).astype(np.int32)
+    differ = direct != pred_blocked
+    near = margin <= MARGIN
+    if np.any(differ & ~near):
+        raise AssertionError(f"flash vs blocked: {int((differ & ~near).sum())} "
+                             f"rows differ with a margin above {MARGIN}")
+    print(f"  flash vs blocked attention: {int(differ.sum())} of {UDF_ROWS} "
+          f"predictions differ, all among the {int(near.sum())} rows whose "
+          f"top-2 margin is within {MARGIN}", flush=True)
+    return {"queries": queries, "launches": launches, "n_neg": n_neg,
+            "flash_per_pass": flash_q2, "rows_near_margin": int(near.sum()),
+            "rows_differ": int(differ.sum())}
+
+
+def run_decode_op(case) -> int:
+    """flash_decode's entry point, ``ops.flash_decode`` (no model path
+    reaches it yet), once at phase 2's main decode shape; returns its
+    launch count."""
+    import torch
+
+    from repro_torch.kernels import _build, ops
+
+    _build.reset_launches()
+    out = ops.flash_decode(*case)
+    torch.cuda.synchronize()
+    n = _build.LAUNCHES["flash_decode"]
+    if n == 0 or not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("ops.flash_decode did not launch its kernel")
+    print(f"  ops.flash_decode {tuple(out.shape)}: {n} launch", flush=True)
+    return n
+
+
+def device_breakdown(fn, top: int = 12) -> list:
+    """Device time (ms) and records of one profiled call of ``fn`` per
+    kernel name, the ``top`` largest (names cut to 90 characters)."""
+    rows = sorted(_profile(fn, 1), key=lambda r: -r[1])
+    return [[key[:90], us / 1e3, n] for key, us, n in rows[:top]]
+
+
+def time_udf(queries: dict) -> dict:
+    times = {name: {"wall_ms": host_ms(fn)} for name, fn in queries.items()}
+    for name, fn in queries.items():
+        t = times[name]
+        t["device_ms"] = device_ms(fn)
+        t["busy"] = None if t["device_ms"] is None else t["device_ms"] / t["wall_ms"]
+    q2 = times["2_count_negative"]
+    wall_s = q2["wall_ms"] / 1e3
+    q2["rows_per_s"] = UDF_ROWS / wall_s
+    q2["tokens_per_s"] = UDF_ROWS * UDF_SEQ / wall_s
+    q2["breakdown"] = device_breakdown(queries["2_count_negative"])
+    return times
+
+
+def time_attention(cases: dict, launches: dict) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    out = []
+    q, k, v = cases["flash_mha_fwd"]
+    B, H, S, D = q.shape
+    io = 4 * q.numel() * q.element_size() + B * H * S * 4
+    out.append(_timed("flash_mha_fwd", "flash_fwd_kernel",
+                      lambda: fa.flash_mha_fwd(q, k, v, causal=True),
+                      lambda: fa.flash_mha_fwd_plain(q, k, v, causal=True),
+                      lambda: F.scaled_dot_product_attention(q, k, v,
+                                                             is_causal=True),
+                      io, 2 * 2 * B * H * S * S * D / 2,
+                      cases["errs"]["flash_mha_fwd"], launches["flash_mha_fwd"],
+                      f"q, k, v ({B}, {H}, {S}, {D}) bf16, causal",
+                      ops_per_s=BF16_OPS_PER_S))
+    q, k, v, lens = cases["flash_decode"]
+    B, H, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None]
+    io = (2 * k.numel() + 2 * q.numel()) * q.element_size() + B * 4
+    out.append(_timed("flash_decode", "flash_decode_kernel",
+                      lambda: da.flash_decode(q, k, v, lens),
+                      lambda: da.flash_decode_plain(q, k, v, lens),
+                      lambda: F.scaled_dot_product_attention(
+                          q[:, :, None], k, v, attn_mask=mask),
+                      io, 2 * 2 * B * H * S * D, cases["errs"]["flash_decode"],
+                      launches["flash_decode"],
+                      f"q ({B}, {H}, {D}), cache ({B}, {KV}, {S}, {D}) bf16",
+                      ops_per_s=BF16_OPS_PER_S))
+    return out
+
+
+# -- phase 5: kernel timings --------------------------------------------------------
 
 def _timed(name: str, kernel: str, wrapper, plain, library, nbytes: float,
-           ops: float, err: float, launches: int, shape: str) -> dict:
+           ops: float, err: float, launches: int, shape: str,
+           ops_per_s: float = FP32_OPS_PER_S) -> dict:
     """One entry of the ``kernels`` line. ``ms`` is the device time of the
-    kernel alone (by its name in a profiler trace); ``plain_ms`` and
-    ``library_ms`` are the device time of every kernel and copy of one call
-    of the plain version and of the library call; ``wrapper_device_ms`` adds
-    the wrapper's output fill to ``ms``; ``event_ms`` is the CUDA-event time
-    of back-to-back wrapper calls, host issue included."""
-    ms = device_ms(wrapper, kernel, iters=20)
-    if ms is None:
+    kernel alone: the mean of its records (by name) in a profiler trace of
+    20 wrapper calls, ``kernel_records`` of them (the trace may miss some).
+    ``event_ms`` checks it: CUDA events over 20 back-to-back wrapper calls,
+    host issue included. ``plain_ms`` and ``library_ms`` are the CUDA-event
+    time of one call of the plain version and of the library call on an
+    idle stream (median of 5 and 10; launch latency included)."""
+    us, n_records = _traced(wrapper, kernel, 20)
+    if us <= 0:
         raise AssertionError(f"{name}: no {kernel} in the profiler trace")
-    bms, by = bound_ms(nbytes, ops)
+    bms, by = bound_ms(nbytes, ops, ops_per_s)
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/kernels/csrc/{SOURCES[name]}",
                 replaces=REPLACES[name], launches=launches, max_abs_err=err,
-                ms=ms, plain_ms=device_ms(plain, iters=5),
+                ms=us / n_records / 1e3, plain_ms=single_call_ms(plain, reps=5),
                 bound_ms=bms, bound_by=by,
-                library_ms=None if library is None else device_ms(library, iters=20),
-                wrapper_device_ms=device_ms(wrapper, iters=20),
-                event_ms=cuda_ms(wrapper), shape=shape)
+                library_ms=None if library is None else single_call_ms(library),
+                event_ms=cuda_ms(wrapper), kernel_records=n_records, shape=shape)
 
 
 SOURCES = {"filter_count": "filter_count.cu", "segment_agg": "segment_agg.cu",
-           "block_topk": "topk_mask.cu", "merge_join_count": "merge_join.cu"}
+           "block_topk": "topk_mask.cu", "merge_join_count": "merge_join.cu",
+           "flash_mha_fwd": "flash_attention.cu",
+           "flash_decode": "decode_attention.cu"}
 REPLACES = {"filter_count": "src/repro/kernels/filter_count.py:97",
             "segment_agg": "src/repro/kernels/segment_agg.py:103",
             "block_topk": "src/repro/kernels/topk_mask.py:39",
-            "merge_join_count": "src/repro/kernels/merge_join.py:46"}
+            "merge_join_count": "src/repro/kernels/merge_join.py:46",
+            "flash_mha_fwd": "src/repro/kernels/flash_attention.py:73",
+            "flash_decode": "src/repro/kernels/decode_attention.py:61"}
 
 
 def time_kernels(cases: dict, launches: dict) -> list[dict]:
@@ -533,11 +913,19 @@ def main(argv=None) -> int:
 
     print("phase 2: kernels vs plain versions on the card", flush=True)
     cases = check_kernels(raw, dev)
+    attn_cases = check_attention_kernels(dev)
 
     print(f"phase 3: the 12 Wisconsin expressions at {ROWS} rows", flush=True)
     res = run_slice(table, raw, dev)
 
-    print("phase 4: timings", flush=True)
+    print(f"phase 4: the model-UDF pipeline, paper-lm over {UDF_ROWS} x "
+          f"{UDF_SEQ} tokens", flush=True)
+    udf = run_udf_slice(dev, args.seed)
+    decode_launches = run_decode_op(attn_cases["flash_decode"])
+
+    print("phase 5: timings", flush=True)
+    print(f"  card clocks.sm, max, power, temperature: {smi_clocks()}",
+          flush=True)
     def fmt(t):
         dev = "not measured" if t["device_ms"] is None else \
             f"device {t['device_ms']:.3f} ms, busy {t['busy']:.0%}"
@@ -545,26 +933,44 @@ def main(argv=None) -> int:
     for name, t in res["expr_ms"].items():
         print(f"  {name:16s} kernel {fmt(t['kernel'])}   gspmd {fmt(t['gspmd'])}",
               flush=True)
+    udf_ms = time_udf(udf["queries"])
+    for name, t in udf_ms.items():
+        rate = "" if "rows_per_s" not in t else \
+            f"  {t['rows_per_s']:.0f} rows/s, {t['tokens_per_s']:.0f} tokens/s"
+        print(f"  udf {name:18s} {fmt(t)}{rate}", flush=True)
+    print("  udf 2_count_negative device time by kernel (largest first):",
+          flush=True)
+    for key, ms, n in udf_ms["2_count_negative"]["breakdown"]:
+        print(f"    {ms:9.1f} ms {n:5d} records  {key}", flush=True)
     print("  (wall: median of 7 host-clock runs, result on the host; device: "
           "one profiled run)", flush=True)
-    kernels = time_kernels(cases, res["launches"])
+    kernels = time_kernels(cases, res["launches"]) + time_attention(
+        attn_cases, {"flash_mha_fwd": udf["launches"]["flash_mha_fwd"],
+                     "flash_decode": decode_launches})
     for k in kernels:
         lib = k["library_ms"]
-        print(f"  {k['name']:17s} kernel {k['ms']:.4f} ms  wrapper "
-              f"{k['wrapper_device_ms']:.4f} ms  events {k['event_ms']:.4f} ms  "
+        print(f"  {k['name']:17s} kernel {k['ms']:.4f} ms "
+              f"({k['kernel_records']} records / 20 calls)  "
+              f"events {k['event_ms']:.4f} ms  "
               f"plain {k['plain_ms']:.4f} ms  bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})  library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}  [{k['shape']}]",
               flush=True)
-    print("  (kernel: the kernel alone; wrapper, plain, library: every kernel "
-          "and copy of one call — device time from a profiler trace of 20 calls, "
-          "5 for plain; events: CUDA events over 20 back-to-back wrapper calls, "
-          "host issue included)", flush=True)
+    print("  (kernel: the kernel alone, mean of its records in a profiler trace "
+          "of 20 calls; events: CUDA events over 20 back-to-back wrapper calls, "
+          "host issue included; plain, library: CUDA events around one call on "
+          "an idle stream, median of 5 / 10)", flush=True)
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("non-finite kernel time")
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
-                      "build_s": build_s}))
+                      "build_s": build_s,
+                      "udf": {"queries": udf_ms, "rows": UDF_ROWS,
+                              "seq": UDF_SEQ, "microbatch": UDF_MICROBATCH,
+                              "n_negative": udf["n_neg"],
+                              "flash_launches_per_pass": udf["flash_per_pass"],
+                              "rows_within_margin": udf["rows_near_margin"],
+                              "rows_flash_vs_blocked_differ": udf["rows_differ"]}}))
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "shape"}
                                   for d in kernels]}))
     print(card)

@@ -340,6 +340,29 @@ class ElementwiseUDF(Expr):
         return f"udf({self.name},{inner})"
 
 
+class ModelUDF(Expr):
+    """Apply a registered *model* to a (rows, seq) token column — the
+    paper's sklearn/CoreNLP sentiment UDF (§III-C), here a model of
+    ``repro_torch.models`` running on the session's device inside the
+    query. The callable is resolved from the UDF registry when the query
+    runs; it maps (rows, seq) int32 -> (rows,) int32 predictions, in
+    microbatches (udf/model_udf.py)."""
+
+    def __init__(self, model_name: str, child: Expr):
+        self.model_name, self.children = model_name, (child,)
+
+    def evaluate(self, env, params):
+        from repro_torch.udf.model_udf import get_udf
+
+        return get_udf(self.model_name)(self.children[0].evaluate(env, params))
+
+    def to_sql(self):
+        return f"{self.model_name}({self.children[0].to_sql()})"
+
+    def fingerprint(self):
+        return f"model({self.model_name},{self.children[0].fingerprint()})"
+
+
 def ordered_lits(exprs: Sequence[Expr]) -> list[Lit]:
     """Every literal in plan order, *without* assigning slots."""
     lits: list[Lit] = []

@@ -16,8 +16,8 @@ import numpy as np
 
 from repro_torch.core import plan as P
 from repro_torch.core.expr import (Arith, BoolOp, Col, Compare, ElementwiseUDF,
-                                   Expr, IsIn, IsKnown, Not, StrLower,
-                                   StrUpper, wrap)
+                                   Expr, IsIn, IsKnown, ModelUDF, Not,
+                                   StrLower, StrUpper, wrap)
 
 
 class ColumnExpr:
@@ -85,15 +85,19 @@ class ColumnExpr:
                           self.name)
 
     def map(self, fn: Any, name: Optional[str] = None) -> "ColumnExpr":
-        """Apply a function elementwise — the paper's §III-C UDF application:
-        ``str.upper`` / ``str.lower`` or any torch callable. Model UDFs wait
-        for ROADMAP A10 (the model zoo)."""
+        """Apply a function elementwise — the paper's §III-C UDF application.
+        Accepts ``str.upper``/``str.lower``, any torch callable, or a
+        registered model-UDF name / ModelHandle."""
+        from repro_torch.udf.model_udf import ModelHandle
+
         if fn is str.upper:
             return self._wrap(StrUpper(self.expr), self.name)
         if fn is str.lower:
             return self._wrap(StrLower(self.expr), self.name)
+        if isinstance(fn, ModelHandle):
+            return self._wrap(ModelUDF(fn.name, self.expr), name or fn.name)
         if isinstance(fn, str):
-            raise NotImplementedError("model UDFs wait for ROADMAP A10")
+            return self._wrap(ModelUDF(fn, self.expr), name or fn)
         if callable(fn):
             return self._wrap(ElementwiseUDF(fn, name or getattr(fn, "__name__", "udf"),
                                              self.expr), self.name)
@@ -254,6 +258,12 @@ class AFrame:
 
     def collect(self) -> dict[str, np.ndarray]:
         return self._session.execute(self._plan)
+
+    def persist(self, name: str, dataverse: Optional[str] = None) -> "AFrame":
+        """CREATE DATASET AS <this query> (paper Input 15): the result stays
+        on the session's device as a new closed dataset."""
+        ds = self._session.persist(self._plan, name, dataverse or self._dataverse)
+        return AFrame(ds.dataverse, ds.name, session=self._session)
 
     def describe(self) -> dict[str, dict[str, float]]:
         """min/max/mean/count per numeric column (string columns skipped by

@@ -9,10 +9,11 @@ every relational kernel's plain PyTorch version, on the CPU (the tests do).
 In kernel mode on the card, the relational operators launch the
 hand-written CUDA kernels.
 
-Not in this slice (each raises, naming its ROADMAP item): durable storage
-and ``Session.open`` (A8), feeds and views (A6), point lookups, indexes and
-open datasets (A2/A5 leftovers), ``explain(analyze=True)``, meshes and
-``shard_map`` (A9).
+``persist`` keeps a query's result on the device as a new closed dataset
+(single-component). Not in this slice (each raises, naming its ROADMAP
+item): durable storage and ``Session.open`` (A8), feeds and views (A6),
+point lookups, indexes and open datasets (A2/A5 leftovers),
+``explain(analyze=True)``, meshes and ``shard_map`` (A9).
 """
 from __future__ import annotations
 
@@ -262,6 +263,26 @@ class Session:
         self.last_physical = cq.physical
         self.last_prune_report = PH.prune_report(cq.physical)
         return result
+
+    def persist(self, plan: P.Plan, name: str,
+                dataverse: str = "Default") -> Dataset:
+        """CREATE DATASET AS <query> (paper Input 15): the result stays on
+        the session's device — its rows, with the query's live-row mask as
+        ``__valid__`` — as a new closed dataset with fresh statistics and
+        zone maps. Single-component: the port has no LSM runs yet."""
+        raw_lits = ordered_lits(P.all_exprs(plan))
+        with self.catalog.snapshot() as snap:
+            e = self._plan_entry(plan, plan.fingerprint(), raw_lits, snap)
+            cq, binding = self._variant(e, raw_lits, snap)
+            out = cq.run(snap, params=_bind_params(binding, raw_lits,
+                                                   self.device))
+        if cq.kind == "scalar":
+            raise ValueError("cannot persist a scalar result")
+        env, mask = out
+        cols = {k: v for k, v in env.items() if not is_lane_column(k)}
+        cols["__valid__"] = mask
+        return self.create_dataset(name, Table(cols, num_rows=int(mask.shape[0])),
+                                   dataverse)
 
     def explain(self, plan: P.Plan, analyze: bool = False) -> str:
         """The costed physical plan for ``plan``; compiles and runs nothing."""

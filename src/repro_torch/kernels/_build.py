@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: dict[str, int] = {"filter_count": 0, "segment_agg": 0,
-                            "block_topk": 0, "merge_join_count": 0}
+                            "block_topk": 0, "merge_join_count": 0,
+                            "flash_mha_fwd": 0, "flash_decode": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

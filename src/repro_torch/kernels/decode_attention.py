@@ -1,0 +1,77 @@
+"""Flash-decode: one-token GQA attention against a KV cache, masked at each
+sequence's valid length.
+
+Replaces the Pallas TPU kernel
+``repro/kernels/decode_attention.py:flash_decode`` with the hand-written
+CUDA kernel ``csrc/decode_attention.cu``: one thread block per (b, kv head)
+holding up to 8 of its q heads, four warps splitting the cache walk with
+their own online-softmax states, merged once at the end. See the source's
+header for its bound on the H100 and what it leaves for later.
+
+``flash_decode`` launches the kernel for CUDA tensors and runs
+``flash_decode_plain`` (a port of ``repro.kernels.ref.decode_attention``)
+for CPU tensors; it never runs the plain version on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import _DTYPES, HEAD_DIMS, NEG
+
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+         ctypes.c_void_p]
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B,H,D); k, v: (B,KV,S,D); lengths: (B,) valid cache length per
+    sequence -> (B,H,D) in q's dtype. A length of 0 masks every slot alike,
+    which gives the uniform mean of V."""
+    B, H, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, D)
+    s = torch.einsum("bkgd,bksd->bkgs", qg.float(), k.float()) / math.sqrt(D)
+    m = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(m[:, None, None], s, NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """The kernel wrapper: same contract as :func:`flash_decode_plain`."""
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_decode: q (B,H,D), k and v (B,KV,S,D)")
+    B, H, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or KV == 0 or H % KV or S == 0:
+        raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
+                         f"k/v {tuple(k.shape)} do not form GQA")
+    if tuple(lengths.shape) != (B,) or lengths.dtype != torch.int32:
+        raise ValueError("flash_decode: lengths (B,) int32")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_decode: q, k, v all float32 or all bfloat16")
+    if not q.is_cuda:
+        if q.device.type != "cpu":
+            raise ValueError(f"flash_decode: unsupported device {q.device}")
+        return flash_decode_plain(q, k, v, lengths)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_decode: head dim {D} not in {HEAD_DIMS}")
+    _build.require_cuda("flash_decode", q, k, v, lengths)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode: k and v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    fn = _build.function("fd_flash_decode", _ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), _DTYPES[q.dtype], B, H, KV, S, D,
+            1.0 / math.sqrt(D), _build.stream_of(q))
+    _build.check(rc, "flash_decode")
+    _build.count_launch("flash_decode")
+    return out

@@ -1,4 +1,5 @@
-"""Relational kernel dispatch (port of ``repro.kernels.ops``, relational part).
+"""Kernel dispatch (port of ``repro.kernels.ops``): the relational kernels
+and the two attention kernels of the model zoo.
 
 Each op picks its backend from where its operands lie: CUDA tensors go to
 the hand-written CUDA kernels, CPU tensors to their plain PyTorch versions
@@ -7,8 +8,9 @@ the hand-written CUDA kernels, CPU tensors to their plain PyTorch versions
 mode's tests assert the relational kernels are on the executed path; the
 CUDA launch counts themselves live in ``_build.LAUNCHES``.
 
-The flash-attention ops of the reference belong to the model zoo and are
-not ported yet.
+The reference's flash ops default to its jnp twins on every platform
+(``backend="xla"``); here, as for the relational ops, the operand's device
+decides, so on the card ``attn_impl="flash"`` launches the CUDA kernel.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import filter_count as _fc
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import merge_join as _mj
 from repro_torch.kernels import segment_agg as _sa
 from repro_torch.kernels import topk_mask as _tk
@@ -108,3 +112,35 @@ def topk(scores: torch.Tensor, mask: torch.Tensor, n_valid: int,
     int32), ties to the lowest index."""
     _tick("topk", scores.device)
     return _tk.topk_merge(scores, mask, n_valid, k)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel under autograd, as the reference's ``custom_vjp``;
+    the backward arrives with training."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        return _fa.flash_mha_fwd(q, k, v, causal=causal)[0]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise NotImplementedError(
+            "the flash-attention backward waits for ROADMAP A10 (training: "
+            "lm_loss, steps, optim, the flash backward kernel)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention forward. q: (B,H,Sq,D); k, v: (B,KV,Skv,D) ->
+    (B,H,Sq,D) in q's dtype. Unlike the reference's op it takes no q
+    chunk: the kernel's q tile is fixed."""
+    _tick("flash_attention", q.device)
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token decode attention. q: (B,H,D); k, v: (B,KV,S,D);
+    lengths: (B,) int32."""
+    _tick("flash_decode", q.device)
+    return _da.flash_decode(q, k, v, lengths)

@@ -1,5 +1,10 @@
 """The CUDA kernels on the card, each against its plain PyTorch version at
-small shapes (exact). Marked ``cuda``: run on a machine with an NVIDIA card
+small shapes: the relational kernels exactly, the attention kernels on
+unit-scale inputs at the reference's tolerances (2e-4 float32, 2e-2 bf16:
+sums in another order, and the bf16 output rounded from float32), each
+output relative to its value plus its row's largest |value| (as
+tests/test_torch_flash.py, which shows a wrong q head fails that check).
+Marked ``cuda``: run on a machine with an NVIDIA card
 with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``;
 elsewhere it skips. Imports neither jax nor the JAX package, so it runs
 where only PyTorch is installed."""
@@ -7,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import filter_count as fc
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import merge_join as mj
 from repro_torch.kernels import segment_agg as sa
 from repro_torch.kernels import topk_mask as tk
@@ -38,3 +45,46 @@ def test_cuda_kernels_match_plain_versions():
                       .to(dev)).values
     assert int(mj.merge_join_count(keys, keys, n, n - 4)) == \
         int(mj.merge_join_count_plain(keys, keys, n, n - 4))
+
+
+def _assert_row_close(got, want, tol):
+    g, w = got.cpu().float(), want.cpu().float()
+    bound = tol * (w.abs() + w.abs().amax(dim=-1, keepdim=True))
+    err = (g - w).abs()
+    assert bool((err <= bound).all()), f"max abs err {float(err.max())} (tolerance {tol})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+def test_cuda_attention_kernels_match_plain_versions(dtype, tol):
+    """flash_mha_fwd and flash_decode on the card against their plain
+    versions: D 16 and 64, MHA and GQA, causal and not, a ragged S, and
+    decode lengths 0, 1 and S."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev, dtype)
+
+    for B, H, KV, S, D in [(2, 4, 4, 128, 16), (2, 8, 2, 100, 64),
+                           (1, 4, 1, 257, 64)]:
+        q, k, v = t(B, H, S, D), t(B, KV, S, D), t(B, KV, S, D)
+        for causal in (True, False):
+            out, lse = fa.flash_mha_fwd(q, k, v, causal=causal)
+            pout, plse = fa.flash_mha_fwd_plain(q.cpu(), k.cpu(), v.cpu(),
+                                                causal=causal)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype and lse.dtype == torch.float32
+            _assert_row_close(out, pout, tol)
+            torch.testing.assert_close(lse.cpu(), plse, rtol=tol, atol=tol)
+    for B, H, KV, S, D in [(3, 8, 8, 300, 64), (3, 8, 2, 128, 16),
+                           (2, 6, 2, 64, 64)]:
+        q, k, v = t(B, H, D), t(B, KV, S, D), t(B, KV, S, D)
+        lens = torch.tensor([0, 1, S][:B], dtype=torch.int32, device=dev)
+        got = da.flash_decode(q, k, v, lens)
+        want = da.flash_decode_plain(q.cpu(), k.cpu(), v.cpu(), lens.cpu())
+        torch.cuda.synchronize()
+        _assert_row_close(got, want, tol)

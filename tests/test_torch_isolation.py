@@ -11,7 +11,12 @@ PORT = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 MODULES = ["repro_torch.core.frame", "repro_torch.engine.session",
            "repro_torch.data.wisconsin", "repro_torch.kernels.ops",
-           "repro_torch.kernels._build", "repro_torch.runtime.telemetry"]
+           "repro_torch.kernels._build", "repro_torch.runtime.telemetry",
+           "repro_torch.configs", "repro_torch.configs.paper_lm",
+           "repro_torch.models.config", "repro_torch.models.layers",
+           "repro_torch.models.attention", "repro_torch.models.transformer",
+           "repro_torch.models.registry", "repro_torch.models.convert",
+           "repro_torch.udf.model_udf"]
 
 
 def test_port_imports_with_jax_blocked():
