@@ -13,7 +13,10 @@ Phases (any mismatch raises; nothing is caught):
      shapes the main paths launch, plus block-id lists, deliberate ties,
      duplicate-heavy join keys, and for the attention kernels (unit-scale
      inputs, a tolerance per row, planted faults refused) the reference's
-     sweep shapes, GQA at S=1024, a ragged S and decode lengths 0, 1 and S;
+     sweep shapes (bf16 flash on the model path's strided (B,S,H,D) views
+     and on contiguous inputs, D 16-128), GQA at S=1024, a ragged S, B*H
+     past 65,535, and decode lengths 0, 1, each side of a slice edge, S,
+     and every length = S;
   3. the first slice: the paper's 12 Wisconsin expressions through AFrame →
      Session(mode="kernel"), 3 rounds of randomized literals, held against
      the port's gspmd mode and a numpy oracle (dtypes included), plus two
@@ -33,7 +36,9 @@ Phases (any mismatch raises; nothing is caught):
      per kernel, the device time of the kernel alone (by name in a profiler
      trace) checked by CUDA events over back-to-back wrapper calls, beside
      the CUDA-event time of one call of its plain version and of a one-call
-     PyTorch yardstick where one exists, and the bytes / operations bound.
+     PyTorch yardstick where one exists, and the bytes / operations bound;
+     flash also on contiguous inputs, decode also at the mixed lengths
+     (bound on the slots they walk).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -147,6 +152,23 @@ def _traced(fn, kernel: str | None, iters: int) -> tuple[float, int]:
     hits = [(us, n) for key, us, n in _profile(fn, iters)
             if kernel is None or kernel in key]
     return sum(us for us, _ in hits), sum(n for _, n in hits)
+
+
+def _per_call_ms(fn, kernels: tuple[str, ...], iters: int) -> tuple[float, int]:
+    """Device ms per call of ``fn`` spent in the named kernels (each
+    launched once per call): the sum over the names of each one's mean per
+    record in a trace of ``iters`` calls, and the fewest records any name
+    held (the trace may miss some). Raises if a name is missing."""
+    rows = _profile(fn, iters)
+    ms, least = 0.0, iters
+    for name in kernels:
+        hits = [(us, n) for key, us, n in rows if name in key]
+        us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        if us <= 0 or n == 0:
+            raise AssertionError(f"no {name} in the profiler trace")
+        ms += us / n / 1e3
+        least = min(least, n)
+    return ms, least
 
 
 def device_ms(fn, kernel: str | None = None, iters: int = 1) -> float | None:
@@ -523,9 +545,13 @@ def check_attention_kernels(dev) -> dict:
         print(f"  {name} {label}: max abs err {err:.3g} (tolerance {t} x row "
               f"scale; planted faults refused)", flush=True)
 
-    def flash(label, B, H, KV, S, D, dtype, causal):
-        q = rand((B, H, S, D), dtype)
-        k, v = rand((B, KV, S, D), dtype), rand((B, KV, S, D), dtype)
+    def flash(label, B, H, KV, S, D, dtype, causal, strided=False):
+        if strided:  # the model path's layout: (B,H,S,D) views of (B,S,H,D)
+            q = rand((B, S, H, D), dtype).transpose(1, 2)
+            k, v = (rand((B, S, KV, D), dtype).transpose(1, 2) for _ in range(2))
+        else:
+            q = rand((B, H, S, D), dtype)
+            k, v = rand((B, KV, S, D), dtype), rand((B, KV, S, D), dtype)
         out, lse = fa.flash_mha_fwd(q, k, v, causal=causal)
         pout, plse = fa.flash_mha_fwd_plain(q, k, v, causal=causal)
         close("flash_mha_fwd", f"{label} out", out, pout, tol[dtype],
@@ -536,40 +562,57 @@ def check_attention_kernels(dev) -> dict:
         errs["flash_mha_fwd"] = max(errs["flash_mha_fwd"], err)
         return q, k, v
 
-    # the model-UDF path: one call per layer and microbatch
-    main = flash(f"main path ({UDF_MICROBATCH}, 8, {UDF_SEQ}, 64) bf16 causal",
-                 UDF_MICROBATCH, 8, 8, UDF_SEQ, 64, torch.bfloat16, True)
+    # the model-UDF path: one call per layer and microbatch, on the layout
+    # attention_core hands over, then on contiguous inputs
+    main = flash(f"main path ({UDF_MICROBATCH}, 8, {UDF_SEQ}, 64) bf16 causal, "
+                 "strided (B,S,H,D) views", UDF_MICROBATCH, 8, 8, UDF_SEQ, 64,
+                 torch.bfloat16, True, strided=True)
+    contiguous = flash(f"main shape ({UDF_MICROBATCH}, 8, {UDF_SEQ}, 64) bf16 "
+                       "causal, contiguous", UDF_MICROBATCH, 8, 8, UDF_SEQ, 64,
+                       torch.bfloat16, True)
     for B, H, KV, S, D in [(1, 2, 2, 128, 16), (2, 4, 2, 256, 32),
-                           (1, 8, 1, 64, 64)]:
+                           (1, 8, 1, 64, 64), (2, 4, 2, 192, 128)]:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 flash(f"sweep ({B},{H},{KV},{S},{D}) {str(dtype)[6:]} "
                       f"causal={causal}", B, H, KV, S, D, dtype, causal)
+        flash(f"sweep ({B},{H},{KV},{S},{D}) bf16 causal, strided", B, H, KV,
+              S, D, torch.bfloat16, True, strided=True)
     flash("GQA S=1024 bf16 causal", 4, 8, 2, 1024, 64, torch.bfloat16, True)
     flash("GQA S=1024 D=128 f32", 2, 8, 2, 1024, 128, torch.float32, False)
-    flash("ragged S=1000 bf16 causal", 3, 8, 8, 1000, 64, torch.bfloat16, True)
+    flash("ragged S=1000 bf16 causal, strided", 3, 8, 8, 1000, 64,
+          torch.bfloat16, True, strided=True)
+    flash("ragged S=77 D=128 bf16, strided", 2, 4, 2, 77, 128, torch.bfloat16,
+          False, strided=True)
     flash("ragged S=77 f32", 2, 4, 2, 77, 32, torch.float32, False)
-    flash("B*H = 65,600 (past one grid dimension)", 8200, 8, 8, 16, 16,
-          torch.bfloat16, True)
+    flash("B*H = 65,600 (past one grid dimension), strided", 8200, 8, 8, 16,
+          16, torch.bfloat16, True, strided=True)
 
     B, H, S, D = DECODE_SHAPE
-    decode_main = None
+    decode = {}
     for KV in (8, 2):
+        split = da.split_size(B, KV, S)
         for dtype in (torch.bfloat16, torch.float32):
             q = rand((B, H, D), dtype)
             k, v = rand((B, KV, S, D), dtype), rand((B, KV, S, D), dtype)
-            lens = torch.randint(2, S, (B,), generator=gen, device=dev,
-                                 dtype=torch.int32)
-            lens[:3] = torch.tensor([0, 1, S], dtype=torch.int32, device=dev)
-            got = da.flash_decode(q, k, v, lens)
-            close("flash_decode", f"(B={B}, H={H}, KV={KV}, S={S}, D={D}) "
-                  f"{str(dtype)[6:]}, lengths 0/1/S/random",
-                  got, da.flash_decode_plain(q, k, v, lens), tol[dtype],
-                  lambda f: da.flash_decode_plain(f(q), k, v, lens))
+            mixed = torch.randint(2, S, (B,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+            edges = [0, 1, split - 1, split, split + 1, S - 1, S, 2 * split + 1]
+            mixed[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+            full = torch.full((B,), S, dtype=torch.int32, device=dev)
+            for label, lens in (("0/1/slice edges/S/random", mixed),
+                                ("all S", full)):
+                got = da.flash_decode(q, k, v, lens)
+                close("flash_decode", f"(B={B}, H={H}, KV={KV}, S={S}, D={D}) "
+                      f"{str(dtype)[6:]}, slices of {split}, lengths {label}",
+                      got, da.flash_decode_plain(q, k, v, lens), tol[dtype],
+                      lambda f, lens=lens: da.flash_decode_plain(f(q), k, v, lens))
             if KV == 8 and dtype == torch.bfloat16:
-                decode_main = (q, k, v, lens)
+                decode = {"flash_decode": (q, k, v, full),
+                          "flash_decode_mixed": (q, k, v, mixed)}
     torch.cuda.synchronize()
-    return {"flash_mha_fwd": main, "flash_decode": decode_main, "errs": errs}
+    return {"flash_mha_fwd": main, "flash_mha_fwd_contiguous": contiguous,
+            **decode, "errs": errs}
 
 
 # -- phase 4: the model-UDF slice ----------------------------------------------------
@@ -720,9 +763,10 @@ def run_decode_op(case) -> int:
 
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
-    kernel name, the ``top`` largest (names cut to 90 characters)."""
+    kernel name, the ``top`` largest (names cut to 200 characters, enough to
+    show the functor of PyTorch's generic elementwise kernels)."""
     rows = sorted(_profile(fn, 1), key=lambda r: -r[1])
-    return [[key[:90], us / 1e3, n] for key, us, n in rows[:top]]
+    return [[key[:200], us / 1e3, n] for key, us, n in rows[:top]]
 
 
 def time_udf(queries: dict) -> dict:
@@ -739,7 +783,11 @@ def time_udf(queries: dict) -> dict:
     return times
 
 
-def time_attention(cases: dict, launches: dict) -> list[dict]:
+def time_attention(cases: dict, launches: dict) -> tuple[list[dict], dict]:
+    """The two attention rows of the ``kernels`` line — flash on the model
+    path's strided layout, decode with every length = S — and, beside
+    them, flash on contiguous inputs and decode at phase 2's mixed lengths
+    (bound on the slots those lengths walk)."""
     import torch
     import torch.nn.functional as F
 
@@ -748,54 +796,67 @@ def time_attention(cases: dict, launches: dict) -> list[dict]:
 
     out = []
     q, k, v = cases["flash_mha_fwd"]
+    qc, kc, vc = cases["flash_mha_fwd_contiguous"]
     B, H, S, D = q.shape
     io = 4 * q.numel() * q.element_size() + B * H * S * 4
-    out.append(_timed("flash_mha_fwd", "flash_fwd_kernel",
-                      lambda: fa.flash_mha_fwd(q, k, v, causal=True),
-                      lambda: fa.flash_mha_fwd_plain(q, k, v, causal=True),
-                      lambda: F.scaled_dot_product_attention(q, k, v,
-                                                             is_causal=True),
-                      io, 2 * 2 * B * H * S * S * D / 2,
-                      cases["errs"]["flash_mha_fwd"], launches["flash_mha_fwd"],
-                      f"q, k, v ({B}, {H}, {S}, {D}) bf16, causal",
-                      ops_per_s=BF16_OPS_PER_S))
-    q, k, v, lens = cases["flash_decode"]
-    B, H, D = q.shape
-    KV, S = k.shape[1], k.shape[2]
-    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None]
-    io = (2 * k.numel() + 2 * q.numel()) * q.element_size() + B * 4
-    out.append(_timed("flash_decode", "flash_decode_kernel",
-                      lambda: da.flash_decode(q, k, v, lens),
-                      lambda: da.flash_decode_plain(q, k, v, lens),
-                      lambda: F.scaled_dot_product_attention(
-                          q[:, :, None], k, v, attn_mask=mask),
-                      io, 2 * 2 * B * H * S * D, cases["errs"]["flash_decode"],
-                      launches["flash_decode"],
-                      f"q ({B}, {H}, {D}), cache ({B}, {KV}, {S}, {D}) bf16",
-                      ops_per_s=BF16_OPS_PER_S))
-    return out
+    flash_row = _timed("flash_mha_fwd", "flash_fwd_bf16_kernel",
+                       lambda: fa.flash_mha_fwd(q, k, v, causal=True),
+                       lambda: fa.flash_mha_fwd_plain(q, k, v, causal=True),
+                       lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                              is_causal=True),
+                       io, 2 * 2 * B * H * S * S * D / 2,
+                       cases["errs"]["flash_mha_fwd"], launches["flash_mha_fwd"],
+                       f"q, k, v ({B}, {H}, {S}, {D}) bf16 causal, (B,H,S,D) "
+                       "views of (B,S,H,D)", ops_per_s=BF16_OPS_PER_S)
+    flash_row["contiguous_ms"], _ = _per_call_ms(
+        lambda: fa.flash_mha_fwd(qc, kc, vc, causal=True),
+        ("flash_fwd_bf16_kernel",), 20)
+    out.append(flash_row)
+
+    def decode_row(name, case):
+        q, k, v, lens = case
+        B, H, D = q.shape
+        KV, S = k.shape[1], k.shape[2]
+        mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None]
+        walked = int(torch.where(lens > 0, lens.clamp(max=S), S).sum())
+        io = (2 * walked * KV * D + 2 * q.numel()) * q.element_size() + B * 4
+        row = _timed(name, ("flash_decode_split_kernel", "flash_decode_merge_kernel"),
+                     lambda: da.flash_decode(q, k, v, lens),
+                     lambda: da.flash_decode_plain(q, k, v, lens),
+                     lambda: F.scaled_dot_product_attention(
+                         q[:, :, None], k, v, attn_mask=mask),
+                     io, 2 * 2 * walked * H * D, cases["errs"]["flash_decode"],
+                     launches["flash_decode"],
+                     f"q ({B}, {H}, {D}), cache ({B}, {KV}, {S}, {D}) bf16, "
+                     f"{walked} of {B * S} slots walked, slices of "
+                     f"{da.split_size(B, KV, S)}", ops_per_s=BF16_OPS_PER_S)
+        return row
+
+    out.append(decode_row("flash_decode", cases["flash_decode"]))
+    mixed = decode_row("flash_decode", cases["flash_decode_mixed"])
+    return out, mixed
 
 
 # -- phase 5: kernel timings --------------------------------------------------------
 
-def _timed(name: str, kernel: str, wrapper, plain, library, nbytes: float,
-           ops: float, err: float, launches: int, shape: str,
+def _timed(name: str, kernel: str | tuple[str, ...], wrapper, plain, library,
+           nbytes: float, ops: float, err: float, launches: int, shape: str,
            ops_per_s: float = FP32_OPS_PER_S) -> dict:
     """One entry of the ``kernels`` line. ``ms`` is the device time of the
     kernel alone: the mean of its records (by name) in a profiler trace of
-    20 wrapper calls, ``kernel_records`` of them (the trace may miss some).
-    ``event_ms`` checks it: CUDA events over 20 back-to-back wrapper calls,
-    host issue included. ``plain_ms`` and ``library_ms`` are the CUDA-event
-    time of one call of the plain version and of the library call on an
-    idle stream (median of 5 and 10; launch latency included)."""
-    us, n_records = _traced(wrapper, kernel, 20)
-    if us <= 0:
-        raise AssertionError(f"{name}: no {kernel} in the profiler trace")
+    20 wrapper calls, ``kernel_records`` of them (the trace may miss some);
+    where one call launches several kernels (a tuple of names), the sum of
+    their means. ``event_ms`` checks it: CUDA events over 20 back-to-back
+    wrapper calls, host issue included. ``plain_ms`` and ``library_ms`` are
+    the CUDA-event time of one call of the plain version and of the library
+    call on an idle stream (median of 5 and 10; launch latency included)."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    ms, n_records = _per_call_ms(wrapper, names, 20)
     bms, by = bound_ms(nbytes, ops, ops_per_s)
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/kernels/csrc/{SOURCES[name]}",
                 replaces=REPLACES[name], launches=launches, max_abs_err=err,
-                ms=us / n_records / 1e3, plain_ms=single_call_ms(plain, reps=5),
+                ms=ms, plain_ms=single_call_ms(plain, reps=5),
                 bound_ms=bms, bound_by=by,
                 library_ms=None if library is None else single_call_ms(library),
                 event_ms=cuda_ms(wrapper), kernel_records=n_records, shape=shape)
@@ -944,10 +1005,11 @@ def main(argv=None) -> int:
         print(f"    {ms:9.1f} ms {n:5d} records  {key}", flush=True)
     print("  (wall: median of 7 host-clock runs, result on the host; device: "
           "one profiled run)", flush=True)
-    kernels = time_kernels(cases, res["launches"]) + time_attention(
+    attn_rows, decode_mixed = time_attention(
         attn_cases, {"flash_mha_fwd": udf["launches"]["flash_mha_fwd"],
                      "flash_decode": decode_launches})
-    for k in kernels:
+    kernels = time_kernels(cases, res["launches"]) + attn_rows
+    for k in kernels + [decode_mixed]:
         lib = k["library_ms"]
         print(f"  {k['name']:17s} kernel {k['ms']:.4f} ms "
               f"({k['kernel_records']} records / 20 calls)  "
@@ -956,10 +1018,14 @@ def main(argv=None) -> int:
               f"({k['bound_by']})  library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}  [{k['shape']}]",
               flush=True)
+    print(f"  flash_mha_fwd on contiguous (B,H,S,D) inputs: kernel "
+          f"{attn_rows[0]['contiguous_ms']:.4f} ms (the library call above runs "
+          "on these)", flush=True)
     print("  (kernel: the kernel alone, mean of its records in a profiler trace "
-          "of 20 calls; events: CUDA events over 20 back-to-back wrapper calls, "
-          "host issue included; plain, library: CUDA events around one call on "
-          "an idle stream, median of 5 / 10)", flush=True)
+          "of 20 calls, summed over the kernels of one call; events: CUDA "
+          "events over 20 back-to-back wrapper calls, host issue included; "
+          "plain, library: CUDA events around one call on an idle stream, "
+          "median of 5 / 10)", flush=True)
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("non-finite kernel time")
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
@@ -970,7 +1036,9 @@ def main(argv=None) -> int:
                               "n_negative": udf["n_neg"],
                               "flash_launches_per_pass": udf["flash_per_pass"],
                               "rows_within_margin": udf["rows_near_margin"],
-                              "rows_flash_vs_blocked_differ": udf["rows_differ"]}}))
+                              "rows_flash_vs_blocked_differ": udf["rows_differ"]},
+                      "flash_decode_mixed_lengths": {
+                          k: v for k, v in decode_mixed.items() if k != "shape"}}))
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "shape"}
                                   for d in kernels]}))
     print(card)

@@ -48,8 +48,8 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device: Session() runs on the card; pass device='cpu' "
-            "to run on the CPU")
+            "no CUDA device: the port runs on the card unless told "
+            "otherwise; pass device='cpu' to run on the CPU")
     return dev
 
 

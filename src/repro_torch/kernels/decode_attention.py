@@ -3,12 +3,15 @@ sequence's valid length.
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/decode_attention.py:flash_decode`` with the hand-written
-CUDA kernel ``csrc/decode_attention.cu``: one thread block per (b, kv head)
-holding up to 8 of its q heads, four warps splitting the cache walk with
-their own online-softmax states, merged once at the end. See the source's
-header for its bound on the H100 and what it leaves for later.
+CUDA kernels of ``csrc/decode_attention.cu``: the cache walk is split into
+slices of ``split_size(B, KV, S)`` slots, one thread block per (b, kv
+head, slice), each writing a partial online-softmax state (m, l, acc) to
+float32 scratch; a second kernel merges the slices. A slice reads only the
+slots below the length (all S for a length of 0, whose reference output is
+the uniform mean of V); a slice wholly past the length adds nothing. See
+the source's header for its bound on the H100.
 
-``flash_decode`` launches the kernel for CUDA tensors and runs
+``flash_decode`` launches the kernels for CUDA tensors and runs
 ``flash_decode_plain`` (a port of ``repro.kernels.ref.decode_attention``)
 for CPU tensors; it never runs the plain version on the card.
 """
@@ -23,9 +26,21 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import _DTYPES, HEAD_DIMS, NEG
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-         ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+TARGET_BLOCKS = 132 * 16   # the H100's SMs, 16 blocks of 4 warps each
+SPLIT_ROWS = 64            # a slice is a whole number of block steps
+
+
+def split_size(B: int, KV: int, S: int) -> int:
+    """Cache slots per slice: enough slices that B*KV*slices blocks fill
+    the card about TARGET_BLOCKS / 132 times over, each a multiple of
+    SPLIT_ROWS slots, and at most 65535 slices (the grid's y extent)."""
+    splits = min(-(-TARGET_BLOCKS // max(B * KV, 1)), -(-S // SPLIT_ROWS),
+                 65535)
+    per_split = -(-S // splits)
+    return -(-per_split // SPLIT_ROWS) * SPLIT_ROWS
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,13 +80,20 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_decode: head dim {D} not in {HEAD_DIMS}")
     _build.require_cuda("flash_decode", q, k, v, lengths)
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_decode: k and v must be 16-byte aligned")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode: q, k and v must be 16-byte aligned")
+    split = split_size(B, KV, S)
+    n_split = -(-S // split)
     out = torch.empty_like(q)
+    part_acc = torch.empty(B * H * n_split * D, dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty(B * H * n_split * 2, dtype=torch.float32,
+                          device=q.device)
     fn = _build.function("fd_flash_decode", _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], B, H, KV, S, D,
-            1.0 / math.sqrt(D), _build.stream_of(q))
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            _DTYPES[q.dtype], B, H, KV, S, D, split, 1.0 / math.sqrt(D),
+            _build.stream_of(q))
     _build.check(rc, "flash_decode")
     _build.count_launch("flash_decode")
     return out

@@ -4,11 +4,20 @@ attention kernel, run by ``attention_core`` when ``cfg.attn_impl ==
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py:flash_mha_fwd`` with the hand-written
-CUDA kernel ``csrc/flash_attention.cu``: one thread block per (b, h, 64-row
-q tile), the KV walk a loop inside it with K/V tiles in shared memory and
-the online softmax (m, l, acc) in float32 registers. Both products are the
-kernel's own float32 FMAs. See the source's header for its bound on the
-H100 and what it leaves for later.
+CUDA kernels of ``csrc/flash_attention.cu``: one thread block per (b, h,
+64-row q tile), the KV walk a loop inside it and the online softmax (m, l,
+acc) in float32 registers. bf16 inputs run both products on the tensor
+cores (mma.sync over bf16 fragments, float32 accumulators); float32 inputs
+run the kernel's own float32 FMAs. See the source's header for its bound on
+the H100 and its design.
+
+The kernels take strides: q, k and v may be any views whose last dimension
+has stride 1 and whose other strides and base addresses are 16-byte
+aligned (:func:`check_layout`), such as the transposed (B,S,H,D)
+projections of ``attention_core``. The output is written into a (B,S,H,D)
+buffer and returned as its (B,H,S,D) view, so a caller that transposes it
+back holds contiguous memory. The wrapper never copies an operand to make
+it fit: a layout the kernel cannot take raises.
 
 ``flash_mha_fwd`` launches the kernel for CUDA tensors and runs
 ``flash_mha_fwd_plain`` for CPU tensors; it never runs the plain version on
@@ -31,10 +40,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 NEG = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+Q_TILE = 64          # q rows per thread block
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def flash_mha_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -80,11 +90,33 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_mha_fwd: an empty key sequence")
 
 
+def check_layout(*tensors: torch.Tensor) -> None:
+    """Raise unless the kernel can read each tensor in place: a head dim in
+    ``HEAD_DIMS``, a unit last stride, and every other stride (of a dim
+    longer than 1) and the base address a multiple of 16 bytes (its rows
+    arrive by 16-byte copies)."""
+    for t in tensors:
+        if t.shape[-1] not in HEAD_DIMS:
+            raise ValueError(f"flash_mha_fwd: head dim {t.shape[-1]} not in "
+                             f"{HEAD_DIMS}")
+        if t.stride(-1) != 1:
+            raise ValueError("flash_mha_fwd: the head dim must have stride 1, "
+                             f"not {t.stride(-1)}")
+        size = t.element_size()
+        if any(st * size % 16 for st, n in zip(t.stride()[:-1], t.shape)
+               if n > 1):
+            raise ValueError(f"flash_mha_fwd: strides {t.stride()} are not "
+                             "multiples of 16 bytes")
+        if t.data_ptr() % 16:
+            raise ValueError("flash_mha_fwd: base address not 16-byte aligned")
+
+
 def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel wrapper: same contract as :func:`flash_mha_fwd_plain`.
     The kernel has no q-chunk parameter (its q tile is fixed at 64 rows);
-    CPU tensors go through the plain version at its default chunk."""
+    CPU tensors go through the plain version at its default chunk. On the
+    card ``out`` is the (B,H,Sq,D) view of a (B,Sq,H,D) buffer."""
     _check(q, k, v)
     if not q.is_cuda:
         if q.device.type != "cpu":
@@ -92,18 +124,23 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_mha_fwd_plain(q, k, v, causal=causal)
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_mha_fwd: head dim {D} not in {HEAD_DIMS}")
-    if -(-Sq // 64) > 65535:
-        raise ValueError(f"flash_mha_fwd: {Sq} queries exceed the grid's "
-                         "65535 tiles of 64")
-    _build.require_cuda("flash_mha_fwd", q, k, v)
-    out = torch.empty_like(q)
+    n_qt = -(-Sq // Q_TILE)
+    if q.dtype == torch.float32 and n_qt > 65535:
+        raise ValueError(f"flash_mha_fwd: {Sq} float32 queries exceed the "
+                         "grid's 65535 tiles of 64")
+    if B * H * n_qt >= 2 ** 31:
+        raise ValueError(f"flash_mha_fwd: {B * H * n_qt} q tiles exceed the grid")
+    _build.require_cuda("flash_mha_fwd", q, k, v, contiguous=False)
+    check_layout(q, k, v)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:3])
     fn = _build.function("fa_flash_fwd", _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _DTYPES[q.dtype], B, H, KV, Sq, Skv, D,
-            1.0 / math.sqrt(D), int(causal), _build.stream_of(q))
+            ctypes.addressof(strides), 1.0 / math.sqrt(D), int(causal),
+            _build.stream_of(q))
     _build.check(rc, "flash_mha_fwd")
     _build.count_launch("flash_mha_fwd")
     return out, lse

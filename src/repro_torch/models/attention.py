@@ -5,7 +5,8 @@ rotary embeddings, and the two attention cores the config selects.
 ``cfg.attn_impl == "blocked"`` (the default) runs ``_blocked_attention``,
 a loop over query chunks with a float32 masked softmax over the whole key
 range per chunk. ``"flash"`` runs ``kernels.ops.flash_attention`` for the
-aligned full-window case — the CUDA kernel on the card, its plain version
+aligned full-window case — the CUDA kernel on the card (reading the
+projections through strided views, no transpose copies), its plain version
 on CPU tensors. Decode, cache updates and the shard_map path wait for
 ROADMAP A10 (serving) and A9.
 """
@@ -112,10 +113,10 @@ def attention_core(q, k, v, q_pos, k_pos, cfg: ArchConfig, *,
     if cfg.attn_impl == "flash" and cfg.sliding_window == 0 and aligned:
         from repro_torch.kernels import ops as kops
 
-        qt = q.transpose(1, 2).contiguous()  # (B,H,S,D)
-        kt = k.transpose(1, 2).contiguous()
-        vt = v.transpose(1, 2).contiguous()
-        out = kops.flash_attention(qt, kt, vt, causal)
+        # (B,H,S,D) views of the (B,S,H,D) projections: the kernel reads
+        # them in place and writes (B,S,H,D) memory, so neither side copies
+        out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal)
         return out.transpose(1, 2)
     return _blocked_attention(q, k, v, q_pos, k_pos, causal=causal,
                               window=cfg.sliding_window, chunk_q=cfg.chunk_q)

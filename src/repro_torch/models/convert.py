@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.engine.session import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import LM
 
@@ -30,9 +31,12 @@ def _copy(dst: nn.Parameter, src) -> None:
         dst.copy_(torch.from_numpy(src))
 
 
-def lm_from_jax(params: dict, cfg: ArchConfig, device="cpu") -> LM:
-    """A dense ``LM`` holding the reference pytree's weights, on ``device``."""
-    model = LM(cfg, torch.Generator(device=device).manual_seed(0))
+def lm_from_jax(params: dict, cfg: ArchConfig, device=None) -> LM:
+    """A dense ``LM`` holding the reference pytree's weights, on ``device``:
+    ``None`` means the CUDA card, and raises without one (as ``Session()``);
+    pass ``device="cpu"`` to build it on the CPU."""
+    dev = resolve_device(device)
+    model = LM(cfg, torch.Generator(device=dev).manual_seed(0))
     _copy(model.embed, params["embed"])
     _copy(model.final_norm, params["final_norm"])
     if model.lm_head is not None:

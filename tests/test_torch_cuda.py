@@ -88,3 +88,84 @@ def test_cuda_attention_kernels_match_plain_versions(dtype, tol):
         want = da.flash_decode_plain(q.cpu(), k.cpu(), v.cpu(), lens.cpu())
         torch.cuda.synchronize()
         _assert_row_close(got, want, tol)
+
+
+def _refused(bad, want, tol) -> bool:
+    """The row-scaled check refuses ``bad``: it is not within tolerance."""
+    g, w = bad.cpu().float(), want.cpu().float()
+    bound = tol * (w.abs() + w.abs().amax(dim=-1, keepdim=True))
+    return not bool(((g - w).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_cuda_bf16_flash_strided_and_contiguous(D):
+    """The tensor-core kernel on the model path's layout ((B,H,S,D) views
+    of (B,S,H,D) tensors) and on contiguous inputs: GQA, a ragged S, causal
+    and not, each against the plain version, with the planted faults (q
+    from the neighbouring head; q = 0) refused by the same check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(D)
+    tol = 2e-2
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev, torch.bfloat16)
+
+    for B, H, KV, S in [(2, 8, 2, 128), (1, 4, 4, 200), (3, 4, 1, 77)]:
+        strided = [t(B, S, n, D).transpose(1, 2) for n in (H, KV, KV)]
+        for q, k, v in (strided, [x.contiguous() for x in strided]):
+            for causal in (True, False):
+                out, lse = fa.flash_mha_fwd(q, k, v, causal=causal)
+                pout, plse = fa.flash_mha_fwd_plain(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                assert out.dtype == torch.bfloat16 and out.shape == q.shape
+                _assert_row_close(out, pout, tol)
+                torch.testing.assert_close(lse, plse, rtol=tol, atol=tol)
+                for bad in (q.roll(1, dims=1), torch.zeros_like(q)):
+                    assert _refused(fa.flash_mha_fwd_plain(bad, k, v, causal=causal)[0],
+                                    pout, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_flash_past_one_grid_dimension():
+    """B*H = 65,600 (q, k, v) heads in one launch: the grid is 1-D."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn((8200, 16, 8, 16), generator=gen, device=dev)
+               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    out, _ = fa.flash_mha_fwd(q, k, v, causal=True)
+    want, _ = fa.flash_mha_fwd_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_row_close(out, want, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+def test_cuda_decode_split_at_length_boundaries(dtype, tol):
+    """The split cache walk at lengths 0, 1, each side of a slice boundary
+    and S, and with every length = S; planted faults refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    for B, H, KV, S, D in [(8, 8, 8, 1000, 64), (8, 8, 2, 700, 128),
+                           (8, 4, 1, 300, 16)]:
+        q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32)).to(dev, dtype)
+        k, v = (torch.from_numpy(rng.normal(size=(B, KV, S, D)).astype(np.float32))
+                .to(dev, dtype) for _ in range(2))
+        split = da.split_size(B, KV, S)
+        assert -(-S // split) > 1
+        mixed = [0, 1, split - 1, split, split + 1, S - 1, S, 2 * split + 1]
+        for lens in (mixed, [S] * B):
+            lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = da.flash_decode(q, k, v, lt)
+            want = da.flash_decode_plain(q, k, v, lt)
+            torch.cuda.synchronize()
+            _assert_row_close(got, want, tol)
+            for bad in (q.roll(1, dims=1), torch.zeros_like(q)):
+                assert _refused(da.flash_decode_plain(bad, k, v, lt), want, tol)

@@ -114,7 +114,7 @@ def test_layers_match_reference(dtype):
 def test_attention_matches_reference(variant, impl, dtype):
     jcfg, tcfg = _cfgs(variant, impl)
     params = _params(jcfg)
-    model = lm_from_jax(params, tcfg)
+    model = lm_from_jax(params, tcfg, device="cpu")
     lp = jax.tree_util.tree_map(lambda a: jnp.asarray(a[0]), params["layers"])
     rng = np.random.default_rng(4)
     x = rng.normal(size=(2, 20, tcfg.d_model)).astype(np.float32)
@@ -131,7 +131,7 @@ def test_attention_matches_reference(variant, impl, dtype):
 def test_prefill_logits_and_cache_match_reference(variant, impl, dtype):
     jcfg, tcfg = _cfgs(variant, impl)
     params = _params(jcfg)
-    model = lm_from_jax(params, tcfg)
+    model = lm_from_jax(params, tcfg, device="cpu")
     toks = _tokens(tcfg)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     jcache, jlogits = jtf.lm_prefill(jparams, {"tokens": jnp.asarray(toks)},
@@ -169,3 +169,14 @@ def test_other_families_wait():
     api = get_api(get_config("paper-lm").reduced())
     with pytest.raises(NotImplementedError, match="A10"):
         api.decode()
+
+
+def test_lm_from_jax_without_a_device_needs_the_card(monkeypatch):
+    """No device means the CUDA card: without one it raises, and never
+    builds the model on the CPU quietly."""
+    jcfg, tcfg = _cfgs("base")
+    params = _params(jcfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_from_jax(params, tcfg)
+    assert lm_from_jax(params, tcfg, device="cpu").embed.device.type == "cpu"

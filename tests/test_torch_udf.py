@@ -127,7 +127,8 @@ def test_predictions_match_reference_session(compute, impl, monkeypatch):
     jcfg = dataclasses.replace(jget_config("paper-lm").reduced(), attn_impl=impl)
     tcfg = dataclasses.replace(get_config("paper-lm").reduced(), attn_impl=impl)
     jparams = jtf.init_lm(jax.random.key(0), jcfg)
-    model = lm_from_jax(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+    model = lm_from_jax(jax.tree_util.tree_map(np.asarray, jparams), tcfg,
+                        device="cpu")
     cols = _dataset(tcfg)
 
     judf.clear_registry()
