@@ -34,9 +34,10 @@ Phases (any mismatch raises; nothing is caught):
      the device time of a torch.profiler trace (the device-busy share);
      rows/s and tokens/s of the UDF count, and its device time per kernel;
      per kernel, the device time of the kernel alone (by name in a profiler
-     trace) checked by CUDA events over back-to-back wrapper calls, beside
-     the CUDA-event time of one call of its plain version and of a one-call
-     PyTorch yardstick where one exists, and the bytes / operations bound;
+     trace) and of a one-call PyTorch yardstick where one exists (every
+     kernel of it in the same kind of trace), each checked by CUDA events
+     over back-to-back calls, beside the CUDA-event time of one call of its
+     plain version, and the bytes / operations bound;
      flash also on contiguous inputs, decode also at the mixed lengths
      (bound on the slots they walk).
 
@@ -145,41 +146,35 @@ def _profile(fn, iters: int) -> list[tuple[str, float, int]]:
             and not e.key.startswith("ProfilerStep")]
 
 
-def _traced(fn, kernel: str | None, iters: int) -> tuple[float, int]:
-    """(device µs, records) of every CUDA kernel and copy of ``iters``
-    calls of ``fn`` or, given ``kernel``, of the kernels whose name holds
-    it."""
-    hits = [(us, n) for key, us, n in _profile(fn, iters)
-            if kernel is None or kernel in key]
-    return sum(us for us, _ in hits), sum(n for _, n in hits)
-
-
-def _per_call_ms(fn, kernels: tuple[str, ...], iters: int) -> tuple[float, int]:
-    """Device ms per call of ``fn`` spent in the named kernels (each
-    launched once per call): the sum over the names of each one's mean per
-    record in a trace of ``iters`` calls, and the fewest records any name
-    held (the trace may miss some). Raises if a name is missing."""
+def _per_call_ms(fn, kernels: tuple[str, ...] | None = None,
+                 iters: int = 20) -> tuple[float, int]:
+    """Device ms per call of ``fn`` from a profiler trace of ``iters``
+    calls, and the fewest records any kernel held. Each kernel or copy
+    (given ``kernels``, those whose name holds one of them) adds the mean of
+    its records times its launches per call, its records ÷ ``iters`` rounded
+    up: the trace may miss records but adds none, so a kernel launched once
+    per call counts once however many records the trace lost. Raises if a
+    named kernel is not in the trace."""
     rows = _profile(fn, iters)
-    ms, least = 0.0, iters
-    for name in kernels:
-        hits = [(us, n) for key, us, n in rows if name in key]
-        us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
-        if us <= 0 or n == 0:
-            raise AssertionError(f"no {name} in the profiler trace")
-        ms += us / n / 1e3
-        least = min(least, n)
-    return ms, least
+    if kernels is not None:
+        for name in kernels:
+            if not any(name in key for key, _, _ in rows):
+                raise AssertionError(f"no {name} in the profiler trace")
+        rows = [r for r in rows if any(name in r[0] for name in kernels)]
+    ms = sum(us / n * math.ceil(n / iters) for _, us, n in rows) / 1e3
+    return ms, min((n for _, _, n in rows), default=0)
 
 
-def device_ms(fn, kernel: str | None = None, iters: int = 1) -> float | None:
-    """Device time per call of ``fn`` from a torch.profiler trace (see
-    ``_traced``). Host issue time and idle gaps are not in it. None when the
-    trace holds no such event."""
-    us, _ = _traced(fn, kernel, iters)
-    return us / iters / 1e3 if us > 0 else None
+def device_ms(fn) -> float | None:
+    """Device time of one call of ``fn``: every kernel and copy in its
+    profiler trace (a lower bound where the trace misses records). Host
+    issue time and idle gaps are not in it. None when the trace holds no
+    such event."""
+    ms, _ = _per_call_ms(fn, None, 1)
+    return ms if ms > 0 else None
 
 
-def single_call_ms(fn, reps: int = 10) -> float:
+def single_call_ms(fn, reps: int = 5) -> float:
     """Median CUDA-event time of one call of ``fn`` with the stream idle
     before and after it (launch latency included)."""
     import torch
@@ -846,20 +841,24 @@ def _timed(name: str, kernel: str | tuple[str, ...], wrapper, plain, library,
     kernel alone: the mean of its records (by name) in a profiler trace of
     20 wrapper calls, ``kernel_records`` of them (the trace may miss some);
     where one call launches several kernels (a tuple of names), the sum of
-    their means. ``event_ms`` checks it: CUDA events over 20 back-to-back
-    wrapper calls, host issue included. ``plain_ms`` and ``library_ms`` are
-    the CUDA-event time of one call of the plain version and of the library
-    call on an idle stream (median of 5 and 10; launch latency included)."""
+    their means. ``library_ms`` is measured the same way: every kernel and
+    copy of 20 library calls in one trace, each its mean per record times
+    its launches per call. ``event_ms`` and ``library_event_ms`` check the
+    two: CUDA events over 20 back-to-back calls, host issue included.
+    ``plain_ms`` is the CUDA-event time of one call of the plain version on
+    an idle stream (median of 5; launch latency included)."""
     names = (kernel,) if isinstance(kernel, str) else kernel
     ms, n_records = _per_call_ms(wrapper, names, 20)
     bms, by = bound_ms(nbytes, ops, ops_per_s)
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/kernels/csrc/{SOURCES[name]}",
                 replaces=REPLACES[name], launches=launches, max_abs_err=err,
-                ms=ms, plain_ms=single_call_ms(plain, reps=5),
+                ms=ms, plain_ms=single_call_ms(plain),
                 bound_ms=bms, bound_by=by,
-                library_ms=None if library is None else single_call_ms(library),
-                event_ms=cuda_ms(wrapper), kernel_records=n_records, shape=shape)
+                library_ms=None if library is None else _per_call_ms(library)[0],
+                event_ms=cuda_ms(wrapper),
+                library_event_ms=None if library is None else cuda_ms(library),
+                kernel_records=n_records, shape=shape)
 
 
 SOURCES = {"filter_count": "filter_count.cu", "segment_agg": "segment_agg.cu",
@@ -1010,22 +1009,22 @@ def main(argv=None) -> int:
                      "flash_decode": decode_launches})
     kernels = time_kernels(cases, res["launches"]) + attn_rows
     for k in kernels + [decode_mixed]:
-        lib = k["library_ms"]
+        lib = "none" if k["library_ms"] is None else \
+            f"{k['library_ms']:.4f} ms (events {k['library_event_ms']:.4f} ms)"
         print(f"  {k['name']:17s} kernel {k['ms']:.4f} ms "
               f"({k['kernel_records']} records / 20 calls)  "
               f"events {k['event_ms']:.4f} ms  "
               f"plain {k['plain_ms']:.4f} ms  bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']})  library "
-              f"{'none' if lib is None else f'{lib:.4f} ms'}  [{k['shape']}]",
+              f"({k['bound_by']})  library {lib}  [{k['shape']}]",
               flush=True)
     print(f"  flash_mha_fwd on contiguous (B,H,S,D) inputs: kernel "
           f"{attn_rows[0]['contiguous_ms']:.4f} ms (the library call above runs "
           "on these)", flush=True)
-    print("  (kernel: the kernel alone, mean of its records in a profiler trace "
-          "of 20 calls, summed over the kernels of one call; events: CUDA "
-          "events over 20 back-to-back wrapper calls, host issue included; "
-          "plain, library: CUDA events around one call on an idle stream, "
-          "median of 5 / 10)", flush=True)
+    print("  (kernel, library: device time per call, the mean of each "
+          "kernel's records in a profiler trace of 20 calls times its "
+          "launches per call; events: CUDA events over 20 back-to-back "
+          "calls, host issue included; plain: CUDA events around one call on "
+          "an idle stream, median of 5)", flush=True)
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("non-finite kernel time")
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":

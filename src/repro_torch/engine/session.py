@@ -34,6 +34,7 @@ from repro_torch.core.expr import encode_param, ordered_lits
 from repro_torch.core.optimizer import optimize
 from repro_torch.core.physical_planner import build_pruner, plan_physical
 from repro_torch.core.stats import harvest_block_zones
+from repro_torch.device import resolve_device
 from repro_torch.engine.table import (DICT_THRESHOLD, ColumnMeta, Table,
                                       decode_strings, dict_lane_name,
                                       is_lane_column, numpy_dtype,
@@ -41,16 +42,6 @@ from repro_torch.engine.table import (DICT_THRESHOLD, ColumnMeta, Table,
 from repro_torch.runtime import telemetry as tel
 
 _SESSION_IDS = itertools.count()
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; without one, raise."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card unless told "
-            "otherwise; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class _StatsView(Mapping):

@@ -145,13 +145,12 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, *tensors, contiguous: bool = True) -> None:
+def require_cuda(name: str, *tensors) -> None:
     """Wrappers call this on their CUDA path: every operand on one CUDA
-    device and (unless the kernel takes strides) contiguous, or raise — a
-    kernel never sees a bad pointer."""
+    device and contiguous, or raise — a kernel never sees a bad pointer."""
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: operands must all lie on {dev}")
-        if contiguous and not t.is_contiguous():
+        if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")

@@ -30,7 +30,12 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 TARGET_BLOCKS = 132 * 16   # the H100's SMs, 16 blocks of 4 warps each
-SPLIT_ROWS = 64            # a slice is a whole number of block steps
+# Slices are rounded up to multiples of SPLIT_ROWS slots. That need not be
+# a whole number of the split kernel's steps (4 warps x rows per warp load
+# x rows per lane group: 128 slots for a 64-dim bf16 row with one q head
+# per kv head, 512 for D = 16 bf16); the kernel bounds each step at the
+# slice's end, so a slice's last step may run partly idle, never wrong.
+SPLIT_ROWS = 64
 
 
 def split_size(B: int, KV: int, S: int) -> int:

@@ -91,11 +91,14 @@ def _check(q, k, v) -> None:
 
 
 def check_layout(*tensors: torch.Tensor) -> None:
-    """Raise unless the kernel can read each tensor in place: a head dim in
-    ``HEAD_DIMS``, a unit last stride, and every other stride (of a dim
-    longer than 1) and the base address a multiple of 16 bytes (its rows
-    arrive by 16-byte copies)."""
+    """Raise unless the kernel can read each tensor in place: all on the
+    first one's device, a head dim in ``HEAD_DIMS``, a unit last stride,
+    and every other stride (of a dim longer than 1) and the base address a
+    multiple of 16 bytes (its rows arrive by 16-byte copies)."""
+    dev = tensors[0].device
     for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"flash_mha_fwd: operands must all lie on {dev}")
         if t.shape[-1] not in HEAD_DIMS:
             raise ValueError(f"flash_mha_fwd: head dim {t.shape[-1]} not in "
                              f"{HEAD_DIMS}")
@@ -130,7 +133,6 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "grid's 65535 tiles of 64")
     if B * H * n_qt >= 2 ** 31:
         raise ValueError(f"flash_mha_fwd: {B * H * n_qt} q tiles exceed the grid")
-    _build.require_cuda("flash_mha_fwd", q, k, v, contiguous=False)
     check_layout(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.engine.session import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import LM
 

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.models.attention import (Attention, _project_qkv,
                                           attention_core)
 from repro_torch.models.config import ArchConfig
@@ -72,10 +73,13 @@ def embed_input(model: LM, tokens: torch.Tensor, cfg: ArchConfig,
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
+    """An empty KV cache on ``device``: ``None`` means the CUDA card, and
+    raises without one; pass ``device="cpu"`` for the CPU."""
+    dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def lm_prefill(model: LM, batch: dict, cfg: ArchConfig,

@@ -131,6 +131,10 @@ def test_check_layout_refuses_what_it_cannot(dtype):
         fa.check_layout(flat[1:].view(2, 64, 4, 64))
     with pytest.raises(ValueError, match="head dim"):
         fa.check_layout(torch.zeros(1, 2, 8, 48, dtype=dtype))
+    # the wrapper's only device check: k and v on q's device
+    with pytest.raises(ValueError, match="must all lie on cpu"):
+        fa.check_layout(x, torch.zeros(2, 64, 4, 64, dtype=dtype,
+                                       device="meta"))
 
 
 # -- decode: the split-and-merge rule ------------------------------------------

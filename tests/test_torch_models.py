@@ -180,3 +180,21 @@ def test_lm_from_jax_without_a_device_needs_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm_from_jax(params, tcfg)
     assert lm_from_jax(params, tcfg, device="cpu").embed.device.type == "cpu"
+
+
+def test_make_cache_without_a_device_needs_the_card(monkeypatch):
+    """``make_cache`` (the API's ``make_cache``) follows the same rule: no
+    device means the card, and without one it raises. On the CPU it builds
+    the reference's cache: the same shapes and dtypes, all zeros."""
+    jcfg, tcfg = _cfgs("gqa")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttf.make_cache(tcfg, 2, 16)
+    want = jtf.make_cache(jcfg, 2, 16)
+    got = ttf.make_cache(tcfg, 2, 16, device="cpu")
+    assert set(got) == set(want)
+    for key, w in want.items():
+        assert got[key].device.type == "cpu"
+        assert tuple(got[key].shape) == tuple(w.shape)
+        assert str(got[key].dtype).removeprefix("torch.") == str(w.dtype)
+        assert not got[key].any()
