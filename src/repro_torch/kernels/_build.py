@@ -123,13 +123,14 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def function(name: str, argtypes: list):
-    """One C entry point of the library, with its argument types set (every
-    pointer and the stream as ``c_void_p``, or ctypes truncates them)."""
+def function(name: str, argtypes: list, restype=ctypes.c_int):
+    """One C entry point of the library, with its argument and result types
+    set (every pointer and the stream as ``c_void_p``, or ctypes truncates
+    them)."""
     fn = getattr(lib(), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
 
 

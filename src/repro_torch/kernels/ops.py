@@ -71,7 +71,16 @@ def _expand_block_ids(block_ids, zone_block: int, block: int,
 
 
 def filter_count(cols: torch.Tensor, bounds: torch.Tensor, n_valid: int,
-                 block_ids: Optional[tuple] = None) -> torch.Tensor:
+                 block_ids: Optional[tuple] = None,
+                 block_ids_arr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``block_ids``: surviving zone blocks (a static tuple). ``block_ids_arr``:
+    the per-shard alternative, a device int32 (m,) list already in the
+    kernel's own block units, ``-1``-padded at the end; passed through as
+    it is (the grid is m), and exclusive with ``block_ids``."""
+    if block_ids_arr is not None:
+        _tick("filter_count", cols.device, grid=int(block_ids_arr.shape[0]))
+        return _fc.filter_count(cols, bounds, n_valid, block_ids=block_ids,
+                                block_ids_arr=block_ids_arr)
     ids = _expand_block_ids(block_ids, ZONE_BLOCK_ROWS, _fc.BLOCK,
                             cols.shape[1])
     nb = -(-cols.shape[1] // _fc.BLOCK)
@@ -82,7 +91,15 @@ def filter_count(cols: torch.Tensor, bounds: torch.Tensor, n_valid: int,
 
 def segment_agg(values: torch.Tensor, gids: torch.Tensor, num_groups: int,
                 n_valid: int, op: str = "sum",
-                block_ids: Optional[tuple] = None) -> torch.Tensor:
+                block_ids: Optional[tuple] = None,
+                block_ids_arr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``block_ids`` / ``block_ids_arr`` as for :func:`filter_count`; the
+    list in ``block_ids_arr`` is in segment_agg's own block units."""
+    if block_ids_arr is not None:
+        _tick("segment_agg", values.device, grid=int(block_ids_arr.shape[0]))
+        return _sa.segment_agg(values, gids, num_groups, n_valid, op=op,
+                               block_ids=block_ids,
+                               block_ids_arr=block_ids_arr)
     ids = _expand_block_ids(block_ids, ZONE_BLOCK_ROWS, _sa.BLOCK,
                             values.shape[0])
     nb = -(-values.shape[0] // _sa.BLOCK)

@@ -47,6 +47,67 @@ def test_cuda_kernels_match_plain_versions():
         int(mj.merge_join_count_plain(keys, keys, n, n - 4))
 
 
+@pytest.mark.cuda
+def test_cuda_block_ids_arr_and_join_runs_match_plain_versions():
+    """On the card, against the plain versions, exactly: filter_count and
+    segment_agg (sum / max / min, integer-valued) over -1-padded id lists
+    (pads mid-list, trailing, pads only); segment_agg at an n that is not a
+    multiple of 4, on operands off 16-byte alignment, with a copy of the
+    cells per warp and with G x C past shared memory; merge_join_count on long runs crossing tiles, prefixes
+    cutting runs, all-equal keys (windows past shared memory) and a count
+    past 2^31 (int32 wrap, as the plain version's int32 sum)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    n = 100_003
+    cols = torch.from_numpy(rng.integers(0, 50, (2, n)).astype(np.int32)).to(dev)
+    b = torch.tensor([[0, 20], [5, 40]], dtype=torch.int32, device=dev)
+    vals = torch.from_numpy(rng.integers(-9, 9, (n, 3)).astype(np.float32)).to(dev)
+    gids = torch.from_numpy(rng.integers(-1, 30, n).astype(np.int32)).to(dev)
+    for ids in ([3, 0, -1, 24, -1], [-1, 7, 48, -1], [-1, -1], [24]):
+        arr = torch.tensor(ids, dtype=torch.int32, device=dev)
+        assert int(fc.filter_count(cols, b, n - 9, block_ids_arr=arr)) == \
+            int(fc.filter_count_plain(cols, b, n - 9, block_ids_arr=arr))
+        for op in ("sum", "max", "min"):
+            assert torch.equal(
+                sa.segment_agg(vals, gids, 29, n - 9, op=op, block_ids_arr=arr),
+                sa.segment_agg_plain(vals, gids, 29, n - 9, op=op, block_ids_arr=arr))
+    mid = torch.from_numpy(rng.integers(0, 1000, n).astype(np.int32)).to(dev)
+    big = torch.from_numpy(rng.integers(0, 3000, n).astype(np.int32)).to(dev)
+    # one float past an aligned start: the kernel takes 4-byte loads
+    off = torch.cat([torch.zeros(1, device=dev), vals[:, 0]])[1:, None]
+    goff = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), gids])[1:]
+    assert off.data_ptr() % 16 and goff.data_ptr() % 16
+    for v, g, G in ((vals[:, :1].contiguous(), gids, 29),
+                    (vals[:, :2].contiguous(), gids, 29),
+                    (off, goff, 29),
+                    (vals, mid, 1000),   # 3,000 cells: a copy per warp
+                    (vals, big, 3000)):  # 9,000 cells: past shared memory
+        for op in ("sum", "max", "min"):
+            assert torch.equal(sa.segment_agg(v, g, G, n, op=op),
+                               sa.segment_agg_plain(v, g, G, n, op=op))
+
+    def runs(m, lengths):  # m sorted keys in runs of the given lengths
+        reps = np.resize(lengths, int(m / np.mean(lengths)) + len(lengths))
+        keys = np.repeat(np.cumsum(rng.integers(1, 3, len(reps))), reps)[:m]
+        return torch.from_numpy(keys.astype(np.int32)).to(dev)
+
+    left, right = runs(300_000, [3, 700, 1, 2049, 40]), runs(200_000, [2, 300, 9000])
+    same = torch.full((60_000,), 5, dtype=torch.int32, device=dev)
+    for l, r, nl, nr in ((left, right, 299_990, 199_999),
+                         (left, right, 150_001, 77_777),
+                         (same, same[:20_000], 60_000, 19_999),
+                         (same[:50_000], same[:50_000], 50_000, 50_000)):
+        got = mj.merge_join_count(l, r, nl, nr)
+        assert got.dtype == torch.int32
+        assert int(got) == int(mj.merge_join_count_plain(l, r, nl, nr))
+    assert int(mj.merge_join_count(same[:50_000], same[:50_000], 50_000, 50_000)) \
+        == int(np.int64(50_000 * 50_000).astype(np.int32))
+    # the tile test_torch_kernels.py's numpy model of the join takes
+    assert mj.tile() == 2048
+
+
 def _assert_row_close(got, want, tol):
     g, w = got.cpu().float(), want.cpu().float()
     bound = tol * (w.abs() + w.abs().amax(dim=-1, keepdim=True))
