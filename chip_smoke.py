@@ -12,6 +12,12 @@ Phases (any mismatch raises; nothing is caught):
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths launch, plus block-id lists, -1-padded per-shard
      id lists through the ops (pads mid-list and trailing, pads only),
+     filter_count on a column list, with n_valid < n, on a stacked matrix
+     at n % 4 != 0 (4-byte loads) and at 17 columns (past the pointer
+     struct), with listed tiles wholly past n_valid, block_topk and the
+     merge kernel with ties at k = 8, 16 and 17 (the rounds kernel), fewer
+     live rows than k, n % 4 != 0, offset views and scores rising with the
+     row,
      segment_agg at an n that is not a multiple of 4, off 16-byte alignment
      and with G x C past shared memory, deliberate ties, duplicate-heavy
      join keys, one join run longer than any shared-memory window, join
@@ -45,8 +51,10 @@ Phases (any mismatch raises; nothing is caught):
      kernels on copies of their operands in turn, so that their reads come
      from device memory and not from the L2); segment_agg also at the e8
      shape (G = 20, max), merge_join_count also on the duplicate-heavy
-     keys, flash also on contiguous inputs, decode also at the mixed
-     lengths (bound on the slots they walk).
+     keys, block_topk also on unique2 (scores rising with the row), flash
+     also on contiguous inputs, decode also at the mixed lengths (bound on
+     the slots they walk); and the device time by kernel of one run of
+     e3, e9 and e11.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -71,7 +79,8 @@ FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor float32 peak (data sheet)
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak (data sheet)
 ROUNDS = 3
 ROWS = 5_000_000            # the paper's XL size (src/repro/data/wisconsin.py)
-RELATIONAL = ("filter_count", "segment_agg", "block_topk", "merge_join_count")
+RELATIONAL = ("filter_count", "segment_agg", "block_topk", "topk_merge",
+              "merge_join_count")
 UDF_ROWS = 32_768           # tweets in demo.Tweets
 UDF_SEQ = 128               # tokens per tweet: the usual cap for sentence
                             # classification
@@ -82,6 +91,8 @@ UDF_LAYERS = 8              # paper-lm (src/repro_torch/configs/paper_lm.py)
 # 8 layers; a row whose top-2 margin is within this may flip its argmax.
 MARGIN = 0.1
 DECODE_SHAPE = (32, 8, 4096, 64)   # B, H, S, D of the flash_decode checks
+BREAKDOWN = ("3_filter_count", "9_sort_head", "11_range_count")
+TRACE_TRIES = 6             # profiler traces taken before a kernel's absence fails
 
 
 def nvidia_smi() -> str:
@@ -162,16 +173,17 @@ def _per_call_ms(fn, kernels: tuple[str, ...] | None = None,
     its records times its launches per call, its records ÷ ``iters`` rounded
     up: the trace may miss records but adds none, so a kernel launched once
     per call counts once however many records the trace lost. A trace on
-    the H100 has held no record at all of a named kernel, so a trace that
-    lacks one is taken again; raises if the third still lacks it."""
-    for _ in range(3):
+    the H100 has held no record at all of a named kernel, three traces in
+    a row once, so a trace that lacks one is taken again; raises if the
+    last of ``TRACE_TRIES`` still lacks it."""
+    for _ in range(TRACE_TRIES):
         rows = _profile(fn, iters)
         missing = [name for name in kernels or ()
                    if not any(name in key for key, _, _ in rows)]
         if not missing:
             break
     else:
-        raise AssertionError(f"no {missing} in 3 profiler traces")
+        raise AssertionError(f"no {missing} in {TRACE_TRIES} profiler traces")
     def per_call(rows):
         return sum(us / n * math.ceil(n / iters) for _, us, n in rows) / 1e3
 
@@ -336,15 +348,25 @@ def check_kernels(raw: dict, dev) -> dict:
             raise AssertionError(f"{label}: kernel {g} != plain {w}")
         print(f"  {label}: exact", flush=True)
 
-    # filter_count: expression 3 (3 columns), expression 11 (1 column), and a
-    # clustered unique2 range with its surviving block list
-    mat3 = torch.stack([t["ten"], t["twentyPercent"], t["two"]])
+    # filter_count: expression 3 (3 columns) stacked and as the compiler
+    # passes it (a column list), expression 11 (1 column), n_valid < n, a
+    # clustered unique2 range with its surviving block list, a stacked
+    # matrix whose rows sit at other 16-byte phases (n % 4 != 0: 4-byte
+    # loads), and 17 columns (past the pointer struct) as a list (the
+    # wrapper stacks it) and as a matrix
+    e3_cols = [t["ten"], t["twentyPercent"], t["two"]]
+    mat3 = torch.stack(e3_cols)
     b3 = torch.tensor([[4, 4], [4, 4], [0, 0]], dtype=torch.int32, device=dev)
-    exact("filter_count e3", fc.filter_count(mat3, b3, n),
+    exact("filter_count e3 stacked", fc.filter_count(mat3, b3, n),
           fc.filter_count_plain(mat3, b3, n))
+    exact("filter_count e3 column list", fc.filter_count(e3_cols, b3, n),
+          fc.filter_count_plain(mat3, b3, n))
+    exact("filter_count e3 column list, n_valid < n",
+          fc.filter_count(e3_cols, b3, n - 12_345),
+          fc.filter_count_plain(mat3, b3, n - 12_345))
     mat1 = t["onePercent"][None].contiguous()
     b1 = torch.tensor([[17, 58]], dtype=torch.int32, device=dev)
-    exact("filter_count e11", fc.filter_count(mat1, b1, n),
+    exact("filter_count e11", fc.filter_count([t["onePercent"]], b1, n),
           fc.filter_count_plain(mat1, b1, n))
     lo2, hi2 = n // 3, n // 3 + min(50_000, n // 10)
     ids = tuple(range(lo2 // fc.BLOCK, hi2 // fc.BLOCK + 1))
@@ -352,7 +374,40 @@ def check_kernels(raw: dict, dev) -> dict:
     b2 = torch.tensor([[lo2, hi2]], dtype=torch.int32, device=dev)
     exact("filter_count block_ids", fc.filter_count(mat2, b2, n, block_ids=ids),
           fc.filter_count_plain(mat2, b2, n, block_ids=ids))
-    cases["filter_count"] = dict(args=(mat3, b3, n), k=3, n=n)
+    ragged = mat3[:, :n - 3].contiguous()
+    if all(ragged[i].data_ptr() % 16 == 0 for i in range(3)):
+        raise AssertionError("the ragged matrix's rows must sit at other phases")
+    exact(f"filter_count stacked ({3}, {n - 3}) (4-byte loads)",
+          fc.filter_count(ragged, b3, n - 3), fc.filter_count_plain(ragged, b3, n - 3))
+    names17 = ["two", "four", "ten", "twenty", "onePercent", "tenPercent",
+               "twentyPercent", "fiftyPercent", "evenOnePercent",
+               "oddOnePercent", "unique1", "unique2", "unique3", "two",
+               "four", "ten", "twenty"]
+    cols17 = [t[c].to(torch.int32) for c in names17]
+    b17 = torch.tensor([[0, 1], [0, 3], [0, 8], [0, 18], [0, 98], [0, 9],
+                        [0, 4], [0, 1], [0, 198], [1, 199], [0, n], [0, n],
+                        [0, n], [0, 1], [0, 3], [1, 8], [0, 18]],
+                       dtype=torch.int32, device=dev)
+    for label, cols in (("list", cols17), ("matrix", torch.stack(cols17))):
+        exact(f"filter_count k = 17 (past the pointer cap), {label}",
+              fc.filter_count(cols, b17, n - 5), fc.filter_count_plain(cols, b17, n - 5))
+    # listed tiles that lie wholly past n_valid (n_valid % 4 != 0) count
+    # nothing: every row passes, so a row counted twice shows (16-byte path,
+    # a column list and a matrix)
+    pass_all = [t["unique2"], t["two"]]
+    b_all = torch.tensor([[0, n], [0, 1]], dtype=torch.int32, device=dev)
+    last = (n - 1) // fc.BLOCK
+    for label, cols in (("list", pass_all), ("matrix", torch.stack(pass_all))):
+        for nv in (5, n - 4097):
+            for ids in ((0, 3, last - 1, last), (last,)):
+                exact(f"filter_count {label}, n_valid {nv}, block_ids {ids}",
+                      fc.filter_count(cols, b_all, nv, block_ids=ids),
+                      fc.filter_count_plain(cols, b_all, nv, block_ids=ids))
+            arr = torch.tensor([3, -1, last, 0, -1], dtype=torch.int32, device=dev)
+            exact(f"filter_count {label}, n_valid {nv}, block_ids_arr past it",
+                  fc.filter_count(cols, b_all, nv, block_ids_arr=arr),
+                  fc.filter_count_plain(cols, b_all, nv, block_ids_arr=arr))
+    cases["filter_count"] = dict(args=(e3_cols, b3, n), k=3, n=n)
 
     # segment_agg: expression 4 (count over 199 groups), expression 8 (count
     # and max over 20 groups), block ids, and non-integer data
@@ -417,7 +472,10 @@ def check_kernels(raw: dict, dev) -> dict:
     cases["segment_agg_e8"] = dict(args=(four, gid8, 20, n), op="max")
 
     # block_topk: expression 9 (unique1, all live), deliberate ties with a
-    # random mask, and a block with fewer than k live rows
+    # random mask at k = 8, a block with fewer than k live rows, k = 16 (the
+    # largest register list) and 17 (the rounds kernel), n % 4 != 0 (a
+    # ragged last tile), and scores and mask from offset views (off 16 and
+    # 4 bytes: 4-byte and 1-byte loads)
     s9 = t["unique1"].to(torch.float32)
     live = torch.ones(n, dtype=torch.bool, device=dev)
     sparse = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -425,13 +483,26 @@ def check_kernels(raw: dict, dev) -> dict:
     ties = t["ten"].to(torch.float32)
     tmask = torch.from_numpy(rng.random(n) > 0.3).to(dev)
     for label, args in [("e9", (s9, live, n, 5)),
-                        ("ties", (ties, tmask, n - 77, 8)),
-                        ("<k live rows", (s9, sparse, n, 5))]:
+                        ("ties, k = 8", (ties, tmask, n - 77, 8)),
+                        ("<k live rows", (s9, sparse, n, 5)),
+                        ("ties, k = 16", (ties, tmask, n, 16)),
+                        ("ties, k = 17 (rounds kernel)", (ties, tmask, n - 9, 17)),
+                        (f"n = {n - 3}", (s9[:n - 3], tmask[:n - 3], n - 3, 5)),
+                        ("offset views", (ties[1:], tmask[1:], n - 1, 8)),
+                        ("scores rising with the row (unique2)",
+                         (t["unique2"].to(torch.float32), live, n, 5))]:
         v, i = tk.block_topk(*args)
         pv, pi = tk.block_topk_plain(*args)
         exact(f"block_topk {label} values", v, pv)
         exact(f"block_topk {label} indices", i, pi)
+        # the merge: ties across tiles
+        mv, mi = tk.merge_candidates(v, i)
+        pmv, pmi = tk.merge_candidates_plain(v, i)
+        exact(f"topk_merge {label} values", mv, pmv)
+        exact(f"topk_merge {label} indices", mi, pmi)
     cases["block_topk"] = dict(args=(s9, live, n, 5), n=n, k=5)
+    cases["block_topk_rising"] = dict(
+        args=(t["unique2"].to(torch.float32), live, n, 5), n=n, k=5)
 
     # merge_join_count: expression 12 (unique keys; each side sorted into a
     # buffer of its own, as the compiler does) and duplicate-heavy keys
@@ -555,7 +626,8 @@ def run_slice(table, raw: dict, dev) -> dict:
             t["busy"] = None if t["device_ms"] is None \
                 else t["device_ms"] / t["wall_ms"]
     return {"launches": launches, "per_expr": per_expr, "physical": physical,
-            "expr_ms": times}
+            "expr_ms": times,
+            "breakdowns": expr_breakdowns(lambda: frames("kernel"))}
 
 
 # -- phase 2 (attention): the model zoo's kernels against their plain versions --
@@ -829,6 +901,22 @@ def device_breakdown(fn, top: int = 12) -> list:
     return [[key[:200], us / 1e3, n] for key, us, n in rows[:top]]
 
 
+def expr_breakdowns(frame) -> dict:
+    """``device_breakdown`` of one kernel-mode run of each of ``BREAKDOWN``
+    (e3, e9, e11: the expressions over filter_count and block_topk), on the
+    frames ``frame()`` gives."""
+    return {name: device_breakdown(
+                lambda fn=EXPRESSIONS[name]: fn(*frame(), np.random.default_rng(1)))
+            for name in BREAKDOWN}
+
+
+def print_breakdowns(bds: dict) -> None:
+    for name, rows in bds.items():
+        print(f"  {name} device time by kernel (largest first):", flush=True)
+        for key, ms, n in rows:
+            print(f"    {ms:9.4f} ms {n:5d} records  {key}", flush=True)
+
+
 def time_udf(queries: dict) -> dict:
     times = {name: {"wall_ms": host_ms(fn)} for name, fn in queries.items()}
     for name, fn in queries.items():
@@ -899,6 +987,18 @@ def time_attention(cases: dict, launches: dict) -> tuple[list[dict], dict]:
 
 # -- phase 5: kernel timings --------------------------------------------------------
 
+def _library_ms(fn) -> float:
+    """Device ms per call of a library yardstick (every kernel and copy of
+    it); a trace that holds none of its records (seen on the H100: one read
+    0) is taken again, up to ``TRACE_TRIES`` times."""
+    for _ in range(TRACE_TRIES):
+        ms = _per_call_ms(fn)[0]
+        if ms > 0:
+            return ms
+    raise AssertionError(f"no device record of the library call in "
+                         f"{TRACE_TRIES} traces")
+
+
 def _timed(name: str, kernel: str | tuple[str, ...], wrapper, plain, library,
            nbytes: float, ops: float, err: float, launches: int, shape: str,
            ops_per_s: float = FP32_OPS_PER_S) -> dict:
@@ -921,7 +1021,7 @@ def _timed(name: str, kernel: str | tuple[str, ...], wrapper, plain, library,
                 replaces=REPLACES[name], launches=launches, max_abs_err=err,
                 ms=ms, plain_ms=single_call_ms(plain),
                 bound_ms=bms, bound_by=by,
-                library_ms=None if library is None else _per_call_ms(library)[0],
+                library_ms=None if library is None else _library_ms(library),
                 event_ms=cuda_ms(wrapper),
                 library_event_ms=None if library is None else cuda_ms(library),
                 kernel_records=n_records, shape=shape,
@@ -929,12 +1029,15 @@ def _timed(name: str, kernel: str | tuple[str, ...], wrapper, plain, library,
 
 
 SOURCES = {"filter_count": "filter_count.cu", "segment_agg": "segment_agg.cu",
-           "block_topk": "topk_mask.cu", "merge_join_count": "merge_join.cu",
+           "block_topk": "topk_mask.cu", "topk_merge": "topk_mask.cu",
+           "merge_join_count": "merge_join.cu",
            "flash_mha_fwd": "flash_attention.cu",
            "flash_decode": "decode_attention.cu"}
 REPLACES = {"filter_count": "src/repro/kernels/filter_count.py:97",
             "segment_agg": "src/repro/kernels/segment_agg.py:103",
             "block_topk": "src/repro/kernels/topk_mask.py:39",
+            # the merge after the TPU kernel: topk_merge's jax.lax.top_k
+            "topk_merge": "src/repro/kernels/topk_mask.py:73",
             "merge_join_count": "src/repro/kernels/merge_join.py:46",
             "flash_mha_fwd": "src/repro/kernels/flash_attention.py:73",
             "flash_decode": "src/repro/kernels/decode_attention.py:61"}
@@ -955,8 +1058,12 @@ def rotating(fn, args: tuple, nbytes: float):
 
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
     copies = 1 + math.ceil(2 * l2 / nbytes)
-    sets = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                           for a in args) for _ in range(copies - 1)]
+
+    def copy(a):  # a tensor, or a list of tensors (filter_count's columns)
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        return [c.clone() for c in a] if isinstance(a, list) else a
+    sets = [args] + [tuple(copy(a) for a in args) for _ in range(copies - 1)]
     turn = itertools.cycle(sets)
     return lambda: fn(*next(turn))
 
@@ -984,7 +1091,8 @@ def time_kernels(cases: dict, launches: dict) -> tuple[list[dict], list[dict]]:
                       rotating(fc.filter_count, args, nbytes),
                       rotating(fc.filter_count_plain, args, nbytes), None,
                       nbytes, 2 * k * n, err,
-                      launches["filter_count"], f"cols ({k}, {n}) int32"))
+                      launches["filter_count"],
+                      f"cols {k} x ({n},) int32 (a column list, e3)"))
 
     def segment_row(case, label):
         args, op = case["args"], case["op"]
@@ -1010,23 +1118,47 @@ def time_kernels(cases: dict, launches: dict) -> tuple[list[dict], list[dict]]:
     out.append(segment_row(cases["segment_agg"], "e4"))
     variants = [segment_row(cases["segment_agg_e8"], "e8")]
 
-    c = cases["block_topk"]
-    targs = c["args"]
-    s, live, n, k = targs
-    nb = -(-n // tk.BLOCK)
-    v, i = tk.block_topk(*targs)
-    pv, pi = tk.block_topk_plain(*targs)
-    err = max(float((v - pv).abs().max()), float((i - pi).abs().max()))
-    padded = torch.nn.functional.pad(s, (0, nb * tk.BLOCK - n),
-                                     value=float("-inf")).view(nb, tk.BLOCK)
-    nbytes = n * 5 + nb * k * 8
-    out.append(_timed("block_topk", "block_topk_kernel",
+    def topk_row(case, label):
+        targs = case["args"]
+        s, live, n, k = targs
+        nb = -(-n // tk.BLOCK)
+        v, i = tk.block_topk(*targs)
+        pv, pi = tk.block_topk_plain(*targs)
+        err = max(float((v - pv).abs().max()), float((i - pi).abs().max()))
+        padded = torch.nn.functional.pad(s, (0, nb * tk.BLOCK - n),
+                                         value=float("-inf")).view(nb, tk.BLOCK)
+        nbytes = n * 5 + nb * k * 8
+        return _timed("block_topk", "block_topk_kernel",
                       rotating(tk.block_topk, targs, nbytes),
                       rotating(tk.block_topk_plain, targs, nbytes),
                       rotating(lambda p: torch.topk(p, k, dim=1), (padded,),
                                nbytes),
                       nbytes, n, err, launches["block_topk"],
-                      f"scores ({n},) f32, k={k}"))
+                      f"scores ({n},) f32, k={k} ({label})"), (v, i, s, nb, k)
+
+    row, (v, i, s, nb, k) = topk_row(cases["block_topk"], "e9: unique1")
+    out.append(row)
+    variants.append(topk_row(cases["block_topk_rising"],
+                             "unique2: rising with the row")[0])
+    # the merge, on the candidates e9's block kernel gives (48 KB: they stay
+    # in the L2, as on the main path, where the merge reads them right
+    # after the block kernel wrote them); library: one torch.topk of the
+    # same candidates (the same function, tie order aside).
+    # ``scores_topk_ms``: one torch.topk of the 5M scores, the whole
+    # selection in one call
+    mv, mi = tk.merge_candidates(v, i)
+    pmv, pmi = tk.merge_candidates_plain(v, i)
+    err = max(float((mv - pmv).abs().max()), float((mi - pmi).abs().max()))
+    flat = v.reshape(-1)
+    row = _timed("topk_merge", "topk_merge_kernel",
+                 lambda: tk.merge_candidates(v, i),
+                 lambda: tk.merge_candidates_plain(v, i),
+                 lambda: torch.topk(flat, k),
+                 nb * k * 8 + k * 8, nb * k, err, launches["topk_merge"],
+                 f"candidates ({nb}, {k}) f32 + int32, k={k}")
+    row["scores_topk_ms"] = _library_ms(
+        rotating(lambda s: torch.topk(s, k), (s,), n * 4))
+    out.append(row)
 
     def join_row(case, label):
         args, n = case["args"], case["n"]
@@ -1077,7 +1209,8 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"  {lib_path.relative_to(ROOT)} in {build_s:.1f} s", flush=True)
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or line.startswith("==") \
+                or "Compiling entry" in line:
             print("  " + line.strip(), flush=True)
 
     t0 = time.perf_counter()
@@ -1119,6 +1252,7 @@ def main(argv=None) -> int:
         print(f"    {ms:9.1f} ms {n:5d} records  {key}", flush=True)
     print("  (wall: median of 7 host-clock runs, result on the host; device: "
           "one profiled run)", flush=True)
+    print_breakdowns(res["breakdowns"])
     attn_rows, decode_mixed = time_attention(
         attn_cases, {"flash_mha_fwd": udf["launches"]["flash_mha_fwd"],
                      "flash_decode": decode_launches})
@@ -1136,6 +1270,9 @@ def main(argv=None) -> int:
         if "parts_ms" in k:
             print("    of which " + ", ".join(
                 f"{n} {t:.4f} ms" for n, t in k["parts_ms"].items()), flush=True)
+        if "scores_topk_ms" in k:
+            print(f"    torch.topk of the {ROWS} scores {k['scores_topk_ms']:.4f} ms",
+                  flush=True)
     print(f"  flash_mha_fwd on contiguous (B,H,S,D) inputs: kernel "
           f"{attn_rows[0]['contiguous_ms']:.4f} ms (the library call above runs "
           "on these)", flush=True)
@@ -1157,7 +1294,8 @@ def main(argv=None) -> int:
                               "rows_flash_vs_blocked_differ": udf["rows_differ"]},
                       "flash_decode_mixed_lengths": {
                           k: v for k, v in decode_mixed.items() if k != "shape"},
-                      "relational_variants": variants}))
+                      "relational_variants": variants,
+                      "breakdowns": res["breakdowns"]}))
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "shape"}
                                   for d in kernels]}))
     print(card)

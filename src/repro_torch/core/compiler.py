@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import physical as PH
 from repro_torch.core.catalog import INTERNAL_COLUMNS, Catalog
 from repro_torch.core.expr import collect_params, param_values
+from repro_torch.core.optimizer import _RANGE_MAX, _RANGE_MIN
 from repro_torch.engine import physical
 
 
@@ -55,10 +56,11 @@ class LoweringStrategy:
         return ops.segment_agg(values, gid, num_groups, n, op=op,
                                block_ids=block_ids)
 
-    def kernel_filter_count(self, mat, bounds,
+    def kernel_filter_count(self, cols, bounds,
                             block_ids: Optional[tuple] = None):
         from repro_torch.kernels import ops
-        return ops.filter_count(mat, bounds, mat.shape[1], block_ids=block_ids)
+        return ops.filter_count(cols, bounds, cols[0].shape[0],
+                                block_ids=block_ids)
 
     def join_count(self, lkey, lmask, rkey, rmask):
         return physical.join_count(lkey, lmask, rkey, rmask)
@@ -316,29 +318,46 @@ def _lower_terminal(node: PH.PhysOp, ctx: ExecContext) -> tuple[str, Callable]:
 
 
 def _lower_kernel_range_count(node: PH.KernelRangeCount, ctx: ExecContext) -> Callable:
-    """Lower onto the filter_count kernel: one (k, n) int32 stack of the
-    predicate columns and a (k, 2) bounds operand built from the runtime
-    params. The column read bypasses the generic stream path, so no row
-    mask is built outside the kernel; a ``__valid__`` padding column folds
-    in as one extra kernel row with bounds (1, 1). ``block_ids`` drive the
-    kernel grid."""
+    """Lower onto the filter_count kernel: each distinct predicate column
+    once, in a list (the kernel reads each through its own pointer; nothing
+    is stacked), and a (k, 2) bounds operand built from the runtime params
+    in one concatenation: a column's lower bound is the max of its lower
+    params, its upper bound the min of its upper ones, an open side the
+    int32 extreme. The column read bypasses the generic stream path, so no
+    row mask is built outside the kernel; a ``__valid__`` padding column
+    folds in as one extra kernel column with bounds (1, 1). ``block_ids``
+    drive the kernel grid."""
     key = f"{node.dataverse}.{node.dataset}"
     cols, los, his, has_valid = node.cols, node.los, node.his, node.has_valid
     block_ids = node.block_ids
+    consts: dict = {}  # per device: int32 [min, max, 1, 1]
+
+    def side(exprs, params, fold, open_):
+        if not exprs:
+            return open_
+        v = exprs[0].evaluate({}, params).reshape(1)
+        for e in exprs[1:]:
+            v = fold(v, e.evaluate({}, params).reshape(1))
+        return v
 
     def fn(tables, params):
         t = tables[key]
-        rows = [t[c].to(torch.int32) for c in cols]
-        lo_vals = [e.evaluate({}, params).to(torch.int32) for e in los]
-        hi_vals = [e.evaluate({}, params).to(torch.int32) for e in his]
+        columns = [t[c].to(torch.int32) for c in cols]
+        dev = columns[0].device
+        c = consts.get(dev)
+        if c is None:
+            c = consts[dev] = torch.tensor([_RANGE_MIN, _RANGE_MAX, 1, 1],
+                                           dtype=torch.int32, device=dev)
+        bounds = []
+        for lo, hi in zip(los, his):
+            bounds.append(side(lo, params, torch.maximum, c[0:1]))
+            bounds.append(side(hi, params, torch.minimum, c[1:2]))
         if has_valid:
-            rows.append(t["__valid__"].to(torch.int32))
-            one = torch.ones((), dtype=torch.int32, device=rows[0].device)
-            lo_vals.append(one)
-            hi_vals.append(one)
-        mat = torch.stack(rows)
-        bounds = torch.stack([torch.stack(lo_vals), torch.stack(hi_vals)], dim=1)
-        cnt = ctx.strategy.kernel_filter_count(mat, bounds, block_ids=block_ids)
+            columns.append(t["__valid__"].to(torch.int32))
+            bounds.append(c[2:4])
+        bounds = torch.cat(bounds).to(torch.int32).view(-1, 2)
+        cnt = ctx.strategy.kernel_filter_count(columns, bounds,
+                                               block_ids=block_ids)
         return {"count": cnt}
     return fn
 

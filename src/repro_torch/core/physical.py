@@ -277,16 +277,21 @@ class MaskCount(PhysOp):
 
 class KernelRangeCount(PhysOp, _BlockSkip):
     """COUNT of conjunctive inclusive ranges over integer columns lowered
-    onto the filter_count kernel: one (k, n) int32 pass, bounds as a (k, 2)
-    runtime operand, no mask column in device memory. A ``__valid__``
-    padding column folds in as one extra kernel row with bounds (1, 1).
-    ``block_ids`` makes the kernel grid visit the surviving blocks only."""
+    onto the filter_count kernel: one int32 pass over each distinct column,
+    bounds as a (k, 2) runtime operand, no mask column in device memory.
+    ``los[j]`` / ``his[j]``: the bounds of ``cols[j]`` from below / above
+    (the column's lower bound is their max, its upper bound their min; an
+    empty side is open). A ``__valid__`` padding column folds in as one
+    extra kernel column with bounds (1, 1). ``block_ids`` makes the kernel
+    grid visit the surviving blocks only."""
 
     def __init__(self, dataverse: str, dataset: str, cols: Sequence[str],
-                 los: Sequence[Expr], his: Sequence[Expr], has_valid: bool):
+                 los: Sequence[Sequence[Expr]], his: Sequence[Sequence[Expr]],
+                 has_valid: bool):
         self.dataverse, self.dataset = dataverse, dataset
         self.cols = tuple(cols)
-        self.los, self.his = tuple(los), tuple(his)
+        self.los = tuple(tuple(x) for x in los)
+        self.his = tuple(tuple(x) for x in his)
         self.has_valid = has_valid
 
     @property
@@ -296,12 +301,16 @@ class KernelRangeCount(PhysOp, _BlockSkip):
     def exprs(self):
         out: list[Expr] = []
         for lo, hi in zip(self.los, self.his):
-            out.extend((lo, hi))
+            out.extend(lo + hi)
         return out
 
     def fingerprint(self):
+        # the bound counts fix the param slots' meaning (x >= a and x <= a
+        # must not share a compiled query)
+        cols = ",".join(f"{c}:{len(lo)}/{len(hi)}"
+                        for c, lo, hi in zip(self.cols, self.los, self.his))
         return (f"p:krangecount({self.dataverse}.{self.dataset},"
-                f"[{','.join(self.cols)}],{int(self.has_valid)},"
+                f"[{cols}],{int(self.has_valid)},"
                 f"blk:{_blocks_fp(self.block_ids)})")
 
     def label(self):

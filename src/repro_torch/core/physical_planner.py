@@ -595,10 +595,11 @@ def _try_kernel_range_count(scan: P.Scan, pred: Expr, stats: TableStats,
                             ctx: _PlannerCtx) -> Optional[PH.KernelRangeCount]:
     """COUNT whose predicate fully decomposes into ``Col {==,>=,<=} Lit``
     conjuncts on int32-provable integer columns → filter_count kernel.
-    Partial matches never fuse (graceful fallback to the mask path)."""
-    cols: list[str] = []
-    los: list[Expr] = []
-    his: list[Expr] = []
+    The conjuncts are grouped by column, so each column is read once
+    (``x >= a & x <= b`` is one kernel column): a ``>=`` bounds its column
+    below only, a ``<=`` above only, an ``==`` both. Partial matches never
+    fuse (graceful fallback to the mask path)."""
+    bounds: dict[str, tuple[list[Expr], list[Expr]]] = {}
     conjuncts = _split_conjuncts(pred)
     for c in conjuncts:
         if isinstance(c, IsIn) and isinstance(c.children[0], Col):
@@ -632,18 +633,20 @@ def _try_kernel_range_count(scan: P.Scan, pred: Expr, stats: TableStats,
             # never alias one Lit as both bounds (a point and a range plan
             # share a physical fingerprint, so the two param slots must map
             # to two distinct Lit objects)
-            lo, hi = r, Lit(r.value, source=r)
+            lo, hi = [r], [Lit(r.value, source=r)]
         elif c.op == ">=":
-            lo, hi = r, Lit(_RANGE_MAX)
+            lo, hi = [r], []
         elif c.op == "<=":
-            lo, hi = Lit(_RANGE_MIN), r
+            lo, hi = [], [r]
         else:  # strict bounds / != : conservative, stay on the mask path
             return None
-        cols.append(l.name)
-        los.append(lo)
-        his.append(hi)
+        col_los, col_his = bounds.setdefault(l.name, ([], []))
+        col_los.extend(lo)
+        col_his.extend(hi)
     ds = ctx.catalog.get(scan.dataverse, scan.dataset)
-    out = PH.KernelRangeCount(scan.dataverse, scan.dataset, cols, los, his,
+    out = PH.KernelRangeCount(scan.dataverse, scan.dataset, list(bounds),
+                              [lo for lo, _ in bounds.values()],
+                              [hi for _, hi in bounds.values()],
                               "__valid__" in ds.table.columns)
     bz = stats.block_zones
     if bz is not None:

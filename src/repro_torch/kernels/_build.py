@@ -17,6 +17,7 @@ that a run went through the hand kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,8 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: dict[str, int] = {"filter_count": 0, "segment_agg": 0,
-                            "block_topk": 0, "merge_join_count": 0,
-                            "flash_mha_fwd": 0, "flash_decode": 0}
+                            "block_topk": 0, "topk_merge": 0,
+                            "merge_join_count": 0, "flash_mha_fwd": 0,
+                            "flash_decode": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -138,6 +140,14 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = lib().rt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (persistent grids size by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t) -> int:

@@ -70,21 +70,25 @@ def _expand_block_ids(block_ids, zone_block: int, block: int,
     return out
 
 
-def filter_count(cols: torch.Tensor, bounds: torch.Tensor, n_valid: int,
+def filter_count(cols: _fc.Columns, bounds: torch.Tensor, n_valid: int,
                  block_ids: Optional[tuple] = None,
                  block_ids_arr: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``block_ids``: surviving zone blocks (a static tuple). ``block_ids_arr``:
-    the per-shard alternative, a device int32 (m,) list already in the
+    """``cols``: a (k, n) int32 matrix or a sequence of k (n,) int32
+    columns (the compiler's form: nothing stacked). ``block_ids``:
+    surviving zone blocks (a static tuple). ``block_ids_arr``: the
+    per-shard alternative, a device int32 (m,) list already in the
     kernel's own block units, ``-1``-padded at the end; passed through as
-    it is (the grid is m), and exclusive with ``block_ids``."""
+    it is (the grid strides over its m entries), and exclusive with
+    ``block_ids``."""
+    device = (cols if isinstance(cols, torch.Tensor) else cols[0]).device
     if block_ids_arr is not None:
-        _tick("filter_count", cols.device, grid=int(block_ids_arr.shape[0]))
+        _tick("filter_count", device, grid=int(block_ids_arr.shape[0]))
         return _fc.filter_count(cols, bounds, n_valid, block_ids=block_ids,
                                 block_ids_arr=block_ids_arr)
-    ids = _expand_block_ids(block_ids, ZONE_BLOCK_ROWS, _fc.BLOCK,
-                            cols.shape[1])
-    nb = -(-cols.shape[1] // _fc.BLOCK)
-    _tick("filter_count", cols.device,
+    n = _fc.num_rows(cols)
+    ids = _expand_block_ids(block_ids, ZONE_BLOCK_ROWS, _fc.BLOCK, n)
+    nb = -(-n // _fc.BLOCK)
+    _tick("filter_count", device,
           grid=len(ids) if ids is not None else nb, blocks_total=nb)
     return _fc.filter_count(cols, bounds, n_valid, block_ids=ids)
 

@@ -31,7 +31,6 @@ the card.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -74,11 +73,6 @@ def segment_agg_plain(values: torch.Tensor, gids: torch.Tensor,
     return out.scatter_reduce_(0, idx, v, "amax" if op == "max" else "amin")
 
 
-@functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def segment_agg(values: torch.Tensor, gids: torch.Tensor, num_groups: int,
                 n_valid: int, *, op: str = "sum", block: int = BLOCK,
                 block_ids: Optional[tuple] = None,
@@ -103,7 +97,7 @@ def segment_agg(values: torch.Tensor, gids: torch.Tensor, num_groups: int,
     scratch_floats = _build.function(
         "sa_scratch_floats", [ctypes.c_int] * 4, restype=ctypes.c_int64)
     n_tiles = -(-n // block) if ids is None else ids.shape[0]
-    sms = _sms(values.device)
+    sms = _build.sm_count(values.device)
     scratch = torch.empty(scratch_floats(num_groups, c, n_tiles, sms),
                           dtype=torch.float32, device=values.device)
     out = torch.empty((num_groups, c), dtype=torch.float32, device=values.device)

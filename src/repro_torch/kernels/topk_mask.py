@@ -2,15 +2,21 @@
 LIMIT k).
 
 Replaces the Pallas TPU kernel ``repro/kernels/topk_mask.py:block_topk``
-with the hand-written CUDA kernel ``csrc/topk_mask.cu``: one CUDA block per
-4096-row block stages its masked scores in shared memory and runs k rounds
-of a (value desc, index asc) successor search, so ties go to the lower
-index. On the H100 the kernel is bound by bytes (score and mask read once);
-the k rounds stay in shared memory.
+and the merge after it with the hand-written CUDA kernels of
+``csrc/topk_mask.cu``. For k <= 16: four warps per
+4096-row block read its scores and mask once in 16-byte and 4-byte loads;
+each warp keeps its best k rows so far across its lanes, starting from
+the best k of its lanes' own best rows, and lets in only rows that beat
+the k-th, best first (value desc, index asc: ties to the lower index);
+the four lists meet in shared memory. Above 16, a block per tile runs k
+rounds of a successor search over its staged scores. ``topk_merge`` then
+launches one block that walks the blocks' sorted candidate lists and takes
+the k best of the (nb * k) candidates in the same order — bit for bit what
+a stable descending sort of the block-major list gives. On the H100 the
+block kernel is bound by bytes (score and mask read once).
 
-The merge (``topk_merge``) is a stable descending sort of the block-major
-(nb * k) candidates — outside the kernel, as in the reference, and stable
-because ``torch.topk`` on CUDA does not promise the lowest-index tie order.
+The CPU plain versions: a stable sort per block, and a stable descending
+sort of the candidates.
 
 Known difference from the Pallas kernel: a block with fewer than k live rows
 pads its candidates with -inf; the Pallas kernel repeats the index
@@ -31,6 +37,9 @@ BLOCK = 4096
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p]
+_MERGE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p]
 
 
 def _masked(scores: torch.Tensor, mask: torch.Tensor, n_valid) -> torch.Tensor:
@@ -69,6 +78,8 @@ def block_topk(scores: torch.Tensor, mask: torch.Tensor, n_valid: int, k: int,
     nb = -(-n // block)
     vals = torch.empty((nb, k), dtype=torch.float32, device=scores.device)
     idx = torch.empty((nb, k), dtype=torch.int32, device=scores.device)
+    if nb == 0:
+        return vals, idx
     fn = _build.function("tk_block_topk", _ARGS)
     rc = fn(scores.data_ptr(), mask.data_ptr(), n, int(n_valid), k, block, nb,
             vals.data_ptr(), idx.data_ptr(), _build.stream_of(scores))
@@ -77,12 +88,46 @@ def block_topk(scores: torch.Tensor, mask: torch.Tensor, n_valid: int, k: int,
     return vals, idx
 
 
-def topk_merge(scores: torch.Tensor, mask: torch.Tensor, n_valid: int, k: int,
-               *, block: int = BLOCK) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full masked top-k: block_topk, then one stable descending sort of the
-    (nb * k) candidates (block-major, so ties still go to the lower global
-    index). Returns (values (k,), global indices (k,) int32)."""
-    vals, idx = block_topk(scores, mask, n_valid, k, block=block)
+def merge_candidates_plain(vals: torch.Tensor, idx: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nb, k) candidates -> the k best (values (k,), indices (k,)): a
+    stable descending sort of the block-major list."""
+    k = vals.shape[1]
     flat_v, flat_i = vals.reshape(-1), idx.reshape(-1)
     order = torch.sort(flat_v, descending=True, stable=True).indices[:k]
     return flat_v[order], flat_i[order]
+
+
+def merge_candidates(vals: torch.Tensor, idx: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The merge kernel's wrapper: same contract as
+    :func:`merge_candidates_plain` on :func:`block_topk`'s output."""
+    if not vals.is_cuda:
+        if vals.device.type != "cpu":
+            raise ValueError(f"topk_merge: unsupported device {vals.device}")
+        return merge_candidates_plain(vals, idx)
+    if vals.dtype != torch.float32 or idx.dtype != torch.int32 \
+            or vals.dim() != 2 or idx.shape != vals.shape:
+        raise ValueError("topk_merge: vals (nb, k) float32, idx (nb, k) int32")
+    nb, k = vals.shape
+    heads = torch.empty(nb, dtype=torch.int32, device=vals.device)  # scratch
+    _build.require_cuda("topk_merge", vals, idx, heads)
+    out_v = torch.empty(min(k, nb * k), dtype=torch.float32, device=vals.device)
+    out_i = torch.empty(min(k, nb * k), dtype=torch.int32, device=vals.device)
+    if nb == 0:
+        return out_v, out_i
+    fn = _build.function("tk_topk_merge", _MERGE_ARGS)
+    rc = fn(vals.data_ptr(), idx.data_ptr(), nb, k, heads.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), _build.stream_of(vals))
+    _build.check(rc, "topk_merge")
+    _build.count_launch("topk_merge")
+    return out_v, out_i
+
+
+def topk_merge(scores: torch.Tensor, mask: torch.Tensor, n_valid: int, k: int,
+               *, block: int = BLOCK) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full masked top-k: block_topk, then the merge of the (nb * k)
+    candidates (ties to the lower global index). Returns (values (k,),
+    global indices (k,) int32)."""
+    vals, idx = block_topk(scores, mask, n_valid, k, block=block)
+    return merge_candidates(vals, idx)

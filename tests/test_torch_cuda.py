@@ -230,3 +230,95 @@ def test_cuda_decode_split_at_length_boundaries(dtype, tol):
             _assert_row_close(got, want, tol)
             for bad in (q.roll(1, dims=1), torch.zeros_like(q)):
                 assert _refused(da.flash_decode_plain(bad, k, v, lt), want, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_filter_count_columns_alignment_and_cap():
+    """filter_count on the card, exactly against the plain version: a
+    column list and the stacked matrix, n_valid < n, a matrix whose rows sit
+    at other 16-byte phases (n % 4 != 0: 4-byte loads), static and
+    -1-padded tile lists over a column list, 17 columns (past the pointer
+    struct) as a list and as a matrix, and listed tiles wholly past
+    n_valid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15)
+    n = 100_003
+    cols = [torch.from_numpy(rng.integers(0, 50, n).astype(np.int32)).to(dev)
+            for _ in range(17)]
+    b = torch.from_numpy(np.sort(rng.integers(0, 50, (17, 2)), axis=1)
+                         .astype(np.int32))
+    b[3:] = torch.tensor([0, 49], dtype=torch.int32)  # the first 3 select
+    b = b.to(dev)
+    mat3 = torch.stack(cols[:3])
+    assert any(mat3[i].data_ptr() % 16 for i in range(3))
+    for nv in (n, n - 4097, 5):
+        want = int(fc.filter_count_plain(mat3, b[:3], nv))
+        assert int(fc.filter_count(mat3, b[:3], nv)) == want
+        assert int(fc.filter_count(cols[:3], b[:3], nv)) == want
+        assert int(fc.filter_count(mat3[:, :n - 3].contiguous(), b[:3], nv)) == \
+            int(fc.filter_count_plain(mat3[:, :n - 3], b[:3], nv))
+    for ids in ((0, 3, 24), (24,)):
+        assert int(fc.filter_count(cols[:2], b[:2], n - 9, block_ids=ids)) == \
+            int(fc.filter_count_plain(cols[:2], b[:2], n - 9, block_ids=ids))
+    for ids in ([3, 0, -1, 24, -1], [-1, -1]):
+        arr = torch.tensor(ids, dtype=torch.int32, device=dev)
+        assert int(fc.filter_count(cols[:2], b[:2], n - 9, block_ids_arr=arr)) == \
+            int(fc.filter_count_plain(cols[:2], b[:2], n - 9, block_ids_arr=arr))
+    want = int(fc.filter_count_plain(cols, b, n - 2))
+    assert want > 0
+    assert int(fc.filter_count(cols, b, n - 2)) == want
+    assert int(fc.filter_count(torch.stack(cols), b, n - 2)) == want
+    # listed tiles wholly past n_valid (n_valid % 4 != 0) count nothing;
+    # every row passes b[3:5], so a row counted twice shows (16-byte path:
+    # a column list, and a matrix at n % 4 == 0)
+    for every in (cols[3:5], torch.stack([c[:100_000] for c in cols[3:5]])):
+        for nv in (5, fc.num_rows(every) - 4097):
+            for ids in ((0, 3, 24), (0, 23, 24)):
+                want = int(fc.filter_count_plain(every, b[3:5], nv, block_ids=ids))
+                assert want > 0
+                assert int(fc.filter_count(every, b[3:5], nv, block_ids=ids)) == want
+            arr = torch.tensor([3, -1, 24, 0, -1], dtype=torch.int32, device=dev)
+            assert int(fc.filter_count(every, b[3:5], nv, block_ids_arr=arr)) == \
+                int(fc.filter_count_plain(every, b[3:5], nv, block_ids_arr=arr))
+
+
+@pytest.mark.cuda
+def test_cuda_block_topk_and_merge_match_plain_versions():
+    """block_topk and the merge kernel on the card, exactly against the
+    plain versions: ties at every k of the register kernel (1-16) and at
+    k = 17 (the rounds kernel), fewer live
+    rows than k, a ragged last tile, n_valid < n, scores and mask from
+    offset views (off 16 and 4 bytes), the top rows planted behind the
+    first ones, and scores rising with the row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+    n = 50_001
+    s = torch.from_numpy(rng.integers(0, 6, n).astype(np.float32)).to(dev)
+    m = torch.from_numpy(rng.random(n) > 0.4).to(dev)
+    sparse = torch.zeros(n, dtype=torch.bool, device=dev)
+    sparse[::3000] = True
+    cases = [(s, m, n, k) for k in (1, 2, 3, 5, 8, 11, 16, 17)]
+    # ranks 1-3 of each tile in its first rows, ranks 4-5 in rows of later
+    # steps; every other score 0 (ties); and scores rising with the row
+    planted = torch.zeros(n, device=dev)
+    for b in range(0, n - 4096, 4096):
+        planted[[b, b + 1, b + 2, b + 516, b + 517]] = torch.tensor(
+            [100.0, 99, 98, 97, 96], device=dev)
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    cases += [(s, sparse, n, 5), (s, m, n - 4100, 8), (s[1:], m[1:], n - 1, 8),
+              (s[:n - 3], m[:n - 3], n - 3, 16), (s, m, n, 100),
+              (planted, every, n, 5),
+              (torch.arange(n, dtype=torch.float32, device=dev), every, n, 5)]
+    for args in cases:
+        got = tk.block_topk(*args)
+        want = tk.block_topk_plain(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), args[2:]
+        for g, w in zip(tk.merge_candidates(*got), tk.merge_candidates_plain(*got)):
+            assert torch.equal(g, w), args[2:]
+        for g, w in zip(tk.topk_merge(*args), tk.merge_candidates_plain(*want)):
+            assert torch.equal(g, w), args[2:]

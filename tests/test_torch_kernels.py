@@ -49,6 +49,25 @@ def test_filter_count_matches_reference(n, k, block, ids):
     assert int(got) == int(want) == int(pallas)
 
 
+@pytest.mark.parametrize("n,k,block,ids", [
+    (1000, 1, 256, None), (5000, 3, 512, None), (8192, 2, 4096, None),
+    (300, 4, 128, None), (5000, 3, 512, (0, 3, 4, 9)), (8192, 2, 4096, (1,))])
+def test_filter_count_column_list_matches_reference(n, k, block, ids):
+    """The column-list form (what the compiler passes: k (n,) columns, no
+    stack) equals the reference on the stacked matrix."""
+    rng = np.random.default_rng(n + k)
+    cols = rng.integers(0, 50, (k, n)).astype(np.int32)
+    bounds = np.sort(rng.integers(0, 50, (k, 2)), axis=1).astype(np.int32)
+    nv = int(n * 0.9)
+    got = fc.filter_count([_t(c) for c in cols], _t(bounds), nv, block=block,
+                          block_ids=ids)
+    assert got.dtype == torch.int32 and got.shape == ()
+    want = pallas_filter_count(jnp.asarray(cols), jnp.asarray(bounds), nv,
+                               block=block, block_ids=ids)
+    assert int(got) == int(want) == int(fc.filter_count(_t(cols), _t(bounds), nv,
+                                                        block=block, block_ids=ids))
+
+
 @pytest.mark.parametrize("n,c,g,block,ids", [
     (1000, 1, 7, 256, None), (4096, 4, 20, 1024, None), (513, 3, 100, 256, None),
     (4096, 2, 20, 1024, (0, 2))])
@@ -125,6 +144,20 @@ def test_filter_count_block_ids_arr_matches_reference(n, k, block, ids):
     assert int(got) == int(want) == int(pallas)
     if all(i < 0 for i in ids):
         assert int(got) == 0
+
+
+@pytest.mark.parametrize("ids", ARR_IDS)
+def test_filter_count_column_list_block_ids_arr_matches_reference(ids):
+    n, k, block = 5000, 3, 512
+    rng = np.random.default_rng(len(ids))
+    cols = rng.integers(0, 50, (k, n)).astype(np.int32)
+    bounds = np.sort(rng.integers(0, 50, (k, 2)), axis=1).astype(np.int32)
+    arr = np.asarray(ids, np.int32)
+    got = fc.filter_count([_t(c) for c in cols], _t(bounds), n - 37,
+                          block=block, block_ids_arr=_t(arr))
+    want = pallas_filter_count(jnp.asarray(cols), jnp.asarray(bounds), n - 37,
+                               block=block, block_ids_arr=jnp.asarray(arr))
+    assert int(got) == int(want)
 
 
 @pytest.mark.parametrize("ids", ARR_IDS)
@@ -413,6 +446,318 @@ def test_topk_merge_matches_pallas_merge(n, k, block):
         i.numpy(), np.argsort(-live, kind="stable")[:k])
 
 
+# -- a numpy model of csrc/topk_mask.cu's block and merge kernels -------------
+
+WARP = 32            # lanes per warp: one warp owns one block
+MERGE_THREADS = 512  # csrc/topk_mask.cu kMergeThreads
+VEC_TILE = 4096      # csrc/topk_mask.cu kTile: the 16-byte path's block
+TILE_WARPS = 4       # csrc/topk_mask.cu kTileWarps
+INT_MAX = np.iinfo(np.int32).max
+
+
+def _before(a, b):
+    """(value, index) a comes before b: value desc, index asc."""
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _bitonic(lanes):
+    """The warp's bitonic sort of one (value, index) a lane by xor
+    shuffles (csrc/topk_mask.cu WarpTopK::seed): the best in lane 0."""
+    lanes = list(lanes)
+    size = 2
+    while size <= WARP:
+        stride = size // 2
+        while stride:
+            new = []
+            for lane, own in enumerate(lanes):
+                other = lanes[lane ^ stride]
+                better = ((lane & stride) == 0) == ((lane & size) == 0)
+                take = _before(other, own) if better else _before(own, other)
+                new.append(other if take else own)
+            lanes, stride = new, stride // 2
+        size *= 2
+    return lanes
+
+
+def _offer(w, batch, gate, k):
+    """Rows of one batch enter the list w best first while one comes before
+    the gate; the gate closes on entry k - 1. Returns (w, gate, inserts)."""
+    key = lambda e: (-e[0], e[1])  # noqa: E731  (value desc, index asc)
+    cand = [x for x in batch if _before(x, gate)]
+    inserts = 0
+    while cand:
+        best = min(cand, key=key)
+        w = sorted(w + [best], key=key)[:k]
+        inserts += 1
+        if _before(w[-1], gate):
+            gate = w[-1]
+        cand = [x for x in cand if x != best and _before(x, gate)]
+    return w, gate, inserts
+
+
+def _model_block_topk(s, live, k, block, vec):
+    """(values, indices, inserts) of every block by the kernel's rule:
+    TILE_WARPS warps a block, each with its own list w and gate. 16-byte
+    path (4096-row blocks): warp v's lane l holds the rows of float4s
+    32 (8v + j) + l; the lanes' best rows, sorted across the warp, start w
+    with their best k and the gate at the k-th, then the other rows are
+    offered 256 at a time (2 float4s a lane). 4-byte path: lane l of warp v
+    offers rows 32v + l + 32 TILE_WARPS i, 8 a lane at a time, from an
+    empty list. Warp 0 then sorts the lists across its lanes where they
+    fit one entry a lane, else it offers the others' entries in one batch."""
+    per = VEC_TILE // 4 // WARP // TILE_WARPS  # float4s a lane
+    stride = WARP * TILE_WARPS
+    nb = -(-len(s) // block)
+    vals, idx = np.zeros((nb, k), np.float32), np.zeros((nb, k), np.int32)
+    empty = (-np.inf, INT_MAX)
+    inserts = 0
+
+    def x(r):
+        return (np.float32(s[r]) if r < len(s) and live[r] else np.float32(-np.inf), r)
+
+    for b in range(nb):
+        lists = []
+        for v in range(TILE_WARPS):
+            if vec:
+                quads = [[32 * (per * v + j) + lane for j in range(per)] for lane in range(WARP)]
+                rows = [[x(b * block + 4 * q + e) for q in qs for e in range(4)] for qs in quads]
+                seeds = _bitonic([min(lane_rows, key=lambda e: (-e[0], e[1]))
+                                  for lane_rows in rows])
+                w, gate = seeds[:k], seeds[k - 1]
+                batches = [[x(b * block + 4 * (32 * (per * v + j) + lane) + e)
+                            for lane in range(WARP) for j in (j0, j0 + 1) for e in range(4)]
+                           for j0 in range(0, per, 2)]
+                batches = [[r for r in batch if r not in w] for batch in batches]
+            else:
+                w, gate = [empty] * k, empty
+                mine = [j for j in range(block) if j % stride // WARP == v]
+                batches = [[x(b * block + j) for j in mine if j // stride // 8 == i0]
+                           for i0 in range(-(-block // (8 * stride)))]
+            for batch in batches:
+                w, gate, n_in = _offer(w, batch, gate, k)
+                inserts += n_in
+            lists.append((w, gate))
+        (w, gate), others = lists[0], lists[1:]
+        if TILE_WARPS * k <= WARP:  # one sort, a list entry a lane
+            w = _bitonic([e for o, _ in lists for e in o]
+                         + [empty] * (WARP - TILE_WARPS * k))[:k]
+        else:
+            w, _, n_in = _offer(w, [e for o, _ in others for e in o if e != empty],
+                                gate, k)
+            inserts += n_in
+        vals[b], idx[b] = [v for v, _ in w], [i for _, i in w]
+    return vals, idx, inserts
+
+
+def _model_merge(vals, idx):
+    """The merge by the kernel's rule: each of 512 threads owns the sorted
+    lists of blocks t, t + 512, ... and a read position in each; k rounds
+    take the best of the threads' best heads, and the winner's list
+    advances by one."""
+    nb, k = vals.shape
+    cand = list(zip(vals.reshape(-1).tolist(), idx.reshape(-1).tolist()))
+    heads = [0] * nb
+
+    def best_head(t):
+        best, at = (-np.inf, INT_MAX), -1
+        for b in range(t, nb, MERGE_THREADS):
+            if heads[b] < k and _before(cand[b * k + heads[b]], best):
+                best, at = cand[b * k + heads[b]], b
+        return best, at
+
+    mine = [best_head(t) for t in range(min(nb, MERGE_THREADS))]
+    out = []
+    for _ in range(k):
+        t = min(range(len(mine)), key=lambda t: (-mine[t][0][0], mine[t][0][1]))
+        x, b = mine[t]
+        out.append(x)
+        heads[b] += 1
+        mine[t] = best_head(t)
+    return out
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("k,ties,live", [(5, False, 0.8), (8, True, 0.8),
+                                         (3, True, 0.001), (16, True, 0.5)])
+def test_block_topk_register_rule_matches_reference(k, ties, live, vec):
+    """The warp's list behind its gate, rows entering best first (value
+    desc, index asc), gives the reference's block_topk on its finite
+    candidates, and the plain version's every candidate (-inf fill by the
+    next distinct indices)."""
+    n, block = (2 * VEC_TILE, VEC_TILE) if vec else (2048, 512)
+    rng = np.random.default_rng(k + int(ties))
+    s = (rng.integers(0, 4, n) if ties else rng.normal(size=n)).astype(np.float32)
+    mask = rng.random(n) < live
+    mv, mi, _ = _model_block_topk(s, mask, k, block, vec)
+    rv, ri = ref.block_topk(jnp.asarray(s), jnp.asarray(mask), k, block)
+    rv, ri = np.asarray(rv), np.asarray(ri)
+    finite = np.isfinite(rv)
+    np.testing.assert_array_equal(mv, rv)
+    np.testing.assert_array_equal(mi[finite], ri[finite])
+    pv, pi = tk.block_topk_plain(_t(s), _t(mask), n, k, block=block)
+    np.testing.assert_array_equal(mv, pv.numpy())
+    np.testing.assert_array_equal(mi, pi.numpy())
+
+
+def test_bitonic_sorts_the_lanes():
+    rng = np.random.default_rng(4)
+    lanes = [(np.float32(v), int(i)) for v, i in
+             zip(rng.integers(0, 5, WARP), rng.permutation(WARP))]
+    assert _bitonic(lanes) == sorted(lanes, key=lambda e: (-e[0], e[1]))
+
+
+@pytest.mark.parametrize("vec", [True, False])
+def test_block_topk_register_rule_few_inserts(vec):
+    """Scores ascending with the row (a clustered key, sorted descending)
+    and shuffled: with the lanes' best rows first and rows entering best
+    first, few rows a block reach the lists either way (the 16-byte path
+    starts each warp's list from the lanes' best rows). Both answers equal
+    the plain version's."""
+    block, k = (VEC_TILE, 5) if vec else (1024, 5)
+    rising = np.arange(2 * block, dtype=np.float32)
+    shuffled = np.random.default_rng(0).permutation(rising)
+    mask = np.ones(2 * block, bool)
+    for s in (rising, shuffled):
+        mv, mi, inserts = _model_block_topk(s, mask, k, block, vec)
+        pv, pi = tk.block_topk_plain(_t(s), _t(mask), 2 * block, k, block=block)
+        np.testing.assert_array_equal(mv, pv.numpy())
+        np.testing.assert_array_equal(mi, pi.numpy())
+        assert inserts <= 2 * TILE_WARPS * 3 * k  # two blocks: few per warp
+
+
+def test_block_topk_register_rule_ragged_tail():
+    """Rows past n (the last block's tail) enter as -inf with their own
+    indices, as the plain version's padding (the last block holds 5 rows)."""
+    n, block, k = 3 * 256 + 5, 256, 8
+    rng = np.random.default_rng(2)
+    s = rng.integers(0, 3, n).astype(np.float32)
+    mask = rng.random(n) < 0.01
+    mv, mi, _ = _model_block_topk(s, mask, k, block, vec=False)
+    pv, pi = tk.block_topk_plain(_t(s), _t(mask), n, k, block=block)
+    np.testing.assert_array_equal(mv, pv.numpy())
+    np.testing.assert_array_equal(mi, pi.numpy())
+    assert mi.max() >= n  # the tail's own indices
+
+
+@pytest.mark.parametrize("n,k,block", [(4096, 5, 256), (2048, 16, 128),
+                                       (3000, 17, 256), (512, 2, 64),
+                                       (40_000, 3, 64)])  # 625 lists > 512 threads
+def test_topk_merge_rule_matches_pallas_merge(n, k, block):
+    """The merge kernels' rule (k best by value desc, global index asc) on
+    candidates with ties across tiles equals the Pallas merge (and the
+    plain version's stable sort)."""
+    rng = np.random.default_rng(n + k)
+    s = rng.integers(0, 12, n).astype(np.float32)
+    mask = np.ones(n, bool)
+    vals, idx = tk.block_topk_plain(_t(s), _t(mask), n, k, block=block)
+    got = _model_merge(vals.numpy(), idx.numpy())
+    pv, pi = pallas_topk_merge(jnp.asarray(s), jnp.asarray(mask), n, k,
+                               block=block)
+    assert [v for v, _ in got] == np.asarray(pv).tolist()
+    assert [i for _, i in got] == np.asarray(pi).tolist()
+    tv, ti = tk.merge_candidates_plain(vals, idx)
+    assert tv.tolist() == np.asarray(pv).tolist()
+    assert ti.tolist() == np.asarray(pi).tolist()
+    assert len(set(pv.tolist())) < k  # ties across tiles at the cut
+
+
+def test_kernel_session_passes_columns_unstacked(monkeypatch):
+    """Kernel mode on the CPU: e3 and e11 (three rounds of literals) equal
+    the reference session's answers; ops.filter_count receives a list of
+    the predicate columns (plus ``__valid__`` on a persisted set), and no
+    torch.stack runs on the way."""
+    from repro.core.frame import AFrame as RFrame
+    from repro.data import wisconsin as rw
+    from repro.engine.session import Session as RSession
+    from repro_torch.core.frame import AFrame as TFrame
+    from repro_torch.data import wisconsin as tw
+    from repro_torch.engine.session import Session as TSession
+
+    n = 8_192
+    rsess, tsess = RSession(mode="gspmd"), TSession(mode="kernel", device="cpu")
+    for sess, table in ((rsess, rw.generate(n, seed=5)), (tsess, tw.generate(n, seed=5))):
+        sess.create_dataset("data", table, dataverse="bench", closed=True)
+    seen = []
+    real = ops.filter_count
+
+    def spy(cols, bounds, n_valid, **kw):
+        seen.append([tuple(c.shape) for c in cols] if isinstance(cols, list)
+                    else type(cols).__name__)
+        return real(cols, bounds, n_valid, **kw)
+
+    def e3(df, x):
+        return len(df[(df["ten"] == x) & (df["twentyPercent"] == x % 5)
+                      & (df["two"] == x % 2)])
+
+    def e11(df, a, b):
+        return len(df[(df["onePercent"] >= a) & (df["onePercent"] <= b)])
+
+    monkeypatch.setattr(ops, "filter_count", spy)
+    stack = torch.stack
+    monkeypatch.setattr(torch, "stack", lambda *a, **k: pytest.fail("torch.stack"))
+    for x, (a, b) in ((4, (17, 58)), (7, (0, 99)), (0, (30, 30))):
+        for fn, args in ((e3, (x,)), (e11, (a, b))):
+            want = fn(RFrame("bench", "data", session=rsess), *args)
+            assert fn(TFrame("bench", "data", session=tsess), *args) == want > 0
+    # e11's two conjuncts bound one column: it is read once
+    assert seen == [[(n,)] * 3, [(n,)]] * 3
+    # a persisted set carries __valid__: one more column in the list
+    tdf = TFrame("bench", "data", session=tsess)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "stack", stack)  # statistics of the new set stack
+        saved = tdf[tdf["two"] == 1].persist("odd")
+    seen.clear()
+    got = len(saved[(saved["ten"] >= 2) & (saved["ten"] <= 5)])
+    assert len(seen) == 1 and len(seen[0]) == 2  # ten once, __valid__
+    raw = tw.generate(n, seed=5).columns
+    ten, two = raw["ten"].numpy(), raw["two"].numpy()
+    assert got == int(((two == 1) & (ten >= 2) & (ten <= 5)).sum())
+
+
+@pytest.mark.parametrize("pred, cols", [
+    (lambda d: (d["ten"] >= 5), 1),
+    (lambda d: (d["ten"] <= 5), 1),  # shares no compiled query with >= 5
+    (lambda d: (d["ten"] >= 3) & (d["ten"] >= 6) & (d["ten"] <= 8), 1),
+    (lambda d: (d["ten"] == 3) & (d["ten"] == 4), 1),  # lo > hi: nothing
+    (lambda d: (d["ten"] <= 2) & (d["ten"] >= 7), 1),
+    (lambda d: (d["ten"] == 3) & (d["ten"] >= 2) & (d["onePercent"] <= 40), 2),
+    (lambda d: (d["onePercent"] <= 60) & (d["ten"] >= 2)
+     & (d["onePercent"] >= 13) & (d["ten"] <= 2), 2),
+])
+def test_kernel_range_count_groups_bounds_by_column(monkeypatch, pred, cols):
+    """Kernel mode on the CPU: the conjuncts of a range count are grouped
+    by column (max of the lower bounds, min of the upper ones, open sides
+    at the int32 extremes); each column reaches ops.filter_count once, and
+    the count equals the reference session's."""
+    from repro.core.frame import AFrame as RFrame
+    from repro.data import wisconsin as rw
+    from repro.engine.session import Session as RSession
+    from repro_torch.core.frame import AFrame as TFrame
+    from repro_torch.data import wisconsin as tw
+    from repro_torch.engine.session import Session as TSession
+
+    n = 8_192
+    rsess, tsess = RSession(mode="gspmd"), TSession(mode="kernel", device="cpu")
+    for sess, table in ((rsess, rw.generate(n, seed=6)), (tsess, tw.generate(n, seed=6))):
+        sess.create_dataset("data", table, dataverse="bench", closed=True)
+    seen = []
+    real = ops.filter_count
+
+    def spy(c, bounds, n_valid, **kw):
+        seen.append(len(c))
+        return real(c, bounds, n_valid, **kw)
+
+    monkeypatch.setattr(ops, "filter_count", spy)
+    # a first query of the other shape on the same column, so a compiled
+    # query shared by mistake would answer the second
+    other = TFrame("bench", "data", session=tsess)
+    len(other[other["ten"] >= 5])
+    seen.clear()
+    rdf, tdf = RFrame("bench", "data", session=rsess), TFrame("bench", "data", session=tsess)
+    assert len(tdf[pred(tdf)]) == len(rdf[pred(rdf)])
+    assert seen == [cols]
+
+
 def test_expand_block_ids_matches_reference():
     from repro.kernels import ops as rops
 
@@ -434,7 +779,14 @@ class _FakeCuda(torch.Tensor):
                               t(np.zeros((1, 2), np.int32)), 8),
     lambda t: sa.segment_agg(t(np.zeros((8, 1), np.float32)),
                              t(np.zeros(8, np.int32)), 2, 8),
+    lambda t: fc.filter_count([t(np.zeros(8, np.int32))] * 2,
+                              t(np.zeros((2, 2), np.int32)), 8),
+    lambda t: fc.filter_count([t(np.zeros(8, np.int32))] * 17,
+                              t(np.zeros((17, 2), np.int32)), 8),
     lambda t: tk.block_topk(t(np.zeros(8, np.float32)), t(np.ones(8, bool)), 8, 2),
+    lambda t: tk.topk_merge(t(np.zeros(8, np.float32)), t(np.ones(8, bool)), 8, 2),
+    lambda t: tk.merge_candidates(t(np.zeros((2, 3), np.float32)),
+                                  t(np.zeros((2, 3), np.int32))),
     lambda t: mj.merge_join_count(t(np.zeros(8, np.int32)),
                                   t(np.zeros(8, np.int32)), 8, 8),
 ])
