@@ -54,7 +54,24 @@ Phases (any mismatch raises; nothing is caught):
      keys, block_topk also on unique2 (scores rising with the row), flash
      also on contiguous inputs, decode also at the mixed lengths (bound on
      the slots they walk); and the device time by kernel of one run of
-     e3, e9 and e11.
+     e3, e9 and e11;
+  6. the live-ingestion slice: the phase-3 table as a closed dataset
+     clustered by unique2 with onePercent indexed, a group-by view, and
+     eight batches of 250,000 rows (push, upsert, push, delete, push,
+     upsert, push, delete; one flush each, compaction deferred: nine
+     components). tests/test_lsm.py's query suite and expressions 3, 4, 8
+     and 11 through a kernel-mode session, a gspmd reader session over the
+     same catalog and a numpy newest-wins oracle, before and after the
+     compaction; a filter_count launch per component holding matter and a
+     segment_agg launch per component; the view against a recompute and
+     numpy; filter_count with the matter column against its plain
+     version, and every segment_agg (per component, with -1 group ids, and
+     on the view's deltas), block_topk + topk_merge (the union stream) and
+     merge_join_count (a union on the left) call the phase made, recorded
+     as the path made it and held against the plain version on the same
+     inputs; the time of each flush,
+     of the compaction, and of each query (wall, median of 7; device) over
+     nine components and over one, each line naming the card.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -63,6 +80,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -893,6 +911,508 @@ def run_decode_op(case) -> int:
     return n
 
 
+# -- phase 6: live ingestion (LSM runs, upserts and deletes, a view) -----------
+
+LIVE_BATCH = 250_000        # rows per batch, one flush each
+# a fixed order of 4 pushes, 2 upserts and 2 deletes, so that each mutation
+# kind lands twice behind fresh matter (none of benchmarks/ingest_bench.py's
+# MUTATION_WORKLOADS: those draw 1/0/0, 0.4/0.6/0 or 0.4/0.2/0.4 by seed)
+LIVE_MIX = ("push", "upsert", "push", "delete", "push", "upsert", "push",
+            "delete")
+LIVE_DIM_ROWS = 500         # the Dim table of tests/test_lsm.py
+LIVE_BREAKDOWN = ("3_filter_count", "group_mix")  # device time by kernel
+
+
+class LiveOracle:
+    """Newest-wins numpy oracle of the fed dataset: its visible rows in the
+    engine's stream order (component by component, each clustered by
+    unique2; one unique2 order after a compaction)."""
+
+    def __init__(self, raw: dict):
+        self.cols = {k: v.copy() for k, v in raw.items()}
+
+    def _keep(self, mask):
+        self.cols = {k: v[mask] for k, v in self.cols.items()}
+
+    def apply(self, kind: str, batch):
+        if kind == "delete":
+            self._keep(~np.isin(self.cols["unique2"], batch))
+            return
+        if kind == "upsert":
+            self._keep(~np.isin(self.cols["unique2"], batch["unique2"]))
+        order = np.argsort(batch["unique2"], kind="stable")  # the run's order
+        self.cols = {k: np.concatenate([v, batch[k][order]])
+                     for k, v in self.cols.items()}
+
+    def compact(self):
+        self._keep(np.argsort(self.cols["unique2"], kind="stable"))
+
+
+def _live_groups(keys, vals=None, op="count", out_dtype=None):
+    k, inv, n = np.unique(keys, return_inverse=True, return_counts=True)
+    if op == "count":
+        return k, n.astype(np.int32)
+    if op == "sum":
+        return k, np.bincount(inv, weights=vals, minlength=len(k)).astype(vals.dtype)
+    if op == "mean":
+        s = np.bincount(inv, weights=vals, minlength=len(k))
+        return k, s.astype(np.float32) / n.astype(np.float32)
+    fill = np.iinfo(vals.dtype).min if op == "max" else np.iinfo(vals.dtype).max
+    out = np.full(len(k), fill, vals.dtype)
+    (np.maximum if op == "max" else np.minimum).at(out, inv, vals)
+    return k, out
+
+
+LIVE_QUERIES = {  # tests/test_lsm.py's _query_suite, then e3, e4, e8, e11
+    "len": lambda df, dim: len(df),
+    "filter_count": lambda df, dim: len(df[(df["ten"] == 3) & (df["two"] == 1)]),
+    "indexed_range": lambda df, dim: len(df[(df["onePercent"] >= 10)
+                                            & (df["onePercent"] <= 30)]),
+    "group_count": lambda df, dim: df.groupby("ten").agg("count"),
+    "group_mix": lambda df, dim: df.groupby("twenty").agg(
+        {"four": "sum", "ten": "mean", "two": "max", "onePercent": "min"}),
+    "scalar_max": lambda df, dim: df["unique2"].max(),
+    "scalar_min": lambda df, dim: df["unique1"].min(),
+    "scalar_sum": lambda df, dim: df["four"].sum(),
+    "sort_head": lambda df, dim: df.sort_values("unique1", ascending=False).head(7),
+    "head": lambda df, dim: df.head(5),
+    "join_count": lambda df, dim: len(df.merge(dim, left_on="unique1",
+                                               right_on="unique1")),
+    "project_head": lambda df, dim: df[["two", "four", "stringu1"]].head(4),
+    "3_filter_count": lambda df, dim: _e3(df, 3),
+    "4_group_count": lambda df, dim: df.groupby("oddOnePercent").agg("count"),
+    "8_group_max": lambda df, dim: df.groupby("twenty")["four"].agg("max"),
+    "11_range_count": lambda df, dim: _e11(df, 17, 62),
+}
+
+
+def live_oracle(c: dict, dim_unique1: np.ndarray) -> dict:
+    """numpy answers of LIVE_QUERIES in the engine's result form."""
+    def group(key, spec):
+        out = {}
+        for col, op in spec:
+            k, v = _live_groups(c[key], None if col is None else c[col], op)
+            out[key] = k
+            out["count" if col is None else f"{op}_{col}"] = v
+        return out
+
+    top = np.argsort(-c["unique1"].astype(np.int64), kind="stable")[:7]
+    return {
+        "len": len(c["unique2"]),
+        "filter_count": int(((c["ten"] == 3) & (c["two"] == 1)).sum()),
+        "indexed_range": int(((c["onePercent"] >= 10) & (c["onePercent"] <= 30)).sum()),
+        "group_count": group("ten", [(None, "count")]),
+        "group_mix": group("twenty", [("four", "sum"), ("ten", "mean"),
+                                      ("two", "max"), ("onePercent", "min")]),
+        "scalar_max": int(c["unique2"].max()),
+        "scalar_min": int(c["unique1"].min()),
+        "scalar_sum": int(c["four"].sum()),
+        "sort_head": {k: v[top] for k, v in c.items()},
+        "head": {k: v[:5] for k, v in c.items()},
+        "join_count": int(np.isin(c["unique1"], dim_unique1).sum()),
+        "project_head": {k: c[k][:4] for k in ("two", "four", "stringu1")},
+        "3_filter_count": int(((c["ten"] == 3) & (c["twentyPercent"] == 3)
+                               & (c["two"] == 1)).sum()),
+        "4_group_count": group("oddOnePercent", [(None, "count")]),
+        "8_group_max": group("twenty", [("four", "max")]),
+        "11_range_count": int(((c["onePercent"] >= 17) & (c["onePercent"] <= 62)).sum()),
+    }
+
+
+def _live_batch(kind: str, i: int, rng, oracle: LiveOracle, next_key: int):
+    """One batch of the mix: pushes are fresh Wisconsin rows keyed past
+    every earlier key; upserts and deletes draw LIVE_BATCH distinct keys
+    from the visible ones."""
+    from repro_torch.data import wisconsin
+
+    if kind == "delete":
+        return np.sort(rng.choice(oracle.cols["unique2"], LIVE_BATCH,
+                                  replace=False)).astype(np.int32)
+    rows = {k: v.numpy() for k, v in
+            wisconsin.generate(LIVE_BATCH, seed=100 + i).columns.items()}
+    if kind == "push":
+        rows["unique2"] = (rows["unique2"] + next_key).astype(np.int32)
+    else:
+        rows["unique2"] = rng.choice(oracle.cols["unique2"], LIVE_BATCH,
+                                     replace=False).astype(np.int32)
+    return rows
+
+
+def _flush_seconds() -> float:
+    from repro_torch.runtime import telemetry as tel
+
+    key = tel.series_key("ingest.flush_seconds", {"dataset": "live.Live"})
+    h = tel.snapshot(include_spans=False)["histograms"].get(key)
+    return 0.0 if h is None else h["sum"]
+
+
+def check_matter_column(run, base, shadow_of) -> None:
+    """filter_count against its plain version on the card in the shape the
+    compiler passes: predicate columns plus the matter column (valid ∧ not
+    shadowed) of a delete run (anti rows after the matter prefix, block
+    padding) and of the shadowed base, at n_valid = n, the matter + anti
+    prefix and one not a multiple of 4."""
+    import torch
+
+    from repro_torch.core.compiler import _shadowed
+    from repro_torch.kernels import filter_count as fc
+
+    for comp in (run, base):
+        t = comp.table.columns
+        n = int(t["ten"].shape[0])
+        matter = t["__valid__"] if "__valid__" in t \
+            else torch.ones(n, dtype=torch.bool, device=t["ten"].device)
+        sources = shadow_of(comp)
+        if sources:
+            tables = {f"anti:live.{s.name}": s.anti_keys_arr for s in sources}
+            matter = matter & ~_shadowed(
+                tables, t["unique2"], [("live", s.name) for s in sources])
+        cols = [t["ten"], t["two"], matter.to(torch.int32)]
+        bounds = torch.tensor([[3, 3], [1, 1], [1, 1]], dtype=torch.int32,
+                              device=cols[0].device)
+        prefix = (comp.live_rows or n) + comp.anti_rows
+        for n_valid in sorted({n, prefix, prefix - 1, n - 3}):
+            got = fc.filter_count(cols, bounds, n_valid)
+            want = fc.filter_count_plain(cols, bounds, n_valid)
+            same(int(got), int(want), f"filter_count matter column "
+                 f"{comp.name} n_valid={n_valid}")
+        print(f"  filter_count with the matter column == plain on {comp.name} "
+              f"({n} rows, {comp.anti_rows} anti rows after the matter prefix, "
+              f"n_valid {sorted({n, prefix, prefix - 1, n - 3})})", flush=True)
+
+
+@contextlib.contextmanager
+def recording(calls: list):
+    """Record every call the path makes of segment_agg, the top-k (block_topk
+    and its merge) and merge_join_count — its inputs and the wrapper's
+    output, by reference — so that the plain versions can be held against
+    them afterwards on the very same card tensors. Adds no launch."""
+    from repro_torch.kernels import merge_join as mj
+    from repro_torch.kernels import segment_agg as sa
+    from repro_torch.kernels import topk_mask as tk
+
+    held = [(sa, "segment_agg"), (tk, "topk_merge"), (mj, "merge_join_count")]
+    orig = [getattr(mod, name) for mod, name in held]
+
+    def wrap(name, fn):
+        def rec(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
+        return rec
+
+    for (mod, name), fn in zip(held, orig):
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in zip(held, orig):
+            setattr(mod, name, fn)
+
+
+def check_recorded(calls: list, state: str, need: tuple) -> None:
+    """Each recorded wrapper output against its plain version on the same
+    inputs, exact (values and dtypes): segment_agg, block_topk (called
+    again on the recorded scores and mask) and its merge, merge_join_count.
+    Fails if a kernel of ``need`` was never called."""
+    import torch
+
+    from repro_torch.kernels import merge_join as mj
+    from repro_torch.kernels import segment_agg as sa
+    from repro_torch.kernels import topk_mask as tk
+
+    def exact(label, got, want):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            bad = (got != want).sum().item() if got.shape == want.shape else "shape"
+            raise AssertionError(f"{label} {state}: wrapper != plain "
+                                 f"({got.dtype} vs {want.dtype}, {bad} differ)")
+
+    shapes: dict[str, set] = {}
+    rows: list = []  # segment_agg's (n, rows with gid -1)
+    for i, (name, args, kw, out) in enumerate(calls):
+        label = f"{name} call {i}"
+        if name == "segment_agg":
+            values, gids, g, n_valid = args
+            exact(label, out, sa.segment_agg_plain(values, gids, g, n_valid, **kw))
+            shapes.setdefault(name, set()).add(
+                f"{kw.get('op', 'sum')} G={g} C={values.shape[1]}")
+            rows.append((int(values.shape[0]), int((gids < 0).sum())))
+        elif name == "topk_merge":
+            scores, mask, n_valid, k = args
+            bv, bi = tk.block_topk(scores, mask, n_valid, k)
+            pv, pi = tk.block_topk_plain(scores, mask, n_valid, k)
+            exact(label + " block_topk values", bv, pv)
+            exact(label + " block_topk indices", bi, pi)
+            mv, mi = tk.merge_candidates_plain(pv, pi)
+            exact(label + " merge values", out[0], mv)
+            exact(label + " merge indices", out[1], mi)
+            shapes.setdefault(name, set()).add(
+                f"n={scores.shape[0]:,} live={int(mask.sum()):,} k={k}")
+        else:
+            lk, rk, nl, nr = args
+            exact(label, out, mj.merge_join_count_plain(lk, rk, nl, nr))
+            shapes.setdefault(name, set()).add(
+                f"left {lk.shape[0]:,} (valid {int(nl):,}) right "
+                f"{rk.shape[0]:,} (valid {int(nr):,})")
+    missing = [k for k in need if k not in shapes]
+    if missing:
+        raise AssertionError(f"{state}: the path never called {missing}")
+    for name, s in shapes.items():
+        extra = "" if name != "segment_agg" else \
+            (f"; n {min(r[0] for r in rows):,} to {max(r[0] for r in rows):,},"
+             f" gid -1 on {sum(r[1] for r in rows):,} of "
+             f"{sum(r[0] for r in rows):,} rows")
+        print(f"  {name} == plain {state}, {sum(c[0] == name for c in calls)} "
+              f"call(s): {'; '.join(sorted(s))}{extra}", flush=True)
+
+
+def ingest(feed, oracle: LiveOracle, rng, card: str, after=None) -> list:
+    """The eight batches of LIVE_MIX, one flush each; the wall time of each
+    batch and the flush's own share of it. ``after(i)`` runs after batch i,
+    outside the times."""
+    import torch
+
+    next_key, flushes = ROWS, []
+    for i, kind in enumerate(LIVE_MIX):
+        batch = _live_batch(kind, i, rng, oracle, next_key)
+        if kind == "push":
+            next_key += LIVE_BATCH
+        f0 = _flush_seconds()
+        t0 = time.perf_counter()
+        getattr(feed, kind)(batch)
+        feed.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        oracle.apply(kind, batch)
+        flushes.append({"kind": kind, "wall_s": wall,
+                        "flush_s": _flush_seconds() - f0})
+        print(f"  [{card}] batch {i + 1} ({kind}, {LIVE_BATCH} rows): "
+              f"{wall:.3f} s, of which the flush {flushes[-1]['flush_s']:.3f} s",
+              flush=True)
+        if after is not None:
+            after(i)
+    return flushes
+
+
+def run_live(table, raw: dict, dev, seed: int, card: str) -> dict:
+    """Phase 6: the live-ingestion slice on the card. The phase-3 table
+    (closed, clustered by unique2, onePercent indexed) takes eight batches
+    of LIVE_BATCH rows in LIVE_MIX order, one flush each, under a deferred
+    compaction policy (nine components), with a group-by view registered
+    before the first batch. The query suite runs through a kernel-mode
+    session, a gspmd reader session over the same catalog and the numpy
+    oracle, before and after the compaction; all three agree bit for bit."""
+    import torch
+
+    from repro_torch.core import physical as PH
+    from repro_torch.core import plan as P
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(seed)
+    kern = Session(mode="kernel", device=dev)
+    gspmd = Session(mode="gspmd", device=dev, catalog=kern.catalog)
+    t0 = time.perf_counter()
+    kern.create_dataset("Live", table, dataverse="live", closed=True,
+                        primary="unique2", indexes=["onePercent"])
+    dim = wisconsin.generate(LIVE_DIM_ROWS, seed=7)
+    kern.create_dataset("Dim", dim, dataverse="live")
+    torch.cuda.synchronize()
+    print(f"  [{card}] Live ({ROWS} rows, primary unique2, index onePercent) "
+          f"and Dim placed in {time.perf_counter() - t0:.3f} s", flush=True)
+    dim_u1 = dim.columns["unique1"].numpy()
+    view_plan = P.GroupAgg(P.Scan("Live", "live"), ["ten"], [
+        P.AggSpec("count", "count", None), P.AggSpec("sum_four", "sum", "four"),
+        P.AggSpec("max_onePercent", "max", "onePercent")])
+    view = kern.create_view("by_ten", view_plan)
+    feed = Feed(kern, "Live", "live", flush_rows=LIVE_BATCH,
+                policy=lsm.CompactionPolicy(size_ratio=10.0, max_runs=64))
+    oracle = LiveOracle(raw)
+
+    def frames(sess):
+        return (AFrame("live", "Live", session=sess),
+                AFrame("live", "Dim", session=sess))
+
+    def join_over_union(i):
+        """The join count with the union of base and runs on the left, after
+        the third batch (base, push, upsert, push): each component then
+        holds matter, so the key bounds of every leaf prove int32 safety and
+        the planner takes merge_join_count. A delete-only run has no key
+        bounds, and from the first delete on the planner (as the reference's
+        does) takes the generic join until the compaction."""
+        if i != 2:
+            return
+        want = live_oracle(oracle.cols, dim_u1)["join_count"]
+        for m, sess in (("gspmd", gspmd), ("kernel", kern)):
+            before = _build.LAUNCHES["merge_join_count"]
+            got = LIVE_QUERIES["join_count"](*frames(sess))
+            torch.cuda.synchronize()
+            same(got, want, f"live join_count[{m}] over 4 components")
+        plan = kern.last_physical
+        if not (isinstance(plan, PH.JoinCountOp) and plan.kernel
+                and isinstance(plan.children[0], PH.PrunedUnionRuns)) \
+                or _build.LAUNCHES["merge_join_count"] != before + 1:
+            raise AssertionError(f"join count over 4 components: "
+                                 f"{PH.format_plan(plan)}")
+        print(f"  join count over 4 components (a union on the left): "
+              f"kernel == gspmd == numpy, one merge_join_count launch",
+              flush=True)
+
+    _build.reset_launches()
+    ingest_calls: list = []
+    with recording(ingest_calls):
+        flushes = ingest(feed, oracle, rng, card, after=join_over_union)
+    comps = kern.catalog.components("live", "Live")
+    if len(comps) != 1 + len(LIVE_MIX) or feed.stats["compactions"]:
+        raise AssertionError(f"expected {1 + len(LIVE_MIX)} components, got "
+                             f"{len(comps)} ({feed.stats})")
+
+    def suite(state):
+        want = live_oracle(oracle.cols, dim_u1)
+        got = {}
+        for name, fn in LIVE_QUERIES.items():
+            for m, sess in (("kernel", kern), ("gspmd", gspmd)):
+                got[m] = fn(*frames(sess))
+                same(got[m], want[name], f"live {name}[{m}] {state}")
+        return want
+
+    def launches_per_component(state, comps):
+        """The fused range count launches filter_count once per component
+        holding matter (a delete-only run has no matter, so no bounds prove
+        the int32 cast: it takes the mask path, as the reference plans it);
+        the group count launches segment_agg once per component."""
+        df, _ = frames(kern)
+        matter = sum(1 for c in comps if c.live_rows is None or c.live_rows)
+        for query, kernel, want in (
+                (lambda: len(df[(df["ten"] == 3) & (df["two"] == 1)]),
+                 "filter_count", matter),
+                (lambda: df.groupby("ten").agg("count"), "segment_agg",
+                 len(comps))):
+            before = _build.LAUNCHES[kernel]
+            query()
+            torch.cuda.synchronize()
+            got = _build.LAUNCHES[kernel] - before
+            if got != want:
+                raise AssertionError(f"{kernel}: {got} launches over "
+                                     f"{len(comps)} component(s) {state}, "
+                                     f"expected {want}")
+        plan = kern.last_physical
+        if not isinstance(plan, PH.KernelSegmentAgg) \
+                or len(plan.children) != len(comps):
+            raise AssertionError(f"group count {state}: {type(plan).__name__}")
+        print(f"  {state}: filter_count launched once per component with "
+              f"matter ({matter} of {len(comps)}), segment_agg once per "
+              f"component ({len(comps)})", flush=True)
+
+    def check_view(state):
+        same(kern.read_view("by_ten"), kern.execute(view_plan),
+             f"view vs recompute {state}")
+        c = oracle.cols
+        k, n = _live_groups(c["ten"])
+        same(kern.read_view("by_ten"),
+             {"ten": k, "count": n,
+              "sum_four": _live_groups(c["ten"], c["four"], "sum")[1],
+              "max_onePercent": _live_groups(c["ten"], c["onePercent"], "max")[1]},
+             f"view vs numpy {state}")
+
+    excluded = dict.fromkeys(_build.LAUNCHES, 0)  # comparisons and timings
+
+    def excluding(fn, *args):
+        held = dict(_build.LAUNCHES)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for k, v in _build.LAUNCHES.items():
+            excluded[k] += v - held[k]
+        return out
+
+    suite_calls: list = []
+    with recording(suite_calls):
+        before = suite("over 9 components")
+    launches_per_component("over 9 components", comps)
+    check_view("over 9 components")
+
+    def shadow_of(comp):
+        return [r for r in comps[comps.index(comp) + 1:] if r.anti_rows]
+    excluding(check_matter_column, comps[2], comps[0], shadow_of)
+    excluding(check_recorded, ingest_calls,
+              "in the ingest (view deltas, join over 4 components)",
+              ("segment_agg", "merge_join_count"))
+    excluding(check_recorded, suite_calls, "over 9 components",
+              ("segment_agg", "topk_merge"))
+    del ingest_calls[:], suite_calls[:]
+
+    def time_queries():
+        out = {}
+        for name, fn in LIVE_QUERIES.items():
+            out[name] = {m: {"wall_ms": host_ms(lambda: fn(*frames(s)))}
+                         for m, s in (("kernel", kern), ("gspmd", gspmd))}
+        for name, fn in LIVE_QUERIES.items():
+            t = out[name]["kernel"]
+            t["device_ms"] = device_ms(lambda: fn(*frames(kern)))
+            t["busy"] = None if t["device_ms"] is None \
+                else t["device_ms"] / t["wall_ms"]
+        return out
+
+    def breakdowns():
+        return {name: device_breakdown(
+                    lambda fn=LIVE_QUERIES[name]: fn(*frames(kern)), top=8)
+                for name in LIVE_BREAKDOWN}
+
+    times = {"uncompacted": excluding(time_queries)}
+    bds = {"uncompacted": excluding(breakdowns)}
+    t0 = time.perf_counter()
+    feed.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    oracle.compact()
+    print(f"  [{card}] compaction of {len(comps)} components into "
+          f"{len(oracle.cols['unique2'])} rows: {compact_s:.3f} s", flush=True)
+    with recording(suite_calls):
+        after = suite("after compaction")
+    excluding(check_recorded, suite_calls, "after compaction",
+              ("segment_agg", "topk_merge", "merge_join_count"))
+    del suite_calls[:]
+    for name in before:
+        # head / project_head read the first rows of the stream, whose order
+        # the compaction changes (upserted rows move from their run to their
+        # key's place): each state is held to the oracle above instead
+        if name not in ("head", "project_head"):
+            same(after[name], before[name], f"live {name} across compaction")
+    launches_per_component("after compaction",
+                           kern.catalog.components("live", "Live"))
+    check_view("after compaction")
+    if view.stats["kernel_batches"] < 1:
+        raise AssertionError(f"the view's deltas never reached segment_agg: "
+                             f"{view.stats}")
+    print(f"  view by_ten == recompute == numpy; {view.stats}", flush=True)
+    times["compacted"] = excluding(time_queries)
+    bds["compacted"] = excluding(breakdowns)
+    launches = {k: _build.LAUNCHES[k] - excluded[k] for k in RELATIONAL}
+    print(f"  kernel launches in the live phase: {launches}", flush=True)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the live phase: {missing}")
+    for state, qs in times.items():
+        for name, t in qs.items():
+            k, g = t["kernel"], t["gspmd"]
+            dev_s = "device not measured" if k["device_ms"] is None else \
+                f"device {k['device_ms']:.3f} ms, busy {k['busy']:.0%}"
+            print(f"  [{card}] {state:11s} {name:15s} kernel {k['wall_ms']:8.3f} ms "
+                  f"({dev_s})   gspmd {g['wall_ms']:8.3f} ms", flush=True)
+    for state, per in bds.items():
+        print(f"  {state}:", flush=True)
+        print_breakdowns(per)
+    return {"flushes": flushes, "compact_s": compact_s, "queries": times,
+            "breakdowns": bds,
+            "launches": launches, "components": len(comps),
+            "rows_visible": len(oracle.cols["unique2"]),
+            "view_stats": dict(view.stats)}
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -1283,6 +1803,11 @@ def main(argv=None) -> int:
           "an idle stream, median of 5)", flush=True)
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("non-finite kernel time")
+
+    print(f"phase 6: live ingestion — {ROWS} rows, then {len(LIVE_MIX)} "
+          f"batches of {LIVE_BATCH} ({', '.join(LIVE_MIX)}), a view, the "
+          f"compaction", flush=True)
+    live = run_live(table, raw, dev, args.seed, card)
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -1295,7 +1820,7 @@ def main(argv=None) -> int:
                       "flash_decode_mixed_lengths": {
                           k: v for k, v in decode_mixed.items() if k != "shape"},
                       "relational_variants": variants,
-                      "breakdowns": res["breakdowns"]}))
+                      "breakdowns": res["breakdowns"], "live": live}))
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "shape"}
                                   for d in kernels]}))
     print(card)

@@ -13,19 +13,29 @@ differs only in the physical operators the planner emitted
 ``TopKSelect``), whose lowerings call ``repro_torch.kernels.ops``. Those ops
 launch the hand-written CUDA kernels on CUDA tensors and their plain
 versions on CPU tensors.
+
+Over a fed dataset every component lowers on its own (per-component index
+probes, kernel launches, visibility masks) and the results merge: scalars
+with +/max/min (``MergeScalars``), streams by concatenation
+(``PrunedUnionRuns``), group-by partials by +/max/min. Newer components'
+anti-matter subtracts from every matter stream through ``_shadowed``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import physical as PH
 from repro_torch.core.catalog import INTERNAL_COLUMNS, Catalog
 from repro_torch.core.expr import collect_params, param_values
-from repro_torch.core.optimizer import _RANGE_MAX, _RANGE_MIN
 from repro_torch.engine import physical
+from repro_torch.engine.index import _search
+from repro_torch.engine.table import is_lane_column
+from repro_torch.runtime import telemetry as tel
 
 
 # -- lowering strategy --------------------------------------------------------
@@ -62,13 +72,29 @@ class LoweringStrategy:
         return ops.filter_count(cols, bounds, cols[0].shape[0],
                                 block_ids=block_ids)
 
-    def join_count(self, lkey, lmask, rkey, rmask):
+    def index_count(self, ix_keys, valid, lo, hi):
+        from repro_torch.engine.index import index_count_local
+        return index_count_local(ix_keys, valid.sum(dtype=torch.int32), lo, hi)
+
+    def shadow_count(self, ix_keys, valid, anti_keys, lo, hi):
+        from repro_torch.engine.index import shadow_count_local
+        return shadow_count_local(ix_keys, valid.sum(dtype=torch.int32),
+                                  anti_keys, lo, hi)
+
+    def join_count(self, lkey, lmask, rkey, rmask, presorted):
+        if presorted:
+            # index order: valid keys ascending, sentinel tail
+            n_r = rmask.sum(dtype=torch.int32)
+            lo = _search(rkey, lkey, "left")
+            hi = torch.minimum(_search(rkey, lkey, "right"), n_r)
+            return torch.where(lmask, (hi - lo).clamp(min=0), 0) \
+                .sum(dtype=torch.int32)
         return physical.join_count(lkey, lmask, rkey, rmask)
 
-    def kernel_join_count(self, lkey, lmask, rkey, rmask):
+    def kernel_join_count(self, lkey, lmask, rkey, rmask, presorted):
         from repro_torch.kernels import ops
         ls = ops.sort_join_keys(lkey, lmask)
-        rs = ops.sort_join_keys(rkey, rmask)
+        rs = ops.sort_join_keys(rkey, rmask, presorted=presorted)
         nl = lmask.sum(dtype=torch.int32)
         nr = rmask.sum(dtype=torch.int32)
         return ops.merge_join_count(ls, rs, nl, nr)
@@ -88,15 +114,26 @@ class CompiledQuery:
     physical: PH.PhysOp         # the costed physical plan that was lowered
     kind: str                   # scalar | table | grouped
     fn: Callable                # (tables, params) -> result
-    leaf_keys: list             # dataset keys feeding `tables`
+    leaf_keys: list             # dataset keys feeding `tables` (pruned runs excluded)
     lits: list                  # literal slots (physical plan order)
     device: Any = "cpu"
+    # components whose sorted anti-key arrays the plan subtracts with (may
+    # include runs whose MATTER was zone-pruned: their tombstones still
+    # annihilate into older components)
+    anti_keys: list = dataclasses.field(default_factory=list)
 
     def gather_tables(self, catalog: Catalog) -> dict:
         tables = {}
         for key in self.leaf_keys:
             ds = catalog.get(*key)
-            tables[f"{key[0]}.{key[1]}"] = dict(ds.table.columns)
+            cols = dict(ds.table.columns)
+            for ix in ds.indexes.values():
+                if ix.sorted_keys is not None:
+                    cols[f"__ix_{ix.column}__"] = ix.sorted_keys
+                    cols[f"__ixid_{ix.column}__"] = ix.row_ids
+            tables[f"{key[0]}.{key[1]}"] = cols
+        for key in self.anti_keys:
+            tables[f"anti:{key[0]}.{key[1]}"] = catalog.get(*key).anti_keys_arr
         return tables
 
     def run(self, catalog: Catalog, params=None):
@@ -112,19 +149,88 @@ def compile_physical(phys: PH.PhysOp, ctx: ExecContext) -> CompiledQuery:
     leaf_keys = PH.scan_leaves(phys)
     lits = collect_params(PH.all_exprs(phys))
     kind, build = _lower_terminal(phys, ctx)
-    return CompiledQuery(phys, kind, build, leaf_keys, lits, ctx.device)
+    return CompiledQuery(phys, kind, build, leaf_keys, lits, ctx.device,
+                         anti_keys=PH.anti_leaves(phys))
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _result_rows(kind: str, out) -> int:
+    """Actual row count of one lowered result: live mask sum for streams and
+    groups, 1 for a scalar dict."""
+    if kind in ("table", "grouped"):
+        return int(out[1].sum())
+    return 1
+
+
+def profile_physical(phys: PH.PhysOp, ctx: ExecContext, tables: dict,
+                     params) -> dict:
+    """Per-operator measurement for ``explain(analyze=True)``: lower each
+    node's subtree standalone and run it, synchronized on the device. Self
+    time = subtree total − Σ direct-child subtree totals, clamped at 0. Row
+    counts are exact (same lowering, same inputs). Only paid when the user
+    asks to analyze.
+
+    Returns ``{"nodes": {id(node): {kind, total_seconds, self_seconds,
+    rows}}}`` — the dict ``format_plan(root, analyze=...)`` renders."""
+    nodes: dict[int, dict] = {}
+    for node in PH.walk(phys):
+        try:
+            kind, build = _lower_terminal(node, ctx)
+        except NotImplementedError:  # pragma: no cover - defensive
+            continue
+        with tel.span("profile.operator", op=type(node).__name__):
+            _sync(ctx.device)
+            t0 = time.perf_counter()
+            out = build(tables, params)
+            _sync(ctx.device)
+            dt = time.perf_counter() - t0
+        nodes[id(node)] = {"kind": kind, "total_seconds": dt,
+                           "rows": _result_rows(kind, out)}
+    for node in PH.walk(phys):
+        m = nodes.get(id(node))
+        if m is None:
+            continue
+        kids = sum(nodes[id(c)]["total_seconds"] for c in node.children
+                   if id(c) in nodes)
+        m["self_seconds"] = max(m["total_seconds"] - kids, 0.0)
+    return {"nodes": nodes}
 
 
 # -- streaming lowering -------------------------------------------------------
 
 
-def _env_of(cols: dict):
-    env = {k: v for k, v in cols.items() if k not in INTERNAL_COLUMNS}
+def _env_of(cols: dict, open_cast: bool = False):
+    env = {k: v for k, v in cols.items()
+           if k not in INTERNAL_COLUMNS and not k.startswith("__ix")}
+    if open_cast:  # schema-on-read: a cast per access (string lanes stay int)
+        env = {k: (v.to(torch.float32) if v.ndim == 1
+                   and not v.dtype.is_floating_point and v.dtype != torch.bool
+                   and not is_lane_column(k) else v)
+               for k, v in env.items()}
     mask = cols.get("__valid__")
     if mask is None:
         first = next(iter(env.values()))
         mask = torch.ones((first.shape[0],), dtype=torch.bool, device=first.device)
     return env, mask
+
+
+def _shadowed(tables: dict, keys: torch.Tensor, shadow_sources) -> torch.Tensor:
+    """True where a row's primary key appears in any newer component's
+    sorted anti-key set — the newest-wins subtraction every matter stream
+    applies. One batched binary search per tombstone set, in the anti
+    keys' own dtype."""
+    hit = None
+    for dv, name in shadow_sources:
+        ak = tables[f"anti:{dv}.{name}"]
+        k = keys.to(ak.dtype)
+        pos = torch.searchsorted(ak, k, side="left").clamp(max=ak.shape[0] - 1)
+        h = ak[pos] == k
+        hit = h if hit is None else (hit | h)
+    return hit
 
 
 def _block_gather(blocks: Optional[tuple], zone_block: int):
@@ -140,16 +246,55 @@ def _block_gather(blocks: Optional[tuple], zone_block: int):
     return sel
 
 
+def _lower_component(node, index_col: Optional[str] = None) -> Callable:
+    """The matter stream of one component (TableScan / IndexProbe): the
+    surviving blocks, the open-dataset cast, newer anti-matter subtracted
+    from the mask; an IndexProbe adds its range mask and residual."""
+    key = f"{node.dataverse}.{node.dataset}"
+    open_cast = node.open_cast
+    shadow, key_col = node.shadow_sources, node.key_col
+    sel = _block_gather(node.block_ids, node.zone_block)
+
+    def fn(tables, params):
+        env, mask = _env_of(tables[key], open_cast)
+        env = {k: sel(v) for k, v in env.items()}
+        mask = sel(mask)
+        if shadow:
+            mask = mask & ~_shadowed(tables, sel(tables[key][key_col]), shadow)
+        if index_col is not None:
+            lo = node.lo.evaluate(env, params) if node.lo is not None else None
+            hi = node.hi.evaluate(env, params) if node.hi is not None else None
+            mask = physical.index_range_mask(env[index_col], mask, lo, hi)
+            if node.residual is not None:
+                mask = mask & node.residual.evaluate(env, params)
+        return env, mask
+    return fn
+
+
 def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
     """Returns fn(tables, params) -> (env, mask). Filters never compact
     (selection-vector execution)."""
     if isinstance(node, PH.TableScan):
-        key = f"{node.dataverse}.{node.dataset}"
-        sel = _block_gather(node.block_ids, node.zone_block)
+        return _lower_component(node)
+
+    if isinstance(node, PH.IndexProbe):
+        # the probe inherits its Scan site's surviving-block list: rows in
+        # skipped blocks provably fail the conjuncts that bound the probe
+        return _lower_component(node, index_col=node.index_col)
+
+    if isinstance(node, PH.PrunedUnionRuns):
+        kids = [_lower_stream(c, ctx) for c in node.children]
+        if len(kids) == 1:
+            return kids[0]
 
         def fn(tables, params):
-            env, mask = _env_of(tables[key])
-            return {k: sel(v) for k, v in env.items()}, sel(mask)
+            envs, masks = [], []
+            for k in kids:
+                e, m = k(tables, params)
+                envs.append(e)
+                masks.append(m)
+            env = {n: torch.cat([e[n] for e in envs], dim=0) for n in envs[0]}
+            return env, torch.cat(masks, dim=0)
         return fn
 
     if isinstance(node, PH.FullScanFilter):
@@ -199,6 +344,7 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
         return fn
 
     if isinstance(node, PH.JoinGather):
+        # build-key uniqueness/disjointness was proven by the planner
         lchild = _lower_stream(node.children[0], ctx)
         rchild = _lower_stream(node.children[1], ctx)
 
@@ -218,7 +364,8 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
 def _lower_groupagg(node, ctx: ExecContext) -> Callable:
     aggs = [(s.out_name, s.op, s.column) for s in node.aggs]
     if isinstance(node, PH.KernelSegmentAgg):
-        return _lower_kernel_segment_agg(node, ctx, aggs)
+        comps = [_lower_stream(c, ctx) for c in node.children]
+        return _lower_kernel_segment_agg(node, ctx, comps, aggs)
     child = _lower_stream(node.children[0], ctx)
     key, lo, num_groups = node.key, node.lo, node.num_groups
 
@@ -229,15 +376,16 @@ def _lower_groupagg(node, ctx: ExecContext) -> Callable:
 
 
 def _lower_kernel_segment_agg(node: PH.KernelSegmentAgg, ctx: ExecContext,
-                              aggs: list) -> Callable:
-    """One segment_agg launch for the sum family — count/sum/mean fused into
-    one (n, C) value tile: column 0 counts, columns 1.. sum the value
-    columns — plus one per extreme family. The planner proved f32
+                              comps: list, aggs: list) -> Callable:
+    """One lowered stream per LSM component (a single entry for a plain
+    dataset). Each component runs its own launches — one segment_agg for
+    the sum family (count/sum/mean fused into one (n, C) value tile: column
+    0 counts, columns 1.. sum the value columns), one per extreme family —
+    and the (G, C) partials merge with +/max/min. The planner proved f32
     exactness, so every float32 group result is an exact integer and the
     casts below reproduce the generic path bit for bit."""
-    child = _lower_stream(node.children[0], ctx)
     key, lo, num_groups = node.key, node.lo, node.num_groups
-    block_ids = node.comp_blocks[0] if node.comp_blocks else None
+    comp_blocks = node.comp_blocks or tuple(None for _ in comps)
     vcols: list[str] = []   # distinct sum-family value columns, first-use order
     xcols: dict[str, list[str]] = {"max": [], "min": []}
     for _, op, col in aggs:
@@ -245,37 +393,47 @@ def _lower_kernel_segment_agg(node: PH.KernelSegmentAgg, ctx: ExecContext,
             vcols.append(col)
         elif op in ("max", "min") and col not in xcols[op]:
             xcols[op].append(col)
-
-    def launch(gid, cols_f32, n, op):
-        values = torch.stack(cols_f32, dim=1)  # (n, C)
-        return ctx.strategy.kernel_group_agg(gid, values, num_groups, n, op,
-                                             block_ids=block_ids)
+    merge = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
 
     def fn(tables, params):
-        env, mask = child(tables, params)
-        key_col = env[key]
-        # dead rows get gid -1: the kernel's live check drops them, so an
-        # arbitrary (non-prefix) mask needs no compaction
-        gid = torch.where(mask, (key_col - lo).to(torch.int32), -1)
-        n = mask.shape[0]
-        tiles = [torch.ones(mask.shape, dtype=torch.float32, device=mask.device)]
-        tiles += [env[c].to(torch.float32) for c in vcols]
-        sums = launch(gid, tiles, n, "sum")
-        ext = {op: launch(gid, [env[c].to(torch.float32) for c in cols], n, op)
-               for op, cols in xcols.items() if cols}
+        parts: dict[str, torch.Tensor] = {}
+        key_dtype = val_dtypes = None
+        for comp, block_ids in zip(comps, comp_blocks):
+            # the block list was hoisted off the component's TableScan: the
+            # stream stays full-length and the kernel grid skips the tiles
+            env, mask = comp(tables, params)
+            key_col = env[key]
+            key_dtype = key_col.dtype
+            val_dtypes = {c: env[c].dtype for _, _, c in aggs if c}
+            # dead rows get gid -1: the kernel's live check drops them, so an
+            # arbitrary (non-prefix) mask needs no compaction
+            gid = torch.where(mask, (key_col - lo).to(torch.int32), -1)
+            n = mask.shape[0]
+            tiles = {"sum": [torch.ones(mask.shape, dtype=torch.float32,
+                                        device=mask.device)]
+                     + [env[c].to(torch.float32) for c in vcols]}
+            for op, cols in xcols.items():
+                if cols:
+                    tiles[op] = [env[c].to(torch.float32) for c in cols]
+            for op, cols_f32 in tiles.items():
+                part = ctx.strategy.kernel_group_agg(
+                    gid, torch.stack(cols_f32, dim=1), num_groups, n, op,
+                    block_ids=block_ids)
+                parts[op] = part if op not in parts else merge[op](parts[op], part)
+        sums = parts["sum"]
         counts = sums[:, 0].to(torch.int32)
-        out = {key: torch.arange(lo, lo + num_groups, dtype=key_col.dtype,
-                                 device=key_col.device)}
+        out = {key: torch.arange(lo, lo + num_groups, dtype=key_dtype,
+                                 device=sums.device)}
         for out_name, op, col in aggs:
             if op == "count":
                 out[out_name] = counts
             elif op == "sum":
-                out[out_name] = sums[:, 1 + vcols.index(col)].to(env[col].dtype)
+                out[out_name] = sums[:, 1 + vcols.index(col)].to(val_dtypes[col])
             elif op == "mean":  # exact-integer f32 sum / count, as generic
                 out[out_name] = sums[:, 1 + vcols.index(col)] / counts.clamp(min=1)
             else:  # max/min: empty groups hold ±inf — pin before the int cast
-                v = ext[op][:, xcols[op].index(col)]
-                out[out_name] = torch.where(counts > 0, v, 0.0).to(env[col].dtype)
+                v = parts[op][:, xcols[op].index(col)]
+                out[out_name] = torch.where(counts > 0, v, 0.0).to(val_dtypes[col])
         return out, counts > 0
     return fn
 
@@ -284,8 +442,48 @@ def _lower_kernel_segment_agg(node: PH.KernelSegmentAgg, ctx: ExecContext,
 
 
 def _lower_terminal(node: PH.PhysOp, ctx: ExecContext) -> tuple[str, Callable]:
+    if isinstance(node, PH.MergeScalars):
+        # per-component scalar programs (each with its own access path)
+        # merged with +/max/min; pruned runs never compile, gather or launch
+        subs = []
+        for c in node.children:
+            kind, build = _lower_terminal(c, ctx)
+            assert kind == "scalar", f"MergeScalars over {kind} child"
+            subs.append(build)
+        merges = node.merges
+        combine = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
+
+        def fn(tables, params):
+            outs = [s(tables, params) for s in subs]
+            res = dict(outs[0])
+            for o in outs[1:]:
+                for name, op in merges:
+                    res[name] = combine[op](res[name], o[name])
+            return res
+        return "scalar", fn
+
+    if isinstance(node, PH.SubtractScalars):
+        # anti-matter subtraction: visible = all matter − shadowed matter
+        kind_a, minuend = _lower_terminal(node.children[0], ctx)
+        kind_b, subtrahend = _lower_terminal(node.children[1], ctx)
+        assert kind_a == kind_b == "scalar", (kind_a, kind_b)
+        names = node.names
+
+        def fn(tables, params):
+            a = minuend(tables, params)
+            b = subtrahend(tables, params)
+            return {n: (a[n] - b[n]).to(a[n].dtype)
+                    if n in names and n in b else a[n] for n in a}
+        return "scalar", fn
+
+    if isinstance(node, PH.ShadowProbeCount):
+        return "scalar", _lower_shadow_probe_count(node, ctx)
+
     if isinstance(node, PH.KernelRangeCount):
         return "scalar", _lower_kernel_range_count(node, ctx)
+
+    if isinstance(node, PH.IndexOnlyCount):
+        return "scalar", _lower_index_only_count(node, ctx)
 
     if isinstance(node, PH.MaskCount):
         child = _lower_stream(node.children[0], ctx)
@@ -318,47 +516,109 @@ def _lower_terminal(node: PH.PhysOp, ctx: ExecContext) -> tuple[str, Callable]:
 
 
 def _lower_kernel_range_count(node: PH.KernelRangeCount, ctx: ExecContext) -> Callable:
-    """Lower onto the filter_count kernel: each distinct predicate column
-    once, in a list (the kernel reads each through its own pointer; nothing
-    is stacked), and a (k, 2) bounds operand built from the runtime params
-    in one concatenation: a column's lower bound is the max of its lower
-    params, its upper bound the min of its upper ones, an open side the
-    int32 extreme. The column read bypasses the generic stream path, so no
-    row mask is built outside the kernel; a ``__valid__`` padding column
-    folds in as one extra kernel column with bounds (1, 1). ``block_ids``
-    drive the kernel grid."""
+    """Lower onto the filter_count kernel. The plan keeps one entry per
+    conjunct (open sides are int32-extreme literals); here the entries group
+    by column at run time — a column's lower bound is the max of its lower
+    params, its upper bound the min of its upper ones — so each distinct
+    column reaches the kernel once, in a list (nothing stacked), with a
+    (k, 2) bounds operand. The column read bypasses the generic stream
+    path, so no row mask is built outside the kernel, except the matter
+    column: the validity mask and newer components' anti-matter
+    (valid ∧ ¬shadowed) fold into ONE extra kernel column with bounds
+    (1, 1). ``block_ids`` drive the kernel grid."""
     key = f"{node.dataverse}.{node.dataset}"
-    cols, los, his, has_valid = node.cols, node.los, node.his, node.has_valid
+    shadow, key_col, has_valid = node.shadow_sources, node.key_col, node.has_valid
     block_ids = node.block_ids
-    consts: dict = {}  # per device: int32 [min, max, 1, 1]
+    groups: dict[str, tuple[list, list]] = {}
+    for col, lo, hi in zip(node.cols, node.los, node.his):
+        los, his = groups.setdefault(col, ([], []))
+        los.append(lo)
+        his.append(hi)
+    consts: dict = {}  # per device: int32 [1, 1]
 
-    def side(exprs, params, fold, open_):
-        if not exprs:
-            return open_
+    def fold(exprs, params, op):
         v = exprs[0].evaluate({}, params).reshape(1)
         for e in exprs[1:]:
-            v = fold(v, e.evaluate({}, params).reshape(1))
+            v = op(v, e.evaluate({}, params).reshape(1))
         return v
 
     def fn(tables, params):
         t = tables[key]
-        columns = [t[c].to(torch.int32) for c in cols]
-        dev = columns[0].device
-        c = consts.get(dev)
-        if c is None:
-            c = consts[dev] = torch.tensor([_RANGE_MIN, _RANGE_MAX, 1, 1],
-                                           dtype=torch.int32, device=dev)
+        columns = [t[c].to(torch.int32) for c in groups]
         bounds = []
-        for lo, hi in zip(los, his):
-            bounds.append(side(lo, params, torch.maximum, c[0:1]))
-            bounds.append(side(hi, params, torch.minimum, c[1:2]))
-        if has_valid:
-            columns.append(t["__valid__"].to(torch.int32))
-            bounds.append(c[2:4])
+        for los, his in groups.values():
+            bounds.append(fold(los, params, torch.maximum))
+            bounds.append(fold(his, params, torch.minimum))
+        if has_valid or shadow:
+            dev = columns[0].device
+            if not shadow:
+                matter = t["__valid__"]
+            elif has_valid:
+                matter = t["__valid__"] & ~_shadowed(tables, t[key_col], shadow)
+            else:
+                matter = ~_shadowed(tables, t[key_col], shadow)
+            columns.append(matter.to(torch.int32))
+            one = consts.get(dev)
+            if one is None:
+                one = consts[dev] = torch.ones(2, dtype=torch.int32, device=dev)
+            bounds.append(one)
         bounds = torch.cat(bounds).to(torch.int32).view(-1, 2)
         cnt = ctx.strategy.kernel_filter_count(columns, bounds,
                                                block_ids=block_ids)
-        return {"count": cnt}
+        return {"count": cnt.to(torch.int32)}
+    return fn
+
+
+def _lower_shadow_probe_count(node: PH.ShadowProbeCount, ctx: ExecContext) -> Callable:
+    """The index-only subtrahend: the sorted-unique union of the newer
+    components' anti-key sets (a key tombstoned twice dies once), clipped to
+    the predicate range, counts each tombstone's matter occurrences in this
+    component's sorted primary index. The anti sets are immutable for the
+    life of the plan (it is keyed by stats epoch and LSN), so the union is
+    computed once here on the host and placed on the device once."""
+    key = f"{node.dataverse}.{node.dataset}"
+    ix_name = f"__ix_{node.index_col}__"
+    parts = []
+    for dv, name in node.shadow_sources:
+        ds = ctx.catalog.get(dv, name)
+        parts.append(ds.host_anti_keys if ds.host_anti_keys is not None
+                     else ds.anti_keys_arr.cpu().numpy())
+    anti_union = np.unique(np.concatenate(parts))
+    placed: dict = {}  # (device, dtype) -> tensor
+
+    def fn(tables, params):
+        t = tables[key]
+        ix_keys = t[ix_name]
+        valid = t.get("__valid__")
+        if valid is None:
+            valid = torch.ones(ix_keys.shape, dtype=torch.bool,
+                               device=ix_keys.device)
+        where = (ix_keys.device, ix_keys.dtype)
+        anti = placed.get(where)
+        if anti is None:
+            anti = placed[where] = torch.from_numpy(anti_union).to(
+                device=ix_keys.device, dtype=ix_keys.dtype)
+        lo = node.lo.evaluate({}, params) if node.lo is not None else None
+        hi = node.hi.evaluate({}, params) if node.hi is not None else None
+        cnt = ctx.strategy.shadow_count(ix_keys, valid, anti, lo, hi)
+        return {"count": cnt.to(torch.int32)}
+    return fn
+
+
+def _lower_index_only_count(node: PH.IndexOnlyCount, ctx: ExecContext) -> Callable:
+    key = f"{node.dataverse}.{node.dataset}"
+    ix_name = f"__ix_{node.index_col}__"
+
+    def fn(tables, params):
+        cols = tables[key]
+        ix_keys = cols[ix_name]
+        valid = cols.get("__valid__")
+        if valid is None:
+            valid = torch.ones(ix_keys.shape, dtype=torch.bool,
+                               device=ix_keys.device)
+        lo = node.lo.evaluate({}, params) if node.lo is not None else None
+        hi = node.hi.evaluate({}, params) if node.hi is not None else None
+        return {"count": ctx.strategy.index_count(ix_keys, valid, lo, hi)}
     return fn
 
 
@@ -366,11 +626,16 @@ def _lower_join_count(node: PH.JoinCountOp, ctx: ExecContext) -> Callable:
     lchild = _lower_stream(node.children[0], ctx)
     rchild = _lower_stream(node.children[1], ctx)
     left_on, right_on = node.left_on, node.right_on
+    presorted = node.presorted
+    if presorted:
+        rkey_table = f"{node.presorted_key[0]}.{node.presorted_key[1]}"
+        rkey_name = f"__ix_{right_on}__"
     join = ctx.strategy.kernel_join_count if node.kernel \
         else ctx.strategy.join_count
 
     def fn(tables, params):
         lenv, lm = lchild(tables, params)
         renv, rm = rchild(tables, params)
-        return {"count": join(lenv[left_on], lm, renv[right_on], rm)}
+        rkey = tables[rkey_table][rkey_name] if presorted else renv[right_on]
+        return {"count": join(lenv[left_on], lm, rkey, rm, presorted)}
     return fn

@@ -186,9 +186,18 @@ class AFrame:
         return optimize(self._plan, self._session.catalog).to_sql() + ";"
 
     def explain(self, analyze: bool = False) -> str:
-        """The costed physical plan: per-operator cost estimates and the
-        access path the planner chose over its alternatives."""
+        """The costed physical plan: per-operator cost estimates, the access
+        path the planner chose over its alternatives, and — over a fed
+        dataset — which LSM runs the zone maps pruned and why.
+
+        ``analyze=True`` executes the query and adds measured per-operator
+        wall time and actual rows beside the estimates (``Session.profile``)."""
         return self._session.explain(self._plan, analyze=analyze)
+
+    def profile(self) -> dict:
+        """Execute with per-operator measurement: returns ``{"text",
+        "result", "measures", "prune_report"}``."""
+        return self._session.profile(self._plan)
 
     def _project_plan(self, outputs) -> P.Plan:
         return P.Project(self._plan, outputs)
@@ -250,8 +259,26 @@ class AFrame:
         return new
 
     # -- actions -----------------------------------------------------------------------
-    def get(self, key):
-        raise NotImplementedError("point lookups wait for ROADMAP A2 (indexes)")
+    def get(self, key) -> Optional[dict[str, np.ndarray]]:
+        """Point lookup by primary key: per-component binary searches over
+        the clustered key copy (newest-wins across LSM components,
+        anti-matter aware), bypassing query compilation and kernel launches.
+        Returns the row(s) as ``{column: array}`` or None when the key is
+        absent or deleted. Only valid on a bare dataset frame."""
+        if not isinstance(self._plan, P.Scan):
+            raise ValueError(
+                "get() is a primary-key point lookup on the base dataset; "
+                "this frame carries pending operations — use a filter query")
+        return self._session.point_lookup(self._plan.dataverse,
+                                          self._plan.dataset, key)
+
+    def explain_get(self, key) -> str:
+        """The PointLookup plan ``get(key)`` executes, rendered like
+        ``explain()``."""
+        if not isinstance(self._plan, P.Scan):
+            raise ValueError("explain_get() needs a bare dataset frame")
+        return self._session.explain_lookup(self._plan.dataverse,
+                                            self._plan.dataset, key)
 
     def head(self, n: int = 5) -> dict[str, np.ndarray]:
         return self._session.execute(P.Limit(self._plan, n))

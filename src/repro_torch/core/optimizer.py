@@ -9,10 +9,11 @@ job). Rules, applied bottom-up to a fixpoint:
      on n rows, not the dataset)
   3. ``fuse_agg``       — Agg[count*](Filter(x, p)) -> FilterCount(x, p)
                           Agg[count*](Join(l, r))   -> JoinCount(l, r)
-  4. ``prune_columns``  — narrow Projects above Scans so only referenced
+  4. ``union_pushdown`` — distribute row-wise operators and scalar
+     aggregates through an LSM union (per-component access paths).
+  5. ``prune_columns``  — narrow Projects above Scans so only referenced
      columns are touched.
-The LSM feed expansion and union pushdown of the reference wait for the
-storage slice (ROADMAP A6): this slice's datasets have no runs.
+Before the rules, every Scan of a fed dataset expands into base ∪ runs.
 """
 from __future__ import annotations
 
@@ -34,10 +35,15 @@ _RANGE_MAX = int(np.iinfo(np.int32).max)
 def optimize(root: P.Plan, catalog: Catalog | None = None) -> P.Plan:
     prev_fp = None
     node = root
+    if catalog is not None:
+        # not an optimization: a Scan of a fed dataset MUST see base ∪ runs
+        # (LSM read semantics)
+        node = _expand_feeds(node, catalog)
     for _ in range(12):  # fixpoint with a safety bound
         node = _rewrite(node, _fuse_filters)
         node = _rewrite(node, _pushdown_limit)
         node = _rewrite(node, _fuse_agg)
+        node = _rewrite(node, _union_pushdown)
         fp = node.fingerprint()
         if fp == prev_fp:
             break
@@ -61,6 +67,32 @@ def _uniquify(node: P.Plan, seen: set[int]) -> P.Plan:
             seen.add(id(clone))
         clone.children = kids
     return clone
+
+
+def _expand_feeds(node: P.Plan, catalog: Catalog) -> P.Plan:
+    """Single top-down pass replacing every Scan of a dataset that has LSM
+    runs with UnionRuns(Scan(base), Scan(run_0), ...). Component Scans keep
+    the plain dataset name for the base (it resolves to the base table only;
+    runs live beside it) and each run's stable "<name>@run<uid>" address, so
+    fingerprints change whenever the run set does. ``catalog`` may be a
+    pinned Snapshot — the component set then reflects exactly the bound
+    manifest."""
+    if isinstance(node, P.Scan):
+        if "@" in node.dataset:
+            return node
+        try:
+            comps = catalog.components(node.dataverse, node.dataset)
+        except KeyError:
+            return node
+        runs = comps[1:]
+        if not runs:
+            return node
+        plans: list[P.Plan] = [node]
+        plans += [P.Scan(r.name, node.dataverse) for r in runs]
+        return P.UnionRuns(plans)
+    kids = tuple(_expand_feeds(c, catalog) for c in node.children)
+    return _with_children(node, kids) if kids != node.children else node
+
 
 
 def _rewrite(node: P.Plan, rule) -> P.Plan:
@@ -113,6 +145,35 @@ def _fuse_agg(node: P.Plan):
         if isinstance(child, P.Scan):
             return P.FilterCount(child, None)
     return None
+
+
+def _union_pushdown(node: P.Plan):
+    """Distribute row-wise operators and scalar aggregates through an LSM
+    union so each component keeps its own access path (per-run index probes,
+    per-run fused kernels). Sharing the predicate/output Expr objects across
+    components is safe: literal slots are assigned by object identity, so
+    every occurrence reads the same runtime param."""
+    child = node.children[0] if node.children else None
+    if not isinstance(child, P.UnionRuns):
+        return None
+    if isinstance(node, P.Filter):
+        return P.UnionRuns([P.Filter(c, node.predicate) for c in child.children])
+    if isinstance(node, P.Project):
+        return P.UnionRuns([P.Project(c, node.outputs) for c in child.children])
+    if isinstance(node, P.FilterCount):
+        return P.UnionScalar(
+            [P.FilterCount(c, node.predicate) for c in child.children],
+            [("count", "sum")])
+    if isinstance(node, P.Agg) and all(
+            s.op in ("count", "sum", "max", "min") for s in node.aggs):
+        merges = [(s.out_name, "sum" if s.op in ("count", "sum") else s.op)
+                  for s in node.aggs]
+        return P.UnionScalar([P.Agg(c, node.aggs) for c in child.children], merges)
+    # Agg with mean, GroupAgg, Sort/TopK/Limit/Join: stay above the union —
+    # the compiler's concat lowering (or per-component GroupAgg partials in
+    # kernel mode) handles them.
+    return None
+
 
 
 def _split_conjuncts(e: Expr) -> list[Expr]:
@@ -192,6 +253,11 @@ def _prune_columns(node: P.Plan, catalog: Catalog, needed: set[str] | None = Non
         if isinstance(node, (P.TopK, P.Sort)):
             child_needed = None if needed is None else (set(needed) | node.required_columns())
         kids = (_prune_columns(node.children[0], catalog, child_needed),)
+        return _with_children(node, kids)
+
+    if isinstance(node, P.UnionRuns):
+        # components share one schema: the same requirement applies to each
+        kids = tuple(_prune_columns(c, catalog, needed) for c in node.children)
         return _with_children(node, kids)
 
     if isinstance(node, (P.Join, P.JoinCount)):

@@ -1,17 +1,53 @@
 """Physical query plans — what the cost-based planner hands the compiler
-(port of ``repro.core.physical``, the operators a closed base dataset uses).
+(port of ``repro.core.physical``).
 
-Each node carries its cost annotations (``est_rows``, ``rows_touched``,
+Every *how* decision — index probe vs. full scan vs. fused kernel, which LSM
+runs to read at all — lives in a physical operator chosen by the planner
+(core/physical_planner.py) from catalog statistics (core/stats.py). Each
+node carries its cost annotations (``est_rows``, ``rows_touched``,
 ``cost``, ``note``). ``fingerprint()`` keys the compiled-query dedup cache:
-two logical plans the planner maps to the same physical shape share one
-compiled query, literal values staying runtime parameters. ``format_plan``
-renders the tree ``explain()`` shows.
+two logical plans the planner maps to the same physical shape (a ``x >= a``
+and a ``x <= a`` over the same column) share one compiled query, literal
+values staying runtime parameters. ``format_plan`` renders the tree
+``explain()`` shows, with the zone-span rationale of every pruned run and,
+under ``analyze``, the measured time and rows of every operator.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 from repro_torch.core.expr import Expr
+
+
+@dataclasses.dataclass(frozen=True)
+class PrunedComponent:
+    """One LSM component the planner dropped at bind time, with the zone-map
+    rationale (recorded for explain; the compiled plan never reads it).
+
+    Pruning is mutation-safe because it reasons per key-visibility: only the
+    component's *matter* contribution is dropped (zone spans cover matter
+    only, and a span miss proves zero visible matching rows). Its anti-matter
+    — which annihilates *into* older components — is never pruned: surviving
+    scans keep the pruned run's tombstone set among their shadow sources, so
+    the subtraction still happens. ``tombstones`` records that retention for
+    the explain rationale."""
+
+    address: str
+    column: str
+    span: tuple          # the run's zone span [lo, hi]
+    bound: tuple         # the predicate's effective [lo, hi] at bind time
+    rows: int            # live rows the pruned run holds
+    tombstones: int = 0  # anti-matter records the run keeps contributing
+
+    def describe(self) -> str:
+        out = (f"{self.address} PRUNED: zone span {self.column}∈"
+               f"[{self.span[0]}, {self.span[1]}] misses predicate "
+               f"[{self.bound[0]}, {self.bound[1]}] ({self.rows} rows skipped)")
+        if self.tombstones:
+            out += (f"; {self.tombstones} anti-matter record(s) RETAINED — "
+                    f"they still subtract from older components")
+        return out
 
 
 class PhysOp:
@@ -23,6 +59,11 @@ class PhysOp:
     rows_touched: float = 0.0
     cost: float = 0.0
     note: str = ""
+    # Write-stall early warning (set by the planner's read-amp charge):
+    # component probes / write-stall component cap, and whether it crossed
+    # the warn fraction. 0.0 everywhere on un-fed plans.
+    stall_pressure: float = 0.0
+    stall_imminent: bool = False
 
     def exprs(self) -> list[Expr]:
         return []
@@ -51,7 +92,8 @@ def all_exprs(node: PhysOp) -> list[Expr]:
 
 
 def scan_leaves(node: PhysOp) -> list[tuple[str, str]]:
-    """Dataset keys the physical plan reads."""
+    """Dataset keys the physical plan actually reads (pruned runs excluded —
+    the executable must never gather a dropped component)."""
     keys: list[tuple[str, str]] = []
     for n in walk(node):
         key = getattr(n, "source_key", None)
@@ -60,9 +102,77 @@ def scan_leaves(node: PhysOp) -> list[tuple[str, str]]:
     return keys
 
 
+def anti_leaves(node: PhysOp) -> list[tuple[str, str]]:
+    """Components whose anti-matter key sets the plan subtracts with. A
+    matter-pruned run can still appear here: its tombstones annihilate into
+    surviving older components, so its anti array must be gathered even
+    though its table is not."""
+    keys: list[tuple[str, str]] = []
+    for n in walk(node):
+        for key in getattr(n, "shadow_sources", ()):
+            if key not in keys:
+                keys.append(key)
+    return keys
+
+
+def _shadow_fp(shadow_sources) -> str:
+    return "|".join(f"{dv}.{name}" for dv, name in shadow_sources)
+
+
 def _blocks_fp(block_ids) -> str:
-    # surviving-block lists are static plan structure (kernel grids and
-    # gather slices bake them in), so they are part of the fingerprint
+    # Surviving-block lists are STATIC plan structure (baked into the gather
+    # slices / kernel grid), so they must participate in the executable-dedup
+    # fingerprint — two bindings with different surviving blocks can never
+    # share a compiled program.
+    return "all" if block_ids is None else ",".join(map(str, block_ids))
+
+
+def walk(node: PhysOp):
+    yield node
+    for c in node.children:
+        yield from walk(c)
+
+
+def all_exprs(node: PhysOp) -> list[Expr]:
+    out: list[Expr] = []
+    for n in walk(node):
+        out.extend(n.exprs())
+    return out
+
+
+def scan_leaves(node: PhysOp) -> list[tuple[str, str]]:
+    """Dataset keys the physical plan actually reads (pruned runs excluded —
+    the executable must never gather a dropped component)."""
+    keys: list[tuple[str, str]] = []
+    for n in walk(node):
+        key = getattr(n, "source_key", None)
+        if key is not None and key not in keys:
+            keys.append(key)
+    return keys
+
+
+def anti_leaves(node: PhysOp) -> list[tuple[str, str]]:
+    """Components whose anti-matter key sets the plan subtracts with. A
+    matter-pruned run can still appear here: its tombstones annihilate into
+    surviving older components, so its anti array must be gathered even
+    though its table is not."""
+    keys: list[tuple[str, str]] = []
+    for n in walk(node):
+        for key in getattr(n, "shadow_sources", ()):
+            if key not in keys:
+                keys.append(key)
+    return keys
+
+
+def _shadow_fp(shadow_sources) -> str:
+    return "|".join(f"{dv}.{name}" for dv, name in shadow_sources)
+
+
+def _blocks_fp(block_ids) -> str:
+    # Surviving-block lists are STATIC plan structure (baked into the gather
+    # slices / kernel grid), so they must participate in the executable-dedup
+    # fingerprint — two bindings with different surviving blocks can never
+    # share a compiled program.
     return "all" if block_ids is None else ",".join(map(str, block_ids))
 
 
@@ -94,25 +204,91 @@ class _BlockSkip:
 
 
 class TableScan(PhysOp, _BlockSkip):
-    """Full component scan; with ``block_ids`` the lowering streams only
-    the surviving row blocks (sound because every conjunct the list derives
-    from is applied above this scan)."""
+    """Full component scan. ``shadow_sources`` are the newer LSM components
+    whose anti-matter annihilates into this one: the lowering subtracts the
+    shadowed rows from the stream mask (a sorted-probe per source on the
+    ``key_col`` primary key), so every operator above sees only visible
+    matter — in all three execution modes.
 
-    def __init__(self, dataverse: str, dataset: str):
-        self.dataverse, self.dataset = dataverse, dataset
+    With ``block_ids`` set (bind-time block zone-map test) the lowering
+    streams only the surviving row blocks — sound because the planner only
+    sets the list when every conjunct it derives from is applied above this
+    scan, so skipped blocks provably contribute no passing rows."""
+
+    def __init__(self, dataverse: str, dataset: str, open_cast: bool = False,
+                 key_col: Optional[str] = None,
+                 shadow_sources: tuple = ()):
+        self.dataverse, self.dataset, self.open_cast = dataverse, dataset, open_cast
+        self.key_col = key_col
+        self.shadow_sources = tuple(shadow_sources)
 
     @property
     def source_key(self):
         return (self.dataverse, self.dataset)
 
     def fingerprint(self):
-        return (f"p:scan({self.dataverse}.{self.dataset},"
+        return (f"p:scan({self.dataverse}.{self.dataset},{int(self.open_cast)},"
+                f"{self.key_col},{_shadow_fp(self.shadow_sources)},"
                 f"blk:{_blocks_fp(self.block_ids)})")
 
     def label(self):
-        out = f"TableScan {self.dataverse}.{self.dataset}"
+        out = f"TableScan {self.dataverse}.{self.dataset}" + \
+            (" [open: cast-per-access]" if self.open_cast else "")
         if self.blocks_total and self.blocks_scanned < self.blocks_total:
             out += f" [blocks {self.blocks_scanned}/{self.blocks_total}]"
+        if self.shadow_sources:
+            out += (f" ⊖ anti-matter of {len(self.shadow_sources)} newer "
+                    f"component(s)")
+        return out
+
+
+class IndexProbe(PhysOp, _BlockSkip):
+    """Streaming access path via an indexed column's range predicate: the
+    bound conjuncts become the index mask, the rest stay residual. Shadow
+    sources subtract exactly like :class:`TableScan`.
+
+    With ``block_ids`` set, the lowering gathers only the surviving row
+    blocks before the probe (the same static-slice gather as TableScan) —
+    the sorted-index mask then tests a fraction of the physical rows instead
+    of streaming all of them."""
+
+    def __init__(self, dataverse: str, dataset: str, index_col: str,
+                 lo: Optional[Expr], hi: Optional[Expr],
+                 residual: Optional[Expr] = None, open_cast: bool = False,
+                 key_col: Optional[str] = None,
+                 shadow_sources: tuple = ()):
+        self.dataverse, self.dataset, self.index_col = dataverse, dataset, index_col
+        self.lo, self.hi, self.residual = lo, hi, residual
+        self.open_cast = open_cast
+        self.key_col = key_col
+        self.shadow_sources = tuple(shadow_sources)
+
+    @property
+    def source_key(self):
+        return (self.dataverse, self.dataset)
+
+    def exprs(self):
+        return [e for e in (self.lo, self.hi, self.residual) if e is not None]
+
+    def fingerprint(self):
+        lo = self.lo.fingerprint() if self.lo else "-inf"
+        hi = self.hi.fingerprint() if self.hi else "+inf"
+        res = self.residual.fingerprint() if self.residual else ""
+        return (f"p:ixprobe({self.dataverse}.{self.dataset},{self.index_col},"
+                f"{lo},{hi},{res},{int(self.open_cast)},{self.key_col},"
+                f"{_shadow_fp(self.shadow_sources)},"
+                f"blk:{_blocks_fp(self.block_ids)})")
+
+    def label(self):
+        bounds = f"{self.index_col} ∈ [{'-∞' if self.lo is None else '?'}, " \
+                 f"{'+∞' if self.hi is None else '?'}]"
+        res = " +residual" if self.residual is not None else ""
+        out = f"IndexProbe {self.dataverse}.{self.dataset} ({bounds}{res})"
+        if self.blocks_total and self.blocks_scanned < self.blocks_total:
+            out += f" [blocks {self.blocks_scanned}/{self.blocks_total}]"
+        if self.shadow_sources:
+            out += (f" ⊖ anti-matter of {len(self.shadow_sources)} newer "
+                    f"component(s)")
         return out
 
 
@@ -202,6 +378,25 @@ class JoinGather(PhysOp):
         return f"JoinGather {self.left_on} = {self.right_on}"
 
 
+class PrunedUnionRuns(PhysOp):
+    """Base ∪ surviving runs of a fed dataset. ``pruned`` records the runs
+    the bind-time zone-span test dropped; the executable only ever reads the
+    surviving children."""
+
+    def __init__(self, children: Sequence[PhysOp],
+                 pruned: Sequence[PrunedComponent] = ()):
+        self.children = tuple(children)
+        self.pruned = tuple(pruned)
+
+    def fingerprint(self):
+        inner = ",".join(c.fingerprint() for c in self.children)
+        return f"p:unionruns({inner})"
+
+    def label(self):
+        return (f"UnionRuns [{len(self.children)} components, "
+                f"{len(self.pruned)} pruned]")
+
+
 # -- grouped operators -------------------------------------------------------
 
 
@@ -225,9 +420,10 @@ class GroupAggGeneric(PhysOp):
 
 
 class KernelSegmentAgg(PhysOp):
-    """Group-by lowered onto the segment_agg kernel: one fused launch for
-    the sum family (count/sum/mean share one (n, C) value tile) plus one per
-    extreme family. Chosen only under a static f32-exactness proof.
+    """Group-by lowered onto the segment_agg kernel: per LSM component
+    (``children``), one fused launch for the sum family (count/sum/mean
+    share one (n, C) value tile) plus one per extreme family, partials
+    merged with +/max/min. Chosen only under a static f32-exactness proof.
 
     ``comp_blocks[i]`` is component i's surviving-block list (zone-block
     units; None = all), hoisted off its TableScan so the kernel grid itself
@@ -251,7 +447,8 @@ class KernelSegmentAgg(PhysOp):
 
     def label(self):
         return (f"KernelSegmentAgg {self.key} G={self.num_groups} "
-                f"[{', '.join(s.op for s in self.aggs)}] [segment_agg kernel]")
+                f"[{', '.join(s.op for s in self.aggs)}] "
+                f"[{len(self.children)} segment_agg launch group(s)]")
 
 
 # -- scalar terminals --------------------------------------------------------
@@ -275,24 +472,112 @@ class MaskCount(PhysOp):
         return f"MaskCount{p} [full scan]"
 
 
+class IndexOnlyCount(PhysOp):
+    """COUNT answered from the sorted index alone: two binary searches —
+    never touches the base columns (the paper's index-only query)."""
+
+    def __init__(self, dataverse: str, dataset: str, index_col: str,
+                 lo: Optional[Expr], hi: Optional[Expr]):
+        self.dataverse, self.dataset, self.index_col = dataverse, dataset, index_col
+        self.lo, self.hi = lo, hi
+
+    @property
+    def source_key(self):
+        return (self.dataverse, self.dataset)
+
+    def exprs(self):
+        return [e for e in (self.lo, self.hi) if e is not None]
+
+    def fingerprint(self):
+        lo = self.lo.fingerprint() if self.lo else "-inf"
+        hi = self.hi.fingerprint() if self.hi else "+inf"
+        return f"p:ixcount({self.dataverse}.{self.dataset},{self.index_col},{lo},{hi})"
+
+    def label(self):
+        return (f"IndexOnlyCount {self.dataverse}.{self.dataset} "
+                f"on {self.index_col} [binary search]")
+
+
+class ShadowProbeCount(PhysOp):
+    """The subtrahend of anti-matter subtraction on the index-only path:
+    COUNT of this component's matter rows with primary key ∈ [lo, hi] that
+    newer components' anti-matter shadows. Still index-only — the unioned
+    (deduplicated) anti keys probe the component's sorted primary index,
+    two binary searches per tombstone, never touching base columns."""
+
+    def __init__(self, dataverse: str, dataset: str, index_col: str,
+                 lo: Optional[Expr], hi: Optional[Expr],
+                 shadow_sources: tuple):
+        self.dataverse, self.dataset, self.index_col = dataverse, dataset, index_col
+        self.lo, self.hi = lo, hi
+        self.shadow_sources = tuple(shadow_sources)
+
+    @property
+    def source_key(self):
+        return (self.dataverse, self.dataset)
+
+    def exprs(self):
+        return [e for e in (self.lo, self.hi) if e is not None]
+
+    def fingerprint(self):
+        lo = self.lo.fingerprint() if self.lo else "-inf"
+        hi = self.hi.fingerprint() if self.hi else "+inf"
+        return (f"p:shadowprobe({self.dataverse}.{self.dataset},"
+                f"{self.index_col},{lo},{hi},"
+                f"{_shadow_fp(self.shadow_sources)})")
+
+    def label(self):
+        return (f"ShadowProbeCount {self.dataverse}.{self.dataset} "
+                f"on {self.index_col} [{len(self.shadow_sources)} anti "
+                f"set(s), binary search]")
+
+
+class SubtractScalars(PhysOp):
+    """Anti-matter subtraction at the scalar merge: result = minuend −
+    subtrahend per output (sum-merged outputs only — counts and sums; an
+    extremum is never subtractable and takes the mask path instead). This
+    is what keeps a component's index-only access path valid after newer
+    components deleted/upserted into it."""
+
+    def __init__(self, child: PhysOp, shadow: PhysOp,
+                 names: Sequence[str] = ("count",)):
+        self.children = (child, shadow)
+        self.names = tuple(names)
+
+    def fingerprint(self):
+        return (f"p:subtract([{','.join(self.names)}],"
+                f"{self.children[0].fingerprint()},"
+                f"{self.children[1].fingerprint()})")
+
+    def label(self):
+        return f"SubtractScalars [{', '.join(self.names)}] [anti-matter]"
+
+
 class KernelRangeCount(PhysOp, _BlockSkip):
     """COUNT of conjunctive inclusive ranges over integer columns lowered
-    onto the filter_count kernel: one int32 pass over each distinct column,
-    bounds as a (k, 2) runtime operand, no mask column in device memory.
-    ``los[j]`` / ``his[j]``: the bounds of ``cols[j]`` from below / above
-    (the column's lower bound is their max, its upper bound their min; an
-    empty side is open). A ``__valid__`` padding column folds in as one
-    extra kernel column with bounds (1, 1). ``block_ids`` makes the kernel
-    grid visit the surviving blocks only."""
+    onto the filter_count kernel. One entry per conjunct, as the reference:
+    ``los[j]``/``his[j]`` bound ``cols[j]``, an open side being the literal
+    int32 extreme (a runtime param like any other, so ``x >= a`` and
+    ``x <= a`` share one compiled query). The lowering groups the entries by
+    column at run time, so the kernel reads each distinct column once. The
+    validity mask and, with shadow sources, the newer components'
+    anti-matter fold in as ONE extra kernel column with bounds (1, 1) — the
+    kernel itself performs the subtract-at-merge.
+
+    ``block_ids`` drives the kernel grid through the surviving blocks only;
+    the count stays bit-identical because a skipped block's zone span proves
+    no row satisfies the conjuncts."""
 
     def __init__(self, dataverse: str, dataset: str, cols: Sequence[str],
-                 los: Sequence[Sequence[Expr]], his: Sequence[Sequence[Expr]],
-                 has_valid: bool):
+                 los: Sequence[Expr], his: Sequence[Expr], has_valid: bool,
+                 key_col: Optional[str] = None,
+                 shadow_sources: tuple = ()):
         self.dataverse, self.dataset = dataverse, dataset
         self.cols = tuple(cols)
-        self.los = tuple(tuple(x) for x in los)
-        self.his = tuple(tuple(x) for x in his)
+        self.los, self.his = tuple(los), tuple(his)
         self.has_valid = has_valid
+        self.key_col = key_col
+        self.shadow_sources = tuple(shadow_sources)
 
     @property
     def source_key(self):
@@ -301,16 +586,13 @@ class KernelRangeCount(PhysOp, _BlockSkip):
     def exprs(self):
         out: list[Expr] = []
         for lo, hi in zip(self.los, self.his):
-            out.extend(lo + hi)
+            out.extend((lo, hi))
         return out
 
     def fingerprint(self):
-        # the bound counts fix the param slots' meaning (x >= a and x <= a
-        # must not share a compiled query)
-        cols = ",".join(f"{c}:{len(lo)}/{len(hi)}"
-                        for c, lo, hi in zip(self.cols, self.los, self.his))
         return (f"p:krangecount({self.dataverse}.{self.dataset},"
-                f"[{cols}],{int(self.has_valid)},"
+                f"[{','.join(self.cols)}],{int(self.has_valid)},"
+                f"{self.key_col},{_shadow_fp(self.shadow_sources)},"
                 f"blk:{_blocks_fp(self.block_ids)})")
 
     def label(self):
@@ -318,6 +600,8 @@ class KernelRangeCount(PhysOp, _BlockSkip):
                f"[{', '.join(self.cols)}] [filter_count kernel]")
         if self.blocks_total and self.blocks_scanned < self.blocks_total:
             out += f" [blocks {self.blocks_scanned}/{self.blocks_total}]"
+        if self.shadow_sources:
+            out += " [matter-mask row folded]"
         return out
 
 
@@ -334,31 +618,101 @@ class ScalarAgg(PhysOp):
 
 
 class JoinCountOp(PhysOp):
-    """Fused join+count; ``kernel`` lowers onto merge_join_count (int32-safe
-    proof required)."""
+    """Fused join+count. ``kernel`` lowers onto merge_join_count (int32-safe
+    proof required); ``presorted`` reuses the build side's sorted index."""
 
     def __init__(self, left: PhysOp, right: PhysOp, left_on: str, right_on: str,
-                 kernel: bool = False):
+                 presorted_key: Optional[tuple] = None, kernel: bool = False):
         self.children = (left, right)
         self.left_on, self.right_on = left_on, right_on
+        self.presorted_key = presorted_key  # (dataverse, dataset) of sorted build
         self.kernel = kernel
+
+    @property
+    def presorted(self) -> bool:
+        return self.presorted_key is not None
 
     def fingerprint(self):
         return (f"p:joincount({self.left_on}={self.right_on},"
-                f"{int(self.kernel)},"
+                f"{self.presorted_key},{int(self.kernel)},"
                 f"{self.children[0].fingerprint()},{self.children[1].fingerprint()})")
 
     def label(self):
         how = "merge_join kernel" if self.kernel else "sort+searchsorted"
-        return f"JoinCount {self.left_on} = {self.right_on} [{how}]"
+        pre = ", presorted build" if self.presorted else ""
+        return f"JoinCount {self.left_on} = {self.right_on} [{how}{pre}]"
+
+
+class MergeScalars(PhysOp):
+    """Merge of per-LSM-component scalar programs (+/max/min per output). ``pruned`` records runs the zone-span
+    test excluded at bind time."""
+
+    def __init__(self, children: Sequence[PhysOp],
+                 merges: Sequence[tuple[str, str]],
+                 pruned: Sequence[PrunedComponent] = ()):
+        self.children = tuple(children)
+        self.merges = tuple(merges)
+        self.pruned = tuple(pruned)
+
+    def fingerprint(self):
+        m = ",".join(f"{n}:{op}" for n, op in self.merges)
+        inner = ",".join(c.fingerprint() for c in self.children)
+        return f"p:mergescalars([{m}],{inner})"
+
+    def label(self):
+        ops = ", ".join(f"{n}:{op}" for n, op in self.merges)
+        return (f"MergeScalars [{ops}] [{len(self.children)} components, "
+                f"{len(self.pruned)} pruned]")
+
+
+class PointLookup(PhysOp):
+    """Primary-key point lookup — the one access path that bypasses query
+    compilation entirely: per-component host binary searches over the
+    clustered key copy, walked newest → oldest so anti-matter resolves
+    without any subtraction arithmetic (the first component owning the key
+    decides: fresh matter wins, a tombstone kills every older occurrence).
+    Components whose key zone span misses the probe are skipped without a
+    search. Rendered by ``explain`` like every other physical operator."""
+
+    def __init__(self, dataverse: str, dataset: str, key_col: str,
+                 components: int, probed: int, skipped: int,
+                 found_in: Optional[str] = None,
+                 tombstoned_by: Optional[str] = None):
+        self.dataverse, self.dataset, self.key_col = dataverse, dataset, key_col
+        self.components = components
+        self.probed, self.skipped = probed, skipped
+        self.found_in = found_in
+        self.tombstoned_by = tombstoned_by
+
+    def fingerprint(self):
+        return (f"p:pointlookup({self.dataverse}.{self.dataset},"
+                f"{self.key_col})")
+
+    def label(self):
+        out = (f"PointLookup {self.dataverse}.{self.dataset} on "
+               f"{self.key_col} [newest-wins, {self.probed} of "
+               f"{self.components} component(s) probed, "
+               f"{self.skipped} span-skipped]")
+        return out
 
 
 # -- explain rendering --------------------------------------------------------
 
 
-def format_plan(root: PhysOp) -> str:
-    """The ``explain()`` rendering: one line per operator with its cost
-    estimates and the planner's rationale, as a nested tree."""
+def _fmt_ms(seconds: float) -> str:
+    return f"{seconds * 1e3:.2f}ms"
+
+
+def format_plan(root: PhysOp, analyze: Optional[dict] = None) -> str:
+    """The ``explain()`` rendering: one line per operator with cost
+    estimates, nested tree structure, planner rationale, and a pruning line
+    per excluded LSM run.
+
+    With ``analyze`` (the per-node measurement dict ``profile_physical``
+    returns, keyed by ``id(node)``), each operator line also shows the
+    *measured* self/total wall time and the actual row count beside the
+    estimates — estimate-vs-actual drift on one line."""
+    measures = (analyze or {}).get("nodes", {})
     lines: list[str] = []
 
     def emit(node: PhysOp, prefix: str, is_last: bool, is_root: bool):
@@ -366,29 +720,74 @@ def format_plan(root: PhysOp) -> str:
         meta = f"cost={node.cost:,.0f} rows≈{node.est_rows:,.0f}"
         if node.rows_touched and node.rows_touched != node.est_rows:
             meta += f" touched={node.rows_touched:,.0f}"
+        m = measures.get(id(node))
+        if m is not None:
+            meta += (f" | self={_fmt_ms(m['self_seconds'])} "
+                     f"total={_fmt_ms(m['total_seconds'])} "
+                     f"rows={m['rows']:,}")
         lines.append(f"{prefix}{branch}{node.label()}  [{meta}]")
         child_prefix = prefix if is_root else prefix + ("   " if is_last else "│  ")
         if node.note:
             lines.append(f"{child_prefix}· {node.note}")
-        for i, c in enumerate(node.children):
-            emit(c, child_prefix, i == len(node.children) - 1, False)
+        pruned = getattr(node, "pruned", ())
+        items: list = list(node.children) + list(pruned)
+        for i, item in enumerate(items):
+            last = i == len(items) - 1
+            if isinstance(item, PrunedComponent):
+                mark = "└─ " if last else "├─ "
+                lines.append(f"{child_prefix}{mark}✂ {item.describe()}")
+            else:
+                emit(item, child_prefix, last, False)
 
     emit(root, "", True, True)
     lines.append(f"total estimated cost: {root.total_cost():,.0f}")
+    if analyze is not None:
+        rm = measures.get(id(root))
+        if rm is not None:
+            lines.append(f"measured wall time (per-operator, unjitted): "
+                         f"{_fmt_ms(rm['total_seconds'])}")
+        if analyze.get("jit_seconds") is not None:
+            lines.append(f"jitted end-to-end: "
+                         f"{_fmt_ms(analyze['jit_seconds'])}")
     return "\n".join(lines)
 
 
 def prune_report(root: PhysOp) -> dict:
-    """Block-skipping tally over a physical plan (benchmarks read this)."""
+    """Aggregate pruning metrics over a physical plan (benchmarks / CI smoke
+    read this): component counts, physical rows touched vs. skipped, and the
+    intra-component block tally of the second pruning level."""
+    components = pruned = 0
+    rows_pruned = tombstones_retained = 0
     blocks_total = blocks_scanned = 0
+    compaction_recommended = False
+    stall_pressure = 0.0
+    stall_imminent = False
     for node in walk(root):
+        if getattr(node, "compaction_recommended", False):
+            compaction_recommended = True
+        stall_pressure = max(stall_pressure,
+                             getattr(node, "stall_pressure", 0.0))
+        if getattr(node, "stall_imminent", False):
+            stall_imminent = True
         bt = getattr(node, "blocks_total", 0)
         if bt:
             blocks_total += bt
             blocks_scanned += getattr(node, "blocks_scanned", bt)
+        p = getattr(node, "pruned", None)
+        if p is None:
+            continue
+        components += len(node.children) + len(p)
+        pruned += len(p)
+        rows_pruned += sum(pc.rows for pc in p)
+        tombstones_retained += sum(pc.tombstones for pc in p)
     rows_touched = sum(int(n.rows_touched) for n in walk(root)
                        if getattr(n, "source_key", None) is not None)
-    return {"rows_touched": rows_touched,
+    return {"components": components, "pruned": pruned,
+            "rows_pruned": rows_pruned, "rows_touched": rows_touched,
+            "tombstones_retained": tombstones_retained,
             "blocks_total": blocks_total, "blocks_scanned": blocks_scanned,
             "blocks_skipped": blocks_total - blocks_scanned,
+            "compaction_recommended": compaction_recommended,
+            "stall_pressure": stall_pressure,
+            "stall_imminent": stall_imminent,
             "total_cost": root.total_cost()}

@@ -1,5 +1,4 @@
-"""Logical query plan (port of ``repro.core.plan``; the LSM union nodes wait
-for the storage slice).
+"""Logical query plan (port of ``repro.core.plan``).
 
 The AFrame object never executes anything; each DataFrame operation wraps the
 previous plan in a new node (the paper's "incremental query formation",
@@ -211,6 +210,61 @@ class Join(Plan):
             f"SELECT l, r FROM ({self.children[0].to_sql()}) l "
             f"JOIN ({self.children[1].to_sql()}) r ON l.{self.left_on} = r.{self.right_on}"
         )
+
+
+# -- fused logical nodes introduced by the optimizer ------------------------
+# (Access paths — index probes, kernel launches, run pruning — are PHYSICAL
+# decisions and live in core/physical.py; these nodes only record semantic
+# fusions like "this aggregate is a COUNT over a filter".)
+
+
+class UnionRuns(Plan):
+    """Base ∪ runs over a fed (LSM) dataset: children are the per-component
+    streams (a Scan of the base plus one Scan per device-resident run, or
+    whatever row-wise operators the optimizer pushed into them). Lowering
+    concatenates component streams; results are identical to executing the
+    same plan over the compacted dataset — the LSM read invariant."""
+
+    def __init__(self, children: Sequence[Plan]):
+        self.children = tuple(children)
+
+    def fingerprint(self):
+        inner = ",".join(c.fingerprint() for c in self.children)
+        return f"unionruns({inner})"
+
+    def required_columns(self):
+        out: set[str] = set()
+        for c in self.children:
+            out |= c.required_columns()
+        return out
+
+    def to_sql(self):
+        return " UNION ALL ".join(f"({c.to_sql()})" for c in self.children)
+
+
+class UnionScalar(Plan):
+    """Merge of per-component scalar aggregates over an LSM union: each child
+    is a scalar-terminal plan (FilterCount / FusedRangeCount / Agg) over one
+    component; ``merges`` maps each output name to its merge operator
+    ('sum' for counts and sums, 'min'/'max' for extremes). This is what lets
+    per-component index probes and kernel launches compose with a final
+    psum-style merge instead of materializing the union."""
+
+    def __init__(self, children: Sequence[Plan], merges: Sequence[tuple[str, str]]):
+        self.children = tuple(children)
+        self.merges = tuple(merges)
+
+    def fingerprint(self):
+        m = ",".join(f"{n}:{op}" for n, op in self.merges)
+        inner = ",".join(c.fingerprint() for c in self.children)
+        return f"unionscalar([{m}],{inner})"
+
+    def to_sql(self):
+        parts = " UNION ALL ".join(f"({c.to_sql()})" for c in self.children)
+        aggs = ", ".join(
+            f"{'SUM' if op == 'sum' else op.upper()}(t.{n}) AS {n}"
+            for n, op in self.merges)
+        return f"SELECT {aggs} FROM ({parts}) t"
 
 
 # -- fused logical nodes introduced by the optimizer ------------------------

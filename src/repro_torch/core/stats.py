@@ -1,9 +1,14 @@
 """Statistics layer — the planner's single source of truth (port of
 ``repro.core.stats``).
 
-Per-column lo/hi/distinct collected at load, live row counts, and the
-per-block zone maps harvested once at load; every harvest here is
-O(metadata). The catalog's ``stats_epoch`` keys compiled plans.
+A uniform harvest over every storage component the engine owns — base
+datasets (per-column lo/hi/distinct collected at load, index inventory,
+live row counts), LSM runs (the same shape per flush: a run's column
+``[lo, hi]`` is its zone span, what run-level pruning tests predicates
+against) and materialized views (group counts and key domain). Every
+harvest is O(metadata); the per-block zone maps are computed once at load,
+flush or compaction and handed through. The catalog's ``stats_epoch`` keys
+compiled plans, so a stale plan never reads a dropped component.
 """
 from __future__ import annotations
 
@@ -12,7 +17,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 
-from repro_torch.core.catalog import INTERNAL_COLUMNS, Dataset
+from repro_torch.core.catalog import INTERNAL_COLUMNS, Catalog, Dataset
 # Zone-map block granularity: one zone block per filter_count kernel tile.
 from repro_torch.kernels.filter_count import BLOCK as ZONE_BLOCK_ROWS
 
@@ -46,38 +51,99 @@ def harvest_block_zones(table) -> Optional[BlockZones]:
 
 @dataclasses.dataclass(frozen=True)
 class ColumnStats:
-    """Per-column statistics: ``lo``/``hi`` bound the live value domain."""
+    """Per-column statistics: ``lo``/``hi`` bound the live value domain (an
+    LSM run's zone span); ``index`` is the kind of index covering the column
+    ("primary"/"secondary") or None; ``dict_values`` is a
+    dictionary-encoded string column's sorted dictionary."""
 
     dtype: np.dtype
     lo: Optional[float] = None
     hi: Optional[float] = None
     distinct: Optional[int] = None
     is_string: bool = False
+    sorted_ascending: bool = False
+    index: Optional[str] = None
     dict_values: Optional[tuple] = None
+
+    @property
+    def bounded(self) -> bool:
+        return self.lo is not None and self.hi is not None
+
+    @property
+    def span(self) -> Optional[tuple[float, float]]:
+        return (self.lo, self.hi) if self.bounded else None
 
 
 @dataclasses.dataclass(frozen=True)
 class TableStats:
-    """Statistics for one storage component. ``rows`` counts visible rows;
-    ``padded_rows`` is the physical length every full scan touches — the
-    quantity the cost model charges for."""
+    """Statistics for one storage component (base, LSM run or view).
+    ``rows`` counts visible rows (matter minus what newer anti-matter
+    annihilated); ``padded_rows`` is the physical length every full scan
+    touches — the quantity the cost model charges for. ``tombstones``
+    counts the anti-matter records this component carries, ``shadowed`` its
+    own matter newer anti-matter annihilated (already out of ``rows``)."""
 
+    address: str                 # "dataverse.name" (runs: "dv.name@run<uid>")
     rows: int
     padded_rows: int
     columns: Mapping[str, ColumnStats]
+    kind: str = "dataset"        # dataset | run | view
+    tombstones: int = 0
+    shadowed: int = 0
     block_zones: Optional[BlockZones] = None
 
     def column(self, name: str) -> Optional[ColumnStats]:
         return self.columns.get(name)
 
+    def index_on(self, name: str) -> Optional[str]:
+        c = self.columns.get(name)
+        return c.index if c is not None else None
+
+    @property
+    def is_run(self) -> bool:
+        return self.kind == "run"
+
 
 def harvest(ds: Dataset) -> TableStats:
-    """Uniform stats harvest for a base dataset."""
-    cols = {name: ColumnStats(dtype=np.dtype(meta.dtype), lo=meta.lo,
-                              hi=meta.hi, distinct=meta.distinct,
-                              is_string=meta.is_string,
-                              dict_values=meta.dict_values)
-            for name, meta in ds.table.meta.items()
-            if name not in INTERNAL_COLUMNS}
-    return TableStats(rows=ds.num_live_rows, padded_rows=len(ds.table),
-                      columns=cols, block_zones=ds.block_zones)
+    """Uniform stats harvest for a base dataset or an LSM run."""
+    cols: dict[str, ColumnStats] = {}
+    for name, meta in ds.table.meta.items():
+        if name in INTERNAL_COLUMNS:
+            continue
+        ix = ds.index_on(name)
+        cols[name] = ColumnStats(
+            dtype=np.dtype(meta.dtype), lo=meta.lo, hi=meta.hi,
+            distinct=meta.distinct, is_string=meta.is_string,
+            sorted_ascending=meta.sorted_ascending,
+            index=ix.kind if ix is not None else None,
+            dict_values=meta.dict_values)
+    return TableStats(address=f"{ds.dataverse}.{ds.name}",
+                      rows=ds.num_live_rows, padded_rows=len(ds.table),
+                      columns=cols,
+                      kind="run" if "@" in ds.name else "dataset",
+                      tombstones=ds.anti_rows, shadowed=ds.annihilated_rows,
+                      block_zones=ds.block_zones)
+
+
+def component_stats(catalog: Catalog, dataverse: str, name: str) -> TableStats:
+    """Stats for a component address ("<name>@run<uid>" resolves like the
+    catalog does)."""
+    return harvest(catalog.get(dataverse, name))
+
+
+def view_stats(view) -> TableStats:
+    """Stats of a MaterializedView: live group count and the key domain of
+    its dense state."""
+    counts = getattr(view, "_counts", None)
+    if counts is None:
+        return TableStats(address=f"{view.dataverse}.{view.name}", rows=0,
+                          padded_rows=0, columns={}, kind="view")
+    live = int((counts > 0).sum())
+    g = int(counts.shape[0])
+    key_dtype = np.dtype(view._key_dtype) if view._key_dtype is not None \
+        else np.dtype(np.int64)
+    cols = {view.key: ColumnStats(dtype=key_dtype, lo=view.lo,
+                                  hi=view.lo + g - 1, distinct=live,
+                                  sorted_ascending=True)}
+    return TableStats(address=f"{view.dataverse}.{view.name}", rows=live,
+                      padded_rows=g, columns=cols, kind="view")

@@ -170,3 +170,19 @@ def join_materialize(lenv: Env, lmask: torch.Tensor, renv: Env,
     for k, v in renv.items():
         out[k if k not in lenv else k + suffix] = v[src]
     return out, matched
+
+
+# -- index access ---------------------------------------------------------------
+
+
+def index_range_mask(keys: torch.Tensor, valid: torch.Tensor,
+                     lo: Optional[torch.Tensor],
+                     hi: Optional[torch.Tensor]) -> torch.Tensor:
+    """The IndexProbe stream mask: live rows whose indexed key lies in
+    [lo, hi] (an open side is None)."""
+    m = valid
+    if lo is not None:
+        m = m & (keys >= lo)
+    if hi is not None:
+        m = m & (keys <= hi)
+    return m

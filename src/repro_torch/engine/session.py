@@ -1,6 +1,6 @@
 """Session: the client's connection to the engine (port of
-``repro.engine.session``). Owns the catalog, the device, and the plan
-caches.
+``repro.engine.session``). Owns the catalog, the device, the plan caches and
+the materialized views.
 
 The device rule: ``Session()`` runs on the CUDA card (``device=None`` means
 ``"cuda"``) and raises when there is none — it never falls back to the CPU
@@ -9,11 +9,11 @@ every relational kernel's plain PyTorch version, on the CPU (the tests do).
 In kernel mode on the card, the relational operators launch the
 hand-written CUDA kernels.
 
-``persist`` keeps a query's result on the device as a new closed dataset
-(single-component). Not in this slice (each raises, naming its ROADMAP
-item): durable storage and ``Session.open`` (A8), feeds and views (A6),
-point lookups, indexes and open datasets (A2/A5 leftovers),
-``explain(analyze=True)``, meshes and ``shard_map`` (A9).
+Datasets may be clustered by a primary key and carry sorted secondary
+indexes; ``repro_torch.engine.ingest.Feed`` streams pushes, upserts and
+deletes into LSM runs, and views over a fed dataset refresh from each
+flush. Not in this slice (each raises, naming its ROADMAP item): durable
+storage and ``Session.open`` (A8), meshes and ``shard_map`` (A9).
 """
 from __future__ import annotations
 
@@ -28,11 +28,14 @@ import torch
 
 from repro_torch.core import physical as PH
 from repro_torch.core import plan as P
-from repro_torch.core.catalog import INTERNAL_COLUMNS, Catalog, Dataset
-from repro_torch.core.compiler import CompiledQuery, ExecContext, compile_physical
+from repro_torch.core.catalog import (INTERNAL_COLUMNS, Catalog, Dataset,
+                                      IndexInfo, open_widen)
+from repro_torch.core.compiler import (CompiledQuery, ExecContext,
+                                       compile_physical, profile_physical)
 from repro_torch.core.expr import encode_param, ordered_lits
 from repro_torch.core.optimizer import optimize
-from repro_torch.core.physical_planner import build_pruner, plan_physical
+from repro_torch.core.physical_planner import (NO_PRUNE, build_pruner,
+                                               plan_physical)
 from repro_torch.core.stats import harvest_block_zones
 from repro_torch.device import resolve_device
 from repro_torch.engine.table import (DICT_THRESHOLD, ColumnMeta, Table,
@@ -48,7 +51,8 @@ class _StatsView(Mapping):
     """``Session.stats`` as a read-only view over the telemetry registry;
     ``hits`` sums the variant- and executable-level plan-cache hits."""
 
-    _KEYS = ("compiles", "hits", "optimizes", "plans")
+    _KEYS = ("compiles", "hits", "optimizes", "plans",
+             "pruned_components", "point_lookups")
 
     def __init__(self, sid: str):
         self._sid = sid
@@ -96,12 +100,14 @@ def _later(what: str, item: str) -> NotImplementedError:
 
 class Session:
     def __init__(self, mode: str = "auto", device=None,
-                 catalog: Optional[Catalog] = None, mesh=None, storage=None):
+                 catalog: Optional[Catalog] = None, mesh=None, storage=None,
+                 enable_prune: bool = True):
         """mode: 'auto' (= 'gspmd' on one device), 'gspmd', or 'kernel' (the
         planner lowers fusable plan shapes onto the relational kernels;
         anything uncovered runs the generic operators). ``catalog`` shares
-        another session's datasets (each session keeps its own plan
-        caches)."""
+        another session's datasets (reader sessions: each keeps its own plan
+        caches). ``enable_prune=False`` turns bind-time zone-map run pruning
+        off (pruned and unpruned plans answer alike)."""
         if mesh is not None:
             raise _later("a device mesh", "A9 (multi-device)")
         if storage is not None:
@@ -115,14 +121,20 @@ class Session:
         self.mode = mode
         self.device = resolve_device(device)
         self.catalog = catalog if catalog is not None else Catalog()
+        # the storage crash points ``lsm._fault`` consults (fault injection
+        # arrives with durable storage, ROADMAP A8)
+        self.fault_plan = None
+        self.enable_prune = enable_prune
         # Three-level plan cache:
         #   1. raw (pre-optimization) fingerprint → _PlanEntry for one
         #      (stats epoch, LSN): repeated query shapes skip the optimizer;
         #   2. per entry, prune signature → (compiled query, literal
-        #      binding): new literals with the same surviving blocks rebind
-        #      into the cached query;
+        #      binding): new literals with the same surviving runs and
+        #      blocks rebind into the cached query;
         #   3. (physical fingerprint, epoch, LSN) → compiled query, shared
         #      across logical shapes.
+        # Every flush, compaction and DDL bumps the epoch and the LSN, so a
+        # stale query (which bakes in the component set) is unreachable.
         self._plans: dict[str, _PlanEntry] = {}
         self._compiled: dict[tuple, CompiledQuery] = {}
         self.sid = str(next(_SESSION_IDS))
@@ -134,6 +146,9 @@ class Session:
             else:
                 tel.inc(f"session.{key}_total", 0, sid=self.sid)
         self.stats = _StatsView(self.sid)
+        # incrementally-maintained materialized views (engine/lsm.py),
+        # refreshed from each feed flush's delta batch
+        self.views: dict[str, object] = {}
 
     @classmethod
     def open(cls, path, **kwargs) -> "Session":
@@ -144,19 +159,16 @@ class Session:
     def create_dataset(self, name: str, table: Table, dataverse: str = "Default",
                        closed: bool = True, indexes: Sequence[str] = (),
                        primary: Optional[str] = None) -> Dataset:
-        """Register a closed dataset: place its columns on the session
-        device, collect statistics and derived string lanes, and harvest the
-        per-block zone maps."""
-        if not closed:
-            raise _later("open (schema-on-read) datasets", "A5 leftovers")
-        if indexes or primary is not None:
-            raise _later("indexes", "A2 (engine/index.py)")
+        """Register a dataset on the session device. ``primary`` sorts the
+        stored table by that column (clustered); ``indexes`` build sorted
+        secondary indexes; ``closed=False`` stores integer columns widened
+        to float32 (schema-on-read)."""
         t0 = time.perf_counter()
         with tel.span("session.create_dataset", sid=self.sid,
                       dataset=f"{dataverse}.{name}"):
-            table = _collect_stats(table.to(self.device))
-            ds = Dataset(name=name, dataverse=dataverse, table=table,
-                         closed=True, block_zones=harvest_block_zones(table))
+            ds = self._build_dataset(name, table, dataverse=dataverse,
+                                     closed=closed, indexes=indexes,
+                                     primary=primary)
             self.catalog.register(ds)
             self._plans.clear()
             self._compiled.clear()
@@ -164,17 +176,247 @@ class Session:
                       time.perf_counter() - t0, sid=self.sid)
         return ds
 
-    def create_view(self, *a, **kw):
-        raise _later("materialized views", "A6 (LSM ingest, views)")
+    def _build_dataset(self, name: str, table: Table, dataverse: str = "Default",
+                       closed: bool = True, indexes: Sequence[str] = (),
+                       primary: Optional[str] = None,
+                       stats_like: Optional[Mapping] = None) -> Dataset:
+        """Build (cluster → place → stats → widen → index) WITHOUT touching
+        the catalog: compaction builds replacement bases off the hot path
+        and publishes them with one manifest swap. The clustering sort runs
+        on the host (numpy), before the table moves to the device once.
+        ``stats_like`` (compaction: the retiring base's meta) keeps the
+        string dict-lane decision sticky across components."""
+        host_keys = None
+        if primary is not None:
+            keys = table.columns[primary].cpu().numpy()
+            if not closed:  # cluster in the widened dtype the table stores
+                keys = keys.astype(np.float32)
+            order = torch.from_numpy(np.argsort(keys, kind="stable"))
+            table = Table({k: v[order.to(v.device)]
+                           for k, v in table.columns.items()},
+                          table.meta, table.num_rows)
+        table = _collect_stats(table.to(self.device), like=stats_like)
+        if not closed:
+            table = open_widen(table)
+        if primary is not None:
+            meta = dict(table.meta)
+            meta[primary] = dataclasses.replace(meta[primary],
+                                                sorted_ascending=True)
+            table = Table(table.columns, meta, table.num_rows)
+            # host copy of the clustered key order: annihilation bookkeeping
+            # and point lookups binary-search it
+            host_keys = table.columns[primary].cpu().numpy()
+        ds = Dataset(name=name, dataverse=dataverse, table=table, closed=closed,
+                     host_keys=host_keys, block_zones=harvest_block_zones(table))
+        if primary is not None:
+            ds.indexes["primary"] = self._build_index(table, primary, "primary")
+        for col in indexes:
+            ds.indexes[f"ix_{col}"] = self._build_index(table, col, "secondary")
+        return ds
 
-    def point_lookup(self, *a, **kw):
-        raise _later("point lookups", "A5 leftovers (needs A2 indexes)")
+    def _build_index(self, table: Table, column: str, kind: str) -> IndexInfo:
+        from repro_torch.engine.index import build_index_local
+
+        ix = build_index_local(table.columns[column], table.valid, column, kind)
+        return IndexInfo(name=f"{kind}:{column}", column=column, kind=kind,
+                         sorted_keys=ix.sorted_keys, row_ids=ix.row_ids,
+                         zone_min=ix.zone_min, zone_max=ix.zone_max)
+
+    # -- materialized views (continuous queries over fed datasets) ----------
+
+    def create_view(self, name: str, frame_or_plan):
+        """Register a continuously-maintained group-by aggregate:
+        ``frame_or_plan`` is an AFrame (or its plan) of shape
+        ``groupby(key).agg(...)`` over an optionally filtered dataset scan.
+        Seeded from the dataset's visible rows (base ∪ runs), then refreshed
+        incrementally from each flush's delta batch."""
+        from repro_torch.engine.lsm import MaterializedView
+
+        plan = getattr(frame_or_plan, "_plan", frame_or_plan)
+        view = MaterializedView.from_plan(name, plan, self.device)
+        with self.catalog.snapshot() as snap:
+            self._seed_view(view, snap.components(view.dataverse,
+                                                  view.dataset))
+        self.views[name] = view
+        return view
+
+    def _seed_view(self, view, comps) -> None:
+        """Seed (or reseed) one view from a pinned component tuple."""
+        from repro_torch.engine.lsm import host_visible_mask
+
+        base = comps[0]
+        key_col = base.primary_index.column \
+            if base.primary_index is not None else None
+        for comp in comps:
+            cols = {k: v.cpu().numpy() for k, v in comp.table.columns.items()
+                    if k not in INTERNAL_COLUMNS and not is_lane_column(k)}
+            # visible rows only: anti rows and annihilated matter never count
+            view.apply_delta(cols, host_visible_mask(comp, key_col))
+
+    def reseed_views(self, dataverse: str, dataset: str) -> None:
+        """Rebuild every view over the dataset from scratch (view partials
+        are soft state)."""
+        targets = [v for v in self.views.values()
+                   if (v.dataverse, v.dataset) == (dataverse, dataset)]
+        if not targets:
+            return
+        with self.catalog.snapshot() as snap:
+            comps = snap.components(dataverse, dataset)
+            for view in targets:
+                view.reset()
+                self._seed_view(view, comps)
+
+    def read_view(self, name: str) -> dict:
+        """The materialized result — no query execution."""
+        return self.views[name].result()
+
+    def drop_view(self, name: str) -> None:
+        self.views.pop(name, None)
+
+    def refresh_views(self, dataverse: str, dataset: str,
+                      delta_cols: dict, retracted: Optional[dict] = None) -> None:
+        """Apply one flushed delta batch to every view over the dataset
+        (called by Feed.flush). ``retracted`` carries the OLD rows this
+        flush's anti-matter annihilated."""
+        for view in self.views.values():
+            if (view.dataverse, view.dataset) == (dataverse, dataset):
+                view.apply_delta(delta_cols)
+                if retracted is not None:
+                    view.apply_retraction(retracted,
+                                          recompute=self._view_recompute(view))
+
+    def _view_recompute(self, view):
+        """The exact extremum-repair fallback: host-scan the dataset's
+        visible rows and recompute ``op(column)`` for exactly the affected
+        groups. Runs only when a retraction removed a group's current
+        max/min."""
+        from repro_torch.engine.lsm import host_visible_mask
+
+        def recompute(op: str, column: str, group_keys: np.ndarray) -> np.ndarray:
+            t0 = time.perf_counter()
+            tel.inc("session.view_recomputes_total", sid=self.sid,
+                    view=getattr(view, "name", "?"))
+            with self.catalog.snapshot() as snap:
+                comps = snap.components(view.dataverse, view.dataset)
+                ds = comps[0]
+                key_col = ds.primary_index.column \
+                    if ds.primary_index is not None else None
+                keys_parts, vals_parts = [], []
+                for comp in comps:
+                    mask = host_visible_mask(comp, key_col)
+                    cols = comp.table.columns
+                    if view.predicate is not None:
+                        mask &= view._predicate_mask(
+                            {k: v.cpu().numpy() for k, v in cols.items()})
+                    keys_parts.append(cols[view.key].cpu().numpy()[mask])
+                    vals_parts.append(cols[column].cpu().numpy()[mask])
+            keys = np.concatenate(keys_parts)
+            vals = np.concatenate(vals_parts).astype(np.float64)
+            # one sort, then a binary-searched slice per affected group
+            order = np.argsort(keys, kind="stable")
+            ks, vs = keys[order], vals[order]
+            lo = np.searchsorted(ks, group_keys, side="left")
+            hi = np.searchsorted(ks, group_keys, side="right")
+            identity = -np.inf if op == "max" else np.inf
+            out = np.full(len(group_keys), identity, np.float64)
+            for i, (l, h) in enumerate(zip(lo, hi)):
+                if h > l:
+                    sel = vs[l:h]
+                    out[i] = sel.max() if op == "max" else sel.min()
+            dt = time.perf_counter() - t0
+            tel.observe("session.view_recompute_seconds", dt, sid=self.sid)
+            tel.set_gauge("session.last_view_recompute_seconds", dt,
+                          sid=self.sid)
+            return out
+
+        return recompute
+
+    # -- point lookups (the one path that bypasses compilation) -------------
+
+    def point_lookup(self, dataverse: str, dataset: str, key):
+        """Primary-key point lookup: per-component host binary searches over
+        the clustered key copies, walked newest → oldest — the first
+        component owning the key decides (fresh matter wins, a tombstone
+        kills every older occurrence; an upsert run's matter is checked
+        before its anti set, which applies to older components only). No
+        kernel launch, no compile, no plan-cache traffic.
+
+        Returns the matching row(s) as ``{column: np.ndarray}`` or None;
+        ``last_physical`` holds the PointLookup node."""
+        t0 = time.perf_counter()
+        with self.catalog.snapshot() as snap:
+            comps = list(snap.components(dataverse, dataset))
+        primary = comps[0].primary_index
+        if primary is None:
+            raise ValueError(
+                f"point lookup needs a primary key on {dataverse}.{dataset} "
+                "(create the dataset with primary=<column>)")
+        probed = skipped = 0
+        found_in = tombstoned_by = None
+        result = None
+        for comp in reversed(comps):  # newest component wins
+            hk = comp.host_keys
+            if hk is not None and len(hk):
+                # the clustered copy is sorted: its ends are the key span
+                if key < hk[0] or key > hk[-1]:
+                    skipped += 1
+                else:
+                    probed += 1
+                    lo = int(np.searchsorted(hk, key, side="left"))
+                    hi = int(np.searchsorted(hk, key, side="right"))
+                    if hi > lo:
+                        # the matter prefix is clustered by the primary key:
+                        # index positions are table row positions
+                        result = {c: v[lo:hi].cpu().numpy()
+                                  for c, v in comp.table.columns.items()
+                                  if c not in INTERNAL_COLUMNS
+                                  and not c.startswith("__ix")
+                                  and not is_lane_column(c)}
+                        found_in = f"{comp.dataverse}.{comp.name}"
+                        break
+            if comp.anti_rows:
+                ak = comp.host_anti_keys
+                pos = int(np.searchsorted(ak, key))
+                if pos < len(ak) and ak[pos] == key:
+                    tombstoned_by = f"{comp.dataverse}.{comp.name}"
+                    break  # deleted: nothing older is visible
+        node = PH.PointLookup(dataverse, dataset, primary.column,
+                              components=len(comps), probed=probed,
+                              skipped=skipped, found_in=found_in,
+                              tombstoned_by=tombstoned_by)
+        node.est_rows = 0 if result is None else len(next(iter(result.values())))
+        node.cost = probed * 2.0  # binary-search pairs; never a scan
+        if tombstoned_by is not None:
+            node.note = (f"key is anti-matter in {tombstoned_by} — deleted, "
+                         f"older occurrences invisible")
+        elif found_in is not None:
+            node.note = f"resolved in {found_in} (newest component with the key)"
+        else:
+            node.note = "key absent from every component span"
+        self.last_physical = node
+        self.last_prune_report = PH.prune_report(node)
+        dt = time.perf_counter() - t0
+        tel.inc("session.point_lookups_total", sid=self.sid)
+        tel.observe("session.point_lookup_seconds", dt, sid=self.sid)
+        tel.set_gauge("session.last_point_lookup_seconds", dt, sid=self.sid)
+        return result
+
+    def explain_lookup(self, dataverse: str, dataset: str, key) -> str:
+        """The PointLookup plan for ``get(key)``, rendered like explain()."""
+        self.point_lookup(dataverse, dataset, key)
+        return PH.format_plan(self.last_physical)
 
     # -- query execution -------------------------------------------------------
 
     def exec_context(self, catalog=None) -> ExecContext:
         return ExecContext(catalog=catalog if catalog is not None else self.catalog,
                            mode=self.mode, device=self.device)
+
+    def _decide(self, e: "_PlanEntry", raw_lits: list):
+        with tel.span("session.prune", sid=self.sid):
+            if not self.enable_prune:
+                return NO_PRUNE
+            return e.pruner.decide([l.value for l in raw_lits])
 
     def _plan_entry(self, plan: P.Plan, raw_fp: str, raw_lits: list,
                     snap) -> _PlanEntry:
@@ -199,8 +441,7 @@ class Session:
     def _variant(self, e: _PlanEntry, raw_lits: list, snap):
         """Levels 2+3: prune signature → (compiled query, binding); compiled
         queries are shared across logical shapes by physical fingerprint."""
-        with tel.span("session.prune", sid=self.sid):
-            decisions = e.pruner.decide([l.value for l in raw_lits])
+        decisions = self._decide(e, raw_lits)
         var = e.variants.get(decisions.signature)
         if var is not None:
             tel.inc("session.plan_cache.hits_total", level="variant", sid=self.sid)
@@ -228,10 +469,21 @@ class Session:
         e.variants[decisions.signature] = var
         return var
 
+    def _finish(self, e: _PlanEntry, cq: CompiledQuery, out):
+        self.last_optimized = e.opt
+        self.last_physical = cq.physical
+        self.last_prune_report = PH.prune_report(cq.physical)
+        if cq.kind == "scalar":
+            vals = {k: v.item() for k, v in out.items()}
+            return vals if len(vals) > 1 else next(iter(vals.values()))
+        return _materialize(*out)
+
     def execute(self, plan: P.Plan):
-        """Optimize → cost-plan (block skipping decided at bind time) →
-        compile (cached) → run → numpy. Scalar results come back as Python
-        numbers, tables as ``{column: np.ndarray}`` of the live rows."""
+        """Optimize → cost-plan (run pruning and block skipping decided at
+        bind time) → compile (cached) → run → numpy. Scalar results come
+        back as Python numbers, tables as ``{column: np.ndarray}`` of the
+        live rows. The query pins one catalog snapshot and runs entirely
+        against it: a concurrent flush or compaction binds the NEXT query."""
         t0 = time.perf_counter()
         raw_fp = plan.fingerprint()
         raw_lits = ordered_lits(P.all_exprs(plan))
@@ -242,25 +494,20 @@ class Session:
                 params = _bind_params(binding, raw_lits, self.device)
                 with tel.span("session.execute.run", sid=self.sid):
                     out = cq.run(snap, params=params)
-                    if cq.kind == "scalar":
-                        vals = {k: v.item() for k, v in out.items()}
-                        result = vals if len(vals) > 1 else next(iter(vals.values()))
-                    else:
-                        result = _materialize(*out)
+                    result = self._finish(e, cq, out)
         dt = time.perf_counter() - t0
         tel.inc("session.executes_total", sid=self.sid, mode=self.mode)
         tel.set_gauge("session.last_execute_seconds", dt, sid=self.sid)
-        self.last_optimized = e.opt
-        self.last_physical = cq.physical
-        self.last_prune_report = PH.prune_report(cq.physical)
+        tel.inc("session.pruned_components_total",
+                self.last_prune_report["pruned"], sid=self.sid)
         return result
 
     def persist(self, plan: P.Plan, name: str,
                 dataverse: str = "Default") -> Dataset:
         """CREATE DATASET AS <query> (paper Input 15): the result stays on
         the session's device — its rows, with the query's live-row mask as
-        ``__valid__`` — as a new closed dataset with fresh statistics and
-        zone maps. Single-component: the port has no LSM runs yet."""
+        ``__valid__`` — as a new closed single-component dataset with fresh
+        statistics and zone maps."""
         raw_lits = ordered_lits(P.all_exprs(plan))
         with self.catalog.snapshot() as snap:
             e = self._plan_entry(plan, plan.fingerprint(), raw_lits, snap)
@@ -270,22 +517,52 @@ class Session:
         if cq.kind == "scalar":
             raise ValueError("cannot persist a scalar result")
         env, mask = out
+        # per-component dict lanes do not share a dictionary: stats rebuild
         cols = {k: v for k, v in env.items() if not is_lane_column(k)}
         cols["__valid__"] = mask
         return self.create_dataset(name, Table(cols, num_rows=int(mask.shape[0])),
                                    dataverse)
 
     def explain(self, plan: P.Plan, analyze: bool = False) -> str:
-        """The costed physical plan for ``plan``; compiles and runs nothing."""
+        """The costed physical plan for ``plan`` with the pruning rationale;
+        compiles and runs nothing. ``analyze=True`` also EXECUTES the query
+        (``profile``) and annotates every operator with measured time and
+        actual rows."""
         if analyze:
-            raise _later("explain(analyze=True)", "A5 leftovers")
+            return self.profile(plan)["text"]
         raw_lits = ordered_lits(P.all_exprs(plan))
         with self.catalog.snapshot() as snap:
             e = self._plan_entry(plan, plan.fingerprint(), raw_lits, snap)
             phys = plan_physical(e.opt, snap, mode=self.mode,
-                                 decisions=e.pruner.decide(
-                                     [l.value for l in raw_lits]))
+                                 decisions=self._decide(e, raw_lits))
         return PH.format_plan(phys)
+
+    def profile(self, plan: P.Plan) -> dict:
+        """``explain(analyze=True)``'s engine: run ``plan`` through the
+        cached pipeline, time the whole run, then measure every operator's
+        subtree standalone (``compiler.profile_physical``).
+
+        Returns ``{"text", "result", "measures", "prune_report"}`` —
+        ``result`` is exactly what ``execute(plan)`` returns."""
+        tel.inc("session.profiles_total", sid=self.sid)
+        raw_lits = ordered_lits(P.all_exprs(plan))
+        with self.catalog.snapshot() as snap:
+            with tel.span("session.profile", sid=self.sid, mode=self.mode):
+                e = self._plan_entry(plan, plan.fingerprint(), raw_lits, snap)
+                cq, binding = self._variant(e, raw_lits, snap)
+                params = _bind_params(binding, raw_lits, self.device)
+                tables = cq.gather_tables(snap)
+                t0 = time.perf_counter()
+                out = cq.fn(tables, params)
+                result = self._finish(e, cq, out)
+                run_seconds = time.perf_counter() - t0
+                measures = profile_physical(cq.physical,
+                                            self.exec_context(snap),
+                                            tables, params)
+        measures["jit_seconds"] = run_seconds
+        return {"text": PH.format_plan(cq.physical, analyze=measures),
+                "result": result, "measures": measures,
+                "prune_report": self.last_prune_report}
 
 
 def _literal_binding(raw_lits, opt_lits) -> list[tuple[str, object]]:
@@ -308,16 +585,21 @@ def _bind_params(binding, raw_lits, device):
             for kind, v in binding]
 
 
-def _collect_stats(table: Table) -> Table:
+def _collect_stats(table: Table, like: Optional[Mapping] = None) -> Table:
     """Fill missing lo/hi/distinct for numeric columns, and grow every
     string column's derived integer lanes: the order-preserving
     ``__pfx_<col>`` prefix lane, and the sorted dictionary-id lane
     ``__dict_<col>`` when the distinct count stays under DICT_THRESHOLD
-    (dead rows carry id -1). Runs on the table's device; the lanes and
-    metadata equal the reference's."""
+    (dead rows carry id -1). ``like`` is the base's meta when building an
+    LSM run or a compacted base: dict-lane presence then follows it, so the
+    column set stays uniform across a dataset's components. Runs on the
+    table's device; the lanes and metadata equal the reference's."""
     meta = dict(table.meta)
     cols = dict(table.columns)
     live = table.valid
+    anti = cols.get("__antimatter__")
+    if anti is not None:
+        live = live & ~anti
     for name, col in table.columns.items():
         if name in INTERNAL_COLUMNS or is_lane_column(name):
             continue
@@ -334,10 +616,14 @@ def _collect_stats(table: Table) -> Table:
             dname = dict_lane_name(name)
             if dname not in cols:
                 uniq, inv = torch.unique(col[live], dim=0, return_inverse=True)
+                hint = getattr(like.get(name), "dict_values", None) \
+                    if like is not None else None
+                want_dict = (hint is not None) if like is not None \
+                    else uniq.shape[0] <= DICT_THRESHOLD
                 new = m if m is not None else ColumnMeta(np.dtype(np.uint8),
                                                          is_string=True)
                 new = dataclasses.replace(new, distinct=int(uniq.shape[0]))
-                if uniq.shape[0] <= DICT_THRESHOLD:
+                if want_dict:
                     ids = torch.full((col.shape[0],), -1, dtype=torch.int32,
                                      device=col.device)
                     ids[live] = inv.to(torch.int32)

@@ -113,9 +113,13 @@ def segment_agg(values: torch.Tensor, gids: torch.Tensor, num_groups: int,
                            block_ids=ids)
 
 
-def sort_join_keys(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def sort_join_keys(keys: torch.Tensor, mask: torch.Tensor,
+                   presorted: bool = False) -> torch.Tensor:
     """Prepare one side for merge_join_count's contract: int32 keys, dead
-    rows replaced by the INT32_MAX sentinel, ascending sort."""
+    rows replaced by the INT32_MAX sentinel, ascending sort (skipped when
+    the keys come from a sorted index: valid ascending, sentinel tail)."""
+    if presorted:
+        return keys.to(torch.int32)
     return torch.sort(torch.where(mask, keys.to(torch.int32), INT32_MAX)).values
 
 

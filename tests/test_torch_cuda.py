@@ -322,3 +322,85 @@ def test_cuda_block_topk_and_merge_match_plain_versions():
             assert torch.equal(g, w), args[2:]
         for g, w in zip(tk.topk_merge(*args), tk.merge_candidates_plain(*want)):
             assert torch.equal(g, w), args[2:]
+
+
+def _matter_case(dev, n_matter=10_001, n_anti=37, block=1024, k=2, seed=3):
+    """A run's layout as the compiler passes it: k predicate columns plus
+    the matter column (1 = visible matter; anti rows after the matter
+    prefix and the block padding are 0), n_valid % 4 != 0."""
+    rng = np.random.default_rng(seed)
+    n = -(-(n_matter + n_anti) // block) * block
+    cols = [torch.from_numpy(rng.integers(0, 40, n).astype(np.int32)).to(dev)
+            for _ in range(k)]
+    matter = np.zeros(n, np.int32)
+    matter[:n_matter] = rng.random(n_matter) > 0.1  # some shadowed matter
+    cols.append(torch.from_numpy(matter).to(dev))
+    bounds = torch.tensor([[3, 30]] * k + [[1, 1]], dtype=torch.int32,
+                          device=dev)
+    return cols, bounds, n
+
+
+@pytest.mark.cuda
+def test_cuda_filter_count_with_matter_column():
+    """filter_count over predicate columns plus the matter column, whole
+    length and with a tile list, against its plain version (exact)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    for k, n_matter in ((1, 10_001), (2, 4_097), (3, 777)):
+        cols, bounds, n = _matter_case(dev, n_matter=n_matter, k=k)
+        for n_valid in (n, n - 3, n_matter + 5):
+            assert n_valid % 4 != 0 or n_valid == n
+            got = fc.filter_count(cols, bounds, n_valid)
+            want = fc.filter_count_plain(cols, bounds, n_valid)
+            assert got.dtype == torch.int32 and int(got) == int(want)
+        ids = tuple(range(0, -(-n // fc.BLOCK), 2))
+        assert int(fc.filter_count(cols, bounds, n, block_ids=ids)) == \
+            int(fc.filter_count_plain(cols, bounds, n, block_ids=ids))
+
+
+@pytest.mark.cuda
+def test_cuda_fed_session_kernel_counts_equal_gspmd():
+    """One fed, mutated session on the card: kernel mode (the CUDA kernels,
+    one filter_count and one segment_agg launch per component) answers
+    every count as gspmd mode over the same catalog, before and after
+    compaction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+
+    kern = Session(mode="kernel")
+    kern.create_dataset("Live", wisconsin.generate(50_000, seed=3),
+                        dataverse="d", indexes=["onePercent"], primary="unique2")
+    gsp = Session(mode="gspmd", catalog=kern.catalog)
+    feed = Feed(kern, "Live", "d", flush_rows=10**9,
+                policy=lsm.CompactionPolicy(size_ratio=10.0, max_runs=64))
+    extra = {k: v.numpy() for k, v in wisconsin.generate(5_000, seed=4).columns.items()}
+    extra["unique2"] = extra["unique2"] + 50_000
+    feed.push(extra)
+    feed.flush()
+    up = {k: v.numpy() for k, v in wisconsin.generate(2_000, seed=5).columns.items()}
+    up["unique2"] = np.arange(100, 2_100, dtype=np.int32)
+    feed.upsert(up)
+    feed.delete(np.arange(40_000, 41_000, dtype=np.int32))
+    feed.flush()
+
+    def counts(sess):
+        df = AFrame("d", "Live", session=sess)
+        return (len(df), len(df[(df["ten"] == 3) & (df["two"] == 1)]),
+                len(df[(df["onePercent"] >= 10) & (df["onePercent"] <= 30)]),
+                len(df[(df["unique2"] >= 50) & (df["unique2"] <= 45_000)]),
+                {k: v.tolist() for k, v in df.groupby("ten").agg("count").items()})
+
+    _build.reset_launches()
+    got = counts(kern)
+    assert _build.LAUNCHES.get("filter_count", 0) >= 3
+    assert _build.LAUNCHES.get("segment_agg", 0) == 3
+    assert got == counts(gsp)
+    feed.compact()
+    assert counts(kern) == counts(gsp) == got

@@ -22,6 +22,7 @@ from repro_torch.core import plan as TP
 from repro_torch.core.expr import Col as TCol
 from repro_torch.core.frame import AFrame as TFrame
 from repro_torch.data import wisconsin as tw
+from repro_torch.engine import lsm
 from repro_torch.engine import session as tsession
 from repro_torch.engine.session import Session as TSession
 from repro_torch.engine.table import ColumnMeta as TMeta
@@ -139,9 +140,22 @@ def test_kernels_on_lowered_path(tables):
     assert ops.DISPATCH_COUNTS.get("merge_join_count", 0) >= 1
 
 
+RANGE_SHAPES = {
+    "point": lambda df, x: df[df["onePercent"] == x],
+    "range": lambda df, x: df[(df["onePercent"] >= x) & (df["onePercent"] <= x + 9)],
+    "at_least": lambda df, x: df[df["onePercent"] >= x],
+    "at_most": lambda df, x: df[df["onePercent"] <= x],
+}
+
+
 def test_plan_cache_counts_equal_reference(tables):
     """Randomized literals reuse the compiled query and skip the optimizer:
-    the same compiles / hits / optimizes as the reference."""
+    the same compiles / hits / optimizes as the reference — for e3's
+    three-column point, and across the range count's point, range and
+    one-sided shapes (an open side is a runtime literal, so ``==``, ``>=``
+    and ``<=`` share one compiled query; the two-conjunct range does not).
+    The counts, the physical fingerprints, the labels and the explain texts
+    equal the reference's at every step."""
     counts = {}
     for key, sess in (("ref", _rsession(tables[0], "kernel")),
                       ("port", _tsession(tables[1], "kernel"))):
@@ -149,9 +163,33 @@ def test_plan_cache_counts_equal_reference(tables):
         for x in (1, 7, 3):
             len(df[(df["ten"] == x) & (df["twentyPercent"] == x % 5)
                    & (df["two"] == x % 2)])
-        counts[key] = (sess.stats["compiles"], sess.stats["hits"],
-                       sess.stats["optimizes"])
-    assert counts["port"] == counts["ref"] == (1, 2, 1)
+        counts[key] = [(sess.stats["compiles"], sess.stats["hits"],
+                        sess.stats["optimizes"])]
+    assert counts["port"] == counts["ref"] == [(1, 2, 1)]
+    sessions = {"ref": _rsession(tables[0], "kernel"),
+                "port": _tsession(tables[1], "kernel")}
+    raw = tables[1].to_numpy()["onePercent"]
+    want = {"point": lambda x: raw == x,
+            "range": lambda x: (raw >= x) & (raw <= x + 9),
+            "at_least": lambda x: raw >= x, "at_most": lambda x: raw <= x}
+    steps = {"ref": [], "port": []}
+    for name in ("point", "range", "at_least", "at_most", "point", "at_least"):
+        for x in (11, 42):
+            for key, sess in sessions.items():
+                df, _ = _frames(sess)
+                sel = RANGE_SHAPES[name](df, x)
+                n = len(sel)
+                assert n == int(want[name](x).sum()), (key, name, x)
+                phys = sess.last_physical
+                text = sess.explain((RP if key == "ref" else TP).Agg(
+                    sel._plan, [(RP if key == "ref" else TP).AggSpec(
+                        "count", "count", None)]))
+                steps[key].append((name, x, sess.stats["compiles"],
+                                   sess.stats["hits"], sess.stats["optimizes"],
+                                   phys.fingerprint(), phys.label(), text))
+    assert steps["port"] == steps["ref"]
+    # one compiled query per conjunct count: point, >= and <= share one
+    assert steps["port"][-1][2:5] == (2, 10, 4)
 
 
 def test_point_and_range_share_compiled_query(tables):
@@ -162,9 +200,9 @@ def test_point_and_range_share_compiled_query(tables):
     assert len(df[(df["onePercent"] >= 10) & (df["onePercent"] <= 12)]) == \
         int(((raw["onePercent"] >= 10) & (raw["onePercent"] <= 12)).sum())
     assert len(df[df["onePercent"] == 77]) == int((raw["onePercent"] == 77).sum())
-    # the range's two conjuncts bound one column, as a point does: one
-    # kernel column with a lower and an upper bound, one compiled query
-    assert sess.stats["compiles"] == 1
+    # the range has 2 conjuncts against the point's 1: another plan shape
+    # and another compiled query (as the reference); == after == hits
+    assert sess.stats["compiles"] == 2
 
 
 def test_graceful_fallback_non_range_predicates(tables):
@@ -309,9 +347,9 @@ def test_session_without_a_card_raises():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s, t: s.create_dataset("x", t, closed=False),
-    lambda s, t: s.create_dataset("x", t, indexes=["unique1"]),
-    lambda s, t: s.create_dataset("x", t, primary="unique2"),
+    lambda s, t: TSession(mesh=object(), device="cpu"),
+    lambda s, t: lsm.recover(s, "w", "x"),
+    lambda s, t: lsm.ensure_soft(s, "w", "x"),
     lambda s, t: TSession(mode="shard_map", device="cpu"),
     lambda s, t: TSession(device="cpu", storage="store"),
     lambda s, t: TSession.open("store"),

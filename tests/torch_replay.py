@@ -1,0 +1,69 @@
+"""Shared helpers of the ``test_torch_*`` replays: one reference scenario
+written once and driven through both packages in the same process.
+
+``pkg("ref")`` and ``pkg("port")`` expose the same surface (plan nodes,
+AFrame, Session, Feed, lsm, Table, the Wisconsin generator); the port's
+sessions run on the CPU, so kernel mode runs each kernel's plain version.
+Both Wisconsin generators give the same rows for the same seed."""
+import types
+
+import numpy as np
+
+
+def pkg(which: str):
+    if which == "ref":
+        from repro.core import physical as PH
+        from repro.core import plan as P
+        from repro.core.frame import AFrame
+        from repro.data import wisconsin
+        from repro.engine import lsm
+        from repro.engine.ingest import Feed
+        from repro.engine.session import Session
+        from repro.engine.table import Table
+        from repro.kernels import ops
+
+        def session(mode="gspmd", **kw):
+            return Session(mode=mode, **kw)
+    else:
+        from repro_torch.core import physical as PH
+        from repro_torch.core import plan as P
+        from repro_torch.core.frame import AFrame
+        from repro_torch.data import wisconsin
+        from repro_torch.engine import lsm
+        from repro_torch.engine.ingest import Feed
+        from repro_torch.engine.session import Session
+        from repro_torch.engine.table import Table
+        from repro_torch.kernels import ops
+
+        def session(mode="gspmd", **kw):
+            return Session(mode=mode, device="cpu", **kw)
+    return types.SimpleNamespace(name=which, PH=PH, P=P, AFrame=AFrame,
+                                 wisconsin=wisconsin, lsm=lsm, Feed=Feed,
+                                 Session=Session, Table=Table, ops=ops,
+                                 session=session)
+
+
+REF, PORT = pkg("ref"), pkg("port")
+
+
+def host_rows(table) -> dict:
+    """A generated table's columns as numpy arrays (either package)."""
+    return {k: np.asarray(v) for k, v in table.columns.items()}
+
+
+def assert_same(a, b, label):
+    """Bit-identical results, dtypes included (dicts of arrays or scalars
+    of the same Python type)."""
+    if isinstance(b, dict):
+        assert set(a) == set(b), (label, sorted(a), sorted(b))
+        for k in b:
+            av, bv = np.asarray(a[k]), np.asarray(b[k])
+            assert av.dtype == bv.dtype, (label, k, av.dtype, bv.dtype)
+            np.testing.assert_array_equal(av, bv, err_msg=f"{label}:{k}")
+    else:
+        assert type(a) is type(b) and a == b, (label, a, b)
+
+
+def counts(sess) -> tuple:
+    return tuple(sess.stats[k] for k in ("compiles", "hits", "optimizes",
+                                          "plans"))
