@@ -32,9 +32,10 @@ import torch
 from repro_torch.core import physical as PH
 from repro_torch.core.catalog import INTERNAL_COLUMNS, Catalog
 from repro_torch.core.expr import collect_params, param_values
+from repro_torch.core.window import execute_window
 from repro_torch.engine import physical
 from repro_torch.engine.index import _search
-from repro_torch.engine.table import is_lane_column
+from repro_torch.engine.table import encode_strings, is_lane_column
 from repro_torch.runtime import telemetry as tel
 
 
@@ -297,6 +298,26 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
             return env, torch.cat(masks, dim=0)
         return fn
 
+    if isinstance(node, PH.DictRemapCols):
+        child = _lower_stream(node.children[0], ctx)
+        key, lane = node.key, node.lane
+        remap = torch.tensor(node.remap, dtype=torch.int32, device=ctx.device)
+
+        def fn(tables, params):
+            env, mask = child(tables, params)
+            env = dict(env)
+            lane_col = env.pop(lane)
+            if not node.remap:
+                # empty local dictionary: the component has no live string
+                # rows, so every row is masked — any id is fine.
+                env[key] = torch.zeros_like(lane_col)
+            else:
+                # dead rows carry id -1: clamp to 0 — they map to SOME valid
+                # union id, but their mask is False so they weigh nothing.
+                env[key] = remap[lane_col.clamp(min=0).long()]
+            return env, mask
+        return fn
+
     if isinstance(node, PH.FullScanFilter):
         child = _lower_stream(node.children[0], ctx)
 
@@ -343,6 +364,14 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
             return physical.sort_full(env, mask, node.key, node.ascending)
         return fn
 
+    if isinstance(node, PH.WindowEval):
+        child = _lower_stream(node.children[0], ctx)
+
+        def fn(tables, params):
+            env, mask = child(tables, params)
+            return execute_window(env, mask, node.window)
+        return fn
+
     if isinstance(node, PH.JoinGather):
         # build-key uniqueness/disjointness was proven by the planner
         lchild = _lower_stream(node.children[0], ctx)
@@ -365,13 +394,31 @@ def _lower_groupagg(node, ctx: ExecContext) -> Callable:
     aggs = [(s.out_name, s.op, s.column) for s in node.aggs]
     if isinstance(node, PH.KernelSegmentAgg):
         comps = [_lower_stream(c, ctx) for c in node.children]
-        return _lower_kernel_segment_agg(node, ctx, comps, aggs)
-    child = _lower_stream(node.children[0], ctx)
-    key, lo, num_groups = node.key, node.lo, node.num_groups
+        inner = _lower_kernel_segment_agg(node, ctx, comps, aggs)
+    else:
+        child = _lower_stream(node.children[0], ctx)
+        key, lo, num_groups = node.key, node.lo, node.num_groups
+
+        def inner(tables, params):
+            env, mask = child(tables, params)
+            return ctx.strategy.group_agg(env, mask, key, lo, num_groups, aggs)
+
+    if node.key_values is None:
+        return inner
+
+    # string group-by: the machinery above grouped over union-dictionary ids
+    # (DictRemapCols remapped each component below the concat). Decode the
+    # surviving ids back to the encoded (G, 16) string rows at the result
+    # boundary — identical in both modes, since every path returns the group
+    # id itself as the key column.
+    enc = encode_strings(list(node.key_values)).to(ctx.device)
+    out_key = node.key
 
     def fn(tables, params):
-        env, mask = child(tables, params)
-        return ctx.strategy.group_agg(env, mask, key, lo, num_groups, aggs)
+        out, gmask = inner(tables, params)
+        out = dict(out)
+        out[out_key] = enc[out[out_key].long()]
+        return out, gmask
     return fn
 
 

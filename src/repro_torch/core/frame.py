@@ -185,6 +185,12 @@ class AFrame:
         from repro_torch.core.optimizer import optimize
         return optimize(self._plan, self._session.catalog).to_sql() + ";"
 
+    def query_in(self, dialect: str) -> str:
+        """Render the plan in another engine's dialect (paper §VI:
+        language-layer abstraction; 'postgres' supported)."""
+        from repro_torch.core.dialect import render
+        return render(self._plan, dialect)
+
     def explain(self, analyze: bool = False) -> str:
         """The costed physical plan: per-operator cost estimates, the access
         path the planner chose over its alternatives, and — over a fed
@@ -252,6 +258,15 @@ class AFrame:
     def groupby(self, key: str) -> "GroupBy":
         return GroupBy(self, key)
 
+    def window(self, order_by: str, partition_by: Optional[str] = None,
+               ascending: bool = True) -> "WindowBuilder":
+        """Window functions (the paper's §VI future-work item):
+
+            df['rn'] = df.window(order_by='unique1',
+                                 partition_by='ten').row_number()
+        """
+        return WindowBuilder(self, order_by, partition_by, ascending)
+
     def map(self, fn, column: str, name: Optional[str] = None) -> "AFrame":
         out = self[column].map(fn, name)
         new = AFrame._from_plan(self, self._plan)
@@ -309,6 +324,34 @@ class AFrame:
             r = self._session.execute(P.Agg(self._project_plan([(c, Col(c))]), specs))
             out[c] = r if isinstance(r, dict) else {"value": r}
         return out
+
+
+class WindowBuilder:
+    def __init__(self, frame: AFrame, order_by: str,
+                 partition_by: Optional[str], ascending: bool):
+        self._f, self._o, self._p, self._asc = frame, order_by, partition_by, ascending
+
+    def _apply(self, func: str, value_col: Optional[str] = None,
+               frame_rows: int = 0, name: Optional[str] = None) -> AFrame:
+        from repro_torch.core.window import Window
+
+        plan = Window(self._f._plan, name or func, func, self._o, self._p,
+                      value_col, frame_rows, self._asc)
+        return AFrame._from_plan(self._f, plan)
+
+    def row_number(self, name: str = "row_number") -> AFrame:
+        return self._apply("row_number", name=name)
+
+    def rank(self, name: str = "rank") -> AFrame:
+        return self._apply("rank", name=name)
+
+    def cumsum(self, col: str, name: Optional[str] = None) -> AFrame:
+        return self._apply("cumsum", value_col=col, name=name or f"cumsum_{col}")
+
+    def moving_avg(self, col: str, window: int,
+                   name: Optional[str] = None) -> AFrame:
+        return self._apply("moving_avg", value_col=col, frame_rows=window,
+                           name=name or f"mavg{window}_{col}")
 
 
 class GroupBy:

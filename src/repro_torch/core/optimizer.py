@@ -32,7 +32,12 @@ _RANGE_MIN = int(np.iinfo(np.int32).min)
 _RANGE_MAX = int(np.iinfo(np.int32).max)
 
 
-def optimize(root: P.Plan, catalog: Catalog | None = None) -> P.Plan:
+def optimize(root: P.Plan, catalog: Catalog | None = None, *,
+             enable_pushdown: bool = True, **_compat) -> P.Plan:
+    """Logical rewrites only. ``enable_pushdown=False`` skips every rule but
+    the feed expansion; ``**_compat`` swallows the reference's historical
+    ``enable_index`` / ``enable_kernel_fusion`` flags (access-path choice is
+    the physical planner's job: ``plan_physical(enable_index=...)``)."""
     prev_fp = None
     node = root
     if catalog is not None:
@@ -40,15 +45,16 @@ def optimize(root: P.Plan, catalog: Catalog | None = None) -> P.Plan:
         # (LSM read semantics)
         node = _expand_feeds(node, catalog)
     for _ in range(12):  # fixpoint with a safety bound
-        node = _rewrite(node, _fuse_filters)
-        node = _rewrite(node, _pushdown_limit)
-        node = _rewrite(node, _fuse_agg)
-        node = _rewrite(node, _union_pushdown)
+        if enable_pushdown:
+            node = _rewrite(node, _fuse_filters)
+            node = _rewrite(node, _pushdown_limit)
+            node = _rewrite(node, _fuse_agg)
+            node = _rewrite(node, _union_pushdown)
         fp = node.fingerprint()
         if fp == prev_fp:
             break
         prev_fp = fp
-    if catalog is not None:
+    if enable_pushdown and catalog is not None:
         node = _prune_columns(node, catalog)
     return _uniquify(node, set())
 

@@ -362,6 +362,17 @@ class SortRows(PhysOp):
         return f"Sort {self.key} {'asc' if self.ascending else 'desc'}"
 
 
+class WindowEval(PhysOp):
+    def __init__(self, child: PhysOp, window):
+        self.children, self.window = (child,), window
+
+    def fingerprint(self):
+        return f"p:window({self.window.fingerprint()},{self.children[0].fingerprint()})"
+
+    def label(self):
+        return f"Window {self.window.func}(order by {self.window.order_by})"
+
+
 class JoinGather(PhysOp):
     """Materializing inner equi-join (unique build keys, proven from stats
     by the planner): probe rows gather their single match."""
@@ -400,23 +411,62 @@ class PrunedUnionRuns(PhysOp):
 # -- grouped operators -------------------------------------------------------
 
 
+def _keyvals_fp(key_values) -> str:
+    # The decoded-key dictionary is static plan structure (baked into the
+    # id → string gather), so it participates in the compiled-query dedup
+    # fingerprint like surviving-block lists do.
+    return "-" if key_values is None else "|".join(map(str, key_values))
+
+
+class DictRemapCols(PhysOp):
+    """Per-component dictionary-id remap for a string group-by key: replaces
+    ``key`` in the stream env with this component's ``__dict_<key>`` lane
+    mapped through ``remap`` (component-local id → position in the union
+    dictionary). Runs BELOW the union concat, so by the time components
+    merge, every row speaks the same global id space — the same remap a
+    compaction applies when it rebuilds lanes over merged rows."""
+
+    def __init__(self, child: PhysOp, key: str, lane: str, remap):
+        self.children = (child,)
+        self.key, self.lane = key, lane
+        self.remap = tuple(int(r) for r in remap)
+
+    def fingerprint(self):
+        r = ",".join(map(str, self.remap))
+        return (f"p:dictremap({self.key},{self.lane},[{r}],"
+                f"{self.children[0].fingerprint()})")
+
+    def label(self):
+        return (f"DictRemap {self.key} via {self.lane} "
+                f"[{len(self.remap)} local ids → union dictionary]")
+
+
 class GroupAggGeneric(PhysOp):
     """Bounded-domain group-by via segment reductions; the domain
-    [lo, lo+num_groups) comes from planner stats."""
+    [lo, lo+num_groups) comes from planner stats.
 
-    def __init__(self, child: PhysOp, key: str, lo: int, num_groups: int, aggs):
+    ``key_values`` (string group-by): the union dictionary — surviving group
+    ids decode back to encoded strings at the result boundary."""
+
+    def __init__(self, child: PhysOp, key: str, lo: int, num_groups: int, aggs,
+                 key_values=None):
         self.children = (child,)
         self.key, self.lo, self.num_groups = key, int(lo), int(num_groups)
         self.aggs = tuple(aggs)
+        self.key_values = tuple(key_values) if key_values is not None else None
 
     def fingerprint(self):
         a = ",".join(s.fingerprint() for s in self.aggs)
         return (f"p:groupagg({self.key},{self.lo},{self.num_groups},[{a}],"
+                f"kv:{_keyvals_fp(self.key_values)},"
                 f"{self.children[0].fingerprint()})")
 
     def label(self):
-        return (f"GroupAgg {self.key} G={self.num_groups} "
-                f"[{', '.join(s.op for s in self.aggs)}] [segment-reduce]")
+        out = (f"GroupAgg {self.key} G={self.num_groups} "
+               f"[{', '.join(s.op for s in self.aggs)}] [segment-reduce]")
+        if self.key_values is not None:
+            out += " [string key: union dictionary]"
+        return out
 
 
 class KernelSegmentAgg(PhysOp):
@@ -427,15 +477,19 @@ class KernelSegmentAgg(PhysOp):
 
     ``comp_blocks[i]`` is component i's surviving-block list (zone-block
     units; None = all), hoisted off its TableScan so the kernel grid itself
-    skips pruned tiles instead of the stream gathering a copy first."""
+    skips pruned tiles instead of the stream gathering a copy first.
+
+    ``key_values`` (string group-by): the union dictionary — surviving group
+    ids decode back to encoded strings at the result boundary."""
 
     comp_blocks: tuple = ()
 
     def __init__(self, comps: Sequence[PhysOp], key: str, lo: int,
-                 num_groups: int, aggs):
+                 num_groups: int, aggs, key_values=None):
         self.children = tuple(comps)
         self.key, self.lo, self.num_groups = key, int(lo), int(num_groups)
         self.aggs = tuple(aggs)
+        self.key_values = tuple(key_values) if key_values is not None else None
 
     def fingerprint(self):
         a = ",".join(s.fingerprint() for s in self.aggs)
@@ -443,12 +497,15 @@ class KernelSegmentAgg(PhysOp):
         blk = ";".join(_blocks_fp(b) for b in self.comp_blocks) \
             if self.comp_blocks else "all"
         return (f"p:ksegagg({self.key},{self.lo},{self.num_groups},[{a}],"
-                f"blk:{blk},{inner})")
+                f"blk:{blk},kv:{_keyvals_fp(self.key_values)},{inner})")
 
     def label(self):
-        return (f"KernelSegmentAgg {self.key} G={self.num_groups} "
-                f"[{', '.join(s.op for s in self.aggs)}] "
-                f"[{len(self.children)} segment_agg launch group(s)]")
+        out = (f"KernelSegmentAgg {self.key} G={self.num_groups} "
+               f"[{', '.join(s.op for s in self.aggs)}] "
+               f"[{len(self.children)} segment_agg launch group(s)]")
+        if self.key_values is not None:
+            out += " [string key: union dictionary]"
+        return out
 
 
 # -- scalar terminals --------------------------------------------------------

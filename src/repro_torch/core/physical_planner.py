@@ -35,9 +35,10 @@ fingerprint, stats epoch, prune signature) — selectivities come from
 distinct counts and default fractions, never from literal values — so a
 cached query is always the one this planner would rebuild.
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): the string dictionary-lane fast path for ``==``/``IN``/group-by and
-windows (A7), and sharded zone layouts (A9).
+String ``==`` / ``IN`` on a dictionary-encoded column lower onto
+filter_count over the ``__dict_<col>`` id lane, and a string group-by onto
+the integer group-by over union-dictionary ids (``DictRemapCols``). Sharded
+zone layouts wait for ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -54,7 +55,10 @@ from repro_torch.core.expr import BoolOp, Col, Compare, Expr, IsIn, Lit
 from repro_torch.core.optimizer import (_RANGE_MAX, _RANGE_MIN, _range_bounds,
                                         _split_conjuncts)
 from repro_torch.core.stats import ColumnStats, TableStats, harvest
-from repro_torch.engine.table import encode_strings, pack_prefix, prefix_lane_name
+from repro_torch.core.window import Window
+from repro_torch.engine.table import (canon_string, dict_lane_name,
+                                      encode_strings, pack_prefix,
+                                      prefix_lane_name)
 from repro_torch.runtime import telemetry as tel
 
 # -- cost model --------------------------------------------------------------
@@ -89,10 +93,6 @@ READ_AMP_TOMBSTONE_FRAC = 0.25  # tombstones / visible rows
 # note once pressure crosses STALL_WARN_FRAC.
 STALL_COMPONENT_CAP = 2 * READ_AMP_COMPONENTS
 STALL_WARN_FRAC = 0.75
-
-_STRING_FAST_PATH = ("string ==/IN/group-by on a dictionary lane waits for "
-                     "ROADMAP A7 (string fast path)")
-
 
 def _conjunct_selectivity(c: Expr, stats: TableStats) -> float:
     """Deterministic textbook selectivity from stats alone (literal values
@@ -252,22 +252,41 @@ class _ScanDesc:
     constraints: list[_Constraint]
 
 
+@dataclasses.dataclass
+class _InDesc:
+    """A dictionary-lane IN count at one Scan site (the shape
+    ``_try_kernel_isin_count`` lowers to one launch per member): the
+    component's dictionary positions, its dict-lane block spans and the
+    members' literal refs."""
+
+    ordinal: int
+    pos: dict
+    lane_spans: np.ndarray
+    refs: tuple
+
+
 class PruneDecisions:
     """Bind-time pruning outcome: per union ordinal, the surviving component
     indices and the zone-map rationale for each dropped run; per scan
-    ordinal, the surviving block-id list of the intra-component refinement.
-    ``signature`` keys the Session's third cache level — block lists are in
-    it because they are static plan structure (kernel grids / gather slices
-    bake them in)."""
+    ordinal, the surviving block-id list of the intra-component refinement,
+    and for a dictionary-lane IN count each member's own block list and
+    bound value. ``signature`` keys the Session's third cache level — block
+    lists are in it because they are static plan structure (kernel grids /
+    gather slices bake them in)."""
 
     def __init__(self, by_union: dict[int, tuple[tuple, tuple]],
-                 blocks: Optional[dict] = None):
+                 blocks: Optional[dict] = None,
+                 member_blocks: Optional[dict] = None,
+                 member_values: Optional[dict] = None):
         self.by_union = by_union
         self.blocks = blocks or {}
+        self.member_blocks = member_blocks or {}
+        self.member_values = member_values or {}
         self.signature = (
             tuple(sorted((k, tuple(surv))
                          for k, (surv, _) in by_union.items())),
-            tuple(sorted(self.blocks.items())))
+            tuple(sorted(self.blocks.items())),
+            tuple(sorted(self.member_blocks.items())))
 
     def surviving(self, ordinal: int, n: int) -> tuple:
         if ordinal not in self.by_union:
@@ -301,16 +320,19 @@ class Pruner:
     plus one O(n_blocks) vector test per constrained scan)."""
 
     def __init__(self, unions: list[_UnionDesc],
-                 scans: Optional[list[_ScanDesc]] = None):
+                 scans: Optional[list[_ScanDesc]] = None,
+                 isins: Optional[list[_InDesc]] = None):
         self.unions = unions
         self.scans = scans or []
+        self.isins = isins or []
 
     @property
     def has_prunable(self) -> bool:
         return any(c.prunable and c.constraints for u in self.unions
                    for c in u.comps)
 
-    def decide(self, raw_values: list) -> PruneDecisions:
+    def decide(self, raw_values: list,
+               block_skip: bool = True) -> PruneDecisions:
         by_union: dict[int, tuple[tuple, tuple]] = {}
         for u in self.unions:
             surviving: list[int] = []
@@ -343,7 +365,7 @@ class Pruner:
                 pruned = [r for r in pruned if r.address != u.comps[0].address]
             by_union[u.ordinal] = (tuple(surviving), tuple(pruned))
         blocks: dict[int, tuple] = {}
-        for d in self.scans:
+        for d in self.scans if block_skip else ():
             keep = np.ones(d.n_blocks, bool)
             applied = False
             for con in d.constraints:
@@ -363,7 +385,28 @@ class Pruner:
             # need >= 1 row. An extra surviving block never changes the
             # result — its rows simply fail the predicate.
             blocks[d.ordinal] = ids if ids else (0,)
-        return PruneDecisions(by_union, blocks)
+        member_blocks: dict[int, tuple] = {}
+        member_values: dict[int, tuple] = {}
+        for d in self.isins:
+            # each member's launch visits only the blocks whose dict-id span
+            # holds ITS id (a duplicate or absent member binds the empty
+            # range; the min-one-block guard keeps its grid non-empty).
+            # Computed from THIS binding's members, so a rebind with other
+            # members replans instead of reusing another binding's grids.
+            cur = tuple(raw_values[v] if k == "raw" else v for k, v in d.refs)
+            if not all(isinstance(v, str) for v in cur):
+                continue
+            cands = blocks.get(d.ordinal, range(d.lane_spans.shape[0]))
+            lists = []
+            for j in range(len(cur)):
+                blo, bhi = _isin_binders(d.pos, j)
+                mlo, mhi = blo(*cur), bhi(*cur)
+                lists.append(tuple(b for b in cands
+                                   if d.lane_spans[b, 0] <= mhi
+                                   and mlo <= d.lane_spans[b, 1]) or (0,))
+            member_blocks[d.ordinal] = tuple(lists)
+            member_values[d.ordinal] = cur
+        return PruneDecisions(by_union, blocks, member_blocks, member_values)
 
 
 def _origin_column(node: P.Plan, name: str) -> Optional[str]:
@@ -381,7 +424,9 @@ def _origin_column(node: P.Plan, name: str) -> Optional[str]:
                     return _origin_column(node.children[0], e.name)
                 return None
         return None
-    if len(node.children) == 1:  # filter/limit/sort pass through
+    if isinstance(node, Window) and name == node.out_name:
+        return None  # computed analytic column shadows any stored namesake
+    if len(node.children) == 1:  # filter/limit/sort/window pass through
         return _origin_column(node.children[0], name)
     return None
 
@@ -545,17 +590,57 @@ def build_pruner(opt: P.Plan, catalog: Catalog, raw_lits: list) -> Pruner:
             scan_descs.append(_ScanDesc(scan_ords[id(node)], stats.address,
                                         bz.n_blocks, bz.block, dict(bz.spans),
                                         usable))
-    return Pruner(unions, scan_descs)
+    return Pruner(unions, scan_descs,
+                  _isin_descs(opt, catalog, lit_ref, scan_ords))
+
+
+def _isin_descs(opt: P.Plan, catalog: Catalog, lit_ref,
+                scan_ords: dict) -> list[_InDesc]:
+    """Every COUNT of one string ``col IN [...]`` straight over a Scan (an
+    identity Project between, as ``_plan_count`` allows) whose component
+    dictionary-encodes ``col`` and has its lane's block zones."""
+    out: list[_InDesc] = []
+    for node in P.walk(opt):
+        if not isinstance(node, P.FilterCount) or node.predicate is None:
+            continue
+        inner = node.children[0]
+        if _identity_project(inner):
+            inner = inner.children[0]
+        conjuncts = _split_conjuncts(node.predicate)
+        if not isinstance(inner, P.Scan) or len(conjuncts) != 1 \
+                or not isinstance(conjuncts[0], IsIn):
+            continue
+        col, vals = conjuncts[0].children[0], conjuncts[0].values
+        if not (isinstance(col, Col) and vals
+                and all(isinstance(v, Lit) for v in vals)):
+            continue
+        try:
+            stats = harvest(catalog.get(inner.dataverse, inner.dataset))
+        except KeyError:
+            continue
+        bz = stats.block_zones
+        lane = dict_lane_name(col.name)
+        if bz is None or _dict_lane_stats(stats, col.name) is None \
+                or bz.span_of(lane) is None:
+            continue
+        values = stats.column(col.name).dict_values
+        out.append(_InDesc(scan_ords[id(inner)],
+                           {v: i for i, v in enumerate(values)},
+                           np.asarray(bz.span_of(lane)),
+                           tuple(lit_ref(v) for v in vals)))
+    return out
 
 
 # -- the planner -------------------------------------------------------------
 
 
 class _PlannerCtx:
-    def __init__(self, catalog: Catalog, mode: str, decisions: PruneDecisions):
+    def __init__(self, catalog: Catalog, mode: str, decisions: PruneDecisions,
+                 enable_index: bool):
         self.catalog = catalog
         self.mode = mode
         self.decisions = decisions
+        self.enable_index = enable_index
         self.ordinals: dict[int, int] = {}
         self.scan_ordinals: dict[int, int] = {}
 
@@ -579,11 +664,13 @@ class _PlannerCtx:
 
 
 def plan_physical(opt: P.Plan, catalog: Catalog, *, mode: str = "gspmd",
-                  decisions: PruneDecisions = NO_PRUNE) -> PH.PhysOp:
+                  decisions: PruneDecisions = NO_PRUNE,
+                  enable_index: bool = True) -> PH.PhysOp:
     """Logical (optimized) plan → costed physical plan. ``decisions`` is the
     bind-time pruning outcome; the returned plan reads only surviving
-    components, and only their surviving blocks."""
-    ctx = _PlannerCtx(catalog, mode, decisions)
+    components, and only their surviving blocks. ``enable_index=False``
+    leaves every index access path out of the candidates."""
+    ctx = _PlannerCtx(catalog, mode, decisions, enable_index)
     ctx.ordinals = _union_ordinals(opt)
     ctx.scan_ordinals = _scan_ordinals(opt)
     return _plan_terminal(opt, ctx)
@@ -672,7 +759,7 @@ def _plan_filter(node: P.Filter, ctx: _PlannerCtx) -> PH.PhysOp:
         # look through the narrow Project column pruning inserted (identity
         # outputs only — a renaming Project would change what names mean)
         proj, inner = inner, inner.children[0]
-    if isinstance(inner, P.Scan):
+    if ctx.enable_index and isinstance(inner, P.Scan):
         stats = _scan_stats(ctx, inner)
         if stats is not None:
             conjuncts = _split_conjuncts(node.predicate)
@@ -784,6 +871,13 @@ def _plan_stream(node: P.Plan, ctx: _PlannerCtx) -> PH.PhysOp:
         out.cost = child.est_rows * C_ROW_SORT
         return out
 
+    if isinstance(node, Window):
+        child = _plan_stream(node.children[0], ctx)
+        out = PH.WindowEval(child, node)
+        out.est_rows = child.est_rows
+        out.cost = child.est_rows * C_ROW_SORT
+        return out
+
     if isinstance(node, P.UnionRuns):
         return _plan_union_runs(node, ctx)
 
@@ -799,9 +893,7 @@ def _plan_stream(node: P.Plan, ctx: _PlannerCtx) -> PH.PhysOp:
         out.cost = (left.est_rows + right.est_rows) * C_ROW_JOIN
         return out
 
-    raise NotImplementedError(
-        f"no physical plan for {type(node).__name__} (windows wait for "
-        f"ROADMAP A7)")
+    raise NotImplementedError(f"no physical plan for {type(node).__name__}")
 
 
 def _charge_read_amp(ctx: _PlannerCtx, out: PH.PhysOp, kids: list) -> None:
@@ -986,45 +1078,46 @@ def _plan_count(node: P.FilterCount, ctx: _PlannerCtx) -> PH.PhysOp:
             sel = _filter_selectivity(pred, stats)
             key_col, shadow, n_anti = _component_shadow(
                 ctx, inner.dataverse, inner.dataset)
-            for colname, cs in stats.columns.items():
-                if cs.index is None:
-                    continue
-                found = _range_bounds(conjuncts, colname)
-                if found is None:
-                    continue
-                lo, hi, residual = found
-                if residual:
-                    continue  # residual conjuncts: not index-only
-                if shadow and colname != key_col:
-                    # newer anti-matter shadows rows of this component by
-                    # PRIMARY key; a secondary index alone cannot tell
-                    # which of its matching entries died — only the
-                    # primary index supports index-only subtraction. The
-                    # mask/kernel candidates below stay valid.
-                    continue
-                cand: PH.PhysOp = PH.IndexOnlyCount(
-                    inner.dataverse, inner.dataset, colname, lo, hi)
-                cand.est_rows = max(stats.rows * sel, 1)
-                cand.rows_touched = cand.est_rows
-                cand.cost = C_PROBE + math.log2(max(stats.padded_rows, 2))
-                cand.note = f"index-only: sorted {cs.index} index on {colname}"
-                if shadow:
-                    sub = PH.ShadowProbeCount(inner.dataverse,
-                                              inner.dataset, colname,
-                                              lo, hi, shadow)
-                    sub.est_rows = min(n_anti, cand.est_rows)
-                    sub.cost = C_PROBE + n_anti * C_TOMBSTONE
-                    sub.note = (f"{n_anti} tombstone(s) from "
-                                f"{len(shadow)} newer component(s) probe "
-                                f"the primary index")
-                    wrapped = PH.SubtractScalars(cand, sub)
-                    wrapped.est_rows = cand.est_rows
-                    wrapped.cost = 0.5
-                    wrapped.note = ("anti-matter subtraction: count = "
-                                    "index-only matches − matches newer "
-                                    "tombstones shadow")
-                    cand = wrapped
-                candidates.append(cand)
+            if ctx.enable_index:
+                for colname, cs in stats.columns.items():
+                    if cs.index is None:
+                        continue
+                    found = _range_bounds(conjuncts, colname)
+                    if found is None:
+                        continue
+                    lo, hi, residual = found
+                    if residual:
+                        continue  # residual conjuncts: not index-only
+                    if shadow and colname != key_col:
+                        # newer anti-matter shadows rows of this component by
+                        # PRIMARY key; a secondary index alone cannot tell
+                        # which of its matching entries died — only the
+                        # primary index supports index-only subtraction. The
+                        # mask/kernel candidates below stay valid.
+                        continue
+                    cand: PH.PhysOp = PH.IndexOnlyCount(
+                        inner.dataverse, inner.dataset, colname, lo, hi)
+                    cand.est_rows = max(stats.rows * sel, 1)
+                    cand.rows_touched = cand.est_rows
+                    cand.cost = C_PROBE + math.log2(max(stats.padded_rows, 2))
+                    cand.note = f"index-only: sorted {cs.index} index on {colname}"
+                    if shadow:
+                        sub = PH.ShadowProbeCount(inner.dataverse,
+                                                  inner.dataset, colname,
+                                                  lo, hi, shadow)
+                        sub.est_rows = min(n_anti, cand.est_rows)
+                        sub.cost = C_PROBE + n_anti * C_TOMBSTONE
+                        sub.note = (f"{n_anti} tombstone(s) from "
+                                    f"{len(shadow)} newer component(s) probe "
+                                    f"the primary index")
+                        wrapped = PH.SubtractScalars(cand, sub)
+                        wrapped.est_rows = cand.est_rows
+                        wrapped.cost = 0.5
+                        wrapped.note = ("anti-matter subtraction: count = "
+                                        "index-only matches − matches newer "
+                                        "tombstones shadow")
+                        cand = wrapped
+                    candidates.append(cand)
             if ctx.kernels:
                 krc = _try_kernel_range_count(inner, pred, stats, ctx,
                                               key_col if shadow else None,
@@ -1051,7 +1144,23 @@ def _plan_count(node: P.FilterCount, ctx: _PlannerCtx) -> PH.PhysOp:
                                      f"tombstone(s) into one kernel row")
                     krc.note = " — ".join(notes)
                     candidates.append(krc)
-                _refuse_string_isin(pred, stats)
+                kic = _try_kernel_isin_count(inner, pred, stats, ctx,
+                                             key_col if shadow else None,
+                                             shadow)
+                if kic is not None:
+                    for kid in kic.children:
+                        rt = stats.padded_rows
+                        if kid.block_ids is not None:
+                            rt = min(stats.padded_rows,
+                                     len(kid.block_ids) * kid.zone_block)
+                        kid.rows_touched = rt
+                        kid.est_rows = max(
+                            stats.rows * sel / len(kic.children), 1)
+                        kid.cost = C_KERNEL_LAUNCH + rt * C_ROW_KERNEL \
+                            + n_anti * C_TOMBSTONE
+                    kic.est_rows = max(stats.rows * sel, 1)
+                    kic.cost = 0.5 * len(kic.children)
+                    candidates.append(kic)
 
     generic = PH.MaskCount(_plan_stream(child, ctx), pred)
     gstats = _leaf_stats(generic, ctx)
@@ -1070,6 +1179,58 @@ def _plan_count(node: P.FilterCount, ctx: _PlannerCtx) -> PH.PhysOp:
     return best
 
 
+def _dict_lane_stats(stats: TableStats, col: str) -> Optional[ColumnStats]:
+    """The ``__dict_<col>`` lane's stats when the component dictionary-
+    encodes ``col`` AND the lane passes the filter_count int32 proof
+    (ids are 0..G-1, so the proof only fails on an empty dictionary)."""
+    cs = stats.column(col)
+    if cs is None or not cs.is_string or cs.dict_values is None:
+        return None
+    lcs = stats.column(dict_lane_name(col))
+    if lcs is None or not np.issubdtype(lcs.dtype, np.integer) \
+            or lcs.lo is None or lcs.hi is None \
+            or lcs.lo < _RANGE_MIN or lcs.hi > _RANGE_MAX:
+        return None
+    return lcs
+
+
+def _dict_eq_binders(values: tuple):
+    """lo/hi bind-time transforms for ``col == lit`` on the dict-id lane:
+    a present literal binds both bounds to its id; an absent one binds the
+    empty range [1, 0] — the kernel then counts zero rows, exactly what the
+    full-width comparison would. Literals are canonicalized to stored form
+    first (ascii, width-truncated, padding stripped) so e.g. a
+    trailing-space literal binds to the same id its encoded row matches."""
+    pos = {v: i for i, v in enumerate(values)}
+
+    def lo(v):
+        return pos.get(canon_string(v), 1)
+
+    def hi(v):
+        return pos.get(canon_string(v), 0)
+
+    return lo, hi
+
+
+def _isin_binders(pos: dict, j: int):
+    """lo/hi transforms for member ``j`` of an IN list. Each binder sees ALL
+    sibling values, so a duplicate of an earlier member (or an absent value)
+    binds the empty range — per-member counts stay disjoint and their sum
+    never double-counts. Members are compared in canonical stored form, so
+    two spellings that encode to the same row count as duplicates."""
+    def lo(*vals):
+        v = canon_string(vals[j])
+        return 1 if v in map(canon_string, vals[:j]) or v not in pos \
+            else pos[v]
+
+    def hi(*vals):
+        v = canon_string(vals[j])
+        return 0 if v in map(canon_string, vals[:j]) or v not in pos \
+            else pos[v]
+
+    return lo, hi
+
+
 def _try_kernel_range_count(scan: P.Scan, pred: Expr, stats: TableStats,
                             ctx: _PlannerCtx,
                             key_col: Optional[str] = None,
@@ -1078,12 +1239,15 @@ def _try_kernel_range_count(scan: P.Scan, pred: Expr, stats: TableStats,
     """COUNT whose predicate fully decomposes into ``Col {==,>=,<=} Lit``
     conjuncts on int32-provable integer columns → filter_count kernel. One
     entry per conjunct; an open side is the int32-extreme literal (the
-    lowering groups entries by column at run time). Partial matches never
-    fuse (graceful fallback to the mask path); string equality on a
-    dictionary-encoded column is the A7 fast path and raises."""
+    lowering groups entries by column at run time). String equality on a
+    dictionary-encoded column joins the fast path as an ordinary int
+    conjunct on the ``__dict_<col>`` id lane (the literal binds to its
+    sorted-dictionary id). Partial matches never fuse (graceful fallback to
+    the mask path)."""
     cols: list[str] = []
     los: list[Expr] = []
     his: list[Expr] = []
+    notes: list[str] = []
     for c in _split_conjuncts(pred):
         if not isinstance(c, Compare):
             return None
@@ -1094,10 +1258,23 @@ def _try_kernel_range_count(scan: P.Scan, pred: Expr, stats: TableStats,
         if cs is None:
             return None
         if cs.is_string:
-            if c.op == "==" and isinstance(r.value, str) \
-                    and cs.dict_values is not None:
-                raise NotImplementedError(_STRING_FAST_PATH)
-            return None
+            if c.op != "==" or not isinstance(r.value, str) \
+                    or _dict_lane_stats(stats, l.name) is None:
+                return None
+            blo, bhi = _dict_eq_binders(cs.dict_values)
+            lo = Lit(blo(r.value))
+            lo.binder, lo.sources = blo, (r,)
+            hi = Lit(bhi(r.value))
+            hi.binder, hi.sources = bhi, (r,)
+            i = blo(r.value)
+            notes.append(
+                f"dict lane {dict_lane_name(l.name)}: {l.name} == "
+                f"{r.value!r} → id "
+                f"{i if i <= bhi(r.value) else '∅'}/{len(cs.dict_values)}")
+            cols.append(dict_lane_name(l.name))
+            los.append(lo)
+            his.append(hi)
+            continue
         if not np.issubdtype(cs.dtype, np.integer):
             return None
         # the kernel evaluates on int32 tiles: column bounds must prove the
@@ -1127,28 +1304,70 @@ def _try_kernel_range_count(scan: P.Scan, pred: Expr, stats: TableStats,
     out = PH.KernelRangeCount(scan.dataverse, scan.dataset, cols, los, his,
                               has_valid, key_col=key_col,
                               shadow_sources=shadow_sources)
+    if notes:
+        out.note = "; ".join(notes)
     bz = stats.block_zones
     if bz is not None:
         out.set_blocks(ctx.scan_blocks(scan), bz.block, bz.n_blocks)
     return out
 
 
-def _refuse_string_isin(pred: Expr, stats: TableStats) -> None:
-    """A COUNT of one ``col IN [...]`` over string literals on a
-    dictionary-encoded column is the A7 fast path (one filter_count launch
-    per member on the dict-id lane); the reference fuses exactly this
-    shape."""
+def _try_kernel_isin_count(scan: P.Scan, pred: Expr, stats: TableStats,
+                           ctx: _PlannerCtx,
+                           key_col: Optional[str] = None,
+                           shadow_sources: tuple = ()
+                           ) -> Optional[PH.MergeScalars]:
+    """COUNT(col IN [...]) on a dictionary-encoded string column → one
+    filter_count launch per member on the ``__dict_<col>`` id lane, partial
+    counts summed. Dict ids partition rows, so the sum never double-counts;
+    duplicate or absent members bind the empty range and contribute zero."""
     conjuncts = _split_conjuncts(pred)
     if len(conjuncts) != 1 or not isinstance(conjuncts[0], IsIn):
-        return
+        return None
     e = conjuncts[0]
     l = e.children[0]
-    if isinstance(l, Col) and e.values \
+    vals = e.values
+    if not (isinstance(l, Col) and vals
             and all(isinstance(v, Lit) and isinstance(v.value, str)
-                    for v in e.values):
-        cs = stats.column(l.name)
-        if cs is not None and cs.is_string and cs.dict_values is not None:
-            raise NotImplementedError(_STRING_FAST_PATH)
+                    for v in vals)):
+        return None
+    cs = stats.column(l.name)
+    if _dict_lane_stats(stats, l.name) is None:
+        return None
+    lane = dict_lane_name(l.name)
+    ds = ctx.catalog.get(scan.dataverse, scan.dataset)
+    has_valid = "__valid__" in ds.table.columns
+    pos = {v: i for i, v in enumerate(cs.dict_values)}
+    sources = tuple(vals)
+    # the members bound for THIS plan, and each member's own block list
+    # (``Pruner.decide``); with no such decision every launch scans the
+    # scan's surviving blocks
+    ordinal = ctx.scan_ordinals.get(id(scan))
+    cur = ctx.decisions.member_values.get(ordinal,
+                                          tuple(v.value for v in vals))
+    member_blocks = ctx.decisions.member_blocks.get(ordinal)
+    bz = stats.block_zones
+    kids: list[PH.PhysOp] = []
+    for j in range(len(vals)):
+        blo, bhi = _isin_binders(pos, j)
+        lo = Lit(blo(*cur))
+        lo.binder, lo.sources = blo, sources
+        hi = Lit(bhi(*cur))
+        hi.binder, hi.sources = bhi, sources
+        kid = PH.KernelRangeCount(scan.dataverse, scan.dataset, [lane],
+                                  [lo], [hi], has_valid, key_col=key_col,
+                                  shadow_sources=shadow_sources)
+        if bz is not None:
+            keep = member_blocks[j] if member_blocks is not None \
+                else ctx.scan_blocks(scan)
+            kid.set_blocks(keep, bz.block, bz.n_blocks)
+        kids.append(kid)
+    out = PH.MergeScalars(kids, [("count", "sum")], ())
+    ids = [pos.get(v) for v in cur]
+    out.note = (f"dict lane {lane}: {l.name} IN {list(cur)!r} → ids "
+                f"{ids} ({len(kids)} filter_count launch(es), partials "
+                f"summed)")
+    return out
 
 
 def _plan_join_count(lnode: P.Plan, rnode: P.Plan, left_on: str, right_on: str,
@@ -1207,6 +1426,8 @@ def _trace_col(node: P.Plan, col: str, ctx: _PlannerCtx) -> Optional[ColumnStats
     """Resolve the ColumnStats a stream column name originates from, following
     Project renames and join name-resolution; None when provenance cannot be
     established (computed expressions, suffixed join collisions)."""
+    if isinstance(node, Window) and col == node.out_name:
+        return None  # computed analytic column, no catalog bounds
     if isinstance(node, P.Scan):
         stats = _scan_stats(ctx, node)
         return stats.column(col) if stats is not None else None
@@ -1235,7 +1456,7 @@ def _trace_col(node: P.Plan, col: str, ctx: _PlannerCtx) -> Optional[ColumnStats
         if left_meta is not None:
             return left_meta
         return _trace_col(node.children[1], col, ctx)
-    if len(node.children) == 1:  # filter/limit/sort pass columns through
+    if len(node.children) == 1:  # filter/limit/sort/window pass columns through
         return _trace_col(node.children[0], col, ctx)
     return None
 
@@ -1270,15 +1491,75 @@ def _kernel_groupagg_exact(node: P.GroupAgg, ctx: _PlannerCtx, aggs) -> bool:
     return True
 
 
+def _string_group_setup(node: P.GroupAgg, child: PH.PhysOp, key: str,
+                        ctx: _PlannerCtx):
+    """String group-by over dictionary-encoded components: build the UNION
+    dictionary U (byte-lex sorted — ASCII str-sort over the space-padded
+    encoding) and wrap every physical component in a ``DictRemapCols`` that
+    rewrites its local dict ids into positions in U *below* the union
+    concat. The group-by then runs over the int domain [0, |U|) on the
+    existing segment-reduce/segment_agg machinery; ``key_values`` decodes
+    surviving ids back to strings at the result boundary. None when the key
+    isn't a stored dictionary-encoded string column on every component."""
+    top = node.children[0]
+    origins = {_origin_column(c, key) for c in top.children} \
+        if isinstance(top, P.UnionRuns) else {_origin_column(top, key)}
+    if origins != {key}:
+        return None  # renamed/computed key: lane names would not line up
+    comps = list(child.children) if isinstance(child, PH.PrunedUnionRuns) \
+        else [child]
+    dicts: list[tuple] = []
+    family = None
+    for c in comps:
+        skey = None
+        for leaf in PH.walk(c):
+            skey = getattr(leaf, "source_key", None)
+            if skey is not None:
+                break
+        if skey is None:
+            return None
+        stats = ctx.stats(*skey)
+        cs = stats.column(key) if stats is not None else None
+        if cs is None or not cs.is_string or cs.dict_values is None:
+            return None
+        fam = (skey[0], skey[1].split("@")[0])
+        if family is None:
+            family = fam
+        elif fam != family:
+            return None
+        dicts.append(tuple(cs.dict_values))
+    union: set = set()
+    for d in dicts:
+        union.update(d)
+    if not union:
+        return None  # no live string anywhere: stay on the generic raise
+    U = sorted(union)
+    upos = {v: i for i, v in enumerate(U)}
+    lane = dict_lane_name(key)
+    wrapped: list[PH.PhysOp] = []
+    for c, d in zip(comps, dicts):
+        w = PH.DictRemapCols(c, key, lane, tuple(upos[v] for v in d))
+        w.est_rows = c.est_rows
+        w.cost = c.est_rows * 0.05
+        wrapped.append(w)
+    return wrapped, tuple(U)
+
+
 def _plan_groupagg(node: P.GroupAgg, ctx: _PlannerCtx) -> PH.PhysOp:
     assert len(node.keys) == 1, "single-key group-by (paper expressions 4/8)"
     key = node.keys[0]
-    key_stats = _trace_col(node.children[0], key, ctx)
-    if key_stats is not None and key_stats.is_string \
-            and key_stats.dict_values is not None:
-        raise NotImplementedError(_STRING_FAST_PATH)
     child = _plan_stream(node.children[0], ctx)
-    lo, num_groups = _group_domain(child, key, ctx)
+    key_values = None
+    setup = _string_group_setup(node, child, key, ctx)
+    if setup is not None:
+        wrapped, key_values = setup
+        if isinstance(child, PH.PrunedUnionRuns):
+            child.children = tuple(wrapped)  # remap BELOW the concat
+        else:
+            child = wrapped[0]
+        lo, num_groups = 0, len(key_values)
+    else:
+        lo, num_groups = _group_domain(child, key, ctx)
     aggs = [(s.out_name, s.op, s.column) for s in node.aggs]
 
     if ctx.kernels \
@@ -1287,7 +1568,8 @@ def _plan_groupagg(node: P.GroupAgg, ctx: _PlannerCtx) -> PH.PhysOp:
             and _kernel_groupagg_exact(node, ctx, aggs):
         comps = list(child.children) if isinstance(child, PH.PrunedUnionRuns) \
             else [child]
-        out = PH.KernelSegmentAgg(comps, key, lo, num_groups, node.aggs)
+        out = PH.KernelSegmentAgg(comps, key, lo, num_groups, node.aggs,
+                                  key_values=key_values)
         if isinstance(child, PH.PrunedUnionRuns):
             out.pruned = child.pruned
             out.note = child.note
@@ -1321,7 +1603,8 @@ def _plan_groupagg(node: P.GroupAgg, ctx: _PlannerCtx) -> PH.PhysOp:
             "f32 exactness proven from stats: segment_agg kernel"
         return out
 
-    out = PH.GroupAggGeneric(child, key, lo, num_groups, node.aggs)
+    out = PH.GroupAggGeneric(child, key, lo, num_groups, node.aggs,
+                             key_values=key_values)
     out.est_rows = num_groups
     out.cost = child.est_rows * C_ROW_GROUP + num_groups
     return out

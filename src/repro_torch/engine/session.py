@@ -101,13 +101,21 @@ def _later(what: str, item: str) -> NotImplementedError:
 class Session:
     def __init__(self, mode: str = "auto", device=None,
                  catalog: Optional[Catalog] = None, mesh=None, storage=None,
-                 enable_prune: bool = True):
+                 enable_index: bool = True, enable_pushdown: bool = True,
+                 enable_prune: bool = True, enable_block_skip: bool = True):
         """mode: 'auto' (= 'gspmd' on one device), 'gspmd', or 'kernel' (the
         planner lowers fusable plan shapes onto the relational kernels;
         anything uncovered runs the generic operators). ``catalog`` shares
         another session's datasets (reader sessions: each keeps its own plan
-        caches). ``enable_prune=False`` turns bind-time zone-map run pruning
-        off (pruned and unpruned plans answer alike)."""
+        caches).
+
+        The reference's ablation switches, each answering alike on or off:
+        ``enable_index=False`` leaves index access paths out of the
+        planner's candidates; ``enable_pushdown=False`` skips the
+        optimizer's rewrites (a fed dataset still expands into base ∪
+        runs); ``enable_prune=False`` turns bind-time zone-map run pruning
+        off; ``enable_block_skip=False`` does the same for the blocks inside
+        a component."""
         if mesh is not None:
             raise _later("a device mesh", "A9 (multi-device)")
         if storage is not None:
@@ -124,7 +132,10 @@ class Session:
         # the storage crash points ``lsm._fault`` consults (fault injection
         # arrives with durable storage, ROADMAP A8)
         self.fault_plan = None
+        self.enable_index = enable_index
+        self.enable_pushdown = enable_pushdown
         self.enable_prune = enable_prune
+        self.enable_block_skip = enable_block_skip
         # Three-level plan cache:
         #   1. raw (pre-optimization) fingerprint → _PlanEntry for one
         #      (stats epoch, LSN): repeated query shapes skip the optimizer;
@@ -416,7 +427,8 @@ class Session:
         with tel.span("session.prune", sid=self.sid):
             if not self.enable_prune:
                 return NO_PRUNE
-            return e.pruner.decide([l.value for l in raw_lits])
+            return e.pruner.decide([l.value for l in raw_lits],
+                                   block_skip=self.enable_block_skip)
 
     def _plan_entry(self, plan: P.Plan, raw_fp: str, raw_lits: list,
                     snap) -> _PlanEntry:
@@ -431,7 +443,7 @@ class Session:
                               if k[1:] == (snap.stats_epoch, snap.lsn)}
         tel.inc("session.optimizes_total", sid=self.sid)
         with tel.span("session.optimize", sid=self.sid):
-            opt = optimize(plan, snap)
+            opt = optimize(plan, snap, enable_pushdown=self.enable_pushdown)
         with tel.span("session.prune_build", sid=self.sid):
             pruner = build_pruner(opt, snap, raw_lits)
         e = _PlanEntry(snap.stats_epoch, snap.lsn, opt, list(raw_lits), pruner)
@@ -448,7 +460,8 @@ class Session:
             return var
         tel.inc("session.plan_cache.misses_total", level="variant", sid=self.sid)
         with tel.span("session.plan", sid=self.sid):
-            phys = plan_physical(e.opt, snap, mode=self.mode, decisions=decisions)
+            phys = plan_physical(e.opt, snap, mode=self.mode, decisions=decisions,
+                                 enable_index=self.enable_index)
         tel.inc("session.plans_total", sid=self.sid)
         key = (phys.fingerprint(), e.epoch, e.lsn)
         cq = self._compiled.get(key)
@@ -534,7 +547,8 @@ class Session:
         with self.catalog.snapshot() as snap:
             e = self._plan_entry(plan, plan.fingerprint(), raw_lits, snap)
             phys = plan_physical(e.opt, snap, mode=self.mode,
-                                 decisions=self._decide(e, raw_lits))
+                                 decisions=self._decide(e, raw_lits),
+                                 enable_index=self.enable_index)
         return PH.format_plan(phys)
 
     def profile(self, plan: P.Plan) -> dict:
@@ -568,21 +582,40 @@ class Session:
 def _literal_binding(raw_lits, opt_lits) -> list[tuple[str, object]]:
     """Map each physical-plan param slot back to the raw plan's literals:
     a user literal (or one the optimizer mirrored from it, via ``source``)
-    rebinds to the fresh raw value; anything else is a plan constant."""
+    rebinds to the fresh raw value; anything else is a plan constant.
+
+    A literal the planner derived through a value TRANSFORM (the dict-id
+    bounds of a string predicate) carries a ``binder`` callable and the user
+    ``sources`` it derives from: the binding records both, so a rebind maps
+    the fresh string literals through the same dictionary."""
     index = {id(l): j for j, l in enumerate(raw_lits)}
-    binding: list[tuple[str, object]] = []
-    for lit in opt_lits:
+
+    def resolve(lit):
         src = lit
         while id(src) not in index and getattr(src, "source", None) is not None:
             src = src.source
-        binding.append(("raw", index[id(src)]) if id(src) in index
-                       else ("const", lit.value))
+        return ("raw", index[id(src)]) if id(src) in index \
+            else ("const", lit.value)
+
+    binding: list[tuple[str, object]] = []
+    for lit in opt_lits:
+        binder = getattr(lit, "binder", None)
+        if binder is not None:
+            binding.append(("xform", (binder, tuple(resolve(s)
+                                                    for s in lit.sources))))
+        else:
+            binding.append(resolve(lit))
     return binding
 
 
 def _bind_params(binding, raw_lits, device):
-    return [encode_param(raw_lits[v].value if kind == "raw" else v, device)
-            for kind, v in binding]
+    def value(kind, v):
+        if kind == "xform":
+            binder, refs = v
+            return binder(*[value(k, r) for k, r in refs])
+        return raw_lits[v].value if kind == "raw" else v
+
+    return [encode_param(value(kind, v), device) for kind, v in binding]
 
 
 def _collect_stats(table: Table, like: Optional[Mapping] = None) -> Table:

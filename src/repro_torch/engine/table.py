@@ -157,18 +157,24 @@ def from_numpy(columns: Mapping[str, np.ndarray], meta: Mapping[str, dict],
 def compute_block_zones(table: Table, block: int) -> dict[str, np.ndarray]:
     """Per-block [min, max] zone maps over the table's physical row layout:
     one (n_blocks, 2) int64 (or float64) array per 1-D numeric column, taken
-    over live rows only. Dead rows, the trailing pad and float NaNs carry the
-    empty-span sentinel (``[int64.max, int64.min]`` / ``[+inf, -inf]``), so
-    they never widen a span. Computed on the table's device."""
+    over matter rows only (valid and not anti-matter: a tombstone's key must
+    not widen the span a query's predicate is tested against). Dead rows,
+    anti-matter, the trailing pad and float NaNs carry the empty-span
+    sentinel (``[int64.max, int64.min]`` / ``[+inf, -inf]``). Index copies
+    (``__ix*``) have no zones. Computed on the table's device."""
     n = len(table)
     if n == 0:
         return {}
     live_rows = table.valid
+    anti = table.columns.get("__antimatter__")
+    if anti is not None:
+        live_rows = live_rows & ~anti
     nb = -(-n // block)
     pad = nb * block - n
     out: dict[str, np.ndarray] = {}
     for name, col in table.columns.items():
-        if name in ("__valid__", "__antimatter__") or col.ndim != 1:
+        if name in ("__valid__", "__antimatter__") or name.startswith("__ix") \
+                or col.ndim != 1:
             continue
         if col.dtype.is_floating_point:
             v = col.to(torch.float64)

@@ -9,7 +9,8 @@ import sys
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
-MODULES = ["repro_torch.core.frame", "repro_torch.engine.session",
+MODULES = ["repro_torch.core.frame", "repro_torch.core.window",
+           "repro_torch.core.dialect", "repro_torch.engine.session",
            "repro_torch.engine.lsm", "repro_torch.engine.ingest",
            "repro_torch.engine.index",
            "repro_torch.data.wisconsin", "repro_torch.kernels.ops",

@@ -14,6 +14,7 @@ from repro.engine import table as rt
 from repro_torch.data import wisconsin as tw
 from repro_torch.engine import session as tsession
 from repro_torch.engine import table as tt
+from torch_replay import PORT, REF
 
 
 def _np(v):
@@ -105,3 +106,62 @@ def test_concat_tables_equals_reference():
     a, b = rw.generate(100, seed=1), rw.generate(50, seed=2)
     ta, tb = tw.generate(100, seed=1), tw.generate(50, seed=2)
     _assert_tables_equal(tt.concat_tables(ta, tb), rt.concat_tables(a, b))
+
+
+def test_block_zones_skip_anti_matter_and_index_copies():
+    """Block zones are taken over matter rows only (valid and not
+    anti-matter) and never over ``__ix*`` index copies, as the reference's:
+    the ten anti-matter rows at the head of block 0 carry key 100,000 and
+    must not widen its span, nor the dead tail block 1's."""
+    n = 8192
+    k = np.arange(n, dtype=np.int32)
+    k[:10] = 100_000
+    anti = np.zeros(n, bool)
+    anti[:10] = True
+    valid = np.ones(n, bool)
+    valid[-100:] = False
+    v = np.linspace(-1, 1, n, dtype=np.float32)
+    v[:10] = 50.0
+    v[20] = np.nan
+    cols = {"k": k, "v": v, "__valid__": valid, "__antimatter__": anti,
+            "__ix_k__": np.sort(k)}
+    want = rt.compute_block_zones(rt.Table(cols), 4096)
+    got = tt.compute_block_zones(
+        tt.Table({c: torch.from_numpy(a) for c, a in cols.items()}), 4096)
+    assert set(got) == set(want) == {"k", "v"}
+    for c in want:
+        assert got[c].dtype == want[c].dtype, c
+        np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+    np.testing.assert_array_equal(got["k"], [[10, 4095], [4096, 8091]])
+
+
+def test_clustered_range_over_an_upsert_run_skips_reference_blocks():
+    """An upsert run holds its anti-matter after the matter prefix: the
+    anti rows' keys (the upserted ones, 0..4999) fill the run's second
+    block. A clustered range over the low keys must skip that block as the
+    reference does — the zone span of its matter is [4096, 4999]. (The
+    LSM also marks its anti rows ``__valid__`` False, so the run's spans
+    hold without the anti-matter mask too; the mask matters for a table
+    that flags anti-matter on valid rows, as the test above.)"""
+    out = {}
+    for pk in (REF, PORT):
+        sess = pk.session("kernel", enable_index=False)  # the kernel path
+        base = {"k": np.arange(8192, dtype=np.int32),
+                "v": np.ones(8192, np.int32)}
+        sess.create_dataset("U", pk.Table(base), dataverse="c2", primary="k")
+        feed = pk.Feed(sess, "U", "c2", flush_rows=10**9,
+                       policy=pk.lsm.CompactionPolicy(size_ratio=10.0,
+                                                      max_runs=64))
+        feed.upsert({"k": np.arange(5000, dtype=np.int32),
+                     "v": np.full(5000, 2, np.int32)})
+        feed.flush()
+        df = pk.AFrame("c2", "U", session=sess)
+        n = len(df[(df["k"] >= 0) & (df["k"] <= 100)])
+        rep = sess.last_prune_report
+        runs = [p for p in pk.PH.walk(sess.last_physical)
+                if getattr(p, "dataset", None) == "U@run0"]
+        out[pk.name] = (n, rep["blocks_scanned"], rep["blocks_skipped"],
+                        [r.block_ids for r in runs], sess.stats["compiles"])
+    assert out["port"] == out["ref"]
+    assert out["port"][0] == 101 and out["port"][2] > 0
+    assert out["port"][3] == [(0,)]

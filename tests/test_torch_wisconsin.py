@@ -361,22 +361,25 @@ def test_features_of_later_slices_raise(call):
 
 
 def test_string_dictionary_fast_path_raises_in_kernel_mode(tables):
-    """string ==/IN/group-by on a dictionary lane is the A7 fast path: the
-    kernel planner refuses ``==`` loudly while gspmd mode answers it as the
-    reference; a group-by on a string key raises in both modes (the port has
-    no dictionary remap for the generic group-by yet)."""
-    sess = _tsession(tables[1], "kernel")
-    df, _ = _frames(sess)
-    with pytest.raises(NotImplementedError, match="A7"):
-        len(df[df["string4"] == "AAAAxxxx"])
-    gs = _tsession(tables[1], "gspmd")
-    gdf, _ = _frames(gs)
-    rdf, _ = _frames(_rsession(tables[0], "gspmd"))
-    assert len(gdf[gdf["string4"] == "HHHHxxxx"]) == \
-        len(rdf[rdf["string4"] == "HHHHxxxx"]) == N_ROWS // 4
-    for frame in (df, gdf):
-        with pytest.raises(NotImplementedError, match="A7"):
-            frame.groupby("string4").agg("count")
+    """string ==/IN/group-by on a dictionary lane no longer raise: the
+    kernel planner lowers ``==`` onto filter_count over ``__dict_string4``
+    (the literal bound to its dictionary id), ``IN`` onto one launch per
+    member, and a group-by on a string key runs over dictionary ids in both
+    modes and decodes them to the encoded (G, 16) rows — each equal to the
+    reference's."""
+    rdf, _ = _frames(_rsession(tables[0], "kernel"))
+    for mode in ("gspmd", "kernel"):
+        sess = _tsession(tables[1], mode)
+        df, _ = _frames(sess)
+        assert len(df[df["string4"] == "HHHHxxxx"]) == \
+            len(rdf[rdf["string4"] == "HHHHxxxx"]) == N_ROWS // 4
+        if mode == "kernel":
+            assert isinstance(sess.last_physical, PH.KernelRangeCount)
+            assert sess.last_physical.cols == ("__dict_string4",)
+        assert len(df[df["string4"].isin(["AAAAxxxx", "OOOOxxxx"])]) == \
+            len(rdf[rdf["string4"].isin(["AAAAxxxx", "OOOOxxxx"])]) == N_ROWS // 2
+        _assert_same(df.groupby("string4").agg("count"),
+                     rdf.groupby("string4").agg("count"), f"{mode} group")
 
 
 def test_collect_and_describe_equal_reference(tables):

@@ -2,8 +2,10 @@
 written once and driven through both packages in the same process.
 
 ``pkg("ref")`` and ``pkg("port")`` expose the same surface (plan nodes,
-AFrame, Session, Feed, lsm, Table, the Wisconsin generator); the port's
-sessions run on the CPU, so kernel mode runs each kernel's plain version.
+AFrame, Session, Feed, lsm, Table, the Wisconsin generator, and the modules
+``table``, ``expr``, ``optimizer``, ``planner`` and ``dialect``); the
+port's sessions run on the CPU, so kernel mode runs each kernel's plain
+version.
 Both Wisconsin generators give the same rows for the same seed."""
 import types
 
@@ -12,11 +14,13 @@ import numpy as np
 
 def pkg(which: str):
     if which == "ref":
+        from repro.core import dialect, expr, optimizer
         from repro.core import physical as PH
+        from repro.core import physical_planner as planner
         from repro.core import plan as P
         from repro.core.frame import AFrame
         from repro.data import wisconsin
-        from repro.engine import lsm
+        from repro.engine import lsm, table
         from repro.engine.ingest import Feed
         from repro.engine.session import Session
         from repro.engine.table import Table
@@ -25,11 +29,13 @@ def pkg(which: str):
         def session(mode="gspmd", **kw):
             return Session(mode=mode, **kw)
     else:
+        from repro_torch.core import dialect, expr, optimizer
         from repro_torch.core import physical as PH
+        from repro_torch.core import physical_planner as planner
         from repro_torch.core import plan as P
         from repro_torch.core.frame import AFrame
         from repro_torch.data import wisconsin
-        from repro_torch.engine import lsm
+        from repro_torch.engine import lsm, table
         from repro_torch.engine.ingest import Feed
         from repro_torch.engine.session import Session
         from repro_torch.engine.table import Table
@@ -40,7 +46,9 @@ def pkg(which: str):
     return types.SimpleNamespace(name=which, PH=PH, P=P, AFrame=AFrame,
                                  wisconsin=wisconsin, lsm=lsm, Feed=Feed,
                                  Session=Session, Table=Table, ops=ops,
-                                 session=session)
+                                 session=session, table=table, expr=expr,
+                                 optimizer=optimizer, planner=planner,
+                                 dialect=dialect)
 
 
 REF, PORT = pkg("ref"), pkg("port")
