@@ -89,6 +89,35 @@ Phases (any mismatch raises; nothing is caught):
      two kernel shapes the phase adds (filter_count on the dictionary lane,
      segment_agg at G = 4) are timed as phase 5's rows, and each query's
      wall, device and busy share printed.
+  8. durability. In a fresh temporary directory (its free space printed,
+     removed at the end): phase 6's scenario through
+     ``Session(mode="kernel", storage=dir)`` — the 5M-row table clustered
+     by unique2 with onePercent indexed, Dim, the view, LIVE_MIX's eight
+     batches (one flush each: nine components), then an upsert and a delete
+     acked and left in the WAL — closed and reopened with ``Session.open``:
+     lazily (the WAL tail replays into a tenth component), lazily again (the
+     first query pays the soft-state rebuild), eagerly, compacted
+     (``feed.compact()`` writes the new base and unlinks the dead segments)
+     and opened once more. Each state runs tests/test_lsm.py's suite, e3,
+     e4, e8, e9, e11, e12, string4 == and the string4 group count through
+     the kernel session and a gspmd reader against the newest-wins oracle,
+     with point lookups (upserted, deleted, absent) and the view against a
+     recompute after the first open; every mounted column and rebuilt index
+     payload must be a CUDA tensor, filter_count, segment_agg, block_topk +
+     topk_merge and merge_join_count must launch (counted apart from phases
+     3-7), and every call recorded is held against its plain version. The
+     crash matrix: for each of IO_FAULT_POINTS, and for torn-write once
+     more on its second arrival (a torn run segment), a store over the same
+     base and LIVE_MIX's first four batches (cut from eight: two flushed,
+     two in the WAL) crashes once, is reopened and must equal a memory-only session
+     that applied exactly the acked batches, bit for bit, with no duplicate
+     key, and run e3 and e4 through the kernels. Printed beside the card:
+     each batch's ack (WAL append + fsync) and WAL bytes, each flush with its
+     segment write beside phase 6's, the compaction with its segment write
+     and GC, each open (host clock and ``recovery_report``) and the segment
+     bytes it read, the first query after a lazy open and its second run,
+     the segment bytes written, and e3 / e4 wall and device time over ten
+     components and over one.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -1834,6 +1863,442 @@ def time_string_kernels(closed: dict) -> list[dict]:
     return rows
 
 
+# -- phase 8: durability on the card -------------------------------------------
+
+DURABLE_TAIL = ("upsert", "delete")  # acked after the eight, left in the WAL
+CRASH_BATCHES = 4    # the crash matrix's cut: LIVE_MIX's first four batches,
+CRASH_FLUSHED = 2    # the first two flushed, the last two the WAL tail
+# tests/test_lsm.py's suite and e3, e4, e8, e11 (LIVE_QUERIES), e9 and e12
+DURABLE_QUERIES = dict(LIVE_QUERIES, **{
+    "9_sort_head": lambda df, dim: df.sort_values("unique1", ascending=False).head(),
+    "12_join_count": lambda df, dim: len(df.merge(df, left_on="unique1",
+                                                  right_on="unique1")),
+})
+DURABLE_TIMED = ("3_filter_count", "4_group_count")
+DURABLE_STRINGS = ("string4 == HHHHxxxx", "string4 group count")
+
+
+def durable_oracle(c: dict, dim_unique1: np.ndarray) -> dict:
+    """numpy answers of DURABLE_QUERIES, the two string queries included."""
+    out = live_oracle(c, dim_unique1)
+    top = np.argsort(-c["unique1"].astype(np.int64), kind="stable")[:5]
+    out["9_sort_head"] = {k: v[top] for k, v in c.items()}
+    _, n = np.unique(c["unique1"], return_counts=True)
+    out["12_join_count"] = int((n.astype(np.int64) ** 2).sum())
+    keys, inv = _string_groups(c["string4"])
+    out["string4 == HHHHxxxx"] = int((c["string4"] == _encoded("HHHHxxxx"))
+                                     .all(axis=1).sum())
+    out["string4 group count"] = {
+        "string4": keys,
+        "count": np.bincount(inv, minlength=len(keys)).astype(np.int32)}
+    return out
+
+
+def _by_key(cols: dict) -> dict:
+    order = np.argsort(cols["unique2"], kind="stable")
+    return {k: v[order] for k, v in cols.items()}
+
+
+def _seg_bytes(sess, comps) -> int:
+    """Bytes of the segment files behind ``comps`` (what an open read)."""
+    root = sess.storage.root / "data" / "live" / "Live" / "seg"
+    return sum((root / c.seg_name).stat().st_size for c in comps)
+
+
+def _on_device(comps, dev, soft: bool) -> None:
+    """Every mounted column — and with ``soft`` every index payload and
+    anti-key array — lies on ``dev`` (the card)."""
+    def off(t):
+        return t is None or t.device != dev
+
+    for c in comps:
+        bad = [k for k, t in c.table.columns.items() if off(t)]
+        if soft:
+            bad += [f"{key}.{f}" for key, ix in c.indexes.items()
+                    for f in ("sorted_keys", "row_ids", "zone_min", "zone_max")
+                    if off(getattr(ix, f))]
+            if c.anti_rows and off(c.anti_keys_arr):
+                bad.append("anti_keys_arr")
+        if bad:
+            raise AssertionError(f"{c.name}: not on {dev}: {bad}")
+
+
+def run_durable(table, raw: dict, dev, seed: int, card: str,
+                live_flushes: list) -> dict:
+    """Phase 8: durable storage on the card. Phase 6's scenario at full
+    scale through ``Session(mode="kernel", storage=dir)`` — the 5M-row base,
+    Dim, the view, LIVE_MIX's eight batches (one flush each, compaction
+    deferred: nine components) and two more acked batches left in the WAL
+    — then ``close`` and ``Session.open``: lazily (the WAL tail replays
+    into a tenth component), lazily again, eagerly, compacted, and opened
+    once more; every state held to the newest-wins oracle through a kernel
+    and a gspmd session. Then the crash matrix: a crash at each of
+    ``IO_FAULT_POINTS`` (and a torn run segment) over the base and LIVE_MIX's first four batches
+    (cut from eight; two flushed, two in the WAL), reopened and held to a
+    memory-only session that applied exactly the acked batches. Runs in a
+    fresh temporary directory, removed at the end."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import telemetry as tel
+    from repro_torch.runtime.fault import IO_FAULT_POINTS, FaultPlan, StorageFault
+
+    # (label, point, arrival): each I/O point on its first arrival, and
+    # torn-write on its second too: the first is batch 0's WAL append, the
+    # second batch 0's run-segment write, so a torn segment is recovered
+    crash_cases = tuple((p, p, 0) for p in IO_FAULT_POINTS) + (
+        ("torn-write@1", "torn-write", 1),)
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_durable_"))
+    print(f"  store under {root}; {shutil.disk_usage(root).free:,} bytes free",
+          flush=True)
+    dim = wisconsin.generate(LIVE_DIM_ROWS, seed=7)
+    dim_u1 = dim.columns["unique1"].numpy()
+    view_plan = P.GroupAgg(P.Scan("Live", "live"), ["ten"], [
+        P.AggSpec("count", "count", None), P.AggSpec("sum_four", "sum", "four"),
+        P.AggSpec("max_onePercent", "max", "onePercent")])
+    policy = lsm.CompactionPolicy(size_ratio=10.0, max_runs=64)
+    seg_written = lambda: tel.counter_value("storage.segment_bytes_written_total")
+    excluded = dict.fromkeys(_build.LAUNCHES, 0)  # comparisons and timings
+    out: dict = {"acks": [], "flushes": [], "opens": {}, "queries": {},
+                 "crash": {}}
+
+    def excluding(fn, *args):
+        held = dict(_build.LAUNCHES)
+        got = fn(*args)
+        torch.cuda.synchronize()
+        for k, v in _build.LAUNCHES.items():
+            excluded[k] = excluded.get(k, 0) + v - held.get(k, 0)
+        return got
+
+    def frames(sess):
+        return (AFrame("live", "Live", session=sess),
+                AFrame("live", "Dim", session=sess))
+
+    def suite(kern, state, oracle):
+        """DURABLE_QUERIES and the two string queries through the kernel
+        session and a gspmd reader over its catalog, against the oracle;
+        every kernel call recorded and held against its plain version."""
+        gspmd = Session(mode="gspmd", device=dev, catalog=kern.catalog)
+        want = durable_oracle(oracle.cols, dim_u1)
+        s4 = string_queries("")
+        calls: list = []
+        with recording(calls):
+            for m, sess in (("kernel", kern), ("gspmd", gspmd)):
+                for name, fn in DURABLE_QUERIES.items():
+                    same(fn(*frames(sess)), want[name], f"durable {name}[{m}] {state}")
+                for name in DURABLE_STRINGS:
+                    same(s4[name](frames(sess)[0]), want[name],
+                         f"durable {name}[{m}] {state}")
+            torch.cuda.synchronize()
+        need = ("filter_count", "segment_agg", "topk_merge") + (
+            ("merge_join_count",) if "compact" in state else ())
+        excluding(check_recorded, calls, f"durable {state}", need)
+        print(f"  {state}: {len(DURABLE_QUERIES) + len(DURABLE_STRINGS)} "
+              f"queries kernel == gspmd == numpy", flush=True)
+
+    def lookups(kern, oracle, upserted, deleted):
+        c = oracle.cols
+        i = np.nonzero(c["unique2"] == upserted)[0]
+        same(kern.point_lookup("live", "Live", int(upserted)),
+             {k: v[i] for k, v in c.items()}, "durable lookup upserted")
+        for key in (int(deleted), -1):
+            if kern.point_lookup("live", "Live", key) is not None:
+                raise AssertionError(f"durable lookup {key}: not None")
+
+    def view_check(kern, oracle, state):
+        kern.create_view("by_ten", view_plan)
+        same(kern.read_view("by_ten"), kern.execute(view_plan),
+             f"durable view vs recompute {state}")
+        c = oracle.cols
+        k, n = _live_groups(c["ten"])
+        same(kern.read_view("by_ten"),
+             {"ten": k, "count": n,
+              "sum_four": _live_groups(c["ten"], c["four"], "sum")[1],
+              "max_onePercent": _live_groups(c["ten"], c["onePercent"], "max")[1]},
+             f"durable view vs numpy {state}")
+
+    def reopen(d, state, lazy=True):
+        t0 = time.perf_counter()
+        sess = Session.open(str(d), lazy=lazy, mode="kernel", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = sess.recovery_report
+        comps = sess.catalog.components("live", "Live")
+        mounted = rep["datasets"]["live.Live"]["components"]
+        row = {"wall_s": wall, "report_s": rep["seconds"],
+               "replayed": rep["wal_replayed_batches"],
+               "components": len(comps),
+               "read_bytes": _seg_bytes(sess, comps[:mounted])}
+        _on_device(comps, dev, soft=not lazy)
+        print(f"  [{card}] open {state} (lazy={lazy}): {wall:.3f} s host clock, "
+              f"{rep['seconds']:.3f} s recovery_report, {row['read_bytes']:,} "
+              f"segment bytes read, {row['replayed']} WAL batch(es) replayed, "
+              f"{len(comps)} components", flush=True)
+        out["opens"][state] = row
+        return sess, comps
+
+    def time_queries(kern, state):
+        row = {}
+        for name in DURABLE_TIMED:
+            fn = LIVE_QUERIES[name]
+            wall = host_ms(lambda: fn(*frames(kern)))
+            dev_ms = device_ms(lambda: fn(*frames(kern)))
+            row[name] = {"wall_ms": wall, "device_ms": dev_ms}
+            dev_s = "device not measured" if dev_ms is None else \
+                f"device {dev_ms:.3f} ms, busy {dev_ms / wall:.0%}"
+            print(f"  [{card}] {state:28s} {name:15s} kernel {wall:8.3f} ms "
+                  f"({dev_s})", flush=True)
+        out["queries"][state] = row
+
+    try:
+        with own_launches({}) as counts:
+            # -- 1. the round trip at full scale ----------------------------
+            d = root / "live"
+            w0 = seg_written()
+            kern = Session(mode="kernel", device=dev, storage=str(d))
+            t0 = time.perf_counter()
+            kern.create_dataset("Live", table, dataverse="live", closed=True,
+                                primary="unique2", indexes=["onePercent"])
+            kern.create_dataset("Dim", dim, dataverse="live")
+            torch.cuda.synchronize()
+            out["create_s"] = time.perf_counter() - t0
+            print(f"  [{card}] Live ({ROWS} rows) and Dim placed and written "
+                  f"in {out['create_s']:.3f} s ({seg_written() - w0:,} segment "
+                  f"bytes)", flush=True)
+            kern.create_view("by_ten", view_plan)
+            feed = Feed(kern, "Live", "live", flush_rows=10**9, policy=policy)
+            wal = d / "data" / "live" / "Live" / "wal.log"
+            oracle = LiveOracle(raw)
+            rng = np.random.default_rng(seed)
+            next_key = ROWS
+            tail = {}
+            for i, kind in enumerate(LIVE_MIX + DURABLE_TAIL):
+                batch = _live_batch(kind, i, rng, oracle, next_key)
+                if kind == "push":
+                    next_key += LIVE_BATCH
+                size = wal.stat().st_size if wal.exists() else 0
+                t0 = time.perf_counter()
+                getattr(feed, kind)(batch)
+                ack = time.perf_counter() - t0
+                oracle.apply(kind, batch)
+                out["acks"].append({"kind": kind, "ack_s": ack,
+                                    "wal_bytes": wal.stat().st_size - size})
+                if i >= len(LIVE_MIX):
+                    tail[kind] = batch
+                    continue
+                w, f0 = seg_written(), _flush_seconds()
+                t0 = time.perf_counter()
+                feed.flush()
+                torch.cuda.synchronize()
+                out["flushes"].append({"kind": kind,
+                                       "wall_s": time.perf_counter() - t0,
+                                       "flush_s": _flush_seconds() - f0,
+                                       "segment_bytes": seg_written() - w})
+            out["written_bytes"] = seg_written() - w0
+            if len(kern.catalog.components("live", "Live")) != 1 + len(LIVE_MIX):
+                raise AssertionError("phase 8: expected nine components")
+            kern.close()
+            del kern, feed
+            # point lookups: a key of the tail's upsert still visible, a key
+            # of its delete
+            ups = tail["upsert"]["unique2"]
+            upserted = ups[np.isin(ups, oracle.cols["unique2"])][0]
+            deleted = tail["delete"][0]
+            for i, (a, f) in enumerate(zip(out["acks"], out["flushes"] + [None] * 2)):
+                flush = "left in the WAL" if f is None else (
+                    f"flush {f['wall_s']:.3f} s host clock, {f['flush_s']:.3f} s "
+                    f"ingest.flush_seconds with {f['segment_bytes']:,} segment "
+                    f"bytes (phase 6, no store: {live_flushes[i]['flush_s']:.3f} s)")
+                print(f"  [{card}] batch {i + 1} ({a['kind']}): ack (WAL append "
+                      f"+ fsync) {a['ack_s'] * 1e3:.1f} ms for {a['wal_bytes']:,} "
+                      f"WAL bytes; {flush}", flush=True)
+
+            # -- lazy open: the WAL tail replays into a tenth component -----
+            re, comps = reopen(d, "with the WAL tail")
+            if out["opens"]["with the WAL tail"]["replayed"] != len(DURABLE_TAIL) \
+                    or len(comps) != 2 + len(LIVE_MIX):
+                raise AssertionError(f"phase 8: {re.recovery_report}")
+            suite(re, "reopened, 10 components", oracle)
+            _on_device(comps, dev, soft=True)
+            lookups(re, oracle, upserted, deleted)
+            calls = []
+            with recording(calls):
+                view_check(re, oracle, "reopened")
+            excluding(check_recorded, calls, "durable view seed", ())
+            re.close()
+
+            # -- lazy open again: the first query pays the rebuild ----------
+            re, comps = reopen(d, "lazy")
+            if not re.catalog.stale:
+                raise AssertionError("phase 8: a lazy open rebuilt eagerly")
+            fn = LIVE_QUERIES["3_filter_count"]
+            firsts = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                fn(*frames(re))
+                torch.cuda.synchronize()
+                firsts.append(time.perf_counter() - t0)
+            out["first_query_s"], out["second_query_s"] = firsts
+            print(f"  [{card}] e3 right after the lazy open (rebuilds the soft "
+                  f"state of {len(comps)} components): {firsts[0]:.3f} s; "
+                  f"again: {firsts[1] * 1e3:.3f} ms", flush=True)
+            _on_device(comps, dev, soft=True)
+            suite(re, "reopened lazily", oracle)
+            re.close()
+
+            # -- eager open, the compaction, and a last open ----------------
+            re, comps = reopen(d, "eager", lazy=False)
+            suite(re, "reopened eagerly", oracle)
+            excluding(time_queries, re, f"reopened, {len(comps)} components")
+            w = seg_written()
+            t0 = time.perf_counter()
+            Feed(re, "Live", "live", flush_rows=10**9, policy=policy).compact()
+            torch.cuda.synchronize()
+            out["compact_s"] = time.perf_counter() - t0
+            out["compact_bytes"] = seg_written() - w
+            oracle.compact()
+            seg_dir = d / "data" / "live" / "Live" / "seg"
+            segs = sorted(p.name for p in seg_dir.iterdir())
+            print(f"  [{card}] compaction of {len(comps)} components with its "
+                  f"segment write and GC: {out['compact_s']:.3f} s, "
+                  f"{out['compact_bytes']:,} segment bytes; on disk after: "
+                  f"{segs}", flush=True)
+            suite(re, "compacted", oracle)
+            excluding(time_queries, re, "compacted, 1 component")
+            re.close()
+            re, comps = reopen(d, "after the compaction")
+            suite(re, "reopened after the compaction", oracle)
+            re.close()
+            # the open's republish aged the pre-compaction generations out
+            print(f"  segments on disk after that open: "
+                  f"{sorted(p.name for p in seg_dir.iterdir())}", flush=True)
+
+            # -- 3. the crash matrix ------------------------------------------
+            gen = LiveOracle(raw)
+            rng = np.random.default_rng(seed + 1)
+            batches, next_key = [], ROWS
+            for i, kind in enumerate(LIVE_MIX[:CRASH_BATCHES]):
+                batches.append((kind, _live_batch(kind, i, rng, gen, next_key)))
+                gen.apply(*batches[-1])
+                next_key += LIVE_BATCH if kind == "push" else 0
+            memory: dict = {}
+
+            def acked_rows(n):
+                """A memory-only session that applied the first n batches
+                (one flush), its visible rows by key; numpy agrees."""
+                if n not in memory:
+                    sess = Session(mode="kernel", device=dev)
+                    sess.create_dataset("Live", table, dataverse="live",
+                                        closed=True, primary="unique2",
+                                        indexes=["onePercent"])
+                    f = Feed(sess, "Live", "live", flush_rows=10**9, policy=policy)
+                    want = LiveOracle(raw)
+                    for kind, batch in batches[:n]:
+                        getattr(f, kind)(batch)
+                        want.apply(kind, batch)
+                    f.flush()
+                    memory[n] = (_by_key(AFrame("live", "Live", session=sess)
+                                         .collect()), want)
+                    same(memory[n][0], _by_key(want.cols),
+                         f"memory-only session after {n} batches vs numpy")
+                    del sess, f
+                return memory[n]
+
+            for label, point, arrival in crash_cases:
+                dp = root / f"crash-{label}"
+                sess = Session(mode="kernel", device=dev, storage=str(dp))
+                sess.create_dataset("Live", table, dataverse="live", closed=True,
+                                    primary="unique2", indexes=["onePercent"])
+                # armed after the initial commit
+                sess.fault_plan = FaultPlan.once(point, arrival)
+                f = Feed(sess, "Live", "live", flush_rows=10**9, policy=policy)
+                acked, crashed = 0, False
+                try:
+                    for i, (kind, batch) in enumerate(batches):
+                        getattr(f, kind)(batch)
+                        acked += 1
+                        if i < CRASH_FLUSHED:
+                            f.flush()
+                except StorageFault:
+                    crashed = True
+                sess.close()
+                del sess, f
+                gc.collect()
+                if point == "mid-replay":
+                    try:
+                        Session.open(str(dp), mode="kernel", device=dev,
+                                     fault_plan=FaultPlan.once(point))
+                    except StorageFault:
+                        crashed = True
+                    else:
+                        raise AssertionError("mid-replay: no crash")
+                if not crashed:
+                    raise AssertionError(f"{label}: the fault never fired")
+                t0 = time.perf_counter()
+                re = Session.open(str(dp), mode="kernel", device=dev)
+                open_s = time.perf_counter() - t0
+                comps = re.catalog.components("live", "Live")
+                _on_device(comps, dev, soft=False)
+                got = _by_key(AFrame("live", "Live", session=re).collect())
+                rows, want = acked_rows(acked)
+                same(got, rows, f"crash at {label}: recovered vs memory-only")
+                if len(np.unique(got["unique2"])) != len(got["unique2"]):
+                    raise AssertionError(f"crash at {label}: duplicate keys")
+                held = dict(_build.LAUNCHES)
+                w = live_oracle(want.cols, dim_u1)
+                calls: list = []
+                with recording(calls):
+                    for name in ("3_filter_count", "4_group_count"):
+                        same(LIVE_QUERIES[name](
+                            AFrame("live", "Live", session=re), None),
+                             w[name], f"crash at {label}: {name}")
+                    torch.cuda.synchronize()
+                moved = {k: _build.LAUNCHES[k] - held[k]
+                         for k in ("filter_count", "segment_agg")}
+                excluding(check_recorded, calls, f"durable crash at {label}",
+                          ("filter_count", "segment_agg"))
+                if not all(moved.values()):
+                    raise AssertionError(f"crash at {label}: e3/e4 launched {moved}")
+                out["crash"][label] = {
+                    "acked": acked, "components": len(comps),
+                    "replayed": re.recovery_report["wal_replayed_batches"],
+                    "rows": len(got["unique2"]), "open_s": open_s}
+                print(f"  [{card}] crash at {label}: {acked} batch(es) acked, "
+                      f"reopened in {open_s:.3f} s with {len(comps)} components "
+                      f"({out['crash'][label]['replayed']} replayed), "
+                      f"{len(got['unique2']):,} rows == memory-only == numpy, "
+                      f"no duplicate key; e3/e4 through the kernels {moved}",
+                      flush=True)
+                re.close()
+                shutil.rmtree(dp)
+            memory.clear()
+        launches = {k: counts[k] - excluded.get(k, 0) for k in RELATIONAL}
+        print(f"  kernel launches in the durable phase: {launches}", flush=True)
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched in phase 8: {missing}")
+        out["launches"] = launches
+        total = out["written_bytes"] + out["compact_bytes"]
+        print(f"  [{card}] segment bytes written: {total:,} (round trip "
+              f"{out['written_bytes']:,}, compaction {out['compact_bytes']:,}); "
+              f"WAL bytes appended: {sum(a['wal_bytes'] for a in out['acks']):,}",
+              flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -2252,6 +2717,11 @@ def main(argv=None) -> int:
                           ("launches", "queries", "breakdowns",
                            "cumsum_unique1_deviation")},
                "live": live.pop("strings")}
+    print(f"phase 8: durability — Session(storage=dir) at {ROWS} rows + "
+          f"{len(LIVE_MIX) + len(DURABLE_TAIL)} batches, Session.open lazy and "
+          f"eager, the compaction, and the crash matrix over "
+          f"{CRASH_BATCHES} batches", flush=True)
+    durable = run_durable(table, raw, dev, args.seed, card, live["flushes"])
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -2265,7 +2735,7 @@ def main(argv=None) -> int:
                           k: v for k, v in decode_mixed.items() if k != "shape"},
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
-                      "strings": strings}))
+                      "strings": strings, "durable": durable}))
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "shape"}
                                   for d in kernels]}))
     print(card)

@@ -21,8 +21,11 @@ Concurrency model (snapshot-isolated serving), as in the reference:
 
 Reclaiming a retired, unpinned, engine-owned component drops the catalog's
 references to its tensors (the caching allocator then reuses the memory);
-a component a pinned snapshot still reaches is never touched. Durable
-storage (a store attached to the catalog) is ROADMAP A8.
+a component a pinned snapshot still reaches is never touched.
+
+With a durable store attached (``runtime/durable.py``), every publish also
+commits a manifest generation to disk and reclamation unlinks the segment
+files no kept generation references.
 """
 from __future__ import annotations
 
@@ -80,6 +83,16 @@ class Dataset:
     # exclusively (flush-built runs, compaction-built bases): only these are
     # reclaimed eagerly; a user-loaded base may share its tensors.
     engine_owned: bool = False
+    # durable segment file name (runtime/durable.py) once this component's
+    # hard state is on disk; None while memory-only. Set by
+    # DurableStore.write_component and at cold-start mount, so a re-publish
+    # never rewrites a segment.
+    seg_name: Optional[str] = None
+    # True while this component's soft state (index payloads, zone maps,
+    # host key copies, anti arrays, annihilation bookkeeping) awaits its
+    # rebuild after a cold-start mount; lsm.ensure_soft clears it at the
+    # first bind.
+    soft_stale: bool = False
 
     @property
     def runs(self) -> list["Dataset"]:
@@ -231,6 +244,22 @@ class Catalog:
         # itself retain them)
         self._retired: "weakref.WeakValueDictionary[int, Manifest]" = \
             weakref.WeakValueDictionary()
+        # the durable store (runtime/durable.py DurableStore), None for a
+        # memory-only catalog: publish() then gains a durable-commit step
+        # and _reclaim() unlinks dead components' segment files
+        self.store = None
+        # datasets with soft-stale components (cold-start mounts awaiting
+        # their first bind): one set probe on the query path
+        self.stale: set[tuple[str, str]] = set()
+
+    def attach_store(self, store) -> None:
+        """Attach the durable store. One store per catalog: sessions that
+        share a catalog share its storage directory too."""
+        with self._lock:
+            if self.store is not None and self.store is not store:
+                raise RuntimeError(
+                    "catalog already has a durable store attached")
+            self.store = store
 
     @property
     def lock(self) -> threading.RLock:
@@ -274,6 +303,14 @@ class Catalog:
                 self._retired[id(old_manifest)] = old_manifest
                 tel.inc("catalog.manifests_retired_total")
             self.bump_stats_epoch()
+            if self.store is not None:
+                # the durable-commit step of the swap: segments still
+                # missing (fresh DDL bases; flush and compaction builds were
+                # written off-lock), then the manifest generation through
+                # write-temp → fsync → atomic rename. A crash before the
+                # rename leaves the previous generation + the WAL tail
+                # authoritative.
+                self.store.commit(dataverse, name, m)
             self._reclaim()
             self.gc_stats()
             return m
@@ -309,20 +346,25 @@ class Catalog:
     def drop(self, dataverse: str, name: str) -> None:
         with self._lock:
             ds = self._datasets.pop((dataverse, name), None)
+            self.stale.discard((dataverse, name))
             if ds is not None:
                 if ds.manifest is not None:
                     ds.manifest.retired = True
                     self._retired[id(ds.manifest)] = ds.manifest
                     tel.inc("catalog.manifests_retired_total")
+                if self.store is not None:
+                    self.store.drop_dataset(dataverse, name)
                 self.bump_stats_epoch()
                 self._reclaim()
                 self.gc_stats()
 
     def _reclaim(self) -> None:
         """Free the tensors of engine-owned components reachable ONLY through
-        retired, unpinned manifests, and forget those manifests. Components
-        in a current manifest or in any pinned retired manifest are never
-        touched."""
+        retired, unpinned manifests, and forget those manifests; with a
+        store, also unlink the dead components' segment files (the store
+        keeps any a kept manifest generation or an in-flight build still
+        needs). Components in a current manifest or in any pinned retired
+        manifest are never touched."""
         with self._lock:
             protected: set[int] = set()
             for ds in self._datasets.values():
@@ -332,6 +374,7 @@ class Catalog:
                 if m.pins > 0:
                     protected.update(id(c) for c in m.components)
             comps_freed = bytes_freed = 0
+            dead_segs: list[tuple[str, str, str]] = []
             for mid, m in list(self._retired.items()):
                 if m.pins > 0:
                     continue
@@ -339,12 +382,19 @@ class Catalog:
                     if id(comp) in protected:
                         continue
                     protected.add(id(comp))  # shared across retired: once
+                    if comp.seg_name is not None:
+                        dead_segs.append((comp.dataverse,
+                                          comp.name.partition("@")[0],
+                                          comp.seg_name))
                     if not comp.engine_owned:
                         continue  # may share tensors with a caller's Table
                     bytes_freed += component_nbytes(comp)
                     comps_freed += 1
                     _delete_component_buffers(comp)
                 self._retired.pop(mid, None)
+        if self.store is not None:
+            for dv, name, seg in dead_segs:
+                self.store.maybe_unlink(dv, name, seg)
         if comps_freed:
             tel.inc("catalog.reclaimed_components_total", comps_freed)
             tel.inc("catalog.reclaimed_bytes_total", bytes_freed)

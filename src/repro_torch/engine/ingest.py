@@ -27,8 +27,10 @@ that must still subtract from older components. Flush stays O(batch);
 annihilation of older components is bookkeeping (O(tombstones · log n)),
 never a rewrite.
 
-The feed write-ahead log needs a durable store (ROADMAP A8): ``_wal`` is a
-no-op here.
+With a durable store attached to the session's catalog, every validated
+batch is appended to the dataset's feed WAL and fsynced before the ack, and
+the covered prefix is truncated only after the covering flush's manifest
+commit (``runtime/durable.py``).
 """
 from __future__ import annotations
 
@@ -88,6 +90,12 @@ class Feed:
         self.stall_delay_s = stall_delay_s
         self._buffer: list[tuple[str, object]] = []  # (kind, payload)
         self._buffered = 0
+        # the durable feed WAL (runtime/durable.py) when the catalog has a
+        # store. ``_replay`` marks cold-start WAL replay: batches arriving
+        # through the normal path must not be appended to the log they came
+        # from.
+        self._store = session.catalog.store
+        self._replay = False
         self.stats = {"ingested": 0, "flushes": 0, "compactions": 0,
                       "runs": 0, "run_rows": 0,
                       "upserts": 0, "deletes": 0, "tombstones": 0,
@@ -140,10 +148,15 @@ class Feed:
         self._maybe_flush()
 
     def _wal(self, kind: str, payload: dict) -> None:
-        """The durability ack (append + fsync to the feed WAL before
-        returning) needs a durable store, ROADMAP A8; without one the
-        buffer is the only write-ahead state, as in the reference's
-        memory-only sessions."""
+        """Durability ack: append the validated batch to the dataset's WAL
+        and fsync before returning. Runs AFTER validation (a rejected batch
+        never reaches the log) and BEFORE buffering (a crash mid-append —
+        the ``torn-write`` fault — leaves a CRC-invalid tail and an
+        un-acked, un-buffered batch: lost consistently on both sides).
+        Without a store the buffer is the only write-ahead state."""
+        if self._store is not None and not self._replay:
+            self._store.wal_append(self.dataverse, self.dataset, kind,
+                                   payload)
 
     def _key_column(self, op: str) -> str:
         ds = self.session.catalog.get(self.dataverse, self.dataset)
@@ -172,20 +185,36 @@ class Feed:
             return
         t0 = time.perf_counter()
         ds_label = f"{self.dataverse}.{self.dataset}"
+        # a cold-start mount rebuilds its soft state at the first bind: the
+        # flush reads host keys (annihilation) and the index inventory
+        lsm.ensure_soft(self.session, self.dataverse, self.dataset)
         ds = self.session.catalog.get(self.dataverse, self.dataset)
         key_col = ds.primary_index.column if ds.primary_index is not None else None
         # the buffer is the flush's write-ahead state: it is dropped only
         # AFTER the manifest publish succeeds, so a crash at the "flush" or
         # "pre-swap" fault point loses nothing — re-flushing replays the
-        # exact same batch (normalization is pure)
+        # exact same batch (normalization is pure). With a durable store the
+        # on-disk WAL mirrors the buffer batch for batch.
         lsm._fault(self.session, "flush")
         cols, anti_keys = _normalize_buffer(self._buffer, ds.table, key_col)
         if not len(next(iter(cols.values()))) and anti_keys is None:
             self._buffer.clear()
             self._buffered = 0
             return
+        if self._store is not None:
+            # the WAL sequence this flush covers: every buffered batch was
+            # appended at or below the current ack counter. The manifest
+            # commit inside register_run embeds it (wal_upto), so the
+            # covered prefix is dead for replay even if the truncate below
+            # never happens (the pre-wal-truncate crash point).
+            self._store.set_wal_coverage(
+                self.dataverse, self.dataset,
+                self._store.wal_seq(self.dataverse, self.dataset))
         run = lsm.make_run(self.session, ds, Table(cols), anti_keys=anti_keys)
         retracted = lsm.register_run(self.session, ds, run)
+        if self._store is not None:
+            # strictly after the covering manifest commit
+            self._store.wal_truncate(self.dataverse, self.dataset)
         self._buffer.clear()
         self._buffered = 0
         self.session.refresh_views(self.dataverse, self.dataset, cols,
@@ -213,9 +242,16 @@ class Feed:
     def drop_buffer(self) -> None:
         """Discard the buffered (un-flushed) batches. Crash recovery uses
         this after a post-swap fault: the manifest already committed the
-        flush, so replaying the buffer would double-apply it."""
+        flush, so replaying the buffer would double-apply it. With a
+        durable store the WAL mirror of the dropped batches is truncated
+        too — discard means discard on both sides."""
         self._buffer.clear()
         self._buffered = 0
+        if self._store is not None and not self._replay:
+            self._store.set_wal_coverage(
+                self.dataverse, self.dataset,
+                self._store.wal_seq(self.dataverse, self.dataset))
+            self._store.wal_truncate(self.dataverse, self.dataset)
 
     def _refresh_run_stats(self) -> None:
         runs = self.session.catalog.get(self.dataverse, self.dataset).runs

@@ -25,9 +25,15 @@ paper's §III-A feed path).
     mode) and merges partials into int64/float64 host state; deletes and
     upserts feed retraction deltas.
 
-Crash recovery and lazy soft-state rebuild (``recover``, ``ensure_soft``)
-need durable storage, ROADMAP A8; the ``_fault`` hook reads the session's
-``fault_plan`` exactly as the reference does.
+Crash recovery splits hard state (component tables, the manifest, the
+index inventory) from soft state (index payloads, zone maps, host key
+copies, annihilation bookkeeping, view partials): ``recover`` rebuilds the
+soft state on the session device from the hard state, and after a
+cold-start mount ``ensure_soft`` does so lazily at the first bind. With a
+durable store (``runtime/durable.py``) flush- and compaction-built
+components are written to their segments off the catalog lock, before the
+publish that links them. ``_fault`` consults the session's ``fault_plan``
+(``runtime/fault.py``) at the named crash points.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.table import (ColumnMeta, Table, is_lane_column,
                                       pad_to_block)
 from repro_torch.runtime import telemetry as tel
+from repro_torch.runtime.fault import StorageFault
 
 RUN_BLOCK = 1024      # runs are padded to this row multiple
 _F32_EXACT = 1 << 24  # every int in [-2^24, 2^24] is exactly representable
@@ -245,8 +252,12 @@ def register_run(session, base: Dataset, run: Dataset) -> Optional[dict]:
     Then the soft-state bookkeeping: with anti-matter, every older
     component's annihilation sets update; with a view registered over the
     dataset, the newly annihilated rows are gathered and returned for its
-    retraction."""
+    retraction. With a durable store the run's segment is written first,
+    off the catalog lock (the heavy host copy and write); the publish's
+    durable commit only links it."""
     cat = session.catalog
+    if cat.store is not None:
+        cat.store.write_component(base.dataverse, base.name, run)
     with cat.lock:
         # re-read the CURRENT manifest: a concurrent compaction may have
         # swapped the base the caller fetched
@@ -356,9 +367,12 @@ def compact(session, ds: Dataset, manifest: Optional[Manifest] = None) -> Datase
     clustered order. Builds OFF the catalog lock and commits with a
     CAS-validated swap (``ManifestConflict`` when the base or the merged
     segment changed); runs flushed meanwhile survive and their anti keys are
-    reconciled against the fresh base at swap time."""
+    reconciled against the fresh base at swap time. With a durable store
+    the new base's segment is written off-lock before the CAS; a lost CAS
+    unlinks it (never committed)."""
     cat = session.catalog
     dv, name = ds.dataverse, ds.name
+    ensure_soft(session, dv, name)  # kill-sets and host keys must be live
     t0 = time.perf_counter()
     tel.inc("lsm.compaction.attempts_total", kind="full")
     with cat.lock:
@@ -384,21 +398,28 @@ def compact(session, ds: Dataset, manifest: Optional[Manifest] = None) -> Datase
                                       stats_like=m0.base.table.meta)
     new_base.engine_owned = True  # merged copies, never a caller's tensors
     _settle(session)
-    with cat.lock:
-        cur = cat.manifest(dv, name)
-        if cur.base is not m0.base \
-                or tuple(cur.runs[:len(m0.runs)]) != tuple(m0.runs):
-            tel.inc("lsm.compaction.conflicts_total", kind="full")
-            raise ManifestConflict(
-                f"{dv}.{name}: component set changed under a full "
-                f"compaction (planned at lsn {m0.lsn}, now {cur.lsn})")
-        newer = cur.runs[len(m0.runs):]  # flushed while the merge built
-        _fault(session, "pre-swap")
-        cat.publish(dv, name, new_base, newer)
-        _fault(session, "post-swap")
-        for r in newer:  # their tombstones still shadow the fresh base
-            if r.anti_rows:
-                _annihilate_older((new_base,), r, gather=False)
+    if cat.store is not None:
+        cat.store.write_component(dv, name, new_base)  # off-lock, pre-CAS
+    try:
+        with cat.lock:
+            cur = cat.manifest(dv, name)
+            if cur.base is not m0.base \
+                    or tuple(cur.runs[:len(m0.runs)]) != tuple(m0.runs):
+                tel.inc("lsm.compaction.conflicts_total", kind="full")
+                raise ManifestConflict(
+                    f"{dv}.{name}: component set changed under a full "
+                    f"compaction (planned at lsn {m0.lsn}, now {cur.lsn})")
+            newer = cur.runs[len(m0.runs):]  # flushed while the merge built
+            _fault(session, "pre-swap")
+            cat.publish(dv, name, new_base, newer)
+            _fault(session, "post-swap")
+            for r in newer:  # their tombstones still shadow the fresh base
+                if r.anti_rows:
+                    _annihilate_older((new_base,), r, gather=False)
+    except ManifestConflict:
+        if cat.store is not None:  # orphan segment: never committed
+            cat.store.discard_component(dv, name, new_base)
+        raise
     tel.inc("lsm.compactions_total", kind="full")
     tel.observe("lsm.compaction_seconds", time.perf_counter() - t0,
                 kind="full")
@@ -411,9 +432,11 @@ def merge_runs(session, ds: Dataset, start: int, end: int, level: int,
     ``runs[start:end]`` into ONE run at ``level`` — O(segment), never
     touching the base. Each member drops the matter newer components
     annihilated; the merged run keeps the union of the members' anti keys
-    (older components still need them). Concurrency as :func:`compact`."""
+    (older components still need them). Concurrency and the segment write
+    as :func:`compact`."""
     cat = session.catalog
     dv, name = ds.dataverse, ds.name
+    ensure_soft(session, dv, name)  # kill-sets and host keys must be live
     t0 = time.perf_counter()
     tel.inc("lsm.compaction.attempts_total", kind="level")
     with cat.lock:
@@ -432,30 +455,37 @@ def merge_runs(session, ds: Dataset, start: int, end: int, level: int,
     run = make_run(session, m0.base, Table(merged_cols), anti_keys=anti_union)
     run.level = level
     _settle(session)
-    with cat.lock:
-        cur = cat.manifest(dv, name)
-        if cur.base is not m0.base:
-            tel.inc("lsm.compaction.conflicts_total", kind="level")
-            raise ManifestConflict(
-                f"{dv}.{name}: base swapped under a level merge "
-                f"(planned at lsn {m0.lsn}, now {cur.lsn})")
-        try:
-            s = cur.runs.index(members[0])  # identity: Dataset eq is id-based
-        except ValueError:
-            s = -1
-        if s < 0 or tuple(cur.runs[s:s + len(members)]) != members:
-            tel.inc("lsm.compaction.conflicts_total", kind="level")
-            raise ManifestConflict(
-                f"{dv}.{name}: merged run segment no longer contiguous "
-                f"(planned at lsn {m0.lsn}, now {cur.lsn})")
-        tail = cur.runs[s + len(members):]
-        # tombstones that landed mid-build replay here
-        for newer in tail:
-            if newer.anti_rows:
-                _annihilate_older((run,), newer, gather=False)
-        _fault(session, "pre-swap")
-        cat.publish(dv, name, cur.base, cur.runs[:s] + (run,) + tail)
-        _fault(session, "post-swap")
+    if cat.store is not None:
+        cat.store.write_component(dv, name, run)  # off-lock, pre-CAS
+    try:
+        with cat.lock:
+            cur = cat.manifest(dv, name)
+            if cur.base is not m0.base:
+                tel.inc("lsm.compaction.conflicts_total", kind="level")
+                raise ManifestConflict(
+                    f"{dv}.{name}: base swapped under a level merge "
+                    f"(planned at lsn {m0.lsn}, now {cur.lsn})")
+            try:
+                s = cur.runs.index(members[0])  # identity: Dataset eq is id-based
+            except ValueError:
+                s = -1
+            if s < 0 or tuple(cur.runs[s:s + len(members)]) != members:
+                tel.inc("lsm.compaction.conflicts_total", kind="level")
+                raise ManifestConflict(
+                    f"{dv}.{name}: merged run segment no longer contiguous "
+                    f"(planned at lsn {m0.lsn}, now {cur.lsn})")
+            tail = cur.runs[s + len(members):]
+            # tombstones that landed mid-build replay here
+            for newer in tail:
+                if newer.anti_rows:
+                    _annihilate_older((run,), newer, gather=False)
+            _fault(session, "pre-swap")
+            cat.publish(dv, name, cur.base, cur.runs[:s] + (run,) + tail)
+            _fault(session, "post-swap")
+    except ManifestConflict:
+        if cat.store is not None:  # orphan segment: never committed
+            cat.store.discard_component(dv, name, run)
+        raise
     tel.inc("lsm.compactions_total", kind="level")
     tel.observe("lsm.compaction_seconds", time.perf_counter() - t0,
                 kind="level")
@@ -473,7 +503,10 @@ class BackgroundCompactor:
     Every merge builds fresh components off the catalog lock and commits
     with one CAS-validated swap: readers never block, and a lost CAS
     (:class:`ManifestConflict`) replans and retries with exponential
-    backoff, bounded by ``max_retries``. Before a merge publishes, the
+    backoff, bounded by ``max_retries``; an injected
+    :class:`~repro_torch.runtime.fault.StorageFault` aborts the attempt
+    alike (hard state is untouched, so the retry rebuilds from intact
+    components). Before a merge publishes, the
     worker waits for the device work it queued, so the swap never exposes
     unfinished tensors; readers pinned to the old manifest keep its tensors
     until they release it."""
@@ -604,6 +637,9 @@ class BackgroundCompactor:
             except ManifestConflict:
                 self._bump("conflicts")
                 failures += 1
+            except StorageFault:
+                self._bump("faults")
+                failures += 1
             except Exception:  # pragma: no cover - defensive: keep serving
                 self._bump("errors")
                 return
@@ -623,25 +659,116 @@ class BackgroundCompactor:
         tel.inc(f"lsm.compactor.{key}_total")
 
 
-# -- crash recovery (durable storage, ROADMAP A8) ------------------------------
-
-
-def _a8(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for ROADMAP A8 (durability)")
+# -- crash recovery: rebuild soft state from hard state -----------------------
 
 
 def recover(session, dataverse: str, name: str, lazy: bool = False) -> None:
-    """Rebuild every component's soft state from its hard state."""
-    raise _a8("lsm.recover (crash recovery)")
+    """Crash recovery: rebuild every component's SOFT state from its HARD
+    state.
+
+    Hard state (survives an injected crash at any fault point): each
+    component's table — matter rows, anti-matter rows with the
+    ``__antimatter__`` flag and the key column, the ``__valid__`` mask —
+    plus the manifest itself (swapped atomically) and the index inventory.
+
+    Soft state (rebuilt here, on the session device): index payloads, block
+    zone maps, host clustered-key and anti-key copies, the annihilation
+    bookkeeping (replayed newest-wins in manifest order), and materialized
+    view partials (reseeded from visible rows).
+
+    With ``lazy`` the rebuild is only MARKED: each component flips
+    ``soft_stale`` and the dataset joins ``catalog.stale``; the first bind
+    (query, point lookup, flush, compaction, view seed) pays it through
+    :func:`ensure_soft`."""
+    cat = session.catalog
+    if lazy:
+        with cat.lock:
+            m = cat.manifest(dataverse, name)
+            for comp in m.components:
+                comp.soft_stale = True
+            cat.stale.add((dataverse, name))
+        return
+    with cat.lock:
+        m = cat.manifest(dataverse, name)
+    for comp in m.components:
+        _rebuild_soft(session, comp)
+        comp.soft_stale = False
+    with cat.lock:
+        _replay_annihilation(m)
+        cat.stale.discard((dataverse, name))
+        cat.bump_stats_epoch()
+    session.reseed_views(dataverse, name)
 
 
 def ensure_soft(session, dataverse: str, name: str) -> None:
-    """First-bind rebuild of cold-start mounts."""
-    raise _a8("lsm.ensure_soft (lazy soft-state rebuild)")
+    """First-bind hook of the lazy rebuild: if the dataset carries
+    soft-stale components (cold-start mounts), rebuild their soft state now
+    and replay the annihilation bookkeeping across the whole chain. One
+    set-membership probe when nothing is stale, so every bind site calls
+    it unconditionally."""
+    cat = session.catalog
+    if (dataverse, name) not in cat.stale:
+        return
+    with cat.lock:
+        if (dataverse, name) not in cat.stale:
+            return  # another binder won the race
+        try:
+            m = cat.manifest(dataverse, name)
+        except KeyError:
+            cat.stale.discard((dataverse, name))
+            return
+        t0 = time.perf_counter()
+        for comp in m.components:
+            if comp.soft_stale:
+                _rebuild_soft(session, comp)
+                comp.soft_stale = False
+        _replay_annihilation(m)
+        cat.stale.discard((dataverse, name))
+        cat.bump_stats_epoch()
+    tel.inc("storage.lazy_rebuilds_total")
+    tel.observe("storage.lazy_rebuild_seconds", time.perf_counter() - t0)
+
+
+def _replay_annihilation(m: Manifest) -> None:
+    """The cross-component bookkeeping, replayed newest-wins in manifest
+    order over freshly zeroed sets. Callers hold the catalog lock."""
+    for i, run in enumerate(m.runs):
+        if run.anti_rows:
+            _annihilate_older((m.base,) + tuple(m.runs[:i]), run,
+                              gather=False)
 
 
 def _rebuild_soft(session, comp: Dataset) -> None:
-    raise _a8("lsm._rebuild_soft (soft-state rebuild)")
+    """Rebuild one component's soft state from its table columns, through
+    the passes create_dataset and make_run run (``session._build_index``,
+    ``harvest_block_zones``) on the table's device, so the rebuilt state is
+    the state before the crash, bit for bit."""
+    from repro_torch.core.stats import harvest_block_zones
+
+    t = comp.table
+    valid = t.valid
+    anti_col = t.columns.get("__antimatter__")
+    comp.live_rows = int(valid.sum())
+    comp.anti_rows = 0 if anti_col is None else int(anti_col.sum())
+    comp.annihilated_rows = 0
+    comp.annihilated_keys = set()
+    primary_col = None
+    for ix in comp.indexes.values():
+        if ix.kind == "primary":
+            primary_col = ix.column
+    if comp.anti_rows and primary_col is not None:
+        anti_sorted = torch.sort(t.columns[primary_col][anti_col]).values
+        comp.anti_keys_arr = anti_sorted
+        comp.host_anti_keys = _host(anti_sorted)
+    else:
+        comp.anti_keys_arr = None
+        comp.host_anti_keys = None
+    if primary_col is not None:
+        # the matter prefix is clustered: masking keeps the sorted order
+        comp.host_keys = _host(t.columns[primary_col][valid])
+    comp.block_zones = harvest_block_zones(t)
+    for key, ix in list(comp.indexes.items()):
+        comp.indexes[key] = session._build_index(t, ix.column, ix.kind)
 
 
 # -- incrementally-maintained materialized views ----------------------------

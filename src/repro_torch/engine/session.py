@@ -12,8 +12,11 @@ hand-written CUDA kernels.
 Datasets may be clustered by a primary key and carry sorted secondary
 indexes; ``repro_torch.engine.ingest.Feed`` streams pushes, upserts and
 deletes into LSM runs, and views over a fed dataset refresh from each
-flush. Not in this slice (each raises, naming its ROADMAP item): durable
-storage and ``Session.open`` (A8), meshes and ``shard_map`` (A9).
+flush. ``Session(storage=dir)`` makes the catalog durable (checksummed
+segments, manifest generations, the feed WAL; ``runtime/durable.py``) and
+``Session.open(dir)`` recovers such a directory onto the session device.
+Not in this slice (each raises, naming its ROADMAP item): meshes and
+``shard_map`` (A9).
 """
 from __future__ import annotations
 
@@ -102,7 +105,8 @@ class Session:
     def __init__(self, mode: str = "auto", device=None,
                  catalog: Optional[Catalog] = None, mesh=None, storage=None,
                  enable_index: bool = True, enable_pushdown: bool = True,
-                 enable_prune: bool = True, enable_block_skip: bool = True):
+                 enable_prune: bool = True, enable_block_skip: bool = True,
+                 fault_plan=None):
         """mode: 'auto' (= 'gspmd' on one device), 'gspmd', or 'kernel' (the
         planner lowers fusable plan shapes onto the relational kernels;
         anything uncovered runs the generic operators). ``catalog`` shares
@@ -115,11 +119,17 @@ class Session:
         optimizer's rewrites (a fed dataset still expands into base ∪
         runs); ``enable_prune=False`` turns bind-time zone-map run pruning
         off; ``enable_block_skip=False`` does the same for the blocks inside
-        a component."""
+        a component.
+
+        ``fault_plan`` arms the storage fault points
+        (``runtime/fault.py`` FaultPlan) for crash-consistency tests.
+        ``storage`` attaches a durable store (``runtime/durable.py``): a
+        DurableStore or a path to open one at. Every manifest publish then
+        commits checksummed component segments and an atomically renamed
+        manifest generation, and feeds write an fsynced WAL; ``open``
+        recovers such a directory."""
         if mesh is not None:
             raise _later("a device mesh", "A9 (multi-device)")
-        if storage is not None:
-            raise _later("durable storage", "A8 (durability)")
         if mode == "auto":
             mode = "gspmd"
         if mode == "shard_map":
@@ -129,9 +139,20 @@ class Session:
         self.mode = mode
         self.device = resolve_device(device)
         self.catalog = catalog if catalog is not None else Catalog()
-        # the storage crash points ``lsm._fault`` consults (fault injection
-        # arrives with durable storage, ROADMAP A8)
-        self.fault_plan = None
+        self.fault_plan = fault_plan
+        self.storage = None
+        if storage is not None:
+            from repro_torch.engine import lsm
+            from repro_torch.runtime.durable import DurableStore
+
+            store = storage if isinstance(storage, DurableStore) \
+                else DurableStore(storage)
+            # the store's crash points consult THIS session's FaultPlan: one
+            # fault source for in-memory and I/O points alike
+            store._fault = lambda point: lsm._fault(self, point)
+            self.catalog.attach_store(store)
+            self.storage = store
+        self.recovery_report: Optional[dict] = None
         self.enable_index = enable_index
         self.enable_pushdown = enable_pushdown
         self.enable_prune = enable_prune
@@ -161,9 +182,117 @@ class Session:
         # refreshed from each feed flush's delta batch
         self.views: dict[str, object] = {}
 
+    # -- durable cold start --------------------------------------------------
+
     @classmethod
-    def open(cls, path, **kwargs) -> "Session":
-        raise _later("Session.open (cold-start recovery)", "A8 (durability)")
+    def open(cls, path, lazy: bool = True, **kwargs) -> "Session":
+        """Cold-start crash recovery: open a durable storage directory
+        (``Session(storage=...)``'s layout) and rebuild the catalog —
+
+          1. load each dataset's newest checksum-valid manifest generation
+             (a corrupt manifest or segment is quarantined and the previous
+             generation serves — ``storage.corruption_total``);
+          2. mount the component segments on the session device and
+             republish them (the catalog LSN resumes past the recovered
+             high-water mark, run uids past the highest mounted uid);
+          3. mark soft state for the rebuild at first bind
+             (``lazy=False`` rebuilds indexes and zone maps now);
+          4. replay the WAL tail — acked batches whose covering flush never
+             committed — through the normal flush path, in order, skipping
+             batches at or below the manifest's ``wal_upto``.
+
+        Returns the session with ``recovery_report`` filled. Raises
+        ``StorageLockError`` if a live process holds the directory."""
+        from repro_torch.engine import ingest, lsm
+        from repro_torch.runtime.durable import DurableStore
+
+        t0 = time.perf_counter()
+        store = path if isinstance(path, DurableStore) else DurableStore(path)
+        corrupt0 = tel.counter_value("storage.corruption_total") or 0
+        report: dict = {"datasets": {}, "seconds": 0.0,
+                        "corruption_events": 0, "wal_replayed_batches": 0}
+        try:
+            sess = cls(storage=store, **kwargs)
+            cat = sess.catalog
+            loads = [(dv, name) + store.load_dataset(dv, name)
+                     for dv, name in store.list_datasets()]
+            # restore the LSN high-water mark BEFORE any publish, so every
+            # mounted generation commits with a strictly newer LSN than
+            # anything already on disk
+            with cat.lock:
+                for dv, name, record, _, _ in loads:
+                    cat.lsn = max(cat.lsn, int(record["lsn"]))
+            for dv, name, record, segments, ds_report in loads:
+                base = _mount_component(
+                    sess, dv, record["base"]["seg"],
+                    *segments[record["base"]["seg"]])
+                runs = tuple(
+                    _mount_component(sess, dv, r["seg"], *segments[r["seg"]])
+                    for r in record["runs"])
+                with cat.lock:
+                    key = (dv, name)
+                    max_uid = max((r.uid for r in runs), default=-1)
+                    cat._run_uids[key] = max(cat._run_uids.get(key, 0),
+                                             max_uid + 1)
+                    cat.publish(dv, name, base, runs)
+                lsm.recover(sess, dv, name, lazy=lazy)
+                tail = store.wal_tail(dv, name)
+                replayed = 0
+                if tail:
+                    # the replay feed IS the normal ingest path: validate,
+                    # buffer, flush, publish — only WAL appends are off
+                    lsm.ensure_soft(sess, dv, name)
+                    feed = ingest.Feed(
+                        sess, name, dv, flush_rows=1 << 62,
+                        policy=lsm.CompactionPolicy(
+                            size_ratio=float("inf"), max_runs=1 << 30))
+                    feed._replay = True
+                    for seq, kind, payload in tail:
+                        lsm._fault(sess, "mid-replay")
+                        if kind == "delete":
+                            feed.delete(payload["__keys__"])
+                        else:
+                            getattr(feed, kind)(payload)
+                        replayed += 1
+                    feed.flush()
+                    tel.inc("storage.wal_replayed_batches_total", replayed)
+                report["wal_replayed_batches"] += replayed
+                report["datasets"][f"{dv}.{name}"] = {
+                    "lsn": int(record["lsn"]),
+                    "components": 1 + len(runs),
+                    "wal_replayed_batches": replayed,
+                    "manifest_fallbacks": ds_report["fallbacks"],
+                    "quarantined": ds_report["quarantined"],
+                }
+        except BaseException:
+            store.close()
+            raise
+        report["seconds"] = time.perf_counter() - t0
+        report["corruption_events"] = int(
+            (tel.counter_value("storage.corruption_total") or 0) - corrupt0)
+        tel.observe("storage.recovery_seconds", report["seconds"])
+        sess.recovery_report = report
+        return sess
+
+    def close(self) -> None:
+        """Release the durable store (directory lock + WAL handles); a
+        memory-only session does nothing. Crash tests call it to simulate
+        process death before reopening the same directory."""
+        if self.storage is not None:
+            self.storage.close()
+
+    def _ensure_bound(self, plan: P.Plan) -> None:
+        """The lazy-rebuild hook of the query path: before binding, rebuild
+        the soft state of any scanned dataset still stale from a cold-start
+        mount. One set probe when nothing is stale."""
+        if not self.catalog.stale:
+            return
+        from repro_torch.engine import lsm
+
+        for node in P.walk(plan):
+            if isinstance(node, P.Scan):
+                lsm.ensure_soft(self, node.dataverse,
+                                node.dataset.partition("@")[0])
 
     # -- DDL ----------------------------------------------------------------
 
@@ -243,8 +372,11 @@ class Session:
         incrementally from each flush's delta batch."""
         from repro_torch.engine.lsm import MaterializedView
 
+        from repro_torch.engine import lsm
+
         plan = getattr(frame_or_plan, "_plan", frame_or_plan)
         view = MaterializedView.from_plan(name, plan, self.device)
+        lsm.ensure_soft(self, view.dataverse, view.dataset)
         with self.catalog.snapshot() as snap:
             self._seed_view(view, snap.components(view.dataverse,
                                                   view.dataset))
@@ -354,6 +486,9 @@ class Session:
 
         Returns the matching row(s) as ``{column: np.ndarray}`` or None;
         ``last_physical`` holds the PointLookup node."""
+        from repro_torch.engine import lsm
+
+        lsm.ensure_soft(self, dataverse, dataset)
         t0 = time.perf_counter()
         with self.catalog.snapshot() as snap:
             comps = list(snap.components(dataverse, dataset))
@@ -500,6 +635,7 @@ class Session:
         t0 = time.perf_counter()
         raw_fp = plan.fingerprint()
         raw_lits = ordered_lits(P.all_exprs(plan))
+        self._ensure_bound(plan)
         with self.catalog.snapshot() as snap:
             with tel.span("session.execute", sid=self.sid, mode=self.mode):
                 e = self._plan_entry(plan, raw_fp, raw_lits, snap)
@@ -522,6 +658,7 @@ class Session:
         ``__valid__`` — as a new closed single-component dataset with fresh
         statistics and zone maps."""
         raw_lits = ordered_lits(P.all_exprs(plan))
+        self._ensure_bound(plan)
         with self.catalog.snapshot() as snap:
             e = self._plan_entry(plan, plan.fingerprint(), raw_lits, snap)
             cq, binding = self._variant(e, raw_lits, snap)
@@ -544,6 +681,7 @@ class Session:
         if analyze:
             return self.profile(plan)["text"]
         raw_lits = ordered_lits(P.all_exprs(plan))
+        self._ensure_bound(plan)
         with self.catalog.snapshot() as snap:
             e = self._plan_entry(plan, plan.fingerprint(), raw_lits, snap)
             phys = plan_physical(e.opt, snap, mode=self.mode,
@@ -560,6 +698,7 @@ class Session:
         ``result`` is exactly what ``execute(plan)`` returns."""
         tel.inc("session.profiles_total", sid=self.sid)
         raw_lits = ordered_lits(P.all_exprs(plan))
+        self._ensure_bound(plan)
         with self.catalog.snapshot() as snap:
             with tel.span("session.profile", sid=self.sid, mode=self.mode):
                 e = self._plan_entry(plan, plan.fingerprint(), raw_lits, snap)
@@ -616,6 +755,29 @@ def _bind_params(binding, raw_lits, device):
         return raw_lits[v].value if kind == "raw" else v
 
     return [encode_param(value(kind, v), device) for kind, v in binding]
+
+
+def _mount_component(session: Session, dataverse: str, seg: str,
+                     arrays: Mapping, meta: Mapping) -> Dataset:
+    """Rehydrate one LSM component from its durable segment: hard state
+    only — the table columns, placed on the session device once in the
+    segment's column order, their metadata, and the index *inventory*
+    (payloads stay None until the soft-state rebuild at first bind)."""
+    from repro_torch.runtime.durable import _meta_from_json
+
+    cols, cmeta = {}, {}
+    for cname, mjson in meta["columns"]:
+        cols[cname] = torch.from_numpy(arrays[cname]).to(session.device)
+        cmeta[cname] = _meta_from_json(mjson)
+    table = Table(cols, cmeta, int(meta["num_rows"]))
+    ds = Dataset(name=meta["name"], dataverse=dataverse, table=table,
+                 closed=bool(meta["closed"]), live_rows=meta["live_rows"],
+                 anti_rows=int(meta["anti_rows"]), level=int(meta["level"]),
+                 uid=int(meta["uid"]), engine_owned=True, seg_name=seg,
+                 soft_stale=True)
+    for key, ix_name, column, kind in meta["indexes"]:
+        ds.indexes[key] = IndexInfo(name=ix_name, column=column, kind=kind)
+    return ds
 
 
 def _collect_stats(table: Table, like: Optional[Mapping] = None) -> Table:

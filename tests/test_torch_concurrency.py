@@ -1,25 +1,32 @@
 """Concurrent serving on the port: background compaction off the ingest
 path, readers that never block on a running merge, write-stall
-backpressure and per-dataverse compactor isolation — the scenarios of
-tests/test_concurrency.py that inject no fault, on ``device="cpu"``. Every
-reader observation equals a plain-dict oracle, as in the reference, and a
-seeded stress run races a real compactor in gspmd and kernel mode. The
-fault-injected scenarios (``FaultPlan``, ``recover``) wait for the
-durability slice (ROADMAP A8); ``shard_map`` for A9."""
+backpressure, per-dataverse compactor isolation, storage fault injection
+at every named crash point and hard/soft state recovery — the scenarios of
+tests/test_concurrency.py, on ``device="cpu"``. Every reader observation
+equals a plain-dict oracle, as in the reference; the crash-point and
+soft-state recovery scenarios also run through the reference on the same
+schedule, and each reader observation and fired fault equals the
+reference's. Seeded stress runs (a copy of the reference's driver, on the
+port's sessions) race a real compactor in gspmd and kernel mode, with and
+without an injected crash. ``shard_map`` waits for ROADMAP A9."""
 import threading
 import time
 
 import numpy as np
 import pytest
 
-from torch_replay import PORT
+from torch_replay import PORT, REF
 
+from repro.runtime import fault as ref_fault
 from repro_torch.core.physical_planner import STALL_WARN_FRAC
 from repro_torch.engine import lsm
 from repro_torch.engine.ingest import Feed, stall_delay
 from repro_torch.runtime import telemetry as tel
+from repro_torch.runtime import fault
+from repro_torch.runtime.fault import STORAGE_FAULT_POINTS, FaultPlan, StorageFault
 
 DEFERRED = lsm.CompactionPolicy(size_ratio=100.0, max_runs=64)
+PKGS = ((REF, ref_fault), (PORT, fault))
 
 
 def _rows(keys, rng=None):
@@ -31,11 +38,11 @@ def _rows(keys, rng=None):
     return {"k": keys, "v": vals, "g": (keys % 5).astype(np.int32)}
 
 
-def _setup(mode="gspmd", n=48, catalog=None):
-    sess = PORT.session(mode, **({"catalog": catalog} if catalog else {}))
+def _setup(mode="gspmd", n=48, catalog=None, indexes=(), pk=PORT):
+    sess = pk.session(mode, **({"catalog": catalog} if catalog else {}))
     rows = _rows(np.arange(n))
-    sess.create_dataset("Live", PORT.Table(dict(rows)), dataverse="d",
-                        primary="k")
+    sess.create_dataset("Live", pk.Table(dict(rows)), dataverse="d",
+                        primary="k", indexes=list(indexes))
     oracle = {int(k): (int(v), int(g))
               for k, v, g in zip(rows["k"], rows["v"], rows["g"])}
     return sess, oracle
@@ -198,22 +205,171 @@ def test_per_dataverse_compactor_isolation(monkeypatch):
     assert not sess.catalog.get("d", "Live").runs
 
 
-@pytest.mark.parametrize("mode", ["gspmd", "kernel"])
-def test_stress_concurrent_ops_match_oracle(mode):
-    """The reference's oracle-replay stress without faults: a random op
-    sequence against a writer with a leveled compactor racing, a reader
-    session observing after every flush."""
-    rng = np.random.default_rng(0)
+def test_background_compactor_retries_through_injected_fault():
+    """A mid-merge crash on the worker thread is absorbed by its bounded
+    retry loop: the writer never sees it, and the fold still lands."""
+    sess, oracle = _setup()
+    sess.fault_plan = FaultPlan.once("mid-merge")
+    with lsm.BackgroundCompactor(
+            sess, policy=lsm.CompactionPolicy(size_ratio=0.0),
+            backoff_s=0.001) as bc:
+        feed = Feed(sess, "Live", "d", flush_rows=8, policy=DEFERRED,
+                    compactor=bc)
+        rows = _rows(np.arange(48, 56))
+        feed.push(rows)  # no StorageFault reaches the writer
+        _apply(oracle, rows)
+        assert bc.wait_idle(30.0)
+        assert bc.stats["faults"] >= 1 and bc.stats["retries"] >= 1
+    assert not sess.catalog.get("d", "Live").runs  # the fold landed
+    assert _observe(PORT.AFrame("d", "Live", session=sess)) == _expected(oracle)
+    assert sess.fault_plan.fired == [("mid-merge", 0)]
+
+
+def _crash_at(pk, flt, point):
+    """One package's run of the crash scenario: every reader observation,
+    each held to the oracle, and the faults that fired."""
+    sess, oracle = _setup(pk=pk)
+    feed = pk.Feed(sess, "Live", "d", flush_rows=10**9,
+                   policy=pk.lsm.CompactionPolicy(size_ratio=0.0))
+    df = pk.AFrame("d", "Live", session=sess)
+    seen = []
+
+    def check():
+        seen.append(_observe(df))
+        assert seen[-1] == _expected(oracle)
+
+    feed.push(_rows(np.arange(48, 56)))
+    feed.flush()
+    _apply(oracle, _rows(np.arange(48, 56)))
+    check()
+
+    fresh = _rows(np.arange(56, 61))
+    ups = {"k": np.arange(10, 16, dtype=np.int32),
+           "v": np.full(6, 77, dtype=np.int32),
+           "g": (np.arange(10, 16) % 5).astype(np.int32)}
+    dels = np.array([3, 4, 50], dtype=np.int32)
+    feed.push(fresh)
+    feed.upsert(ups)
+    feed.delete(dels)
+
+    sess.fault_plan = flt.FaultPlan.once(point)
+    with pytest.raises(flt.StorageFault):
+        feed.flush()
+    fired = list(sess.fault_plan.fired)
+    sess.fault_plan = None
+
+    def land():
+        _apply(oracle, fresh)
+        _apply(oracle, ups, deletes=dels)
+
+    if point in ("flush", "pre-swap"):
+        check()  # nothing published
+        feed.flush()  # the buffer is the WAL: the replay applies once
+        land()
+        check()
+    else:
+        land()  # the swap committed before the crash
+        check()
+        pk.lsm.recover(sess, "d", "Live")
+        check()
+        if point == "post-swap":
+            feed.drop_buffer()  # committed: replaying would double-apply
+
+    feed.push(_rows(np.arange(61, 66)))
+    feed.delete(np.array([56], dtype=np.int32))
+    feed.flush()
+    _apply(oracle, _rows(np.arange(61, 66)), deletes=[56])
+    check()
+    seen.append((len(df[df["k"] == 3]), len(df[df["k"] == 10])))
+    assert seen[-1] == (0, 1)
+    return seen, fired
+
+
+@pytest.mark.parametrize("point", STORAGE_FAULT_POINTS)
+def test_crash_at_every_point_keeps_readers_bit_identical(point):
+    """A crash at ANY fault point leaves the manifest fully old or fully
+    new, readers equal to the matching oracle state throughout, and
+    recover() plus the buffer-as-WAL discipline resume ingestion exactly
+    once — with the same observations and fired fault as the reference
+    on the same schedule."""
+    (want, want_fired), (got, got_fired) = (_crash_at(pk, flt, point)
+                                            for pk, flt in PKGS)
+    assert got_fired == want_fired == [(point, 0)]
+    assert got == want
+
+
+def _recover_soft(pk):
+    """One package's run of the soft-state wipe and recover(): the suite's
+    answers before and after."""
+    sess, oracle = _setup(indexes=["v"], pk=pk)
+    feed = pk.Feed(sess, "Live", "d", flush_rows=10**9,
+                   policy=pk.lsm.CompactionPolicy(size_ratio=100.0, max_runs=64))
+    feed.push(_rows(np.arange(48, 60)))
+    feed.upsert({"k": np.arange(5, 9, dtype=np.int32),
+                 "v": np.full(4, 55, dtype=np.int32),
+                 "g": (np.arange(5, 9) % 5).astype(np.int32)})
+    feed.delete(np.array([20, 21], dtype=np.int32))
+    feed.flush()
+    df = pk.AFrame("d", "Live", session=sess)
+
+    def suite():
+        obs = _observe(df)
+        obs["v_range"] = len(df[(df["v"] >= 10) & (df["v"] <= 60)])
+        obs["probe"] = (len(df[df["k"] == 20]), len(df[df["k"] == 5]))
+        return obs
+
+    before = suite()
+    comps = sess.catalog.components("d", "Live")
+    assert any(c.anti_keys_arr is not None for c in comps)
+    for comp in comps:
+        comp.live_rows = 0
+        comp.annihilated_rows = 10 ** 6
+        comp.annihilated_keys = set()
+        comp.host_keys = None
+        comp.block_zones = None
+        if comp.anti_keys_arr is not None:
+            comp.anti_keys_arr = comp.anti_keys_arr[:0]
+        for info in comp.indexes.values():
+            if info.kind == "secondary":
+                info.sorted_keys = info.row_ids = None
+                info.zone_min = info.zone_max = None
+    pk.lsm.recover(sess, "d", "Live")
+    after = suite()
+    assert after == before
+    for comp in comps:
+        assert comp.host_keys is not None
+        assert all(info.sorted_keys is not None
+                   for info in comp.indexes.values())
+    assert any(len(c.anti_keys_arr) for c in comps
+               if c.anti_keys_arr is not None)
+    return before, after
+
+
+def test_recover_rebuilds_corrupted_soft_state_bit_identical():
+    """Hard state suffices: wipe every piece of soft state and recover()
+    rebuilds it, on the session device, so every answer is unchanged and
+    equal to the reference's after its own wipe and recover()."""
+    want, got = (_recover_soft(pk) for pk, _ in PKGS)
+    assert got == want
+
+
+def _stress(mode, seed, n_ops=9, fault=None, fault_at=0):
+    """The reference's oracle-replay stress: a random op sequence against a
+    writer with a leveled compactor racing, a reader session observing
+    after every flush, and optionally one injected crash on the writer
+    path (worker-side crashes are absorbed by its retry loop)."""
+    rng = np.random.default_rng(seed)
     sess, oracle = _setup(mode)
-    shadow = dict(oracle)
+    shadow = dict(oracle)  # oracle ∪ buffered-but-unflushed ops
     df = PORT.AFrame("d", "Live", session=PORT.session(mode, catalog=sess.catalog))
     next_k = 48
+    flush_i = 0
     with lsm.BackgroundCompactor(sess, policy=lsm.LeveledCompactionPolicy(
             size_ratio=6.0, max_runs=64, level0_runs=2, level_ratio=2),
             backoff_s=0.001) as bc:
         feed = Feed(sess, "Live", "d", flush_rows=10**9, policy=DEFERRED,
                     compactor=bc)
-        ops = rng.choice(["push", "upsert", "delete", "flush"], size=9,
+        ops = rng.choice(["push", "upsert", "delete", "flush"], size=n_ops,
                          p=[0.35, 0.2, 0.15, 0.3])
         for op in list(ops) + ["flush"]:
             if op == "push":
@@ -223,17 +379,69 @@ def test_stress_concurrent_ops_match_oracle(mode):
                 feed.push(rows)
                 _apply(shadow, rows)
             elif op == "upsert":
-                pick = rng.choice(sorted(shadow), size=6, replace=False)
+                keys = sorted(shadow)
+                if not keys:
+                    continue
+                pick = rng.choice(keys, size=min(6, len(keys)), replace=False)
                 ups = _rows(np.sort(pick), rng)
                 feed.upsert(ups)
                 _apply(shadow, ups)
             elif op == "delete":
-                pick = np.sort(rng.choice(sorted(shadow), size=4,
+                keys = sorted(shadow)
+                if not keys:
+                    continue
+                pick = np.sort(rng.choice(keys, size=min(4, len(keys)),
                                           replace=False)).astype(np.int32)
                 feed.delete(pick)
                 _apply(shadow, deletes=pick)
             else:
-                feed.flush()
-                assert _observe(df) == _expected(shadow)
+                if fault is not None and flush_i == fault_at:
+                    sess.fault_plan = FaultPlan(schedule={fault: (0,)})
+                try:
+                    feed.flush()
+                except StorageFault:
+                    pt = sess.fault_plan.fired[-1][0]
+                    sess.fault_plan = None
+                    if pt == "post-swap":
+                        # committed: repair soft state, don't replay
+                        lsm.recover(sess, "d", "Live")
+                        feed.drop_buffer()
+                    else:
+                        feed.flush()  # nothing landed: replay the buffer
+                sess.fault_plan = None
+                flush_i += 1
+                assert _observe(df) == _expected(shadow), \
+                    f"[{mode} seed={seed}] reader diverged after flush {flush_i}"
         assert bc.wait_idle(30.0)
-        assert _observe(df) == _expected(shadow)
+        final = _expected(dict(shadow))
+        assert _observe(df) == final
+        df2 = PORT.AFrame("d", "Live",
+                          session=PORT.session(mode, catalog=sess.catalog))
+        assert _observe(df2) == final
+
+
+@pytest.mark.parametrize("mode", ["gspmd", "kernel"])
+def test_stress_concurrent_ops_match_oracle(mode):
+    """The stress run without faults."""
+    _stress(mode, 0)
+
+
+@pytest.mark.parametrize("mode", ["gspmd", "kernel"])
+@pytest.mark.parametrize("fault", STORAGE_FAULT_POINTS)
+def test_stress_with_injected_crash_matches_oracle(mode, fault):
+    _stress(mode, seed=2, fault=fault, fault_at=1)
+
+
+def test_stress_hypothesis_random_schedules():
+    """Property form of the stress run at the reference's settings:
+    random seeds, op counts and crash points."""
+    from hypothesis import given, settings, strategies as st
+
+    @settings(max_examples=8, deadline=None)
+    @given(seed=st.integers(0, 10**6), n_ops=st.integers(4, 12),
+           fault=st.sampled_from((None,) + STORAGE_FAULT_POINTS),
+           fault_at=st.integers(0, 2))
+    def run(seed, n_ops, fault, fault_at):
+        _stress("gspmd", seed, n_ops=n_ops, fault=fault, fault_at=fault_at)
+
+    run()

@@ -404,3 +404,56 @@ def test_cuda_fed_session_kernel_counts_equal_gspmd():
     assert got == counts(gsp)
     feed.compact()
     assert counts(kern) == counts(gsp) == got
+
+
+@pytest.mark.cuda
+def test_cuda_durable_round_trip_mounts_on_the_card(tmp_path):
+    """A small durable store on the card: written through a kernel-mode
+    session, reopened lazily with every mounted column a CUDA tensor, its
+    index payloads rebuilt on the card at the first query, and every count
+    answered as before the close through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+
+    def counts(sess):
+        df = AFrame("d", "Live", session=sess)
+        return (len(df), len(df[(df["ten"] == 3) & (df["two"] == 1)]),
+                {k: v.tolist() for k, v in df.groupby("ten").agg("count").items()})
+
+    sess = Session(mode="kernel", storage=str(tmp_path))
+    sess.create_dataset("Live", wisconsin.generate(20_000, seed=3),
+                        dataverse="d", indexes=["onePercent"], primary="unique2")
+    feed = Feed(sess, "Live", "d", flush_rows=10**9,
+                policy=lsm.CompactionPolicy(size_ratio=10.0, max_runs=64))
+    up = {k: v.numpy() for k, v in wisconsin.generate(1_000, seed=5).columns.items()}
+    up["unique2"] = np.arange(100, 1_100, dtype=np.int32)
+    feed.upsert(up)
+    feed.delete(np.arange(5_000, 5_500, dtype=np.int32))
+    feed.flush()
+    feed.delete(np.arange(7_000, 7_010, dtype=np.int32))  # the WAL tail
+    sess.close()
+
+    re = Session.open(str(tmp_path), mode="kernel")
+    comps = re.catalog.components("d", "Live")
+    assert len(comps) == 3  # base, the flushed run, the replayed tail
+    for c in comps:
+        assert all(t.is_cuda for t in c.table.columns.values())
+    _build.reset_launches()
+    got = counts(re)
+    assert _build.LAUNCHES.get("filter_count", 0) >= 2
+    assert _build.LAUNCHES.get("segment_agg", 0) == 3
+    for c in comps:
+        assert not c.soft_stale
+        for ix in c.indexes.values():
+            assert ix.sorted_keys.is_cuda and ix.row_ids.is_cuda
+    want = counts(Session(mode="gspmd", catalog=re.catalog))
+    assert got == want
+    assert re.point_lookup("d", "Live", 5_100) is None
+    assert int(re.point_lookup("d", "Live", 100)["unique2"][0]) == 100
+    re.close()

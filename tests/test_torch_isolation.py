@@ -15,6 +15,7 @@ MODULES = ["repro_torch.core.frame", "repro_torch.core.window",
            "repro_torch.engine.index",
            "repro_torch.data.wisconsin", "repro_torch.kernels.ops",
            "repro_torch.kernels._build", "repro_torch.runtime.telemetry",
+           "repro_torch.runtime.fault", "repro_torch.runtime.durable",
            "repro_torch.configs", "repro_torch.configs.paper_lm",
            "repro_torch.models.config", "repro_torch.models.layers",
            "repro_torch.models.attention", "repro_torch.models.transformer",

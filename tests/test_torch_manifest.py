@@ -4,8 +4,8 @@ swaps, LSN monotonicity, pinned snapshots, stable component addresses
 across compaction, reader sessions over a shared catalog and the
 open_widen dtype contract — replayed on both packages in one process, plus
 the port's reclamation of retired components (a pinned snapshot keeps
-them readable). The reference's FaultTolerantLoop case belongs to the
-durability slice (ROADMAP A8)."""
+them readable). The reference's FaultTolerantLoop case belongs with
+training (ROADMAP A10)."""
 import numpy as np
 import pytest
 import torch

@@ -17,17 +17,19 @@ from repro.data import wisconsin as rw
 from repro.engine.session import Session as RSession
 from repro.engine.table import ColumnMeta as RMeta
 from repro.engine.table import Table as RTable
+from repro_torch.configs import get_config
 from repro_torch.core import physical as PH
 from repro_torch.core import plan as TP
 from repro_torch.core.expr import Col as TCol
 from repro_torch.core.frame import AFrame as TFrame
 from repro_torch.data import wisconsin as tw
-from repro_torch.engine import lsm
 from repro_torch.engine import session as tsession
 from repro_torch.engine.session import Session as TSession
 from repro_torch.engine.table import ColumnMeta as TMeta
 from repro_torch.engine.table import Table as TTable
 from repro_torch.kernels import ops
+from repro_torch.models.registry import get_api
+from repro_torch.models.transformer import embed_input, init_lm
 
 N_ROWS = 8_192
 
@@ -348,13 +350,16 @@ def test_session_without_a_card_raises():
 
 @pytest.mark.parametrize("call", [
     lambda s, t: TSession(mesh=object(), device="cpu"),
-    lambda s, t: lsm.recover(s, "w", "x"),
-    lambda s, t: lsm.ensure_soft(s, "w", "x"),
+    lambda s, t: get_api(get_config("paper-lm")).loss(),
+    lambda s, t: get_api(get_config("paper-lm")).decode(),
     lambda s, t: TSession(mode="shard_map", device="cpu"),
-    lambda s, t: TSession(device="cpu", storage="store"),
-    lambda s, t: TSession.open("store"),
+    lambda s, t: init_lm(get_config("deepseek-moe-16b"), torch.Generator()),
+    lambda s, t: embed_input(None, None, get_config("paper-lm"), patches=object()),
 ])
 def test_features_of_later_slices_raise(call):
+    """Meshes and shard_map (A9), training, decode serving, MoE weights and
+    patch prefixes (A10) raise, naming their ROADMAP item; durability (A8)
+    has landed (tests/test_torch_durability.py)."""
     sess = TSession(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(sess, tw.generate(100, seed=0))
