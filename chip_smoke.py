@@ -118,6 +118,25 @@ Phases (any mismatch raises; nothing is caught):
      bytes it read, the first query after a lazy open and its second run,
      the segment bytes written, and e3 / e4 wall and device time over ten
      components and over one.
+  9. the multi-device engine: ``Session(mesh=make_local_mesh(8))``, eight
+     row shards of 625,000 rows (153 zone blocks each) on the one card, in
+     shard_map and kernel mode. The 12 expressions over ROUNDS rounds,
+     each == numpy == the meshless kernel session, then clustered unique2
+     ranges that must skip blocks on every shard's own grid (the explain
+     text's per-shard note printed). Launch counts are zeroed before each
+     mode and read after it: shard_map launches no kernel, kernel mode
+     launches filter_count, segment_agg, block_topk + topk_merge and
+     merge_join_count once per shard (printed per expression), and every
+     launch it made is held against its plain version. A 5,000,008-row
+     mesh session (625,001 rows a shard: views at 16-byte phases 0, 4, 8
+     and 12) runs e3, e4, e9, e12 and ranges inside one shard (block rows
+     of -1 only on the other seven), each launch held against its plain
+     version. Phase 6's scenario at 1,000,000 base rows with an upsert and
+     a delete batch runs on the mesh through a durable kernel session and
+     a gspmd reader against the oracle, one point lookup searches one
+     shard window per component, and ``Session.open`` remounts the store
+     onto the mesh. Last, e3, e4, e9 and e12 at S = 1, 2, 4, 8 (wall and
+     device time beside the card): the cost of distribution on one card.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -1185,10 +1204,12 @@ def check_recorded(calls: list, state: str, need: tuple) -> None:
         if name == "filter_count":
             cols, bounds, n_valid = args
             exact(label, out, fc.filter_count_plain(cols, bounds, n_valid, **kw))
-            ids = kw.get("block_ids")
+            ids, arr = kw.get("block_ids"), kw.get("block_ids_arr")
+            blocks = "all" if ids is None else len(ids)
+            if arr is not None:
+                blocks = f"row of {arr.shape[0]}, {int((arr >= 0).sum())} live"
             shapes.setdefault(name, set()).add(
-                f"k={len(cols)} n={fc.num_rows(cols):,} "
-                f"blocks {'all' if ids is None else len(ids)}")
+                f"k={len(cols)} n={fc.num_rows(cols):,} blocks {blocks}")
         elif name == "segment_agg":
             values, gids, g, n_valid = args
             exact(label, out, sa.segment_agg_plain(values, gids, g, n_valid, **kw))
@@ -2299,6 +2320,324 @@ def run_durable(table, raw: dict, dev, seed: int, card: str,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 9: the multi-device engine, a mesh of row shards on the card --------
+
+MESH_SHARDS = 8             # the reference tests' mesh (tests/test_distributed.py)
+SHARD_SWEEP = (1, 2, 4, 8)  # the distribution cost on one card (Table VII's axis)
+SHARD_TIMED = ("3_filter_count", "4_group_count", "9_sort_head", "12_join_count")
+UNALIGNED_ROWS = 5_000_008  # 625,001 rows a shard: views at 16-byte phases 0/4/8/12
+MESH_LIVE_ROWS = 1_000_000  # phase 6's scenario at a smaller depth
+MESH_LIVE_MIX = ("upsert", "delete")
+MESH_KERNELS = ("filter_count", "segment_agg", "topk_merge", "merge_join_count")
+
+
+def _shard_note(sess, plan) -> str:
+    """The per-shard zone-map note of ``plan``'s explain text."""
+    text = sess.explain(plan)
+    notes = [ln.strip() for ln in text.splitlines() if "shards, per-shard" in ln]
+    if not notes:
+        raise AssertionError(f"no per-shard note in:\n{text}")
+    return notes[0]
+
+
+def _mesh_ranges(sess, raw: dict, rounds: int, label: str) -> str:
+    """Clustered unique2 range counts and group counts through ``sess`` (a
+    mesh session): numpy answers, and the count must skip blocks on every
+    shard's own grid. Returns the last round's per-shard explain note."""
+    from repro_torch.core import plan as P
+    from repro_torch.core.frame import AFrame
+
+    n = len(raw["unique2"])
+    width = min(300_000, n // 10)
+    df = AFrame("bench", "data", session=sess)
+    note = ""
+    for r in range(rounds):
+        rng = np.random.default_rng(200 + r)
+        a = int(rng.integers(n - width))
+        b = a + int(rng.integers(1, width))
+        sel = (raw["unique2"] >= a) & (raw["unique2"] <= b)
+        rows = df[(df["unique2"] >= a) & (df["unique2"] <= b)]
+        same(len(rows), int(sel.sum()), f"{label} unique2 range count {r}")
+        rep = sess.last_prune_report
+        if rep["shards"] != MESH_SHARDS or rep["blocks_skipped"] <= 0:
+            raise AssertionError(f"{label}: the range skipped no block per "
+                                 f"shard: {rep}")
+        k_ten, c_ten = _groups(raw["ten"][sel], None, "count")
+        same(rows.groupby("ten").agg("count"), {"ten": k_ten, "count": c_ten},
+             f"{label} unique2 range group count {r}")
+        note = _shard_note(sess, P.Agg(rows._plan,
+                                       [P.AggSpec("count", "count", None)]))
+    return note
+
+
+def _mesh_sessions(table, mesh, modes=("shard_map", "kernel")) -> dict:
+    from repro_torch.engine.session import Session
+
+    out = {}
+    for m in modes:
+        sess = Session(mode=m, mesh=mesh)
+        for name in ("data", "data_r"):
+            sess.create_dataset(name, table, dataverse="bench")
+        out[m] = sess
+    return out
+
+
+def _frames(sess):
+    from repro_torch.core.frame import AFrame
+
+    return AFrame("bench", "data", session=sess), AFrame("bench", "data_r", session=sess)
+
+
+def check_unaligned_shards(dev, seed: int) -> None:
+    """The per-shard launches on shard views at every 16-byte phase and on
+    a per-shard block matrix with all -1 rows: an 8-shard kernel session
+    over 5,000,008 rows runs e3, e4, e9, e12 and clustered ranges inside one
+    shard (count and group count); every launch it made is recorded and
+    held against its plain version."""
+    from repro_torch.core import physical as PH
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import distributed as D
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t = wisconsin.generate(UNALIGNED_ROWS, seed=seed + 1)
+    raw = {k: v.numpy() for k, v in t.columns.items()}
+    mesh = make_local_mesh(MESH_SHARDS, device=dev)
+    sess = _mesh_sessions(t, mesh, ("kernel",))["kernel"]
+    col = sess.catalog.get("bench", "data").table.columns["ten"]
+    phases = sorted({v.data_ptr() % 16 for v in D.shard_views(col, MESH_SHARDS)})
+    if phases != [0, 4, 8, 12]:
+        raise AssertionError(f"shard views at 16-byte phases {phases}")
+    calls: list = []
+    df, dr = _frames(sess)
+    rps = UNALIGNED_ROWS // MESH_SHARDS
+    with recording(calls):
+        for name in ("3_filter_count", "4_group_count", "9_sort_head",
+                     "12_join_count"):
+            same(EXPRESSIONS[name](df, dr, np.random.default_rng(5)),
+                 oracle(raw, name, np.random.default_rng(5)),
+                 f"phase 9 unaligned {name}")
+        # a range inside shard 3: the other seven rows of the block matrix
+        # are all -1
+        a = 3 * rps + rps // 8
+        b = a + rps // 4
+        sel = (raw["unique2"] >= a) & (raw["unique2"] <= b)
+        rows = df[(df["unique2"] >= a) & (df["unique2"] <= b)]
+        same(len(rows), int(sel.sum()), "phase 9 unaligned range count")
+        krc = sess.last_physical
+        k_ten, c_ten = _groups(raw["ten"][sel], None, "count")
+        same(rows.groupby("ten").agg("count"), {"ten": k_ten, "count": c_ten},
+             "phase 9 unaligned range group count")
+    if not isinstance(krc, PH.KernelRangeCount) or krc.n_shards != MESH_SHARDS:
+        raise AssertionError(f"phase 9: the range took {type(krc).__name__}")
+    empty = [kw["block_ids_arr"] for name, _, kw, _ in calls
+             if kw.get("block_ids_arr") is not None
+             and bool((kw["block_ids_arr"] < 0).all())]
+    if not empty:
+        raise AssertionError("phase 9: no launch took an all -1 block row")
+    check_recorded(calls, "phase 9 unaligned shards", MESH_KERNELS)
+    print(f"  {UNALIGNED_ROWS:,} rows on {MESH_SHARDS} shards ({rps:,} rows a "
+          f"shard, views at 16-byte phases {phases}): {len(calls)} per-shard "
+          f"launches == plain, {len(empty)} of them on an all -1 block row",
+          flush=True)
+
+
+def run_mesh_live(dev, seed: int, card: str) -> dict:
+    """Phase 6's scenario on the 8-shard mesh at a smaller depth, durable:
+    MESH_LIVE_ROWS base rows (clustered by unique2, onePercent indexed) and
+    the MESH_LIVE_MIX batches, one flush each, through a kernel session
+    with a store; LIVE_QUERIES through it and a gspmd reader on the same
+    mesh against the newest-wins oracle; one point lookup routed to one
+    shard; then the store reopened onto the mesh and the suite again."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.engine.session import Session
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(MESH_SHARDS, device=dev)
+    rng = np.random.default_rng(seed)
+    base = wisconsin.generate(MESH_LIVE_ROWS, seed=seed)
+    dim = wisconsin.generate(LIVE_DIM_ROWS, seed=7)
+    dim_u1 = dim.columns["unique1"].numpy()
+    oracle_ = LiveOracle({k: v.numpy() for k, v in base.columns.items()})
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    out: dict = {"flush_s": []}
+
+    def suite(kern, state):
+        readers = {"kernel": kern,
+                   "gspmd": Session(mode="gspmd", mesh=mesh, catalog=kern.catalog)}
+        want = live_oracle(oracle_.cols, dim_u1)
+        for m, sess in readers.items():
+            df = AFrame("live", "Live", session=sess)
+            dm = AFrame("live", "Dim", session=sess)
+            for name, fn in LIVE_QUERIES.items():
+                same(fn(df, dm), want[name], f"phase 9 live {name}[{m}] {state}")
+        print(f"  [{card}] mesh live {state}: {len(LIVE_QUERIES)} queries, "
+              f"kernel == gspmd == numpy over "
+              f"{len(kern.catalog.components('live', 'Live'))} components",
+              flush=True)
+
+    try:
+        kern = Session(mode="kernel", mesh=mesh, storage=str(root))
+        kern.create_dataset("Live", base, dataverse="live", primary="unique2",
+                            indexes=["onePercent"])
+        kern.create_dataset("Dim", dim, dataverse="live")
+        feed = Feed(kern, "Live", "live", flush_rows=10**9,
+                    policy=lsm.CompactionPolicy(size_ratio=10.0, max_runs=64))
+        next_key = MESH_LIVE_ROWS
+        for i, kind in enumerate(MESH_LIVE_MIX):
+            batch = _live_batch(kind, i, rng, oracle_, next_key)
+            t0 = time.perf_counter()
+            if kind == "delete":
+                feed.delete(batch)
+            else:
+                getattr(feed, kind)(batch)
+            feed.flush()
+            torch.cuda.synchronize()
+            out["flush_s"].append(time.perf_counter() - t0)
+            oracle_.apply(kind, batch)
+            print(f"  [{card}] mesh live batch {i} ({kind}, {LIVE_BATCH:,} "
+                  f"keys) acked and flushed in {out['flush_s'][-1]:.3f} s",
+                  flush=True)
+        suite(kern, "after the batches")
+        df = AFrame("live", "Live", session=kern)
+        key = int(oracle_.cols["unique2"][len(oracle_.cols["unique2"]) // 3])
+        row = df.get(key)
+        ph = kern.last_physical
+        if row is None or int(row["unique2"][0]) != key or ph.shards != MESH_SHARDS:
+            raise AssertionError(f"phase 9 point lookup of {key}: {row}")
+        out["lookup"] = {"key": key, "probed": ph.probed,
+                         "shard_probes": ph.shard_probes}
+        if ph.shard_probes != ph.probed:
+            raise AssertionError(f"phase 9: the lookup searched {ph.shard_probes} "
+                                 f"shard windows over {ph.probed} component(s)")
+        print(f"  point lookup {key}: {ph.label()}", flush=True)
+        kern.close()
+        t0 = time.perf_counter()
+        re = Session.open(str(root), mode="kernel", mesh=mesh)
+        out["open_s"] = time.perf_counter() - t0
+        comps = re.catalog.components("live", "Live")
+        if any(c.table.num_rows % MESH_SHARDS or c.table.device != mesh.device
+               for c in comps):
+            raise AssertionError("phase 9: a reopened component is not sharded "
+                                 f"on {mesh.device}")
+        print(f"  [{card}] Session.open onto the mesh in {out['open_s']:.3f} s "
+              f"({len(comps)} components)", flush=True)
+        suite(re, "after Session.open")
+        re.close()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def time_shard_sweep(table, dev, card: str) -> dict:
+    """e3, e4, e9 and e12 in kernel mode at S = 1, 2, 4, 8 shards of the
+    one card: wall (median of 7, result on the host) and device time per
+    call (a profiler trace of 20 calls) — the cost of distribution, not a
+    speedup."""
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    out: dict = {}
+    for s in SHARD_SWEEP:
+        sess = _mesh_sessions(table, make_local_mesh(s, device=dev),
+                              ("kernel",))["kernel"]
+        out[s] = {}
+        for name in SHARD_TIMED:
+            fn = EXPRESSIONS[name]
+
+            def run(fn=fn):
+                return fn(*_frames(sess), np.random.default_rng(1))
+
+            wall = host_ms(run)
+            # a 20-call trace: one call's records can all be lost
+            dev_ms = _per_call_ms(run, None, 20)[0] or None
+            out[s][name] = {"wall_ms": wall, "device_ms": dev_ms}
+            shown = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
+            print(f"  [{card}] S={s} {name:16s} wall {wall:8.3f} ms, device "
+                  f"{shown}", flush=True)
+        del sess
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_mesh(table, raw: dict, dev, seed: int, card: str) -> dict:
+    """Phase 9: the 12 expressions on an 8-shard mesh of the card in
+    shard_map and kernel mode (each == numpy == the meshless kernel
+    session), per-shard launches counted and every one held against its
+    plain version, the block-skipping ranges per shard; then the unaligned
+    shard views, the live scenario on the mesh and the shard sweep."""
+    import torch
+
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    flat = Session(mode="kernel", device=dev)
+    for name in ("data", "data_r"):
+        flat.create_dataset(name, table, dataverse="bench")
+    # the meshless answers first: their launches are not the mesh path's
+    want = {(name, r): fn(*_frames(flat), np.random.default_rng(100 + r))
+            for name, fn in EXPRESSIONS.items() for r in range(ROUNDS)}
+    del flat
+    mesh = make_local_mesh(MESH_SHARDS, device=dev)
+    t0 = time.perf_counter()
+    sessions = _mesh_sessions(table, mesh)
+    torch.cuda.synchronize()
+    print(f"  two {MESH_SHARDS}-shard sessions ({ROWS // MESH_SHARDS:,} rows, "
+          f"{-(-(ROWS // MESH_SHARDS) // 4096)} zone blocks a shard) placed in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out: dict = {"per_expr": {}, "notes": {}}
+    for m, sess in sessions.items():
+        calls: list = []
+        per_expr = out["per_expr"][m] = {}
+        _build.reset_launches()
+        with recording(calls):
+            for name, fn in EXPRESSIONS.items():
+                before = dict(_build.LAUNCHES)
+                for r in range(ROUNDS):
+                    got = fn(*_frames(sess), np.random.default_rng(100 + r))
+                    same(got, oracle(raw, name, np.random.default_rng(100 + r)),
+                         f"phase 9 {name}[{m}] round {r}")
+                    same(got, want[(name, r)], f"phase 9 {name}[{m}] vs meshless")
+                per_expr[name] = {k: (v - before[k]) // ROUNDS
+                                  for k, v in _build.LAUNCHES.items()
+                                  if v > before[k]}
+                print(f"  {name}[{m}]: mesh == meshless == numpy over {ROUNDS} "
+                      f"rounds ({type(sess.last_physical).__name__}; launches "
+                      f"per run {per_expr[name]})", flush=True)
+            out["notes"][m] = _mesh_ranges(sess, raw, ROUNDS, f"phase 9 [{m}]")
+        torch.cuda.synchronize()
+        launches = {k: _build.LAUNCHES[k] for k in RELATIONAL}
+        print(f"  [{m}] unique2 range: {out['notes'][m]}", flush=True)
+        print(f"  [{m}] kernel launches on the mesh path: {launches}", flush=True)
+        if m == "shard_map":
+            if any(launches.values()):
+                raise AssertionError(f"shard_map launched kernels: {launches}")
+            continue
+        out["launches"] = launches
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the mesh: {missing}")
+        check_recorded(calls, f"phase 9 ({MESH_SHARDS} shards)", MESH_KERNELS)
+    del sessions
+    torch.cuda.empty_cache()
+    check_unaligned_shards(dev, seed)
+    out["live"] = run_mesh_live(dev, seed, card)
+    out["sweep"] = time_shard_sweep(table, dev, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  [{card}] phase 9 in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -2722,6 +3061,15 @@ def main(argv=None) -> int:
           f"eager, the compaction, and the crash matrix over "
           f"{CRASH_BATCHES} batches", flush=True)
     durable = run_durable(table, raw, dev, args.seed, card, live["flushes"])
+    print(f"phase 9: the multi-device engine — the 12 expressions on a "
+          f"{MESH_SHARDS}-shard mesh of the card (shard_map and kernel), "
+          f"unaligned shard views, the live scenario on the mesh at "
+          f"{MESH_LIVE_ROWS} rows, S = {', '.join(map(str, SHARD_SWEEP))}",
+          flush=True)
+    mesh = run_mesh(table, raw, dev, args.seed, card)
+    for k in kernels:
+        if k["name"] in mesh["launches"]:
+            k["launches_mesh"] = mesh["launches"][k["name"]]
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -2735,7 +3083,13 @@ def main(argv=None) -> int:
                           k: v for k, v in decode_mixed.items() if k != "shape"},
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
-                      "strings": strings, "durable": durable}))
+                      "strings": strings, "durable": durable,
+                      "mesh": {"shards": MESH_SHARDS,
+                               "launches": mesh["launches"],
+                               "launches_per_run": mesh["per_expr"],
+                               "notes": mesh["notes"], "live": mesh["live"],
+                               "sweep": mesh["sweep"],
+                               "seconds": mesh["seconds"]}}))
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "shape"}
                                   for d in kernels]}))
     print(card)

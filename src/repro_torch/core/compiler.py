@@ -1,5 +1,5 @@
 """Physical-plan compiler: costed physical plan → one callable over torch
-tensors (port of ``repro.core.compiler``, single-device lowering).
+tensors (port of ``repro.core.compiler``).
 
 The reference wraps the lowered function in ``jax.jit``; PyTorch runs
 eagerly, so ``compile_physical`` builds a closure ``fn(tables, params)``
@@ -7,12 +7,21 @@ once per physical fingerprint and the session caches it. Literal values are
 runtime params (tensors on the session device), so randomized predicates
 reuse the compiled query — the prepared-statement effect.
 
-The execution mode is not a branch inside operator lowerings: kernel mode
-differs only in the physical operators the planner emitted
-(``KernelRangeCount``, ``KernelSegmentAgg``, kernel ``JoinCountOp``, kernel
-``TopKSelect``), whose lowerings call ``repro_torch.kernels.ops``. Those ops
-launch the hand-written CUDA kernels on CUDA tensors and their plain
-versions on CPU tensors.
+The execution modes are lowering strategies, not branches inside operator
+lowerings:
+
+  * ``gspmd``     — :class:`LoweringStrategy`: plain torch ops over the
+    whole (possibly row-sharded) columns;
+  * ``shard_map`` — :class:`ShardMapStrategy`: the relational operators of
+    ``engine/distributed.py``, shard-local work merged by explicit
+    collectives over the session mesh's row shards;
+  * ``kernel``    — either strategy (``ShardMapStrategy`` on a mesh); what
+    differs is the physical operators the planner emitted
+    (``KernelRangeCount``, ``KernelSegmentAgg``, kernel ``JoinCountOp``,
+    kernel ``TopKSelect``), whose lowerings call
+    ``repro_torch.kernels.ops`` — locally or once per shard. Those ops
+    launch the hand-written CUDA kernels on CUDA tensors and their plain
+    versions on CPU tensors.
 
 Over a fed dataset every component lowers on its own (per-component index
 probes, kernel launches, visibility masks) and the results merge: scalars
@@ -22,6 +31,7 @@ anti-matter subtracts from every matter stream through ``_shadowed``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Any, Callable, Optional
@@ -32,6 +42,7 @@ import torch
 from repro_torch.core import physical as PH
 from repro_torch.core.catalog import INTERNAL_COLUMNS, Catalog
 from repro_torch.core.expr import collect_params, param_values
+from repro_torch.core.stats import mesh_shards
 from repro_torch.core.window import execute_window
 from repro_torch.engine import physical
 from repro_torch.engine.index import _search
@@ -43,8 +54,15 @@ from repro_torch.runtime import telemetry as tel
 
 
 class LoweringStrategy:
-    """Single-device lowering: plain torch ops, or the relational kernels
-    for the kernel physical operators."""
+    """Single-program lowering: plain torch ops over the whole columns, or
+    the relational kernels for the kernel physical operators.
+
+    ``mesh`` is the session mesh when its tables are split over more than
+    one shard: their sorted indexes are then sorted per shard (pad rows at
+    each shard's +inf tail), so the index probes search shard by shard."""
+
+    def __init__(self, mesh=None, data_axes=("data",)):
+        self.mesh, self.data_axes = mesh, data_axes
 
     def count(self, mask):
         return mask.sum(dtype=torch.int32)
@@ -62,27 +80,45 @@ class LoweringStrategy:
         return physical.group_agg(env, mask, key, lo, num_groups, aggs)
 
     def kernel_group_agg(self, gid, values, num_groups, n, op,
-                         block_ids: Optional[tuple] = None):
+                         block_ids: Optional[tuple] = None,
+                         shard_blocks=None):
         from repro_torch.kernels import ops
+        assert shard_blocks is None, \
+            "per-shard grids need the shard_map strategy"
         return ops.segment_agg(values, gid, num_groups, n, op=op,
                                block_ids=block_ids)
 
     def kernel_filter_count(self, cols, bounds,
-                            block_ids: Optional[tuple] = None):
+                            block_ids: Optional[tuple] = None,
+                            shard_blocks=None):
         from repro_torch.kernels import ops
+        assert shard_blocks is None, \
+            "per-shard grids need the shard_map strategy"
         return ops.filter_count(cols, bounds, cols[0].shape[0],
                                 block_ids=block_ids)
 
     def index_count(self, ix_keys, valid, lo, hi):
+        if self.mesh is not None:
+            from repro_torch.engine import distributed as D
+            return D.dist_index_count(self.mesh, self.data_axes, ix_keys,
+                                      valid, lo, hi)
         from repro_torch.engine.index import index_count_local
         return index_count_local(ix_keys, valid.sum(dtype=torch.int32), lo, hi)
 
     def shadow_count(self, ix_keys, valid, anti_keys, lo, hi):
+        if self.mesh is not None:
+            from repro_torch.engine import distributed as D
+            return D.dist_shadow_count(self.mesh, self.data_axes, ix_keys,
+                                       valid, anti_keys, lo, hi)
         from repro_torch.engine.index import shadow_count_local
         return shadow_count_local(ix_keys, valid.sum(dtype=torch.int32),
                                   anti_keys, lo, hi)
 
     def join_count(self, lkey, lmask, rkey, rmask, presorted):
+        if presorted and self.mesh is not None:
+            from repro_torch.engine import distributed as D
+            return D.dist_join_count(self.mesh, self.data_axes, lkey, lmask,
+                                     rkey, rmask, presorted_right=True)
         if presorted:
             # index order: valid keys ascending, sentinel tail
             n_r = rmask.sum(dtype=torch.int32)
@@ -101,13 +137,88 @@ class LoweringStrategy:
         return ops.merge_join_count(ls, rs, nl, nr)
 
 
+class ShardMapStrategy(LoweringStrategy):
+    """Explicit collectives: each relational primitive runs shard by shard
+    over the mesh's row shards and merges with a psum / pmax / pmin /
+    gather (engine/distributed.py)."""
+
+    def count(self, mask):
+        from repro_torch.engine import distributed as D
+        return D.dist_count(self.mesh, self.data_axes, mask)
+
+    def agg(self, env, mask, op, column):
+        from repro_torch.engine import distributed as D
+        if op == "count":
+            return D.dist_count(self.mesh, self.data_axes, mask)
+        return D.dist_agg(self.mesh, self.data_axes, op, env[column], mask)
+
+    def limit(self, env, mask, n):
+        from repro_torch.engine import distributed as D
+        return D.dist_limit(self.mesh, self.data_axes, env, mask, n)
+
+    def topk(self, env, mask, key, k, ascending, select):
+        from repro_torch.engine import distributed as D
+        return D.dist_topk(self.mesh, self.data_axes, env, mask, key, k,
+                           ascending, select=select)
+
+    def group_agg(self, env, mask, key, lo, num_groups, aggs):
+        from repro_torch.engine import distributed as D
+        value_cols = {c: env[c] for _, _, c in aggs if c}
+        out, gmask = D.dist_group_agg(self.mesh, self.data_axes, env[key],
+                                      mask, lo, num_groups, aggs, value_cols)
+        out[key] = out.pop("__key__")
+        return out, gmask
+
+    def kernel_group_agg(self, gid, values, num_groups, n, op,
+                         block_ids: Optional[tuple] = None,
+                         shard_blocks=None):
+        from repro_torch.engine import distributed as D
+        return D.dist_kernel_group_agg(self.mesh, self.data_axes, gid, values,
+                                       num_groups, op=op, block_ids=block_ids,
+                                       shard_blocks=shard_blocks)
+
+    def kernel_filter_count(self, cols, bounds,
+                            block_ids: Optional[tuple] = None,
+                            shard_blocks=None):
+        from repro_torch.engine import distributed as D
+        return D.dist_kernel_filter_count(self.mesh, self.data_axes, cols,
+                                          bounds, block_ids=block_ids,
+                                          shard_blocks=shard_blocks)
+
+    def join_count(self, lkey, lmask, rkey, rmask, presorted):
+        from repro_torch.engine import distributed as D
+        return D.dist_join_count(self.mesh, self.data_axes, lkey, lmask,
+                                 rkey, rmask, presorted_right=presorted)
+
+    def kernel_join_count(self, lkey, lmask, rkey, rmask, presorted):
+        from repro_torch.engine import distributed as D
+        return D.dist_kernel_join_count(self.mesh, self.data_axes, lkey,
+                                        lmask, rkey, rmask,
+                                        presorted_right=presorted)
+
+
+def make_strategy(ctx: "ExecContext") -> LoweringStrategy:
+    """The only place the execution mode is consulted at lowering time:
+    pick the collective placement. Operator choice already happened in the
+    planner."""
+    if ctx.mode in ("shard_map", "kernel") and ctx.mesh is not None:
+        return ShardMapStrategy(ctx.mesh, ctx.data_axes)
+    sharded = ctx.mesh is not None and mesh_shards(ctx.mesh, ctx.data_axes) > 1
+    return LoweringStrategy(ctx.mesh if sharded else None, ctx.data_axes)
+
+
 @dataclasses.dataclass
 class ExecContext:
     catalog: Catalog
-    mode: str = "gspmd"         # gspmd | kernel
+    mode: str = "gspmd"         # gspmd | shard_map | kernel
     device: Any = "cpu"
-    strategy: LoweringStrategy = dataclasses.field(
-        default_factory=LoweringStrategy)
+    mesh: Any = None            # launch.mesh.Mesh of a sharded session
+    data_axes: tuple = ("data",)
+    strategy: Optional[LoweringStrategy] = None
+
+    def __post_init__(self):
+        if self.strategy is None:
+            self.strategy = make_strategy(self)
 
 
 @dataclasses.dataclass
@@ -122,6 +233,9 @@ class CompiledQuery:
     # include runs whose MATTER was zone-pruned: their tombstones still
     # annihilate into older components)
     anti_keys: list = dataclasses.field(default_factory=list)
+    # the private copy of ``physical`` the closure was lowered from: its
+    # Lit objects carry THIS query's param slots
+    lowered: Optional[PH.PhysOp] = None
 
     def gather_tables(self, catalog: Catalog) -> dict:
         tables = {}
@@ -146,12 +260,17 @@ class CompiledQuery:
 
 
 def compile_physical(phys: PH.PhysOp, ctx: ExecContext) -> CompiledQuery:
-    """Lower one physical plan into a callable."""
-    leaf_keys = PH.scan_leaves(phys)
-    lits = collect_params(PH.all_exprs(phys))
-    kind, build = _lower_terminal(phys, ctx)
+    """Lower one physical plan into a callable. The lowering works on a
+    private copy of the plan: a literal's param slot lives on its Lit
+    object, and the physical plans of one optimized plan's variants share
+    Lit objects, so a later variant's slot assignment must never reach an
+    earlier variant's closure (it reads the slots when it runs)."""
+    lowered = copy.deepcopy(phys)
+    leaf_keys = PH.scan_leaves(lowered)
+    lits = collect_params(PH.all_exprs(lowered))
+    kind, build = _lower_terminal(lowered, ctx)
     return CompiledQuery(phys, kind, build, leaf_keys, lits, ctx.device,
-                         anti_keys=PH.anti_leaves(phys))
+                         anti_keys=PH.anti_leaves(lowered), lowered=lowered)
 
 
 def _sync(device) -> None:
@@ -234,27 +353,58 @@ def _shadowed(tables: dict, keys: torch.Tensor, shadow_sources) -> torch.Tensor:
     return hit
 
 
-def _block_gather(blocks: Optional[tuple], zone_block: int):
+def _block_gather(blocks: Optional[tuple], zone_block: int,
+                  n_shards: int = 1, blocks_per_shard: int = 0,
+                  rows_per_shard: int = 0, pad_multiple: int = 1):
     """Static-slice gather of the surviving row blocks (ascending ids keep
-    the original row order); None = identity."""
+    the original row order); None = identity.
+
+    With ``n_shards > 1`` flat ids address per-shard local blocks (``s *
+    blocks_per_shard + j`` = shard ``s``'s block ``j``): the slice lies in
+    shard ``s``'s row chunk and a trailing partial block clips at the
+    chunk's end, so a gather never straddles shards. ``pad_multiple``
+    zero-pads the gathered length to a multiple (the shard_map operators
+    split rows evenly over the mesh); pad rows carry a False mask."""
     if blocks is None:
         return lambda col: col
-    spans = [(b * zone_block, (b + 1) * zone_block) for b in blocks]
+    spans = []
+    for b in blocks:
+        if n_shards <= 1:
+            spans.append((b * zone_block, (b + 1) * zone_block))
+        else:
+            s, j = divmod(b, blocks_per_shard)
+            base = s * rows_per_shard
+            spans.append((base + j * zone_block,
+                          base + min((j + 1) * zone_block, rows_per_shard)))
 
     def sel(col):
         parts = [col[lo:hi] for lo, hi in spans]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        pad = (-out.shape[0]) % pad_multiple
+        if pad:
+            out = torch.cat([out, out.new_zeros((pad,) + tuple(out.shape[1:]))])
+        return out
     return sel
 
 
-def _lower_component(node, index_col: Optional[str] = None) -> Callable:
+def _stream_pad(ctx: ExecContext) -> int:
+    """Row-count multiple a gathered stream must keep: the shard_map
+    operators split their inputs evenly over the mesh's shards."""
+    if isinstance(ctx.strategy, ShardMapStrategy):
+        return mesh_shards(ctx.mesh, ctx.data_axes)
+    return 1
+
+
+def _lower_component(node, ctx: ExecContext,
+                     index_col: Optional[str] = None) -> Callable:
     """The matter stream of one component (TableScan / IndexProbe): the
     surviving blocks, the open-dataset cast, newer anti-matter subtracted
     from the mask; an IndexProbe adds its range mask and residual."""
     key = f"{node.dataverse}.{node.dataset}"
     open_cast = node.open_cast
     shadow, key_col = node.shadow_sources, node.key_col
-    sel = _block_gather(node.block_ids, node.zone_block)
+    sel = _block_gather(node.block_ids, node.zone_block, *node.shard_layout(),
+                        pad_multiple=_stream_pad(ctx))
 
     def fn(tables, params):
         env, mask = _env_of(tables[key], open_cast)
@@ -276,12 +426,12 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
     """Returns fn(tables, params) -> (env, mask). Filters never compact
     (selection-vector execution)."""
     if isinstance(node, PH.TableScan):
-        return _lower_component(node)
+        return _lower_component(node, ctx)
 
     if isinstance(node, PH.IndexProbe):
         # the probe inherits its Scan site's surviving-block list: rows in
         # skipped blocks provably fail the conjuncts that bound the probe
-        return _lower_component(node, index_col=node.index_col)
+        return _lower_component(node, ctx, index_col=node.index_col)
 
     if isinstance(node, PH.PrunedUnionRuns):
         kids = [_lower_stream(c, ctx) for c in node.children]
@@ -433,6 +583,24 @@ def _lower_kernel_segment_agg(node: PH.KernelSegmentAgg, ctx: ExecContext,
     casts below reproduce the generic path bit for bit."""
     key, lo, num_groups = node.key, node.lo, node.num_groups
     comp_blocks = node.comp_blocks or tuple(None for _ in comps)
+    # resolve each component's hoisted block list once, here: a one-shard
+    # layout keeps the static zone-block tuple; a multi-shard layout
+    # expands to the per-shard (-1-padded) kernel-block matrix, row s
+    # driving shard s's launch
+    resolved: list[tuple] = []
+    for blk in comp_blocks:
+        if blk is None or blk[0] is None:
+            resolved.append((None, None))
+            continue
+        ids, zb, nsh, bp, rps = blk
+        if nsh > 1:
+            from repro_torch.engine.distributed import ShardBlocks
+            from repro_torch.kernels import ops
+            from repro_torch.kernels.segment_agg import BLOCK as _SA_BLOCK
+            resolved.append((None, ShardBlocks(ops.shard_block_arrays(
+                ids, zb, _SA_BLOCK, nsh, bp, rps))))
+        else:
+            resolved.append((ids, None))
     vcols: list[str] = []   # distinct sum-family value columns, first-use order
     xcols: dict[str, list[str]] = {"max": [], "min": []}
     for _, op, col in aggs:
@@ -445,7 +613,7 @@ def _lower_kernel_segment_agg(node: PH.KernelSegmentAgg, ctx: ExecContext,
     def fn(tables, params):
         parts: dict[str, torch.Tensor] = {}
         key_dtype = val_dtypes = None
-        for comp, block_ids in zip(comps, comp_blocks):
+        for comp, (block_ids, shard_blocks) in zip(comps, resolved):
             # the block list was hoisted off the component's TableScan: the
             # stream stays full-length and the kernel grid skips the tiles
             env, mask = comp(tables, params)
@@ -465,7 +633,7 @@ def _lower_kernel_segment_agg(node: PH.KernelSegmentAgg, ctx: ExecContext,
             for op, cols_f32 in tiles.items():
                 part = ctx.strategy.kernel_group_agg(
                     gid, torch.stack(cols_f32, dim=1), num_groups, n, op,
-                    block_ids=block_ids)
+                    block_ids=block_ids, shard_blocks=shard_blocks)
                 parts[op] = part if op not in parts else merge[op](parts[op], part)
         sums = parts["sum"]
         counts = sums[:, 0].to(torch.int32)
@@ -572,10 +740,21 @@ def _lower_kernel_range_count(node: PH.KernelRangeCount, ctx: ExecContext) -> Ca
     path, so no row mask is built outside the kernel, except the matter
     column: the validity mask and newer components' anti-matter
     (valid ∧ ¬shadowed) fold into ONE extra kernel column with bounds
-    (1, 1). ``block_ids`` drive the kernel grid."""
+    (1, 1). ``block_ids`` drive the kernel grid; on a multi-shard layout
+    they expand to the per-shard kernel-block matrix, row s driving shard
+    s's launch."""
     key = f"{node.dataverse}.{node.dataset}"
     shadow, key_col, has_valid = node.shadow_sources, node.key_col, node.has_valid
     block_ids = node.block_ids
+    shard_blocks = None
+    nsh, bp, rps = node.shard_layout()
+    if block_ids is not None and nsh > 1:
+        from repro_torch.engine.distributed import ShardBlocks
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.filter_count import BLOCK as _FC_BLOCK
+        shard_blocks = ShardBlocks(ops.shard_block_arrays(
+            block_ids, node.zone_block, _FC_BLOCK, nsh, bp, rps))
+        block_ids = None
     groups: dict[str, tuple[list, list]] = {}
     for col, lo, hi in zip(node.cols, node.los, node.his):
         los, his = groups.setdefault(col, ([], []))
@@ -611,7 +790,8 @@ def _lower_kernel_range_count(node: PH.KernelRangeCount, ctx: ExecContext) -> Ca
             bounds.append(one)
         bounds = torch.cat(bounds).to(torch.int32).view(-1, 2)
         cnt = ctx.strategy.kernel_filter_count(columns, bounds,
-                                               block_ids=block_ids)
+                                               block_ids=block_ids,
+                                               shard_blocks=shard_blocks)
         return {"count": cnt.to(torch.int32)}
     return fn
 

@@ -127,77 +127,55 @@ def _blocks_fp(block_ids) -> str:
     return "all" if block_ids is None else ",".join(map(str, block_ids))
 
 
-def walk(node: PhysOp):
-    yield node
-    for c in node.children:
-        yield from walk(c)
-
-
-def all_exprs(node: PhysOp) -> list[Expr]:
-    out: list[Expr] = []
-    for n in walk(node):
-        out.extend(n.exprs())
-    return out
-
-
-def scan_leaves(node: PhysOp) -> list[tuple[str, str]]:
-    """Dataset keys the physical plan actually reads (pruned runs excluded —
-    the executable must never gather a dropped component)."""
-    keys: list[tuple[str, str]] = []
-    for n in walk(node):
-        key = getattr(n, "source_key", None)
-        if key is not None and key not in keys:
-            keys.append(key)
-    return keys
-
-
-def anti_leaves(node: PhysOp) -> list[tuple[str, str]]:
-    """Components whose anti-matter key sets the plan subtracts with. A
-    matter-pruned run can still appear here: its tombstones annihilate into
-    surviving older components, so its anti array must be gathered even
-    though its table is not."""
-    keys: list[tuple[str, str]] = []
-    for n in walk(node):
-        for key in getattr(n, "shadow_sources", ()):
-            if key not in keys:
-                keys.append(key)
-    return keys
-
-
-def _shadow_fp(shadow_sources) -> str:
-    return "|".join(f"{dv}.{name}" for dv, name in shadow_sources)
-
-
-def _blocks_fp(block_ids) -> str:
-    # Surviving-block lists are STATIC plan structure (baked into the gather
-    # slices / kernel grid), so they must participate in the executable-dedup
-    # fingerprint — two bindings with different surviving blocks can never
-    # share a compiled program.
-    return "all" if block_ids is None else ",".join(map(str, block_ids))
-
-
 class _BlockSkip:
     """Mixin state for operators that skip zone-map-pruned blocks:
     ``block_ids`` is the ascending tuple of surviving block indices (None =
     scan everything), ``zone_block`` the block size in rows,
     ``blocks_total`` the component's block count, ``blocks_scanned`` what
-    the operator actually reads."""
+    the operator actually reads.
+
+    On a sharded mesh the ids live in the per-shard layout (flat id
+    ``s * blocks_per_shard + j`` = shard ``s``'s local block ``j``;
+    stats.BlockZones): ``n_shards`` / ``blocks_per_shard`` /
+    ``rows_per_shard`` carry it to the lowering, which re-bases the flat
+    list into per-shard grids and gathers. ``n_shards == 1`` is the global
+    layout."""
 
     block_ids: Optional[tuple] = None
     zone_block: int = 0
     blocks_total: int = 0
     blocks_scanned: int = 0
+    n_shards: int = 1
+    blocks_per_shard: int = 0
+    rows_per_shard: int = 0
 
-    def set_blocks(self, block_ids, zone_block: int, total: int) -> None:
+    def set_blocks(self, block_ids, zone_block: int, total: int,
+                   n_shards: int = 1, rows_per_shard: int = 0) -> None:
         self.block_ids = tuple(block_ids) if block_ids is not None else None
         self.zone_block = int(zone_block)
         self.blocks_total = int(total)
         self.blocks_scanned = total if block_ids is None else len(block_ids)
+        self.n_shards = max(int(n_shards), 1)
+        self.blocks_per_shard = self.blocks_total // self.n_shards
+        self.rows_per_shard = int(rows_per_shard)
+
+    def shard_layout(self) -> tuple:
+        """(n_shards, blocks_per_shard, rows_per_shard): what the lowering
+        needs to slice a flat surviving-block list per shard."""
+        return (self.n_shards, self.blocks_per_shard, self.rows_per_shard)
 
     def block_note(self) -> str:
         skipped = self.blocks_total - self.blocks_scanned
-        return (f"zone maps: {self.blocks_scanned}/{self.blocks_total} "
-                f"block(s) scanned, {skipped} skipped")
+        out = (f"zone maps: {self.blocks_scanned}/{self.blocks_total} "
+               f"block(s) scanned, {skipped} skipped")
+        if self.n_shards > 1 and self.block_ids is not None:
+            bp = max(self.blocks_per_shard, 1)
+            per = [0] * self.n_shards
+            for b in self.block_ids:
+                per[min(b // bp, self.n_shards - 1)] += 1
+            out += (f" ({self.n_shards} shards, per-shard "
+                    f"{'/'.join(map(str, per))} of {bp})")
+        return out
 
 
 # -- stream operators (produce (env, mask)) ---------------------------------
@@ -475,9 +453,11 @@ class KernelSegmentAgg(PhysOp):
     share one (n, C) value tile) plus one per extreme family, partials
     merged with +/max/min. Chosen only under a static f32-exactness proof.
 
-    ``comp_blocks[i]`` is component i's surviving-block list (zone-block
-    units; None = all), hoisted off its TableScan so the kernel grid itself
-    skips pruned tiles instead of the stream gathering a copy first.
+    ``comp_blocks[i]`` is component i's ``(block_ids, zone_block,
+    n_shards, blocks_per_shard, rows_per_shard)`` (zone-block units and
+    the TableScan's shard layout; None = all blocks), hoisted off its
+    TableScan so the kernel grid itself skips pruned tiles instead of the
+    stream gathering a copy first.
 
     ``key_values`` (string group-by): the union dictionary — surviving group
     ids decode back to encoded strings at the result boundary."""
@@ -729,17 +709,23 @@ class PointLookup(PhysOp):
     without any subtraction arithmetic (the first component owning the key
     decides: fresh matter wins, a tombstone kills every older occurrence).
     Components whose key zone span misses the probe are skipped without a
-    search. Rendered by ``explain`` like every other physical operator."""
+    search. On a sharded mesh each probe is routed to the owning row
+    partition(s) through the per-shard key zone spans (``shards`` is the
+    mesh's partition count, ``shard_probes`` the shard windows searched).
+    Rendered by ``explain`` like every other physical operator."""
 
     def __init__(self, dataverse: str, dataset: str, key_col: str,
                  components: int, probed: int, skipped: int,
                  found_in: Optional[str] = None,
-                 tombstoned_by: Optional[str] = None):
+                 tombstoned_by: Optional[str] = None,
+                 shards: int = 1, shard_probes: int = 0):
         self.dataverse, self.dataset, self.key_col = dataverse, dataset, key_col
         self.components = components
         self.probed, self.skipped = probed, skipped
         self.found_in = found_in
         self.tombstoned_by = tombstoned_by
+        self.shards = shards
+        self.shard_probes = shard_probes
 
     def fingerprint(self):
         return (f"p:pointlookup({self.dataverse}.{self.dataset},"
@@ -750,6 +736,9 @@ class PointLookup(PhysOp):
                f"{self.key_col} [newest-wins, {self.probed} of "
                f"{self.components} component(s) probed, "
                f"{self.skipped} span-skipped]")
+        if self.shards > 1:
+            out += (f" [shard-routed: {self.shard_probes} of "
+                    f"{self.probed * self.shards} shard window(s) searched]")
         return out
 
 
@@ -816,10 +805,15 @@ def prune_report(root: PhysOp) -> dict:
     components = pruned = 0
     rows_pruned = tombstones_retained = 0
     blocks_total = blocks_scanned = 0
+    shards = 1
+    shard_probes = 0
     compaction_recommended = False
     stall_pressure = 0.0
     stall_imminent = False
     for node in walk(root):
+        shards = max(shards, getattr(node, "shards", 1),
+                     getattr(node, "n_shards", 1))
+        shard_probes += getattr(node, "shard_probes", 0)
         if getattr(node, "compaction_recommended", False):
             compaction_recommended = True
         stall_pressure = max(stall_pressure,
@@ -844,6 +838,7 @@ def prune_report(root: PhysOp) -> dict:
             "tombstones_retained": tombstones_retained,
             "blocks_total": blocks_total, "blocks_scanned": blocks_scanned,
             "blocks_skipped": blocks_total - blocks_scanned,
+            "shards": shards, "shard_probes": shard_probes,
             "compaction_recommended": compaction_recommended,
             "stall_pressure": stall_pressure,
             "stall_imminent": stall_imminent,

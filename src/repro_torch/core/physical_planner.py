@@ -37,8 +37,9 @@ cached query is always the one this planner would rebuild.
 
 String ``==`` / ``IN`` on a dictionary-encoded column lower onto
 filter_count over the ``__dict_<col>`` id lane, and a string group-by onto
-the integer group-by over union-dictionary ids (``DictRemapCols``). Sharded
-zone layouts wait for ROADMAP A9.
+the integer group-by over union-dictionary ids (``DictRemapCols``). On a
+mesh the block ids live in the per-shard zone layout (``BlockZones``), and
+scan nodes carry that layout to the lowering.
 """
 from __future__ import annotations
 
@@ -250,6 +251,8 @@ class _ScanDesc:
     zone_block: int
     spans: dict                  # column -> (n_blocks, 2) zone array
     constraints: list[_Constraint]
+    n_shards: int = 1            # mesh row partitions the layout was built for
+    rows_per_shard: int = 0
 
 
 @dataclasses.dataclass
@@ -524,14 +527,21 @@ def _expand_string_constraints(cons, stats: TableStats) -> list[_Constraint]:
     return out
 
 
-def build_pruner(opt: P.Plan, catalog: Catalog, raw_lits: list) -> Pruner:
+def build_pruner(opt: P.Plan, catalog: Catalog, raw_lits: list,
+                 n_shards: int = 1) -> Pruner:
     """Walk the optimized plan's LSM unions and describe every component's
     prune opportunity: its zone spans plus the ``col <op> lit`` conjuncts
     (from the pushed-down per-component filters) that bound it. A second
     pass describes every constrained Scan's *block-level* opportunity (the
     per-ZONE_BLOCK zone maps harvested at load/flush time) — including
     scans of plain, non-fed datasets, which have no run to prune but whole
-    kernel tiles to skip."""
+    kernel tiles to skip.
+
+    ``n_shards`` is the session mesh's row-partition count: a scan's block
+    zones are usable only when harvested for the SAME layout (flat block
+    ids address per-shard local tiles, so another layout would skip the
+    wrong rows). A component harvested for another layout opts out of
+    block skipping; run-level pruning is unaffected."""
     raw_index = {id(l): i for i, l in enumerate(raw_lits)}
 
     def lit_ref(lit: Lit) -> tuple:
@@ -584,18 +594,21 @@ def build_pruner(opt: P.Plan, catalog: Catalog, raw_lits: list) -> Pruner:
         bz = stats.block_zones
         if bz is None or bz.n_blocks <= 1:
             continue  # a single block can never be skipped
+        if bz.n_shards != max(n_shards, 1):
+            continue  # zone layout predates the mesh: ids would be wrong
         cons = _expand_string_constraints(cons, stats)
         usable = [c for c in cons if c.column in bz.spans]
         if usable:
             scan_descs.append(_ScanDesc(scan_ords[id(node)], stats.address,
                                         bz.n_blocks, bz.block, dict(bz.spans),
-                                        usable))
+                                        usable, bz.n_shards,
+                                        bz.rows_per_shard))
     return Pruner(unions, scan_descs,
-                  _isin_descs(opt, catalog, lit_ref, scan_ords))
+                  _isin_descs(opt, catalog, lit_ref, scan_ords, n_shards))
 
 
 def _isin_descs(opt: P.Plan, catalog: Catalog, lit_ref,
-                scan_ords: dict) -> list[_InDesc]:
+                scan_ords: dict, n_shards: int = 1) -> list[_InDesc]:
     """Every COUNT of one string ``col IN [...]`` straight over a Scan (an
     identity Project between, as ``_plan_count`` allows) whose component
     dictionary-encodes ``col`` and has its lane's block zones."""
@@ -621,7 +634,7 @@ def _isin_descs(opt: P.Plan, catalog: Catalog, lit_ref,
         bz = stats.block_zones
         lane = dict_lane_name(col.name)
         if bz is None or _dict_lane_stats(stats, col.name) is None \
-                or bz.span_of(lane) is None:
+                or bz.span_of(lane) is None or bz.n_shards != max(n_shards, 1):
             continue
         values = stats.column(col.name).dict_values
         out.append(_InDesc(scan_ords[id(inner)],
@@ -729,7 +742,9 @@ def _plan_scan(node: P.Scan, ctx: _PlannerCtx) -> PH.PhysOp:
         bz = stats.block_zones
         blocks = ctx.scan_blocks(node)
         if bz is not None:
-            out.set_blocks(blocks, bz.block, bz.n_blocks)
+            out.set_blocks(blocks, bz.block, bz.n_blocks,
+                           n_shards=bz.n_shards,
+                           rows_per_shard=bz.rows_per_shard)
         if blocks is not None and bz is not None:
             # discount the scan by the surviving fraction: the lowering
             # streams only these blocks (skipped blocks provably hold no
@@ -789,7 +804,9 @@ def _plan_filter(node: P.Filter, ctx: _PlannerCtx) -> PH.PhysOp:
                 bz = stats.block_zones
                 blocks = ctx.scan_blocks(inner)
                 if bz is not None:
-                    probe.set_blocks(blocks, bz.block, bz.n_blocks)
+                    probe.set_blocks(blocks, bz.block, bz.n_blocks,
+                                     n_shards=bz.n_shards,
+                                     rows_per_shard=bz.rows_per_shard)
                 if blocks is not None and bz is not None:
                     # literal-aware refinement: the bind-time zone test
                     # already intersected the predicate's literals with the
@@ -1308,7 +1325,8 @@ def _try_kernel_range_count(scan: P.Scan, pred: Expr, stats: TableStats,
         out.note = "; ".join(notes)
     bz = stats.block_zones
     if bz is not None:
-        out.set_blocks(ctx.scan_blocks(scan), bz.block, bz.n_blocks)
+        out.set_blocks(ctx.scan_blocks(scan), bz.block, bz.n_blocks,
+                       n_shards=bz.n_shards, rows_per_shard=bz.rows_per_shard)
     return out
 
 
@@ -1360,7 +1378,9 @@ def _try_kernel_isin_count(scan: P.Scan, pred: Expr, stats: TableStats,
         if bz is not None:
             keep = member_blocks[j] if member_blocks is not None \
                 else ctx.scan_blocks(scan)
-            kid.set_blocks(keep, bz.block, bz.n_blocks)
+            kid.set_blocks(keep, bz.block, bz.n_blocks,
+                           n_shards=bz.n_shards,
+                           rows_per_shard=bz.rows_per_shard)
         kids.append(kid)
     out = PH.MergeScalars(kids, [("count", "sum")], ())
     ids = [pos.get(v) for v in cur]
@@ -1585,7 +1605,8 @@ def _plan_groupagg(node: P.GroupAgg, ctx: _PlannerCtx) -> PH.PhysOp:
                      and s.block_ids is not None]
             if len(scans) == 1:
                 s = scans[0]
-                comp_blocks.append(s.block_ids)
+                comp_blocks.append(
+                    (s.block_ids, s.zone_block) + s.shard_layout())
                 skipped += s.blocks_total - len(s.block_ids)
                 total += s.blocks_total
                 s.block_ids = None  # the kernel grid skips, not the stream

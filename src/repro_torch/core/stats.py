@@ -22,31 +22,69 @@ from repro_torch.core.catalog import INTERNAL_COLUMNS, Catalog, Dataset
 from repro_torch.kernels.filter_count import BLOCK as ZONE_BLOCK_ROWS
 
 
+def mesh_shards(mesh, data_axes=None) -> int:
+    """Row-partition count of a session mesh: the product of the data-axis
+    extents. 1 for meshless sessions (the zone layout is then global)."""
+    if mesh is None:
+        return 1
+    if data_axes:
+        return int(np.prod([mesh.shape[a] for a in data_axes]))
+    return int(mesh.devices.size)
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockZones:
     """Per-``ZONE_BLOCK_ROWS`` [min, max] of each numeric column over the
     component's physical row layout (live rows only). The bind-time
     block-skip test intersects predicate intervals with these spans to
-    shrink the kernel grid to the surviving blocks."""
+    shrink the kernel grid to the surviving blocks.
+
+    The layout follows the mesh's row partitions: flat block
+    ``s * blocks_per_shard + j`` is shard ``s``'s LOCAL block ``j`` over
+    its ``rows_per_shard`` rows (a shard's trailing partial block is
+    sentinel-padded), so per-shard kernel grids address their own tiles.
+    ``n_shards == 1`` is the global layout."""
 
     block: int
     n_blocks: int
     spans: Mapping[str, "object"]  # column -> (n_blocks, 2) ndarray
+    n_shards: int = 1
+    rows_per_shard: int = 0        # 0 = whole table (unsharded)
+
+    @property
+    def blocks_per_shard(self) -> int:
+        return self.n_blocks // max(self.n_shards, 1)
 
     def span_of(self, column: str):
         return self.spans.get(column)
 
+    def shard_lists(self, block_ids) -> list[list[int]]:
+        """Split a flat surviving-block tuple into per-shard LOCAL id lists
+        (flat ``s * blocks_per_shard + j`` -> shard ``s``, local ``j``);
+        sorted flat ids give sorted local lists."""
+        bp = self.blocks_per_shard
+        out: list[list[int]] = [[] for _ in range(max(self.n_shards, 1))]
+        for b in block_ids:
+            out[b // bp].append(b % bp)
+        return out
 
-def harvest_block_zones(table) -> Optional[BlockZones]:
+
+def harvest_block_zones(table, n_shards: int = 1) -> Optional[BlockZones]:
     """A table's per-block zone maps (None when it has no numeric column or
-    no rows). O(rows) at load — never at query time."""
+    no rows), laid out over ``n_shards`` row partitions — one partition
+    when the rows do not split evenly. O(rows) at load — never at query
+    time."""
     from repro_torch.engine.table import compute_block_zones
 
-    spans = compute_block_zones(table, ZONE_BLOCK_ROWS)
+    n = len(table)
+    if n_shards <= 1 or (n and n % n_shards):
+        n_shards = 1
+    spans = compute_block_zones(table, ZONE_BLOCK_ROWS, n_shards)
     if not spans:
         return None
     nb = int(next(iter(spans.values())).shape[0])
-    return BlockZones(ZONE_BLOCK_ROWS, nb, spans)
+    return BlockZones(ZONE_BLOCK_ROWS, nb, spans, n_shards,
+                      n // max(n_shards, 1))
 
 
 @dataclasses.dataclass(frozen=True)

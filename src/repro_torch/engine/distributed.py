@@ -1,0 +1,430 @@
+"""Shared-nothing relational operators over a mesh of row shards (port of
+``repro.engine.distributed``) — the ``shard_map`` execution mode.
+
+Every operator does shard-local work sized rows/S over its shard's views,
+then merges the partials with the smallest collective:
+
+  operator          local work                merge collective
+  ----------------- ------------------------- -------------------------------
+  filter+count      masked popcount           psum (4 B)
+  scalar agg        local min/max/sum         psum/pmax/pmin
+  group-by agg      segment reduction (G)     psum/pmax/pmin (G × aggs)
+  top-k             local top-k(k)            all_gather(k) + final top-k
+  limit(n)          local compact(n)          all_gather(n) + recompact
+  join count        local sort + probe        all_gather of build keys
+                    (or the hash all-to-all repartition,
+                    ``hash_repartition_counts``)
+  index range count searchsorted per shard    psum
+
+The mesh's shards all live on one device (``launch/mesh.py``), so a
+table's column is one tensor and shard ``s`` is the view of rows
+``[s * rps, (s + 1) * rps)`` — nothing is copied to split it. The
+collectives below (``psum``, ``pmax``, ``pmin``, ``all_gather``,
+``all_to_all``) take one partial per shard, in shard order, and return the
+merged value every shard would hold; work that follows a collective and is
+the same on every shard runs once. On a one-shard mesh every operator
+reduces to the local op. The kernel compositions launch the relational
+kernels once per shard, each over its own view.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.engine import physical
+from repro_torch.engine.index import _search
+
+
+def n_shards(mesh, data_axes) -> int:
+    """Row-partition count of ``mesh`` over ``data_axes``."""
+    return int(np.prod([mesh.shape[a] for a in data_axes]))
+
+
+def shard_views(x: torch.Tensor, nsh: int) -> list[torch.Tensor]:
+    """Shard ``s``'s rows of ``x`` (split along dim 0 into ``nsh`` equal
+    contiguous chunks) as views. A length that does not split evenly is
+    first zero-padded (pad rows are dead: a zero mask is False)."""
+    n = x.shape[0]
+    pad = (-n) % nsh
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    rps = x.shape[0] // nsh
+    return [x[s * rps:(s + 1) * rps] for s in range(nsh)]
+
+
+# -- collectives ------------------------------------------------------------------
+
+
+def psum(parts: list[torch.Tensor]) -> torch.Tensor:
+    """Sum of the shards' partials, in shard order and in their dtype."""
+    return functools.reduce(torch.add, parts)
+
+
+def pmax(parts: list[torch.Tensor]) -> torch.Tensor:
+    return functools.reduce(torch.maximum, parts)
+
+
+def pmin(parts: list[torch.Tensor]) -> torch.Tensor:
+    return functools.reduce(torch.minimum, parts)
+
+
+def all_gather(parts: list[torch.Tensor]) -> torch.Tensor:
+    """Tiled all-gather: the shards' blocks concatenated in shard order."""
+    return torch.cat(parts, dim=0)
+
+
+def all_to_all(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Tiled all-to-all over axis 0: shard ``s`` sends row ``d`` of its
+    (S, ...) block to shard ``d``, which concatenates what it receives in
+    source order."""
+    return [torch.cat([p[d] for p in parts], dim=0) for d in range(len(parts))]
+
+
+_MERGE = {"sum": psum, "max": pmax, "min": pmin}
+
+
+# -- scalar aggregation -----------------------------------------------------------
+
+
+def dist_count(mesh, data_axes, mask: torch.Tensor) -> torch.Tensor:
+    nsh = n_shards(mesh, data_axes)
+    return psum([m.sum(dtype=torch.int32) for m in shard_views(mask, nsh)])
+
+
+def dist_agg(mesh, data_axes, op: str, col: torch.Tensor, mask: torch.Tensor):
+    nsh = n_shards(mesh, data_axes)
+    cols, masks = shard_views(col, nsh), shard_views(mask, nsh)
+    if op == "mean":
+        s = psum([torch.where(m, c, 0).to(torch.float32).sum()
+                  for c, m in zip(cols, masks)])
+        n = psum([m.sum(dtype=torch.int32) for m in masks])
+        return s / n.clamp(min=1)
+    if op == "count":
+        op = "sum"
+        parts = [m.sum(dtype=torch.int32) for m in masks]
+    else:
+        parts = [physical.agg_scalar({"c": c}, m, op, "c")
+                 for c, m in zip(cols, masks)]
+    if op not in _MERGE:
+        raise ValueError(op)
+    return _MERGE[op](parts)
+
+
+# -- group by ----------------------------------------------------------------------
+
+
+def dist_group_agg(mesh, data_axes, key_col, mask, lo: int, num_groups: int,
+                   aggs, value_cols: dict):
+    """Bounded-domain group-by: local segment reduction, psum/pmax/pmin
+    merge. ``aggs``: [(out_name, op, col|None)]; ``value_cols``: {col:
+    tensor}. ``mean`` decomposes into psum(sum) / psum(count). Returns the
+    merged (G-row) group table and its live-group mask."""
+    nsh = n_shards(mesh, data_axes)
+    names = sorted(value_cols)
+    prim: list[tuple[str, str, Optional[str]]] = [("__n__", "count", None)]
+    for o, op, c in aggs:
+        if op == "mean":
+            prim.append((f"__sum_{o}", "sum", c))
+        else:
+            prim.append((o, op, c))
+    keys, masks = shard_views(key_col, nsh), shard_views(mask, nsh)
+    vals = {n: shard_views(value_cols[n], nsh) for n in names}
+    outs = []
+    for s in range(nsh):
+        env = {"__key__": keys[s], **{n: vals[n][s] for n in names}}
+        out, _ = physical.group_agg(env, masks[s], "__key__", lo, num_groups,
+                                    prim)
+        outs.append(out)
+    merged = {o: _MERGE["sum" if op == "count" else op]([d[o] for d in outs])
+              for o, op, _ in prim}
+    out = {"__key__": outs[0]["__key__"]}
+    for o, op, c in aggs:
+        if op == "mean":
+            out[o] = merged[f"__sum_{o}"] / merged["__n__"].clamp(min=1)
+        else:
+            out[o] = merged[o]
+    return out, merged["__n__"] > 0
+
+
+# -- top-k / limit -----------------------------------------------------------------
+
+
+def _shard_env(env: dict, mask, nsh: int):
+    names = sorted(env)
+    cols = {n: shard_views(env[n], nsh) for n in names}
+    masks = shard_views(mask, nsh)
+    return [({n: cols[n][s] for n in names}, masks[s]) for s in range(nsh)]
+
+
+def _gather_env(parts: list) -> tuple[dict, torch.Tensor]:
+    names = list(parts[0][0])
+    return ({n: all_gather([e[n] for e, _ in parts]) for n in names},
+            all_gather([m for _, m in parts]))
+
+
+def dist_topk(mesh, data_axes, env: dict, mask, key: str, k: int,
+              ascending: bool, select=physical._select_topk):
+    """Local top-k, a k-per-shard gather, then the final top-k. ``select``
+    swaps the selection primitive (kernel mode passes block_topk); the
+    merge is the same. The gathered candidates are shard-major and shards
+    are contiguous in row order, so ties still go to the lower row."""
+    nsh = n_shards(mesh, data_axes)
+    local = [physical.topk(e, m, key, min(k, m.shape[0]), ascending,
+                           select=select)
+             for e, m in _shard_env(env, mask, nsh)]
+    ge, gm = _gather_env(local)
+    return physical.topk(ge, gm, key, k, ascending, select=select)
+
+
+def dist_limit(mesh, data_axes, env: dict, mask, n: int):
+    """Local compact(n), gather, then the first n (shard-major order)."""
+    nsh = n_shards(mesh, data_axes)
+    local = [physical.limit(e, m, n) for e, m in _shard_env(env, mask, nsh)]
+    ge, gm = _gather_env(local)
+    return physical.limit(ge, gm, n)
+
+
+# -- joins -------------------------------------------------------------------------
+
+
+def dist_join_count(mesh, data_axes, lkey, lmask, rkey, rmask,
+                    presorted_right: bool = False) -> torch.Tensor:
+    """Broadcast-merge join count: each shard sorts its build keys (a
+    sorted index skips that), the sorted runs are gathered and merged, each
+    shard probes its own rows with two binary searches, psum. int32, as
+    the reference's x64-off result."""
+    nsh = n_shards(mesh, data_axes)
+    sentinel = physical._maxval(rkey.dtype)
+    rks, rms = shard_views(rkey, nsh), shard_views(rmask, nsh)
+    runs = [rk if presorted_right
+            else torch.sort(torch.where(rm, rk, sentinel)).values
+            for rk, rm in zip(rks, rms)]
+    rs_g = torch.sort(all_gather(runs)).values   # merge the gathered runs
+    n_r = psum([rm.sum() for rm in rms])
+    parts = []
+    for lk, lm in zip(shard_views(lkey, nsh), shard_views(lmask, nsh)):
+        lo = _search(rs_g, lk, "left")
+        hi = torch.minimum(_search(rs_g, lk, "right"), n_r)
+        parts.append(torch.where(lm, (hi - lo).clamp(min=0), 0)
+                     .sum(dtype=torch.int32))
+    return psum(parts)
+
+
+def hash_repartition_counts(mesh, data_axes, lkey, lmask, rkey, rmask,
+                            capacity_factor: float = 2.0):
+    """Hybrid-hash analogue: an all-to-all repartitions both sides by key
+    hash so matching keys meet on one shard, then a local sort-merge count
+    and a psum. Each (source, destination) bucket holds a fixed capacity;
+    what does not fit is dropped and counted. Returns (total, drops), int32
+    tensors. ``capacity_factor=2`` drops nothing for uniform keys."""
+    nsh = n_shards(mesh, data_axes)
+
+    def repartition(k, m):
+        n = k.shape[0]
+        dev = k.device
+        cap = int(np.ceil(n / nsh * capacity_factor))
+        # the reference hashes k.astype(uint32) % S: torch's uint32
+        # arithmetic is partial, so take the low 32 bits in int64
+        dest = ((k.to(torch.int64) & 0xFFFFFFFF) % nsh).to(torch.int32)
+        dest = torch.where(m, dest, nsh)            # dead rows: overflow bucket
+        order = torch.argsort(dest, stable=True)
+        ds, ks = dest[order], k[order]
+        starts = torch.searchsorted(
+            ds, torch.arange(nsh + 1, dtype=torch.int32, device=dev),
+            side="left")
+        rank = torch.arange(n, device=dev) - starts[ds.clamp(0, nsh).long()]
+        keep = (ds < nsh) & (rank < cap)
+        slot = ds.clamp(0, nsh - 1).long() * cap + rank.clamp(max=cap - 1)
+        slot = torch.where(keep, slot, nsh * cap)   # trash slot for drops
+        buf = torch.zeros(nsh * cap + 1, dtype=k.dtype, device=dev)
+        buf[slot] = ks
+        bm = torch.zeros(nsh * cap + 1, dtype=torch.bool, device=dev)
+        bm[slot] = keep
+        dropped = m.sum(dtype=torch.int32) - keep.sum(dtype=torch.int32)
+        return buf[:-1].view(nsh, cap), bm[:-1].view(nsh, cap), dropped
+
+    left = [repartition(k, m) for k, m in zip(shard_views(lkey, nsh),
+                                               shard_views(lmask, nsh))]
+    right = [repartition(k, m) for k, m in zip(shard_views(rkey, nsh),
+                                                shard_views(rmask, nsh))]
+    # all_to_all: row d of every source's block goes to shard d
+    lbuf, lbm = all_to_all([b for b, _, _ in left]), all_to_all([b for _, b, _ in left])
+    rbuf, rbm = all_to_all([b for b, _, _ in right]), all_to_all([b for _, b, _ in right])
+    counts = [physical.join_count(lbuf[s], lbm[s], rbuf[s], rbm[s])
+              .to(torch.int32) for s in range(nsh)]
+    drops = [left[s][2] + right[s][2] for s in range(nsh)]
+    return psum(counts), psum(drops)
+
+
+# -- kernel-mode compositions -------------------------------------------------------
+#
+# The kernel execution mode runs the relational kernels shard by shard and
+# merges partials with the same collectives as the operators above:
+# filter-count / group-agg psum their partials, join-count gathers the
+# sorted build side. Kernel top-k is dist_topk with the block_topk
+# selection primitive.
+
+
+class ShardBlocks:
+    """A per-shard kernel-block matrix (``ops.shard_block_arrays``: row
+    ``s`` is shard ``s``'s local kernel-block ids, ``-1``-padded at the
+    end), kept on the host for the block accounting and placed on each
+    device once — row ``s`` is then a view that shard ``s``'s launch takes
+    as its ``block_ids_arr``."""
+
+    def __init__(self, host: np.ndarray):
+        self.host = np.asarray(host, np.int32)
+        self.scanned = int((self.host >= 0).sum())
+        self._placed: dict = {}
+
+    def on(self, device) -> torch.Tensor:
+        t = self._placed.get(device)
+        if t is None:
+            t = self._placed[device] = torch.from_numpy(self.host).to(device)
+        return t
+
+
+def _check_blocks(nsh: int, block_ids, shard_blocks):
+    if block_ids is not None:
+        assert nsh == 1, "global block_ids require a single-shard mesh " \
+                         "(use shard_blocks on multi-shard meshes)"
+    if shard_blocks is None:
+        return None
+    assert block_ids is None
+    sb = shard_blocks if isinstance(shard_blocks, ShardBlocks) \
+        else ShardBlocks(shard_blocks)
+    assert sb.host.shape[0] == nsh, (sb.host.shape, nsh)
+    return sb
+
+
+def _count_blocks(kernel: str, sb: ShardBlocks, nsh: int, n: int,
+                  block: int) -> None:
+    """The true scanned / skipped block accounting, kept here where the
+    ``-1`` pads are visible (each shard's grid length over-counts by its
+    padding)."""
+    from repro_torch.runtime import telemetry as tel
+
+    nb_local = -(-(n // nsh) // block)
+    tel.inc("kernel.blocks_scanned_total", sb.scanned, kernel=kernel)
+    tel.inc("kernel.blocks_skipped_total", nsh * nb_local - sb.scanned,
+            kernel=kernel)
+
+
+def dist_kernel_filter_count(mesh, data_axes, cols, bounds: torch.Tensor,
+                             block_ids=None, shard_blocks=None) -> torch.Tensor:
+    """``cols``: the k predicate columns ((n,) int32 each, or a (k, n)
+    matrix), row-sharded; ``bounds``: (k, 2) replicated. Each shard runs
+    filter_count over its own views (pad rows arrive folded into the
+    matter column with bounds (1, 1)); the merge is one psum.
+
+    ``block_ids`` are surviving zone blocks over the GLOBAL layout (one
+    shard only, where local == global). ``shard_blocks`` is the
+    multi-shard form (a ``ShardBlocks`` or its host matrix): shard ``s``
+    scans only the blocks of row ``s``, whose ``-1`` pads it skips."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.filter_count import BLOCK as _FC_BLOCK
+
+    nsh = n_shards(mesh, data_axes)
+    sb = _check_blocks(nsh, block_ids, shard_blocks)
+    cols = list(cols)
+    per_col = [shard_views(c, nsh) for c in cols]
+    n = cols[0].shape[0]
+    ids = None
+    if sb is not None:
+        _count_blocks("filter_count", sb, nsh, n, _FC_BLOCK)
+        ids = sb.on(cols[0].device)
+    parts = []
+    for s in range(nsh):
+        local = [v[s] for v in per_col]
+        rows = local[0].shape[0]
+        if ids is not None:
+            parts.append(ops.filter_count(local, bounds, rows,
+                                          block_ids_arr=ids[s]))
+        else:
+            parts.append(ops.filter_count(local, bounds, rows,
+                                          block_ids=block_ids))
+    return psum(parts)
+
+
+def dist_kernel_group_agg(mesh, data_axes, gids: torch.Tensor,
+                          values: torch.Tensor, num_groups: int,
+                          op: str = "sum", block_ids=None,
+                          shard_blocks=None) -> torch.Tensor:
+    """gids: (n,) int32 (-1 for dead rows); values: (n, C) f32. One
+    segment_agg launch per shard over its views, merged with psum for sums
+    and pmax / pmin for extremes -> (G, C). ``block_ids`` /
+    ``shard_blocks`` as in :func:`dist_kernel_filter_count` (shard_blocks
+    ids in segment_agg's OWN block units)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_agg import BLOCK as _SA_BLOCK
+
+    nsh = n_shards(mesh, data_axes)
+    sb = _check_blocks(nsh, block_ids, shard_blocks)
+    ids = None
+    if sb is not None:
+        _count_blocks("segment_agg", sb, nsh, gids.shape[0], _SA_BLOCK)
+        ids = sb.on(gids.device)
+    parts = []
+    for s, (g, v) in enumerate(zip(shard_views(gids, nsh),
+                                   shard_views(values, nsh))):
+        if ids is not None:
+            parts.append(ops.segment_agg(v, g, num_groups, v.shape[0], op=op,
+                                         block_ids_arr=ids[s]))
+        else:
+            parts.append(ops.segment_agg(v, g, num_groups, v.shape[0], op=op,
+                                         block_ids=block_ids))
+    return _MERGE[op](parts)
+
+
+def dist_kernel_join_count(mesh, data_axes, lkey, lmask, rkey, rmask,
+                           presorted_right: bool = False) -> torch.Tensor:
+    """Broadcast-merge join count on merge_join_count: each shard sorts its
+    probe rows, the build side's sorted runs are gathered and merged (a
+    sorted index skips the local sort), one merge-join launch per shard,
+    psum."""
+    from repro_torch.kernels import ops
+
+    nsh = n_shards(mesh, data_axes)
+    rms = shard_views(rmask, nsh)
+    runs = [ops.sort_join_keys(rk, rm, presorted=presorted_right)
+            for rk, rm in zip(shard_views(rkey, nsh), rms)]
+    rs = torch.sort(all_gather(runs)).values
+    nr = psum([rm.sum(dtype=torch.int32) for rm in rms])
+    parts = []
+    for lk, lm in zip(shard_views(lkey, nsh), shard_views(lmask, nsh)):
+        ls = ops.sort_join_keys(lk, lm)
+        nl = lm.sum(dtype=torch.int32)
+        parts.append(ops.merge_join_count(ls, rs, nl, nr).to(torch.int32))
+    return psum(parts)
+
+
+# -- index -------------------------------------------------------------------------
+
+
+def dist_index_count(mesh, data_axes, sorted_keys, valid, lo, hi):
+    """Index-only range count: per-shard binary searches + psum. ``valid``
+    is the base table's validity column (a shard's local popcount is its
+    ``num_valid``: pad rows sort to the +inf tail of each shard's index)."""
+    from repro_torch.engine.index import index_count_local
+
+    nsh = n_shards(mesh, data_axes)
+    return psum([index_count_local(sk, v.sum(dtype=torch.int32), lo, hi)
+                 .to(torch.int32)
+                 for sk, v in zip(shard_views(sorted_keys, nsh),
+                                  shard_views(valid, nsh))])
+
+
+def dist_shadow_count(mesh, data_axes, sorted_keys, valid, anti_keys, lo, hi):
+    """Anti-matter subtrahend of the index-only count: the replicated,
+    deduplicated tombstone keys probe each shard's sorted primary index;
+    the per-shard occurrence counts psum."""
+    from repro_torch.engine.index import shadow_count_local
+
+    nsh = n_shards(mesh, data_axes)
+    return psum([shadow_count_local(sk, v.sum(dtype=torch.int32), anti_keys,
+                                    lo, hi).to(torch.int32)
+                 for sk, v in zip(shard_views(sorted_keys, nsh),
+                                  shard_views(valid, nsh))])

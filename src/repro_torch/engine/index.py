@@ -62,6 +62,27 @@ def build_index_local(keys: torch.Tensor, valid: torch.Tensor, column: str,
                        zk.amin(dim=1), zk.amax(dim=1))
 
 
+def build_index(keys: torch.Tensor, valid: torch.Tensor, column: str,
+                kind: str = "secondary", n_shards: int = 1) -> SortedIndex:
+    """The index of a row-sharded table: each shard sorts its own chunk
+    (pad and dead rows to that shard's +inf tail) and the per-shard
+    results concatenate in shard order — ``row_ids`` are shard-local
+    positions, the zone arrays per-shard. One shard (or rows that do not
+    split evenly) is :func:`build_index_local`."""
+    n = keys.shape[0]
+    if n_shards <= 1 or n % n_shards:
+        return build_index_local(keys, valid, column, kind)
+    rps = n // n_shards
+    parts = [build_index_local(keys[s * rps:(s + 1) * rps],
+                               valid[s * rps:(s + 1) * rps], column, kind)
+             for s in range(n_shards)]
+    return SortedIndex(column, kind,
+                       torch.cat([p.sorted_keys for p in parts]),
+                       torch.cat([p.row_ids for p in parts]),
+                       torch.cat([p.zone_min for p in parts]),
+                       torch.cat([p.zone_max for p in parts]))
+
+
 def index_count_local(ix_keys: torch.Tensor, num_valid: torch.Tensor,
                       lo, hi) -> torch.Tensor:
     """Range count on sorted keys (index-only), int32."""

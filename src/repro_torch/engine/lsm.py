@@ -159,8 +159,9 @@ def make_run(session, base: Dataset, table: Table,
              anti_keys: Optional[np.ndarray] = None) -> Dataset:
     """Build one run from a flush batch (host columns): sort by the base's
     primary on the host → place on the session device → stats (matter only)
-    → (optional) open-widen → append anti-matter rows → block-pad → sorted
-    indexes and block zone maps. O(batch) throughout.
+    → (optional) open-widen → append anti-matter rows → block-pad (+ shard
+    on a mesh) → sorted indexes and block zone maps, per shard on a mesh.
+    O(batch) throughout.
 
     ``anti_keys`` are the primary keys this run's anti-matter annihilates in
     older components: table rows flagged ``__antimatter__`` (``__valid__``
@@ -198,6 +199,8 @@ def make_run(session, base: Dataset, table: Table,
         anti_sorted = np.sort(np.asarray(anti_keys).astype(host_keys.dtype))
         table = _append_anti_rows(table, primary.column, anti_sorted)
     table = pad_to_block(table, RUN_BLOCK)
+    if session.mesh is not None:
+        table = table.shard(session.mesh, session.data_axes)
     # stable component id: a per-dataset monotone uid, never reused
     uid = session.catalog.next_run_uid(base.dataverse, base.name)
     run = Dataset(name=f"{base.name}@run{uid}", uid=uid,
@@ -208,8 +211,9 @@ def make_run(session, base: Dataset, table: Table,
                   else torch.from_numpy(anti_sorted).to(session.device),
                   host_anti_keys=anti_sorted,
                   host_keys=host_keys,
-                  # matter rows only: anti rows and padding are not valid
-                  block_zones=harvest_block_zones(table))
+                  # matter rows only: anti rows and padding are not valid;
+                  # a mesh session harvests the per-shard layout
+                  block_zones=harvest_block_zones(table, session.n_shards))
     if primary is not None:
         run.indexes["primary"] = session._build_index(table, primary.column,
                                                       "primary")
@@ -766,7 +770,7 @@ def _rebuild_soft(session, comp: Dataset) -> None:
     if primary_col is not None:
         # the matter prefix is clustered: masking keeps the sorted order
         comp.host_keys = _host(t.columns[primary_col][valid])
-    comp.block_zones = harvest_block_zones(t)
+    comp.block_zones = harvest_block_zones(t, session.n_shards)
     for key, ix in list(comp.indexes.items()):
         comp.indexes[key] = session._build_index(t, ix.column, ix.kind)
 

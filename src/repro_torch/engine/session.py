@@ -15,8 +15,13 @@ deletes into LSM runs, and views over a fed dataset refresh from each
 flush. ``Session(storage=dir)`` makes the catalog durable (checksummed
 segments, manifest generations, the feed WAL; ``runtime/durable.py``) and
 ``Session.open(dir)`` recovers such a directory onto the session device.
-Not in this slice (each raises, naming its ROADMAP item): meshes and
-``shard_map`` (A9).
+
+``Session(mesh=make_local_mesh(data=S))`` row-shards every table over the
+mesh's S shards (``launch/mesh.py``; every shard on the one device) and,
+in ``shard_map`` and ``kernel`` mode, runs each operator shard by shard
+with explicit merges (``engine/distributed.py``); zone maps, block lists
+and indexes follow the per-shard layout, and point lookups are routed to
+the owning shard.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ from repro_torch.core.expr import encode_param, ordered_lits
 from repro_torch.core.optimizer import optimize
 from repro_torch.core.physical_planner import (NO_PRUNE, build_pruner,
                                                plan_physical)
-from repro_torch.core.stats import harvest_block_zones
+from repro_torch.core.stats import harvest_block_zones, mesh_shards
 from repro_torch.device import resolve_device
 from repro_torch.engine.table import (DICT_THRESHOLD, ColumnMeta, Table,
                                       decode_strings, dict_lane_name,
@@ -97,21 +102,22 @@ class _PlanEntry:
     variants: dict = dataclasses.field(default_factory=dict)
 
 
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for ROADMAP {item}")
-
-
 class Session:
     def __init__(self, mode: str = "auto", device=None,
                  catalog: Optional[Catalog] = None, mesh=None, storage=None,
                  enable_index: bool = True, enable_pushdown: bool = True,
                  enable_prune: bool = True, enable_block_skip: bool = True,
-                 fault_plan=None):
-        """mode: 'auto' (= 'gspmd' on one device), 'gspmd', or 'kernel' (the
-        planner lowers fusable plan shapes onto the relational kernels;
-        anything uncovered runs the generic operators). ``catalog`` shares
-        another session's datasets (reader sessions: each keeps its own plan
-        caches).
+                 fault_plan=None, data_axes: tuple[str, ...] = ("data",)):
+        """mode: 'auto' (``shard_map`` on a mesh of more than one shard,
+        else 'gspmd'), 'gspmd', 'shard_map' (each operator runs shard by
+        shard over the mesh's row shards and merges with explicit
+        collectives), or 'kernel' (the planner lowers fusable plan shapes
+        onto the relational kernels — once per shard on a mesh; anything
+        uncovered runs the generic operators). ``mesh``
+        (``launch.mesh.make_local_mesh``) row-shards every table over its
+        ``data_axes``; its device is the session device. ``catalog``
+        shares another session's datasets (reader sessions: each keeps its
+        own plan caches).
 
         The reference's ablation switches, each answering alike on or off:
         ``enable_index=False`` leaves index access paths out of the
@@ -128,15 +134,21 @@ class Session:
         commits checksummed component segments and an atomically renamed
         manifest generation, and feeds write an fsynced WAL; ``open``
         recovers such a directory."""
-        if mesh is not None:
-            raise _later("a device mesh", "A9 (multi-device)")
         if mode == "auto":
-            mode = "gspmd"
-        if mode == "shard_map":
-            raise _later("mode='shard_map'", "A9 (multi-device)")
-        if mode not in ("gspmd", "kernel"):
-            raise ValueError(f"unknown mode {mode!r}: expected auto | gspmd | kernel")
+            mode = "shard_map" if mesh is not None and mesh.size > 1 \
+                else "gspmd"
+        if mode not in ("gspmd", "shard_map", "kernel"):
+            raise ValueError(f"unknown mode {mode!r}: "
+                             "expected auto | gspmd | shard_map | kernel")
         self.mode = mode
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        if mesh is not None:
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} differs from the "
+                                 f"mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.catalog = catalog if catalog is not None else Catalog()
         self.fault_plan = fault_plan
@@ -320,12 +332,14 @@ class Session:
                        closed: bool = True, indexes: Sequence[str] = (),
                        primary: Optional[str] = None,
                        stats_like: Optional[Mapping] = None) -> Dataset:
-        """Build (cluster → place → stats → widen → index) WITHOUT touching
-        the catalog: compaction builds replacement bases off the hot path
-        and publishes them with one manifest swap. The clustering sort runs
-        on the host (numpy), before the table moves to the device once.
-        ``stats_like`` (compaction: the retiring base's meta) keeps the
-        string dict-lane decision sticky across components."""
+        """Build (cluster → place → stats → widen → shard → index) WITHOUT
+        touching the catalog: compaction builds replacement bases off the
+        hot path and publishes them with one manifest swap. The clustering
+        sort runs on the host (numpy), before the table moves to the device
+        once. ``stats_like`` (compaction: the retiring base's meta) keeps
+        the string dict-lane decision sticky across components. On a mesh
+        the table is row-sharded (``Table.shard``) and its zone maps and
+        indexes follow the per-shard layout."""
         host_keys = None
         if primary is not None:
             keys = table.columns[primary].cpu().numpy()
@@ -346,8 +360,11 @@ class Session:
             # host copy of the clustered key order: annihilation bookkeeping
             # and point lookups binary-search it
             host_keys = table.columns[primary].cpu().numpy()
+        if self.mesh is not None:
+            table = table.shard(self.mesh, self.data_axes)
         ds = Dataset(name=name, dataverse=dataverse, table=table, closed=closed,
-                     host_keys=host_keys, block_zones=harvest_block_zones(table))
+                     host_keys=host_keys,
+                     block_zones=harvest_block_zones(table, self.n_shards))
         if primary is not None:
             ds.indexes["primary"] = self._build_index(table, primary, "primary")
         for col in indexes:
@@ -355,9 +372,12 @@ class Session:
         return ds
 
     def _build_index(self, table: Table, column: str, kind: str) -> IndexInfo:
-        from repro_torch.engine.index import build_index_local
+        """A sorted index, built per shard on a mesh (pad rows sort to each
+        shard's +inf tail)."""
+        from repro_torch.engine.index import build_index
 
-        ix = build_index_local(table.columns[column], table.valid, column, kind)
+        ix = build_index(table.columns[column], table.valid, column, kind,
+                         self.n_shards)
         return IndexInfo(name=f"{kind}:{column}", column=column, kind=kind,
                          sorted_keys=ix.sorted_keys, row_ids=ix.row_ids,
                          zone_min=ix.zone_min, zone_max=ix.zone_max)
@@ -498,6 +518,7 @@ class Session:
                 f"point lookup needs a primary key on {dataverse}.{dataset} "
                 "(create the dataset with primary=<column>)")
         probed = skipped = 0
+        shards, shard_probes = 1, 0
         found_in = tombstoned_by = None
         result = None
         for comp in reversed(comps):  # newest component wins
@@ -507,19 +528,33 @@ class Session:
                 if key < hk[0] or key > hk[-1]:
                     skipped += 1
                 else:
-                    probed += 1
-                    lo = int(np.searchsorted(hk, key, side="left"))
-                    hi = int(np.searchsorted(hk, key, side="right"))
-                    if hi > lo:
-                        # the matter prefix is clustered by the primary key:
-                        # index positions are table row positions
-                        result = {c: v[lo:hi].cpu().numpy()
-                                  for c, v in comp.table.columns.items()
-                                  if c not in INTERNAL_COLUMNS
-                                  and not c.startswith("__ix")
-                                  and not is_lane_column(c)}
-                        found_in = f"{comp.dataverse}.{comp.name}"
-                        break
+                    # shard routing: the per-shard key zone spans name the
+                    # owning row partition(s); only their window of the
+                    # clustered copy is searched
+                    wlo, whi, owners, comp_shards = _route_key(
+                        comp, primary.column, key, len(hk))
+                    shards = max(shards, comp_shards)
+                    if owners == 0:
+                        # the key falls between shard spans; the component's
+                        # own tombstones are still checked below
+                        skipped += 1
+                    else:
+                        probed += 1
+                        shard_probes += owners
+                        lo = wlo + int(np.searchsorted(hk[wlo:whi], key,
+                                                       side="left"))
+                        hi = wlo + int(np.searchsorted(hk[wlo:whi], key,
+                                                       side="right"))
+                        if hi > lo:
+                            # the matter prefix is clustered by the primary
+                            # key: index positions are table row positions
+                            result = {c: v[lo:hi].cpu().numpy()
+                                      for c, v in comp.table.columns.items()
+                                      if c not in INTERNAL_COLUMNS
+                                      and not c.startswith("__ix")
+                                      and not is_lane_column(c)}
+                            found_in = f"{comp.dataverse}.{comp.name}"
+                            break
             if comp.anti_rows:
                 ak = comp.host_anti_keys
                 pos = int(np.searchsorted(ak, key))
@@ -529,7 +564,8 @@ class Session:
         node = PH.PointLookup(dataverse, dataset, primary.column,
                               components=len(comps), probed=probed,
                               skipped=skipped, found_in=found_in,
-                              tombstoned_by=tombstoned_by)
+                              tombstoned_by=tombstoned_by,
+                              shards=shards, shard_probes=shard_probes)
         node.est_rows = 0 if result is None else len(next(iter(result.values())))
         node.cost = probed * 2.0  # binary-search pairs; never a scan
         if tombstoned_by is not None:
@@ -556,7 +592,14 @@ class Session:
 
     def exec_context(self, catalog=None) -> ExecContext:
         return ExecContext(catalog=catalog if catalog is not None else self.catalog,
-                           mode=self.mode, device=self.device)
+                           mode=self.mode, device=self.device, mesh=self.mesh,
+                           data_axes=self.data_axes)
+
+    @property
+    def n_shards(self) -> int:
+        """Row-partition count of the session mesh (1 when meshless): the
+        layout zone maps are harvested over and block lists re-base to."""
+        return mesh_shards(self.mesh, self.data_axes)
 
     def _decide(self, e: "_PlanEntry", raw_lits: list):
         with tel.span("session.prune", sid=self.sid):
@@ -580,7 +623,8 @@ class Session:
         with tel.span("session.optimize", sid=self.sid):
             opt = optimize(plan, snap, enable_pushdown=self.enable_pushdown)
         with tel.span("session.prune_build", sid=self.sid):
-            pruner = build_pruner(opt, snap, raw_lits)
+            pruner = build_pruner(opt, snap, raw_lits,
+                                  n_shards=self.n_shards)
         e = _PlanEntry(snap.stats_epoch, snap.lsn, opt, list(raw_lits), pruner)
         self._plans[raw_fp] = e
         return e
@@ -709,9 +753,15 @@ class Session:
                 out = cq.fn(tables, params)
                 result = self._finish(e, cq, out)
                 run_seconds = time.perf_counter() - t0
-                measures = profile_physical(cq.physical,
+                measures = profile_physical(cq.lowered,
                                             self.exec_context(snap),
                                             tables, params)
+        # measured on the query's own lowered copy; keyed back onto this
+        # binding's plan, which has the same shape
+        measures["nodes"] = {
+            id(node): measures["nodes"][id(low)]
+            for low, node in zip(PH.walk(cq.lowered), PH.walk(cq.physical))
+            if id(low) in measures["nodes"]}
         measures["jit_seconds"] = run_seconds
         return {"text": PH.format_plan(cq.physical, analyze=measures),
                 "result": result, "measures": measures,
@@ -761,8 +811,9 @@ def _mount_component(session: Session, dataverse: str, seg: str,
                      arrays: Mapping, meta: Mapping) -> Dataset:
     """Rehydrate one LSM component from its durable segment: hard state
     only — the table columns, placed on the session device once in the
-    segment's column order, their metadata, and the index *inventory*
-    (payloads stay None until the soft-state rebuild at first bind)."""
+    segment's column order (and row-sharded onto the session's mesh),
+    their metadata, and the index *inventory* (payloads stay None until
+    the soft-state rebuild at first bind)."""
     from repro_torch.runtime.durable import _meta_from_json
 
     cols, cmeta = {}, {}
@@ -770,6 +821,8 @@ def _mount_component(session: Session, dataverse: str, seg: str,
         cols[cname] = torch.from_numpy(arrays[cname]).to(session.device)
         cmeta[cname] = _meta_from_json(mjson)
     table = Table(cols, cmeta, int(meta["num_rows"]))
+    if session.mesh is not None:
+        table = table.shard(session.mesh, session.data_axes)
     ds = Dataset(name=meta["name"], dataverse=dataverse, table=table,
                  closed=bool(meta["closed"]), live_rows=meta["live_rows"],
                  anti_rows=int(meta["anti_rows"]), level=int(meta["level"]),
@@ -778,6 +831,30 @@ def _mount_component(session: Session, dataverse: str, seg: str,
     for key, ix_name, column, kind in meta["indexes"]:
         ds.indexes[key] = IndexInfo(name=ix_name, column=column, kind=kind)
     return ds
+
+
+def _route_key(comp, key_col: str, key, n_keys: int):
+    """Shard-route a point lookup inside one component: fold the clustered
+    key column's per-shard zone spans into one [lo, hi] per row partition
+    and return the ``host_keys`` window covering the owning shard(s) —
+    ``(window_lo, window_hi, owning_shards, n_shards)``. The matter prefix
+    is clustered, so the owners are a contiguous run and the window one
+    slice (a duplicate key across a shard boundary is found whole). A
+    component without a sharded zone layout searches its full window."""
+    bz = comp.block_zones
+    if bz is None or bz.n_shards <= 1 or not bz.rows_per_shard:
+        return 0, n_keys, 1, 1
+    span = bz.span_of(key_col)
+    if span is None:
+        return 0, n_keys, 1, bz.n_shards
+    per = span.reshape(bz.n_shards, bz.blocks_per_shard, 2)
+    owners = np.nonzero((per[:, :, 0].min(axis=1) <= key)
+                        & (key <= per[:, :, 1].max(axis=1)))[0]
+    if not len(owners):
+        return 0, 0, 0, bz.n_shards
+    wlo = min(int(owners[0]) * bz.rows_per_shard, n_keys)
+    whi = min((int(owners[-1]) + 1) * bz.rows_per_shard, n_keys)
+    return wlo, whi, len(owners), bz.n_shards
 
 
 def _collect_stats(table: Table, like: Optional[Mapping] = None) -> Table:

@@ -130,6 +130,29 @@ class Table:
     def to_numpy(self) -> dict[str, np.ndarray]:
         return {k: v.cpu().numpy() for k, v in self.columns.items()}
 
+    def shard(self, mesh, data_axes: tuple[str, ...] = ("data",)) -> "Table":
+        """Row-shard every column over ``data_axes``: pad the rows to a
+        multiple of the shard count (pad rows are zeros) and add the
+        ``__valid__`` mask column (always; pad rows False), so relational
+        operators ignore the pad. Every shard lives on the mesh's one
+        device, so the columns stay single tensors and shard ``s`` is the
+        view of rows ``[s * rps, (s + 1) * rps)``."""
+        nshards = int(np.prod([mesh.shape[a] for a in data_axes]))
+        n = self.num_rows
+        padded = ((n + nshards - 1) // nshards) * nshards
+        cols = dict(self.columns)
+        if "__valid__" not in cols:
+            cols["__valid__"] = torch.ones((n,), dtype=torch.bool,
+                                           device=self.device)
+        out = {}
+        for k, v in cols.items():
+            if padded != n:
+                v = torch.cat([v, v.new_zeros((padded - n,) + tuple(v.shape[1:]))])
+            out[k] = v.to(mesh.device)
+        meta = dict(self.meta)
+        meta["__valid__"] = ColumnMeta(dtype=np.dtype(np.bool_))
+        return Table(out, meta, padded)
+
     @property
     def valid(self) -> torch.Tensor:
         if "__valid__" in self.columns:
@@ -154,23 +177,34 @@ def from_numpy(columns: Mapping[str, np.ndarray], meta: Mapping[str, dict],
     return Table(cols, metas)
 
 
-def compute_block_zones(table: Table, block: int) -> dict[str, np.ndarray]:
+def compute_block_zones(table: Table, block: int,
+                        n_shards: int = 1) -> dict[str, np.ndarray]:
     """Per-block [min, max] zone maps over the table's physical row layout:
     one (n_blocks, 2) int64 (or float64) array per 1-D numeric column, taken
     over matter rows only (valid and not anti-matter: a tombstone's key must
     not widen the span a query's predicate is tested against). Dead rows,
     anti-matter, the trailing pad and float NaNs carry the empty-span
     sentinel (``[int64.max, int64.min]`` / ``[+inf, -inf]``). Index copies
-    (``__ix*``) have no zones. Computed on the table's device."""
+    (``__ix*``) have no zones. Computed on the table's device.
+
+    ``n_shards > 1`` lays the blocks out per shard: the rows split into
+    ``n_shards`` equal contiguous chunks (``Table.shard``'s partitions),
+    each with its own ``ceil(rows_per_shard / block)`` blocks, the last
+    one sentinel-padded — flat block ``s * blocks_per_shard + j`` is shard
+    ``s``'s local block ``j``. Rows that do not split evenly get the
+    one-shard layout."""
     n = len(table)
     if n == 0:
         return {}
+    if n_shards <= 1 or n % n_shards:
+        n_shards = 1
     live_rows = table.valid
     anti = table.columns.get("__antimatter__")
     if anti is not None:
         live_rows = live_rows & ~anti
-    nb = -(-n // block)
-    pad = nb * block - n
+    rps = n // n_shards                     # rows per shard chunk
+    bp = -(-rps // block)                   # blocks per shard
+    pad = bp * block - rps
     out: dict[str, np.ndarray] = {}
     for name, col in table.columns.items():
         if name in ("__valid__", "__antimatter__") or name.startswith("__ix") \
@@ -189,10 +223,12 @@ def compute_block_zones(table: Table, block: int) -> dict[str, np.ndarray]:
             continue
         # the pad sentinels go in as tensors: a float pad value would round
         # int64.max and wrap it
-        lo = torch.cat([torch.where(live, v, lo_fill), v.new_full((pad,), lo_fill)])
-        hi = torch.cat([torch.where(live, v, hi_fill), v.new_full((pad,), hi_fill)])
-        out[name] = torch.stack([lo.view(nb, block).amin(dim=1),
-                                 hi.view(nb, block).amax(dim=1)],
+        lo = torch.where(live, v, lo_fill).view(n_shards, rps)
+        hi = torch.where(live, v, hi_fill).view(n_shards, rps)
+        lo = torch.cat([lo, v.new_full((n_shards, pad), lo_fill)], dim=1)
+        hi = torch.cat([hi, v.new_full((n_shards, pad), hi_fill)], dim=1)
+        out[name] = torch.stack([lo.reshape(n_shards * bp, block).amin(dim=1),
+                                 hi.reshape(n_shards * bp, block).amax(dim=1)],
                                 dim=1).cpu().numpy()
     return out
 

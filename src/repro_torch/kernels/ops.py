@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import decode_attention as _da
@@ -67,6 +68,31 @@ def _expand_block_ids(block_ids, zone_block: int, block: int,
     out = tuple(j for b in block_ids
                 for j in range(b * r, min((b + 1) * r, nb)))
     assert out, (block_ids, zone_block, block, n)
+    return out
+
+
+def shard_block_arrays(block_ids, zone_block: int, block: int, n_shards: int,
+                       blocks_per_shard: int, rows_per_shard: int) -> np.ndarray:
+    """Expand a flat shard-aware zone-block id tuple into the per-shard
+    KERNEL-block id matrix: row ``s`` lists shard ``s``'s surviving local
+    kernel-block ids (units of ``block`` rows over the shard's own chunk),
+    ``-1``-padded at the END to the largest surviving count (at least 1,
+    so every grid is non-empty; an all-``-1`` row is a shard with nothing
+    to scan). The zone layout places flat block ``s * blocks_per_shard +
+    j`` wholly inside shard ``s``, so the expansion never crosses a shard
+    boundary. Row ``s`` is what shard ``s``'s launch takes as its
+    ``block_ids_arr``."""
+    assert zone_block % block == 0, (zone_block, block)
+    r = zone_block // block
+    nb_local = -(-rows_per_shard // block)
+    per: list[list[int]] = [[] for _ in range(n_shards)]
+    for b in block_ids:
+        s, j = divmod(int(b), blocks_per_shard)
+        per[s].extend(range(j * r, min((j + 1) * r, nb_local)))
+    m = max(1, max(len(p) for p in per))
+    out = np.full((n_shards, m), -1, np.int32)
+    for s, p in enumerate(per):
+        out[s, : len(p)] = p
     return out
 
 

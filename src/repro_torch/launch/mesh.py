@@ -1,0 +1,93 @@
+"""Device meshes of the port (counterpart of ``repro.launch.mesh``).
+
+The DataFrame engine row-shards every table over the mesh's data axes and
+runs its operators shard by shard, merging the partials through the
+collectives of ``engine/distributed.py``. This slice places every shard on
+ONE device: a mesh of S row shards on the card (or, when the caller asks,
+on the CPU). It is the counterpart of the reference's single-controller
+mesh of S devices forced onto one host; placement over several cards and
+``torch.distributed`` across processes are queued as ROADMAP A9b.
+
+Axis convention (as the reference): ``make_local_mesh`` builds
+``("data", "model")``; the engine shards rows over ``("data",)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """``shape`` maps each axis name to its extent (in axis order);
+    ``devices`` is an object ndarray of ``torch.device`` with those
+    extents — one entry per shard, all the same device here."""
+
+    shape: dict
+    devices: np.ndarray
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def device(self):
+        """The one device every shard of this mesh lives on."""
+        return self.devices.flat[0]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, device={self.device})"
+
+
+def make_local_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
+    """A mesh of ``data * model`` shards, every one on ``device`` (None:
+    the CUDA card, and without one this raises; ``device="cpu"`` asks for
+    the CPU, as the tests do)."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh extents must be >= 1, got data={data}, "
+                         f"model={model}")
+    dev = resolve_device(device)
+    devices = np.empty((data, model), dtype=object)
+    for idx in np.ndindex(data, model):
+        devices[idx] = dev
+    return Mesh({"data": data, "model": model}, devices)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's 256/512-chip pod mesh serves its dry-run; it has no
+    counterpart on one card."""
+    raise NotImplementedError(
+        "make_production_mesh (the pod mesh of the dry-run and cost tools) "
+        "waits for ROADMAP A11")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """Names of the mesh axes a program shards over; ``data`` may be a
+    multi-axis tuple (("pod", "data") on a multi-pod mesh)."""
+
+    data: tuple[str, ...] = ("data",)
+    model: str = "model"
+
+    @staticmethod
+    def for_mesh(mesh: Mesh) -> "MeshAxes":
+        names = mesh.axis_names
+        if "pod" in names:
+            return MeshAxes(data=("pod", "data"), model="model")
+        if "model" in names:
+            return MeshAxes(data=("data",), model="model")
+        return MeshAxes(data=tuple(names), model=names[-1])
+
+    def data_size(self, mesh: Mesh) -> int:
+        return math.prod(mesh.shape[a] for a in self.data)
+
+    def model_size(self, mesh: Mesh) -> int:
+        return mesh.shape[self.model] if self.model in mesh.shape else 1

@@ -7,8 +7,8 @@ a loop over query chunks with a float32 masked softmax over the whole key
 range per chunk. ``"flash"`` runs ``kernels.ops.flash_attention`` for the
 aligned full-window case — the CUDA kernel on the card (reading the
 projections through strided views, no transpose copies), its plain version
-on CPU tensors. Decode, cache updates and the shard_map path wait for
-ROADMAP A10 (serving) and A9.
+on CPU tensors. Decode, cache updates and the shard_map decode path wait
+for ROADMAP A10 (serving).
 """
 from __future__ import annotations
 

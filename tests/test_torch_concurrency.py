@@ -6,9 +6,11 @@ tests/test_concurrency.py, on ``device="cpu"``. Every reader observation
 equals a plain-dict oracle, as in the reference; the crash-point and
 soft-state recovery scenarios also run through the reference on the same
 schedule, and each reader observation and fired fault equals the
-reference's. Seeded stress runs (a copy of the reference's driver, on the
-port's sessions) race a real compactor in gspmd and kernel mode, with and
-without an injected crash. ``shard_map`` waits for ROADMAP A9."""
+reference's (in gspmd and in shard_map: the reference's one-device mesh,
+the port's one-shard mesh). Seeded stress runs (a copy of the reference's
+driver, on the port's sessions) race a real compactor in gspmd, shard_map
+and kernel mode and on an 8-shard mesh, with and without an injected
+crash."""
 import threading
 import time
 
@@ -38,8 +40,10 @@ def _rows(keys, rng=None):
     return {"k": keys, "v": vals, "g": (keys % 5).astype(np.int32)}
 
 
-def _setup(mode="gspmd", n=48, catalog=None, indexes=(), pk=PORT):
-    sess = pk.session(mode, **({"catalog": catalog} if catalog else {}))
+def _setup(mode="gspmd", n=48, catalog=None, indexes=(), pk=PORT,
+           shards=None):
+    sess = pk.session(mode, shards=shards,
+                      **({"catalog": catalog} if catalog else {}))
     rows = _rows(np.arange(n))
     sess.create_dataset("Live", pk.Table(dict(rows)), dataverse="d",
                         primary="k", indexes=list(indexes))
@@ -225,10 +229,10 @@ def test_background_compactor_retries_through_injected_fault():
     assert sess.fault_plan.fired == [("mid-merge", 0)]
 
 
-def _crash_at(pk, flt, point):
+def _crash_at(pk, flt, point, mode="gspmd"):
     """One package's run of the crash scenario: every reader observation,
     each held to the oracle, and the faults that fired."""
-    sess, oracle = _setup(pk=pk)
+    sess, oracle = _setup(mode, pk=pk)
     feed = pk.Feed(sess, "Live", "d", flush_rows=10**9,
                    policy=pk.lsm.CompactionPolicy(size_ratio=0.0))
     df = pk.AFrame("d", "Live", session=sess)
@@ -285,14 +289,15 @@ def _crash_at(pk, flt, point):
     return seen, fired
 
 
+@pytest.mark.parametrize("mode", ["gspmd", "shard_map"])
 @pytest.mark.parametrize("point", STORAGE_FAULT_POINTS)
-def test_crash_at_every_point_keeps_readers_bit_identical(point):
+def test_crash_at_every_point_keeps_readers_bit_identical(point, mode):
     """A crash at ANY fault point leaves the manifest fully old or fully
     new, readers equal to the matching oracle state throughout, and
     recover() plus the buffer-as-WAL discipline resume ingestion exactly
     once — with the same observations and fired fault as the reference
     on the same schedule."""
-    (want, want_fired), (got, got_fired) = (_crash_at(pk, flt, point)
+    (want, want_fired), (got, got_fired) = (_crash_at(pk, flt, point, mode)
                                             for pk, flt in PKGS)
     assert got_fired == want_fired == [(point, 0)]
     assert got == want
@@ -353,15 +358,16 @@ def test_recover_rebuilds_corrupted_soft_state_bit_identical():
     assert got == want
 
 
-def _stress(mode, seed, n_ops=9, fault=None, fault_at=0):
+def _stress(mode, seed, n_ops=9, fault=None, fault_at=0, shards=None):
     """The reference's oracle-replay stress: a random op sequence against a
     writer with a leveled compactor racing, a reader session observing
     after every flush, and optionally one injected crash on the writer
     path (worker-side crashes are absorbed by its retry loop)."""
     rng = np.random.default_rng(seed)
-    sess, oracle = _setup(mode)
+    sess, oracle = _setup(mode, shards=shards)
     shadow = dict(oracle)  # oracle ∪ buffered-but-unflushed ops
-    df = PORT.AFrame("d", "Live", session=PORT.session(mode, catalog=sess.catalog))
+    df = PORT.AFrame("d", "Live", session=PORT.session(
+        mode, shards=shards, catalog=sess.catalog))
     next_k = 48
     flush_i = 0
     with lsm.BackgroundCompactor(sess, policy=lsm.LeveledCompactionPolicy(
@@ -415,21 +421,30 @@ def _stress(mode, seed, n_ops=9, fault=None, fault_at=0):
         assert bc.wait_idle(30.0)
         final = _expected(dict(shadow))
         assert _observe(df) == final
-        df2 = PORT.AFrame("d", "Live",
-                          session=PORT.session(mode, catalog=sess.catalog))
+        df2 = PORT.AFrame("d", "Live", session=PORT.session(
+            mode, shards=shards, catalog=sess.catalog))
         assert _observe(df2) == final
 
 
-@pytest.mark.parametrize("mode", ["gspmd", "kernel"])
+@pytest.mark.parametrize("mode", ["gspmd", "shard_map", "kernel"])
 def test_stress_concurrent_ops_match_oracle(mode):
     """The stress run without faults."""
     _stress(mode, 0)
 
 
-@pytest.mark.parametrize("mode", ["gspmd", "kernel"])
+@pytest.mark.parametrize("mode", ["gspmd", "shard_map", "kernel"])
 @pytest.mark.parametrize("fault", STORAGE_FAULT_POINTS)
 def test_stress_with_injected_crash_matches_oracle(mode, fault):
     _stress(mode, seed=2, fault=fault, fault_at=1)
+
+
+@pytest.mark.parametrize("mode", ["shard_map", "kernel"])
+@pytest.mark.parametrize("fault", (None,) + STORAGE_FAULT_POINTS)
+def test_stress_on_an_8_shard_mesh(mode, fault):
+    """The stress run on an 8-shard mesh (writer and reader share it):
+    every reader observation equals the oracle, with and without a crash;
+    the background compactor builds its new bases sharded."""
+    _stress(mode, seed=2, fault=fault, fault_at=1, shards=8)
 
 
 def test_stress_hypothesis_random_schedules():

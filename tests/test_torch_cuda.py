@@ -457,3 +457,108 @@ def test_cuda_durable_round_trip_mounts_on_the_card(tmp_path):
     assert re.point_lookup("d", "Live", 5_100) is None
     assert int(re.point_lookup("d", "Live", 100)["unique2"][0]) == 100
     re.close()
+
+
+@pytest.mark.cuda
+def test_cuda_per_shard_kernels_on_unaligned_views_and_empty_rows():
+    """The per-shard launches of the multi-device engine, on the card,
+    against the plain versions, exactly: 8 shard views of one table whose
+    rows per shard put every view at another 16-byte phase (filter_count
+    over column lists, segment_agg, block_topk + merge), a shard-block
+    matrix with an all -1 row (that shard scans nothing), and the
+    distributed compositions against their one-shard answers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    from repro_torch.engine import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    s, rps = 8, 20_001                     # 80,004-byte shards: phases 0/4/8/12
+    n = s * rps
+    cols = [torch.from_numpy(rng.integers(0, 20, n).astype(np.int32)).to(dev)
+            for _ in range(3)]
+    b = torch.tensor([[2, 15], [0, 9], [4, 4]], dtype=torch.int32, device=dev)
+    views = [D.shard_views(c, s) for c in cols]
+    phases = {(views[0][i].data_ptr() % 16) for i in range(s)}
+    assert phases == {0, 4, 8, 12}
+    for i in range(s):
+        local = [v[i] for v in views]
+        assert int(fc.filter_count(local, b, rps)) == \
+            int(fc.filter_count_plain(local, b, rps))
+    vals = torch.from_numpy(rng.integers(0, 9, (n, 2)).astype(np.float32)).to(dev)
+    gids = torch.from_numpy(rng.integers(-1, 30, n).astype(np.int32)).to(dev)
+    score = torch.from_numpy(rng.integers(0, 500, n).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(n) > 0.3).to(dev)
+    for g, v, sc, m in zip(D.shard_views(gids, s), D.shard_views(vals, s),
+                           D.shard_views(score, s), D.shard_views(mask, s)):
+        for op in ("sum", "max", "min"):
+            assert torch.equal(sa.segment_agg(v, g, 30, rps, op=op),
+                               sa.segment_agg_plain(v, g, 30, rps, op=op))
+        cand = tk.block_topk(sc, m, rps, 9)
+        for got, want in zip(cand, tk.block_topk_plain(sc, m, rps, 9)):
+            assert torch.equal(got, want)
+        for got, want in zip(tk.merge_candidates(*cand),
+                             tk.merge_candidates_plain(*cand)):
+            assert torch.equal(got, want)
+    # a block matrix with an all -1 row, in each kernel's own block units
+    sb_fc = ops.shard_block_arrays((0, 3, 9, 10, 20), 4096, fc.BLOCK, s, 5, rps)
+    sb_sa = ops.shard_block_arrays((0, 3, 9, 10, 20), 4096, sa.BLOCK, s, 5, rps)
+    assert (sb_fc[3] == -1).all() and (sb_fc[5] == -1).all()
+    ids_fc = torch.from_numpy(sb_fc).to(dev)
+    ids_sa = torch.from_numpy(sb_sa).to(dev)
+    for i in range(s):
+        local = [v[i] for v in views]
+        assert int(fc.filter_count(local, b, rps, block_ids_arr=ids_fc[i])) == \
+            int(fc.filter_count_plain(local, b, rps, block_ids_arr=ids_fc[i]))
+        v, g = D.shard_views(vals, s)[i], D.shard_views(gids, s)[i]
+        for op in ("sum", "max", "min"):
+            assert torch.equal(
+                sa.segment_agg(v, g, 30, rps, op=op, block_ids_arr=ids_sa[i]),
+                sa.segment_agg_plain(v, g, 30, rps, op=op,
+                                     block_ids_arr=ids_sa[i]))
+    m8, m1 = make_local_mesh(s), make_local_mesh(1)
+    assert int(D.dist_kernel_filter_count(m8, ("data",), cols, b)) == \
+        int(D.dist_kernel_filter_count(m1, ("data",), cols, b))
+    for op in ("sum", "max", "min"):
+        assert torch.equal(
+            D.dist_kernel_group_agg(m8, ("data",), gids, vals, 30, op=op),
+            D.dist_kernel_group_agg(m1, ("data",), gids, vals, 30, op=op))
+    keys = torch.from_numpy(rng.integers(0, 4000, n).astype(np.int32)).to(dev)
+    assert int(D.dist_kernel_join_count(m8, ("data",), keys, mask, keys, mask)) \
+        == int(D.dist_kernel_join_count(m1, ("data",), keys, mask, keys, mask))
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_session_equals_meshless():
+    """An 8-shard kernel-mode session on the card answers the Wisconsin
+    counts, group-by, top-k and join as the meshless one, each kernel
+    launched once per shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t = wisconsin.generate(40_008, seed=2)
+
+    def run(sess):
+        sess.create_dataset("W", t, dataverse="d")
+        df = AFrame("d", "W", session=sess)
+        return (len(df[(df["ten"] == 3) & (df["two"] == 1)]),
+                {k: v.tolist() for k, v in
+                 df.groupby("oddOnePercent").agg("count").items()},
+                df.sort_values("unique1", ascending=False).head(5)["unique1"].tolist(),
+                len(df.merge(AFrame("d", "W", session=sess),
+                             left_on="unique1", right_on="unique1")))
+
+    want = run(Session(mode="kernel"))
+    _build.reset_launches()
+    assert run(Session(mode="kernel", mesh=make_local_mesh(8))) == want
+    assert _build.LAUNCHES["filter_count"] == 8
+    assert _build.LAUNCHES["segment_agg"] == 8
+    assert _build.LAUNCHES["merge_join_count"] == 8
+    assert _build.LAUNCHES["block_topk"] == 9

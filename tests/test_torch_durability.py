@@ -6,10 +6,12 @@ The reference's scenario (``BATCHES``: an append run, an upsert/delete run
 over both older components, then acked-but-unflushed batches) runs through
 each package into its own directory; the port's recovered rows equal the
 reference's bit for bit, dtypes included, for the round trip and for every
-I/O crash point in gspmd and kernel mode. The on-disk format is shared: a
+I/O crash point in gspmd, shard_map (the reference's one-device mesh, the
+port's one-shard mesh) and kernel mode. The on-disk format is shared: a
 store written by either package opens in the other with the same rows, and
-the two packages write the same file tree. The ``shard_map`` cases of the
-reference wait for ROADMAP A9 (multi-device)."""
+the two packages write the same file tree. A store written without a mesh
+reopens on an 8-shard port mesh (re-sharded at mount) with the same rows,
+and the crash matrix holds there too."""
 import pathlib
 import shutil
 
@@ -27,7 +29,7 @@ from repro_torch.runtime.durable import (StorageCorruption, StorageLockError,
                                          read_segment, write_segment)
 from repro_torch.runtime.fault import IO_FAULT_POINTS
 
-MODES = ["gspmd", "kernel"]  # shard_map: ROADMAP A9
+MODES = ["gspmd", "shard_map", "kernel"]
 PKGS = {"ref": (REF, ref_fault), "port": (PORT, fault)}
 
 
@@ -74,9 +76,9 @@ def _rows(pk, sess):
     return {k: np.asarray(v)[order] for k, v in got.items()}
 
 
-def _oracle(pk, mode, acked):
+def _oracle(pk, mode, acked, shards=None):
     """A memory-only session applying exactly the acked batches."""
-    sess = pk.session(mode)
+    sess = pk.session(mode, shards=shards)
     _create(pk, sess)
     feed = _feed(pk, sess)
     for kind, payload in acked:
@@ -93,9 +95,13 @@ def _ids(pk, path):
         sess.close()
 
 
-def _kw(pk, mode=None):
+def _kw(pk, mode=None, shards=None):
+    """``Session.open`` arguments: the mode, and the mesh ``pk.session``
+    builds for it (shard_map, or ``shards`` on the port)."""
     kw = {} if mode is None else {"mode": mode}
-    if pk is PORT:
+    if mode == "shard_map" or shards:
+        kw["mesh"] = pk.session(mode or "gspmd", shards=shards).mesh
+    elif pk is PORT:
         kw["device"] = "cpu"
     return kw
 
@@ -565,3 +571,67 @@ def test_store_trees_identical_across_packages(tmp_path, mode):
             assert len(_wal_records(ref[k])) == 2
         else:
             assert port[k].read_bytes() == ref[k].read_bytes(), k
+
+
+# -- a mesh of 8 shards -------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["shard_map", "kernel"])
+def test_meshless_store_reopens_on_an_8_shard_mesh(tmp_path, mode):
+    """A store one package wrote without a mesh (segments and a WAL tail)
+    reopens on an 8-shard port mesh: every component is re-sharded at
+    mount, the rows and point lookups equal a meshless reopen's, and a
+    flush made on the mesh commits a generation the writer reads back."""
+    for writer in ("ref", "port"):
+        wpk = PKGS[writer][0]
+        own, other = tmp_path / f"{writer}-own", tmp_path / f"{writer}-mesh"
+        _write_scenario(wpk, own, "gspmd")
+        _write_scenario(wpk, other, "gspmd")
+        flat = wpk.Session.open(str(own), **_kw(wpk, "gspmd"))
+        mesh = PORT.Session.open(str(other), **_kw(PORT, mode, shards=8))
+        assert mesh.recovery_report["wal_replayed_batches"] == 2
+        assert mesh.n_shards == 8
+        comps = mesh.catalog.components("d", "ds")
+        assert all(c.table.num_rows % 8 == 0 and c.block_zones.n_shards == 8
+                   for c in comps)
+        assert_same(_rows(PORT, mesh), _rows(wpk, flat), f"{writer}->mesh")
+        for key in (0, 1, 2, 5, 99):
+            a, b = mesh.point_lookup("d", "ds", key), flat.point_lookup("d", "ds", key)
+            assert (a is None) == (b is None), key
+            if a is not None:
+                assert_same(a, {k: np.asarray(v) for k, v in b.items()}, key)
+        feed = _feed(PORT, mesh)
+        feed.delete(np.array([3], dtype=np.int32))
+        feed.flush()
+        want = _rows(PORT, mesh)
+        flat.close()
+        mesh.close()
+        back = wpk.Session.open(str(other), **_kw(wpk, "gspmd"))
+        assert_same(_rows(wpk, back), want, f"mesh->{writer}")
+        back.close()
+
+
+@pytest.mark.parametrize("point", IO_FAULT_POINTS)
+def test_crash_restart_on_an_8_shard_mesh(tmp_path, point):
+    """The crash matrix on an 8-shard mesh, kernel mode: the recovered rows
+    equal a memory-only 8-shard session of the acked batches and the
+    reference's one-device recovery of the same crash."""
+    got = {}
+    for name, shards in (("ref", None), ("port", 8)):
+        pk, fault_mod = PKGS[name]
+        d = str(tmp_path / name)
+        sess = pk.session("kernel", shards=shards, storage=d)
+        _create(pk, sess)
+        sess.fault_plan = fault_mod.FaultPlan.once(point)
+        acked, crashed = _run_batches(pk, sess, fault_mod)
+        sess.close()
+        if point == "mid-replay":
+            with pytest.raises(fault_mod.StorageFault):
+                pk.Session.open(d, fault_plan=fault_mod.FaultPlan.once(
+                    "mid-replay"), **_kw(pk, "kernel", shards))
+        re = pk.Session.open(d, **_kw(pk, "kernel", shards))
+        rows = _rows(pk, re)
+        assert_same(rows, _oracle(pk, "kernel", acked, shards),
+                    f"crash[{name},{point}]")
+        got[name] = rows
+        re.close()
+    assert_same(got["port"], got["ref"], f"crash[{point}] 8 shards vs reference")

@@ -2,9 +2,9 @@
 golden texts of tests/test_explain.py — run pruning, retained anti-matter,
 the index-only subtraction, ``explain(analyze=True)`` — replayed on the
 port, whose texts also equal the reference's line for line (costs
-included, measured times scrubbed). ``profile`` returns what ``execute``
-returns. The reference's ``shard_map`` mode waits for the port's
-multi-device layer (ROADMAP A9)."""
+included, measured times scrubbed), in gspmd, shard_map (the reference's
+one-device mesh, the port's one-shard mesh) and kernel mode. ``profile``
+returns what ``execute`` returns, on 2- and 8-shard port meshes too."""
 import re
 
 import numpy as np
@@ -15,10 +15,10 @@ from test_explain import (GOLDEN_ANALYZE_TABLE, GOLDEN_SCALAR, GOLDEN_TABLE,
 from torch_replay import PORT, REF, assert_same
 
 
-def _mutated_fed_session(pk, mode="gspmd"):
+def _mutated_fed_session(pk, mode="gspmd", shards=None):
     """Base keys 0..1999, run0 appends 2000..2999, run1 deletes {100, 150}
     and appends 3000..3499 (as tests/test_explain.py)."""
-    sess = pk.session(mode)
+    sess = pk.session(mode, shards=shards)
     k = np.arange(2000, dtype=np.int32)
     sess.create_dataset("Events", pk.Table({"k": k, "v": (k * 2).astype(np.int32)}),
                         dataverse="g", primary="k")
@@ -38,7 +38,7 @@ def _range(df):
     return df[(df["k"] >= 0) & (df["k"] <= 200)]
 
 
-@pytest.mark.parametrize("mode", ["gspmd", "kernel"])
+@pytest.mark.parametrize("mode", ["gspmd", "shard_map", "kernel"])
 def test_explain_goldens_equal_reference(mode):
     texts = {}
     for pk in (REF, PORT):
@@ -78,7 +78,7 @@ def test_explain_analyze_golden_table():
     assert _normalize_analyze(text) == GOLDEN_ANALYZE_TABLE
 
 
-@pytest.mark.parametrize("mode", ["gspmd", "kernel"])
+@pytest.mark.parametrize("mode", ["gspmd", "shard_map", "kernel"])
 def test_explain_analyze_modes(mode):
     """Measured time and actual rows beside the estimates on every operator
     line, in both modes; the scrubbed text equals the reference's."""
@@ -107,3 +107,23 @@ def test_profile_result_matches_execute():
     prof = sel.profile()
     assert_same(prof["result"], sess.execute(sel._plan), "profile")
     assert prof["prune_report"]["pruned"] == 2
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+@pytest.mark.parametrize("mode", ["shard_map", "kernel"])
+def test_explain_analyze_on_sharded_meshes(mode, shards):
+    """On 2- and 8-shard meshes every operator line carries its measured
+    fields, the measured rows are exact, and profile returns what execute
+    returns; the prune report counts the mesh's shards."""
+    sess = _mutated_fed_session(PORT, mode, shards)
+    sel = _range(PORT.AFrame("g", "Events", session=sess))
+    prof = sel.profile()
+    assert "rows=199" in prof["text"]
+    op_lines = [l for l in prof["text"].splitlines()
+                if "cost=" in l and "rows≈" in l]
+    assert op_lines and all("self=" in l and "rows=" in l for l in op_lines)
+    assert_same(prof["result"], sess.execute(sel._plan), "profile")
+    assert prof["prune_report"]["pruned"] == 2
+    assert prof["prune_report"]["shards"] == shards
+    plan = PORT.P.Agg(sel._plan, [PORT.P.AggSpec("count", "count", None)])
+    assert sess.profile(plan)["result"] == 199

@@ -12,7 +12,8 @@ PORT = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 MODULES = ["repro_torch.core.frame", "repro_torch.core.window",
            "repro_torch.core.dialect", "repro_torch.engine.session",
            "repro_torch.engine.lsm", "repro_torch.engine.ingest",
-           "repro_torch.engine.index",
+           "repro_torch.engine.index", "repro_torch.engine.distributed",
+           "repro_torch.launch.mesh",
            "repro_torch.data.wisconsin", "repro_torch.kernels.ops",
            "repro_torch.kernels._build", "repro_torch.runtime.telemetry",
            "repro_torch.runtime.fault", "repro_torch.runtime.durable",

@@ -1,15 +1,20 @@
 """Streaming ingestion on the port (``repro_torch.engine.lsm`` /
 ``ingest``): the scenarios of tests/test_lsm.py replayed on both packages in
-one process — the same numpy-seeded inputs, gspmd and kernel mode, the port
-on ``device="cpu"`` (kernel mode runs each kernel's plain version there).
-Results are held bit for bit, dtypes included, against the reference,
-before and after compaction; compile, hit and launch counts equal the
-reference's. The reference's ``shard_map`` cases wait for the port's
-multi-device layer (ROADMAP A9)."""
+one process — the same numpy-seeded inputs, gspmd, shard_map and kernel
+mode, the port on ``device="cpu"`` (kernel mode runs each kernel's plain
+version there). Results are held bit for bit, dtypes included, against
+the reference, before and after compaction; compile, hit and launch counts
+equal the reference's (shard_map: the reference's one-device mesh against
+the port's one-shard mesh). The port's 2- and 8-shard meshes, in
+shard_map and kernel mode, give the same results with a launch per
+shard."""
+import functools
+
 import numpy as np
 import pytest
 
-from torch_replay import PORT, REF, assert_same, counts, host_rows
+from torch_replay import (PORT, REF, assert_same, counts, host_rows,
+                          scaled_launches)
 
 BASE_ROWS = 3_000
 PUSH_ROWS = 700
@@ -19,8 +24,8 @@ def _deferred(pk):
     return pk.lsm.CompactionPolicy(size_ratio=10.0, max_runs=64)
 
 
-def _fed_session(pk, mode, n_pushes=2):
-    sess = pk.session(mode)
+def _fed_session(pk, mode, n_pushes=2, shards=None):
+    sess = pk.session(mode, shards=shards)
     sess.create_dataset("Live", pk.wisconsin.generate(BASE_ROWS, seed=3),
                         dataverse="d", indexes=["onePercent"], primary="unique2")
     sess.create_dataset("Dim", pk.wisconsin.generate(500, seed=7), dataverse="d")
@@ -52,28 +57,75 @@ def _query_suite(pk, sess):
     }
 
 
-@pytest.mark.parametrize("mode", ["gspmd", "kernel"])
+def _suite_before_after(pk, mode, shards=None):
+    sess, feed = _fed_session(pk, mode, shards=shards)
+    assert feed.stats["flushes"] == 2 and feed.stats["compactions"] == 0
+    pk.ops.reset_dispatch_counts()
+    before = _query_suite(pk, sess)
+    launches = dict(pk.ops.DISPATCH_COUNTS)
+    c_before = counts(sess)
+    feed.compact()
+    assert feed.stats["compactions"] == 1
+    return (before, _query_suite(pk, sess), launches, c_before,
+            counts(sess), dict(feed.stats))
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_suite(mode):
+    return _suite_before_after(REF, mode)
+
+
+@pytest.mark.parametrize("mode", ["gspmd", "shard_map", "kernel"])
 def test_queries_identical_before_and_after_compaction(mode):
     """The LSM read invariant on the port, held against the reference: base
     ∪ runs and the compacted dataset answer every query family bit for bit,
     with the reference's launch, compile and hit counts."""
-    out = {}
-    for pk in (REF, PORT):
-        sess, feed = _fed_session(pk, mode)
-        assert feed.stats["flushes"] == 2 and feed.stats["compactions"] == 0
-        pk.ops.reset_dispatch_counts()
-        before = _query_suite(pk, sess)
-        launches = dict(pk.ops.DISPATCH_COUNTS)
-        c_before = counts(sess)
-        feed.compact()
-        assert feed.stats["compactions"] == 1
-        out[pk.name] = (before, _query_suite(pk, sess), launches, c_before,
-                        counts(sess), dict(feed.stats))
+    out = {"ref": _ref_suite(mode), "port": _suite_before_after(PORT, mode)}
     for k in out["ref"][0]:
         assert_same(out["port"][0][k], out["ref"][0][k], f"{mode}:{k}:before")
         assert_same(out["port"][1][k], out["ref"][1][k], f"{mode}:{k}:after")
         assert_same(out["port"][0][k], out["port"][1][k], f"{mode}:{k}")
     assert out["port"][2:] == out["ref"][2:]
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+@pytest.mark.parametrize("mode", ["shard_map", "kernel"])
+def test_queries_on_sharded_meshes(mode, shards):
+    """The same suite on 2- and 8-shard port meshes: the reference's
+    results before and after compaction, every kernel launched once per
+    shard (a top-k once more, over the gathered candidates)."""
+    want = _ref_suite(mode)
+    got = _suite_before_after(PORT, mode, shards=shards)
+    for k in want[0]:
+        assert_same(got[0][k], want[0][k], f"{mode}/{shards}:{k}:before")
+        assert_same(got[1][k], want[1][k], f"{mode}/{shards}:{k}:after")
+    assert got[2] == scaled_launches(want[2], shards, meshless=mode != "shard_map")
+    assert got[5] == want[5]
+
+
+def test_plan_cache_variants_keep_their_literal_slots():
+    """Two variants of one optimized plan share its Lit objects: compiling
+    the two-component variant (the range reaches the run) must not re-slot
+    the literals the cached one-component variant reads when a later
+    binding reuses it. Equal to the reference and to numpy."""
+    ranges = [(8192, 8192), (8192, 11_264), (9000, 9500), (0, 3072)]
+    got = {}
+    for pk in (REF, PORT):
+        sess = pk.session()
+        ids = np.arange(20_000, dtype=np.int32)
+        sess.create_dataset("C", pk.Table({"id": ids, "ts": ids.copy()}),
+                            dataverse="d", primary="id")
+        feed = pk.Feed(sess, "C", "d", flush_rows=10**9, policy=_deferred(pk))
+        run = np.arange(10_240, 11_264, dtype=np.int32) + 10_000
+        feed.push({"id": run, "ts": run - 10_000 + 1})
+        feed.flush()
+        df = pk.AFrame("d", "C", session=sess)
+        got[pk.name] = [len(df[(df["ts"] >= lo) & (df["ts"] <= hi)])
+                        for lo, hi in ranges]
+    ts = np.concatenate([np.arange(20_000), np.arange(10_241, 11_265)])
+    want = [int(((ts >= lo) & (ts <= hi)).sum()) for lo, hi in ranges]
+    assert got["ref"] == want
+    assert got["port"] == want
 
 
 def test_union_plan_on_lowered_path():

@@ -1,16 +1,20 @@
 """Mutations through anti-matter on the port (``Feed.upsert`` /
 ``Feed.delete``, newest-wins): the scenarios of tests/test_mutation.py
 replayed on both packages in one process — the same numpy-seeded inputs,
-gspmd and kernel mode, the port on ``device="cpu"``. Every query family
-over a mutated, uncompacted dataset is held bit for bit, dtypes included,
-against the reference and against its own compacted answer; the
-reference's hypothesis interleavings run here as seeded random sequences
-against the same newest-wins oracle. The reference's ``shard_map`` cases
-wait for the port's multi-device layer (ROADMAP A9)."""
+gspmd, shard_map and kernel mode, the port on ``device="cpu"``
+(shard_map: the reference's one-device mesh, the port's one-shard mesh).
+Every query family over a mutated, uncompacted dataset is held bit for
+bit, dtypes included, against the reference and against its own compacted
+answer, and again on 2- and 8-shard port meshes; the reference's
+hypothesis interleavings run here as seeded random sequences against the
+same newest-wins oracle, the port also on 8 shards."""
+import functools
+
 import numpy as np
 import pytest
 
-from torch_replay import PORT, REF, assert_same, counts, host_rows
+from torch_replay import (PORT, REF, assert_same, counts, host_rows,
+                          scaled_launches)
 
 BASE_ROWS = 3_000
 PUSH_ROWS = 700
@@ -20,10 +24,10 @@ def _deferred(pk):
     return pk.lsm.CompactionPolicy(size_ratio=100.0, max_runs=64)
 
 
-def _mutated_session(pk, mode):
+def _mutated_session(pk, mode, shards=None):
     """Base + appended run + a mutation run upserting into both older
     components and deleting the dataset's extremes."""
-    sess = pk.session(mode)
+    sess = pk.session(mode, shards=shards)
     sess.create_dataset("Live", pk.wisconsin.generate(BASE_ROWS, seed=3),
                         dataverse="d", indexes=["onePercent"], primary="unique2")
     sess.create_dataset("Dim", pk.wisconsin.generate(500, seed=7), dataverse="d")
@@ -69,28 +73,47 @@ def _query_suite(pk, sess):
     }
 
 
-@pytest.mark.parametrize("mode", ["gspmd", "kernel"])
+def _suite_before_after(pk, mode, shards=None):
+    sess, feed = _mutated_session(pk, mode, shards)
+    assert feed.stats["tombstones"] > 0 and feed.stats["compactions"] == 0
+    pk.ops.reset_dispatch_counts()
+    before = _query_suite(pk, sess)
+    launches = dict(pk.ops.DISPATCH_COUNTS)
+    c_before = counts(sess)
+    feed.compact()
+    return before, _query_suite(pk, sess), launches, c_before, counts(sess)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_suite(mode):
+    return _suite_before_after(REF, mode)
+
+
+@pytest.mark.parametrize("mode", ["gspmd", "shard_map", "kernel"])
 def test_mutated_queries_identical_before_and_after_compaction(mode):
     """The acceptance criterion, held against the reference: base ∪ runs
     with anti-matter answers every query family bit for bit as the
     compacted dataset and as the reference, with its launch, compile and
     hit counts, zone-map pruning on."""
-    out = {}
-    for pk in (REF, PORT):
-        sess, feed = _mutated_session(pk, mode)
-        assert feed.stats["tombstones"] > 0 and feed.stats["compactions"] == 0
-        pk.ops.reset_dispatch_counts()
-        before = _query_suite(pk, sess)
-        launches = dict(pk.ops.DISPATCH_COUNTS)
-        c_before = counts(sess)
-        feed.compact()
-        out[pk.name] = (before, _query_suite(pk, sess), launches, c_before,
-                        counts(sess))
+    out = {"ref": _ref_suite(mode), "port": _suite_before_after(PORT, mode)}
     for k in out["ref"][0]:
         assert_same(out["port"][0][k], out["ref"][0][k], f"{mode}:{k}:before")
         assert_same(out["port"][1][k], out["port"][0][k], f"{mode}:{k}")
     assert out["port"][2:] == out["ref"][2:]
     assert out["port"][0]["scalar_max"] == BASE_ROWS + PUSH_ROWS - 41
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+@pytest.mark.parametrize("mode", ["shard_map", "kernel"])
+def test_mutated_queries_on_sharded_meshes(mode, shards):
+    """The mutated suite on 2- and 8-shard port meshes: the reference's
+    results before and after compaction, kernels launched per shard."""
+    want = _ref_suite(mode)
+    got = _suite_before_after(PORT, mode, shards)
+    for k in want[0]:
+        assert_same(got[0][k], want[0][k], f"{mode}/{shards}:{k}:before")
+        assert_same(got[1][k], want[0][k], f"{mode}/{shards}:{k}:after")
+    assert got[2] == scaled_launches(want[2], shards, meshless=mode != "shard_map")
 
 
 def test_newest_wins_semantics():
@@ -166,8 +189,6 @@ def test_pruned_run_anti_matter_still_subtracts():
             df = pk.AFrame("d", "Z", session=sess)
             n = len(df[(df["k"] >= 0) & (df["k"] <= 10)])
             rep = dict(sess.last_prune_report)
-            rep.pop("shards", None)
-            rep.pop("shard_probes", None)
             results[(pk.name, prune)] = (n, rep)
     assert results[("port", True)] == results[("ref", True)]
     assert results[("port", False)] == results[("ref", False)]
@@ -398,22 +419,25 @@ def _random_ops(rng):
 @pytest.mark.parametrize("seed", range(4))
 def test_mutation_interleavings_match_newest_wins_oracle(seed):
     """Random push/upsert/delete/flush/compact interleavings against a
-    newest-wins oracle, on both packages in gspmd and kernel mode: the
-    surviving rows equal the oracle before and after compaction, and
-    count / group max / sum agree across all four sessions."""
+    newest-wins oracle, on both packages in gspmd, shard_map and kernel
+    mode (the port also on an 8-shard mesh): the surviving rows equal the
+    oracle before and after compaction, and count / group max / sum agree
+    across every session."""
     ops = _random_ops(np.random.default_rng(seed))
     base = [(kk, kk * 3) for kk in range(8)]
     oracle = list(base)
     engines = {}
-    for pk in (REF, PORT):
-        for mode in ("gspmd", "kernel"):
-            sess = pk.session(mode)
-            sess.create_dataset("H", pk.Table({
-                "k": np.array([r[0] for r in base], np.int32),
-                "v": np.array([r[1] for r in base], np.int32)}),
-                dataverse="d", primary="k")
-            engines[(pk.name, mode)] = (pk, sess, pk.Feed(
-                sess, "H", "d", flush_rows=10**9, policy=_deferred(pk)))
+    setups = [(pk, mode, None) for pk in (REF, PORT)
+              for mode in ("gspmd", "shard_map", "kernel")]
+    setups += [(PORT, mode, 8) for mode in ("shard_map", "kernel")]
+    for pk, mode, shards in setups:
+        sess = pk.session(mode, shards=shards)
+        sess.create_dataset("H", pk.Table({
+            "k": np.array([r[0] for r in base], np.int32),
+            "v": np.array([r[1] for r in base], np.int32)}),
+            dataverse="d", primary="k")
+        engines[(pk.name, mode, shards)] = (pk, sess, pk.Feed(
+            sess, "H", "d", flush_rows=10**9, policy=_deferred(pk)))
     for kind, payload in ops:
         for _, _, feed in engines.values():
             if kind in ("push", "upsert"):
@@ -442,7 +466,8 @@ def test_mutation_interleavings_match_newest_wins_oracle(seed):
     for key, res in results.items():
         for name, value in res.items():
             if value is not None:
-                assert_same(value, results[("ref", "gspmd")][name], f"{key}:{name}")
+                assert_same(value, results[("ref", "gspmd", None)][name],
+                            f"{key}:{name}")
 
 
 def test_open_dataset_mutations_roundtrip():

@@ -1,6 +1,7 @@
 """The string fast path on the port: the scenarios of tests/test_strings.py
 replayed on both packages in one process — the same numpy-seeded inputs,
-gspmd and kernel mode, the port on ``device="cpu"`` (kernel mode runs each
+gspmd, shard_map (the reference's one-device mesh, the port's one-shard
+mesh) and kernel mode, the port on ``device="cpu"`` (kernel mode runs each
 kernel's plain version there).
 
 String ``==`` lowers onto ``KernelRangeCount`` over the ``__dict_<col>``
@@ -10,14 +11,14 @@ dictionary ids (``DictRemapCols`` below the union concat). Results are held
 bit for bit, dtypes included, against the reference and a numpy oracle;
 plans, fingerprints, explain texts, prune reports, compile / hit counts and
 ``filter_count`` / ``segment_agg`` dispatch counts equal the reference's,
-uncompacted, after a run merge and after compaction. The reference's
-``shard_map`` cases wait for the port's multi-device layer (ROADMAP A9)."""
+uncompacted, after a run merge and after compaction. On an 8-shard port
+mesh the same suite equals the numpy oracle and the meshless session."""
 import numpy as np
 import pytest
 
 from torch_replay import PORT, REF, assert_same, counts, host_rows
 
-MODES = ("gspmd", "kernel")   # shard_map: ROADMAP A9
+MODES = ("gspmd", "shard_map", "kernel")
 BASE = 2000
 PUSH = 600
 _STR4 = ["AAAAxxxx", "HHHHxxxx", "OOOOxxxx", "VVVVxxxx"]
@@ -74,12 +75,9 @@ def _check_log(port_log, ref_log, label):
 
 
 def _plan_facts(pk, sess):
-    """What the planner chose: fingerprint, explain text and prune report
-    (less the reference's mesh fields, which wait for ROADMAP A9)."""
+    """What the planner chose: fingerprint, explain text and prune report."""
     phys = sess.last_physical
-    report = {k: v for k, v in sess.last_prune_report.items()
-              if k not in ("shards", "shard_probes")}
-    return phys.fingerprint(), pk.PH.format_plan(phys), report
+    return phys.fingerprint(), pk.PH.format_plan(phys), sess.last_prune_report
 
 
 # -- lane unit tests ----------------------------------------------------------
@@ -127,10 +125,10 @@ def _push_rows(pk, n, seed, key_lo):
     return rows
 
 
-def _build(pk, mode):
+def _build(pk, mode, shards=None):
     """Base + two pushed runs + an upsert run + a delete: the uncompacted
     tree holds anti-matter and per-run dictionaries built independently."""
-    sess = pk.session(mode)
+    sess = pk.session(mode, shards=shards)
     sess.create_dataset("Live", pk.wisconsin.generate(BASE, seed=3),
                         dataverse="s", primary="unique2")
     feed = pk.Feed(sess, "Live", "s", flush_rows=PUSH, policy=_deferred(pk))
@@ -255,6 +253,42 @@ def test_string_fastpath_mutated_equivalence_property(mode):
         _assert_suites(steps["port"][i], steps["ref"][i], f"{mode}:{label}")
         _assert_suites(steps["port"][i], steps["port"][0], f"{mode}:{label}")
     assert steps["port"][3:] == steps["ref"][3:]
+
+
+@pytest.mark.parametrize("mode", ["shard_map", "kernel"])
+def test_string_fastpath_on_an_8_shard_mesh(mode):
+    """The mutated equivalence on an 8-shard port mesh: string ``==``,
+    ``IN`` and group-by equal the numpy oracle and the meshless session
+    (uncompacted, after a run merge, after compaction), with one launch
+    per shard where kernel mode launches."""
+    vals, fours = _oracle()
+    keys = sorted(set(vals))
+    built = {"mesh": _build(PORT, mode, shards=8),
+             "flat": _build(PORT, "gspmd")}
+    for li, mi in ((0, 1), (1, 3), (2, 0), (3, 31), (4, 21), (0, 16)):
+        lit = (_STR4 + ["ZZZZnope"])[li]
+        members = [m for j, m in enumerate(_STR4 + ["QQQQnope"])
+                   if (mi >> j) & 1]
+        log = []
+        got = _suite(PORT, built["mesh"][0], lit, members, log)
+        want = _suite(PORT, built["flat"][0], lit, members, [])
+        assert got["eq"] == int((vals == lit).sum()), lit
+        assert got["isin"] == int(np.isin(vals, members).sum()), members
+        np.testing.assert_array_equal(
+            got["group"]["sum_four"].astype(np.int64),
+            [fours[vals == g].sum() for g in keys])
+        _assert_suites(got, want, f"8 shards:{lit}:{members}")
+        for _, (made, planned) in log:
+            assert made == tuple(8 * p for p in planned), (made, planned)
+    steps = {}
+    for name, (sess, feed) in built.items():
+        ds = sess.catalog.get("s", "Live")
+        PORT.lsm.merge_runs(sess, ds, 0, 2, level=1)
+        merged = _suite(PORT, sess, _STR4[1], _STR4[:2], [])
+        feed.compact()
+        steps[name] = (merged, _suite(PORT, sess, _STR4[1], _STR4[:2], []))
+    for i in range(2):
+        _assert_suites(steps["mesh"][i], steps["flat"][i], f"8 shards:{i}")
 
 
 def test_dict_remap_across_merge_disjoint_dictionaries():

@@ -322,11 +322,12 @@ def test_clustered_range_skips_blocks_like_reference(lo, hi):
         cnt = len(rows)
         cnt_blocks = sess.last_physical.block_ids
         grp = rows.groupby("ten").agg("count")
-        out[key] = (cnt, cnt_blocks, grp, sess.last_physical.comp_blocks[0][0]
-                    if key == "ref" else sess.last_physical.comp_blocks[0])
+        # (block ids, zone block, n_shards, blocks_per_shard, rows_per_shard)
+        out[key] = (cnt, cnt_blocks, grp, sess.last_physical.comp_blocks[0])
     assert out["port"][0] == out["ref"][0] == hi - lo + 1
     assert out["port"][1] == out["ref"][1] is not None
-    assert out["port"][3] == out["ref"][3] == out["port"][1]
+    assert out["port"][3] == out["ref"][3]
+    assert out["port"][3][0] == out["port"][1]
     _assert_same(out["port"][2], out["ref"][2], "range group count")
 
 
@@ -349,20 +350,33 @@ def test_session_without_a_card_raises():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s, t: TSession(mesh=object(), device="cpu"),
     lambda s, t: get_api(get_config("paper-lm")).loss(),
     lambda s, t: get_api(get_config("paper-lm")).decode(),
-    lambda s, t: TSession(mode="shard_map", device="cpu"),
     lambda s, t: init_lm(get_config("deepseek-moe-16b"), torch.Generator()),
     lambda s, t: embed_input(None, None, get_config("paper-lm"), patches=object()),
 ])
 def test_features_of_later_slices_raise(call):
-    """Meshes and shard_map (A9), training, decode serving, MoE weights and
-    patch prefixes (A10) raise, naming their ROADMAP item; durability (A8)
-    has landed (tests/test_torch_durability.py)."""
+    """Training, decode serving, MoE weights and patch prefixes (A10)
+    raise, naming their ROADMAP item; durability (A8) and meshes with
+    shard_map (A9) have landed (tests/test_torch_durability.py,
+    tests/test_torch_distributed.py)."""
     sess = TSession(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(sess, tw.generate(100, seed=0))
+
+
+def test_mesh_session_takes_shard_map_on_auto():
+    """A mesh of more than one shard makes "auto" mean shard_map (one
+    shard: gspmd), as in the reference; the pod mesh of the dry-run waits
+    for A11."""
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+
+    assert TSession(mesh=make_local_mesh(2, device="cpu")).mode == "shard_map"
+    assert TSession(mesh=make_local_mesh(1, device="cpu")).mode == "gspmd"
+    assert TSession(mode="kernel",
+                    mesh=make_local_mesh(2, device="cpu")).mode == "kernel"
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        make_production_mesh()
 
 
 def test_string_dictionary_fast_path_raises_in_kernel_mode(tables):
