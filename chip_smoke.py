@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # Wisconsin at 5,000,000 rows; the
-                                     # model UDF over 32,768 x 128 tokens
+                                     # model UDF over 32,768 x 128 tokens;
+                                     # qwen3-1.7b serving 8 x (4,096 + 64)
 
 Phases (any mismatch raises; nothing is caught):
   1. header — the card's name and power limit; build the CUDA kernels from
@@ -25,8 +26,10 @@ Phases (any mismatch raises; nothing is caught):
      inputs, a tolerance per row, planted faults refused) the reference's
      sweep shapes (bf16 flash on the model path's strided (B,S,H,D) views
      and on contiguous inputs, D 16-128), GQA at S=1024, a ragged S, B*H
-     past 65,535, and decode lengths 0, 1, each side of a slice edge, S,
-     and every length = S;
+     past 65,535, the serving prefill (B 8, H 16, KV 8, S 4,096, D 128,
+     bf16 causal, strided), and decode lengths 0, 1, each side of a slice edge, S,
+     and every length = S, also on the serving path's layout (the
+     (B,KV,S,D) views of a (B,S,KV,D) cache layer) at the serve shape;
   3. the first slice: the paper's 12 Wisconsin expressions through AFrame →
      Session(mode="kernel"), 3 rounds of randomized literals, held against
      the port's gspmd mode and a numpy oracle (dtypes included), plus two
@@ -38,8 +41,7 @@ Phases (any mismatch raises; nothing is caught):
      class, persist + group-by. Held against the direct application of the
      model, numpy, and the port's blocked attention (the reference's
      default); flash_mha_fwd must launch 8 layers x 16 microbatches per
-     full pass, segment_agg on the group-by. Then flash_decode's own entry
-     point (``ops.flash_decode``, on no model path yet) once;
+     full pass, segment_agg on the group-by;
   5. timings — per expression and per UDF query: host-clock wall time and
      the device time of a torch.profiler trace (the device-busy share);
      rows/s and tokens/s of the UDF count, and its device time per kernel;
@@ -52,9 +54,10 @@ Phases (any mismatch raises; nothing is caught):
      from device memory and not from the L2); segment_agg also at the e8
      shape (G = 20, max), merge_join_count also on the duplicate-heavy
      keys, block_topk also on unique2 (scores rising with the row), flash
-     also on contiguous inputs, decode also at the mixed lengths (bound on
-     the slots they walk); and the device time by kernel of one run of
-     e3, e9 and e11;
+     also on contiguous inputs, decode at phase 2's shape with every
+     length = S and at the mixed lengths (bound on the slots they walk;
+     the decode row of the ``kernels`` line is phase 10's); and the device
+     time by kernel of one run of e3, e9 and e11;
   6. the live-ingestion slice: the phase-3 table as a closed dataset
      clustered by unique2 with onePercent indexed, a group-by view, and
      eight batches of 250,000 rows (push, upsert, push, delete, push,
@@ -137,6 +140,29 @@ Phases (any mismatch raises; nothing is caught):
      shard window per component, and ``Session.open`` remounts the store
      onto the mesh. Last, e3, e4, e9 and e12 at S = 1, 2, 4, 8 (wall and
      device time beside the card): the cost of distribution on one card.
+ 10. serving: qwen3-1.7b at its published config (28 layers, d 2048, 16 / 8
+     heads of 128, vocab 151,936, qk-norm; seeded float32 weights, 8.1 GB)
+     serves 8 requests of 4,096 prompt tokens + 64 new tokens (a 3.8 GB
+     bf16 cache) through ``registry.get_api`` and ``models/steps.py`` as
+     ``launch/serve.py`` drives them. Under attn_impl="flash" the launch
+     counts are zeroed just before ``serve.generate`` and read just after:
+     exactly 28 flash_mha_fwd for the prefill and 28 flash_decode per
+     decode step, and every flash_decode call is held at once against its
+     plain version on the same strided cache views. Against blocked (the
+     reference's default), teacher-forced on blocked's greedy tokens: the
+     logits at every step within SERVE_TOL (a planted wrong q head must
+     exceed it), greedy tokens equal except where blocked's top-2 margin is
+     within it; prefill(n) + decode(1) == prefill(n + 1); the "dus" cache
+     write == "onehot" bit for bit. Timed, flash and blocked: prefill wall
+     and device ms, decode ms per step (median, p90), tok/s, one step's
+     device time by kind (flash_decode, GEMMs, copies and casts, the rest)
+     and the busy share; flash_decode alone at the serve shape (the
+     ``kernels`` line's decode row). Then deepseek-moe-16b and
+     llava-next-mistral-7b (cut to 4 layers), zamba2-1.2b, rwkv6-1.6b and
+     whisper-base at their published widths: 2 x 512 prompt tokens + 16
+     decode steps, prefill(n) + decode(1) == prefill(n + 1), finite
+     logits, and the flash_mha_fwd / flash_decode launches each family's
+     attention layers make.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -802,6 +828,11 @@ def check_attention_kernels(dev) -> dict:
     flash("ragged S=77 f32", 2, 4, 2, 77, 32, torch.float32, False)
     flash("B*H = 65,600 (past one grid dimension), strided", 8200, 8, 8, 16,
           16, torch.bfloat16, True, strided=True)
+    # the serving path's prefill (phase 10): qwen3-1.7b's heads at the serve
+    # prompt, on the layout attention_core hands over
+    flash(f"serve prefill ({SERVE_BATCH}, 16, 8, {SERVE_PROMPT}, 128) bf16 "
+          "causal, strided (B,S,H,D) views", SERVE_BATCH, 16, 8, SERVE_PROMPT,
+          128, torch.bfloat16, True, strided=True)
 
     B, H, S, D = DECODE_SHAPE
     decode = {}
@@ -825,6 +856,25 @@ def check_attention_kernels(dev) -> dict:
             if KV == 8 and dtype == torch.bfloat16:
                 decode = {"flash_decode": (q, k, v, full),
                           "flash_decode_mixed": (q, k, v, mixed)}
+
+    # the serving path's layout (ROADMAP C4): k, v the (B,KV,S,D) views of a
+    # layer's (B,S,KV,D) cache, q the (B,H,D) view of (B,1,H,D), at the
+    # serve shape
+    B, H, KV, D = SERVE_BATCH, 16, 8, 128
+    S = SERVE_PROMPT + SERVE_NEW
+    split = da.split_size(B, KV, S)
+    for dtype in (torch.bfloat16, torch.float32):
+        cache = rand((2, B, S, KV, D), dtype)
+        k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+        q = rand((B, 1, H, D), dtype)[:, 0]
+        lens = torch.tensor([0, 1, split - 1, split, split + 1, SERVE_PROMPT,
+                             S - 1, S], dtype=torch.int32, device=dev)
+        want = da.flash_decode_plain(q, k, v, lens)
+        close("flash_decode", f"serve shape (B={B}, H={H}, KV={KV}, S={S}, "
+              f"D={D}) {str(dtype)[6:]}, strided (B,S,KV,D) cache views, "
+              f"lengths 0/1/slice edges/{SERVE_PROMPT}/S", da.flash_decode(q, k, v, lens),
+              want, tol[dtype],
+              lambda f, q=q, k=k, v=v, lens=lens: da.flash_decode_plain(f(q), k, v, lens))
     torch.cuda.synchronize()
     return {"flash_mha_fwd": main, "flash_mha_fwd_contiguous": contiguous,
             **decode, "errs": errs}
@@ -956,24 +1006,6 @@ def run_udf_slice(dev, seed: int) -> dict:
     return {"queries": queries, "launches": launches, "n_neg": n_neg,
             "flash_per_pass": flash_q2, "rows_near_margin": int(near.sum()),
             "rows_differ": int(differ.sum())}
-
-
-def run_decode_op(case) -> int:
-    """flash_decode's entry point, ``ops.flash_decode`` (no model path
-    reaches it yet), once at phase 2's main decode shape; returns its
-    launch count."""
-    import torch
-
-    from repro_torch.kernels import _build, ops
-
-    _build.reset_launches()
-    out = ops.flash_decode(*case)
-    torch.cuda.synchronize()
-    n = _build.LAUNCHES["flash_decode"]
-    if n == 0 or not bool(torch.isfinite(out.float()).all()):
-        raise AssertionError("ops.flash_decode did not launch its kernel")
-    print(f"  ops.flash_decode {tuple(out.shape)}: {n} launch", flush=True)
-    return n
 
 
 # -- phase 6: live ingestion (LSM runs, upserts and deletes, a view) -----------
@@ -2638,6 +2670,630 @@ def run_mesh(table, raw: dict, dev, seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 10: serving (prefill + KV-cache decode) ------------------------------
+
+SERVE_ARCH = "qwen3-1.7b"   # the slice's first model path, at its published width
+SERVE_BATCH = 8             # requests
+SERVE_PROMPT = 4_096        # prompt tokens a request
+SERVE_NEW = 64              # new tokens a request: the prefill's + 63 decode steps
+SERVE_LAYERS = 28
+# Flash (the CUDA kernels) vs blocked (the einsum path, the reference's
+# default) logits at one step, teacher-forced on the same tokens: bf16
+# rounds at other places in the two paths (the tensor-core P.V of
+# flash_mha_fwd, float32 P in flash_decode, bf16 P in the einsum), which
+# compounds over 28 layers: on an H100 (700 W) the largest difference over
+# 64 steps was 0.125, and a planted fault (q from the neighbouring head in
+# every layer's flash_decode), which the phase checks against it, 3.6.
+SERVE_TOL = 0.25
+SERVE_CHECK_STEPS = 4       # decode steps of the onehot == dus check
+FAMILY_CELLS = (("deepseek-moe-16b", 4), ("llava-next-mistral-7b", 4),
+                ("zamba2-1.2b", None), ("rwkv6-1.6b", None),
+                ("whisper-base", None))
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS = 2, 512, 16
+# prefill(n) + decode(1) vs prefill(n + 1) in bf16, as SERVE_TOL: on an
+# H100 0.02 (whisper-base) to 0.14 (zamba2-1.2b's 38 layers)
+FAMILY_TOL = 0.25
+STEP_KERNELS = (("flash_decode", ("flash_decode",)),
+                ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
+                ("copy / cast", ("copy", "Copy")))
+
+
+def _path_stats() -> dict:
+    return {name: {"calls": 0, "bad": 0, "max_abs_err": 0.0, "strided": 0}
+            for name in ("flash_mha_fwd", "flash_decode")}
+
+
+@contextlib.contextmanager
+def checking_path(stats: dict):
+    """Every ``flash_mha_fwd`` and ``flash_decode`` call the path makes is
+    held at once against its plain version on the same (strided) inputs —
+    at once, since the next step writes into the cache those views read —
+    with phase 2's row-scaled bf16 tolerance (and lse within 2e-2); the
+    prefill's plain version runs a batch row at a time to bound its float32
+    scores. The verdicts stay on the card until the block ends. Adds no
+    launch. ``stats`` is ``_path_stats()``."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    fwd, dec = fa.flash_mha_fwd, da.flash_decode
+    dev_stats: dict = {"flash_mha_fwd": [], "flash_decode": []}
+
+    def verdict(name, out, want, extra_bad=None):
+        want = want.float()
+        err = (out.float() - want).abs()
+        bound = 2e-2 * (want.abs() + want.abs().amax(dim=-1, keepdim=True))
+        bad = (err > bound).any()
+        if extra_bad is not None:
+            bad = bad | extra_bad
+        dev_stats[name].append(torch.stack([bad.float(), err.max()]))
+
+    def checked_fwd(q, k, v, *, causal=True, **kw):
+        out, lse = fwd(q, k, v, causal=causal, **kw)
+        parts = [fa.flash_mha_fwd_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                        causal=causal) for b in range(q.shape[0])]
+        want = torch.cat([p[0] for p in parts])
+        plse = torch.cat([p[1] for p in parts])
+        verdict("flash_mha_fwd", out, want,
+                ~torch.isclose(lse, plse, rtol=2e-2, atol=2e-2).all())
+        stats["flash_mha_fwd"]["strided"] += int(not q.is_contiguous())
+        return out, lse
+
+    def checked_dec(q, k, v, lengths):
+        out = dec(q, k, v, lengths)
+        verdict("flash_decode", out, da.flash_decode_plain(q, k, v, lengths))
+        stats["flash_decode"]["strided"] += int(not k.is_contiguous())
+        return out
+
+    fa.flash_mha_fwd, da.flash_decode = checked_fwd, checked_dec
+    try:
+        yield stats
+    finally:
+        fa.flash_mha_fwd, da.flash_decode = fwd, dec
+    for name, rows in dev_stats.items():
+        if rows:
+            s = torch.stack(rows).cpu()
+            stats[name]["calls"] += len(rows)
+            stats[name]["bad"] += int(s[:, 0].sum())
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                             float(s[:, 1].max()))
+
+
+@contextlib.contextmanager
+def planted(module, name: str):
+    """``module.name`` run on q taken from the neighbouring head: the fault
+    the flash-vs-blocked tolerance must see."""
+    real = getattr(module, name)
+    setattr(module, name, lambda q, *a, **kw: real(q.roll(1, dims=1), *a, **kw))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def check_published(cfg) -> None:
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+           cfg.d_ff, cfg.vocab, cfg.qk_norm)
+    if got != (SERVE_LAYERS, 2048, 16, 8, 128, 6144, 151_936, True):
+        raise AssertionError(f"{SERVE_ARCH} is not its published config: {got}")
+
+
+def _serve_cfg(arch: str, impl: str, layers=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers is not None and layers != cfg.n_layers:
+        print(f"  {arch} reduced: n_layers {cfg.n_layers} → {layers}", flush=True)
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, attn_impl=impl)
+
+
+def _logits_run(cfg, model, batch, max_len: int, steps: int, forced=None):
+    """``registry`` prefill, then ``steps`` decode steps, greedy or fed the
+    (steps, B) ``forced`` tokens. Returns the (steps + 1, B, V) float32
+    last logits, the (steps + 1, B) greedy tokens and the cache."""
+    import torch
+
+    from repro_torch.models import registry
+
+    api = registry.get_api(cfg)
+    with torch.no_grad():
+        cache, lg = api.prefill(model, batch, cfg, max_len)
+        logits = [lg[:, -1]]
+        for t in range(steps):
+            tok = logits[-1].argmax(-1) if forced is None else forced[t]
+            cache, lg = api.decode(model, cache, tok.to(torch.int32)[:, None], cfg)
+            logits.append(lg[:, -1])
+    logits = torch.stack(logits)
+    return logits, logits.argmax(-1), cache
+
+
+def _step_ms(cfg, model, cache, first, steps: int) -> list:
+    """CUDA-event time of each of ``steps`` greedy decode steps through
+    ``steps.make_decode_step``, one sync at the end (a step's time is the
+    device's, idle gaps included)."""
+    import torch
+
+    from repro_torch.models import steps as st
+
+    decode = st.make_decode_step(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    tok = first
+    ev[0].record()
+    for i in range(steps):
+        cache, tok = decode(model, cache, tok)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+
+
+def _p(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def _step_breakdown(fn) -> dict:
+    """One profiled decode step's device ms by kind (flash_decode, GEMMs,
+    copies and casts, the rest: the cache write's products and sums and
+    the other elementwise work) and the top kernels by name."""
+    rows = device_breakdown(fn, top=1000)
+    kinds = {name: 0.0 for name, _ in STEP_KERNELS}
+    kinds["other"] = 0.0
+    for key, ms, _ in rows:
+        kind = next((name for name, pats in STEP_KERNELS
+                     if any(p in key for p in pats)), "other")
+        kinds[kind] += ms
+    return {"by_kind": kinds, "total": sum(kinds.values()), "top": rows[:12]}
+
+
+def run_serving(dev, seed: int, card: str) -> dict:
+    """Phase 10: qwen3-1.7b at its published config serving SERVE_BATCH
+    requests of SERVE_PROMPT + SERVE_NEW tokens through ``registry`` and
+    ``steps`` as ``launch/serve.py`` drives them, under flash (the path)
+    and blocked (the reference's default); then the other families at
+    their published widths."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = _serve_cfg(SERVE_ARCH, "flash")
+    check_published(cfg)
+    blocked = _serve_cfg(SERVE_ARCH, "blocked")
+    api = registry.get_api(cfg)
+    B, P, NEW = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    t0 = time.perf_counter()
+    model = api.init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    batch = serve.make_batch(cfg, B, P, np.random.default_rng(seed), dev)
+    max_len = registry.prefill_cache_len(cfg, P) + NEW
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    cache_gb = 2 * cfg.n_layers * B * max_len * cfg.n_kv_heads * cfg.d_head * 2 / 1e9
+    print(f"  {SERVE_ARCH}: {n_params:,} parameters (float32, "
+          f"{n_params * 4 / 1e9:.2f} GB), {B} requests x ({P} + {NEW}) tokens, "
+          f"cache {cache_gb:.2f} GB bf16 (max_len {max_len}); set up in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # the reference's default path, greedy: its tokens and top-2 margins
+    b_logits, b_tokens, _ = _logits_run(blocked, model, batch, max_len, NEW - 1)
+    top2 = b_logits.topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    if not bool(torch.isfinite(b_logits).all()):
+        raise AssertionError("blocked logits not finite")
+
+    # the main path: serve.generate under flash, launch counts zeroed just
+    # before and read just after, every flash_mha_fwd and flash_decode call
+    # held against plain
+    stats = _path_stats()
+    _build.reset_launches()
+    with checking_path(stats):
+        out = serve.generate(cfg, model, batch, NEW)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = {"flash_mha_fwd": SERVE_LAYERS, "flash_decode": SERVE_LAYERS * (NEW - 1)}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"serve launches {launches}, want {want}")
+    for name, n in want.items():
+        st = stats[name]
+        if st["bad"] or st["calls"] != n or st["strided"] != n:
+            raise AssertionError(f"{name} on the path vs plain: {stats}")
+    pre, dec = stats["flash_mha_fwd"], stats["flash_decode"]
+    print(f"  main path (serve.generate, flash): launches "
+          f"{ {k: v for k, v in launches.items() if v} } = {SERVE_LAYERS} "
+          f"flash_mha_fwd for the prefill, {SERVE_LAYERS} flash_decode per "
+          f"decode step; {pre['calls']} flash_mha_fwd calls on the strided "
+          f"(B,H,S,hd) views of the projections ({B}, 16, 8, {P}, 128 causal) "
+          f"== plain (max abs err {pre['max_abs_err']:.3g}), {dec['calls']} "
+          f"flash_decode calls, each on the strided (B,KV,S,hd) views of its "
+          f"layer's cache, == plain (max abs err {dec['max_abs_err']:.3g}); "
+          f"tolerance 2e-2 x row scale", flush=True)
+    f_free = out["tokens"].cpu().numpy()
+
+    # flash teacher-forced on the blocked tokens: logits step by step, and
+    # the launches of each decode step
+    _build.reset_launches()
+    f_logits, f_tokens, _ = _logits_run(cfg, model, batch, max_len, NEW - 1,
+                                        forced=b_tokens[:-1])
+    torch.cuda.synchronize()
+    if _build.LAUNCHES["flash_decode"] != SERVE_LAYERS * (NEW - 1):
+        raise AssertionError(f"teacher-forced run: {_build.LAUNCHES}")
+    diff = (f_logits - b_logits).abs().amax(dim=(1, 2)).cpu().numpy()
+    if not bool(torch.isfinite(f_logits).all()) or diff.max() > SERVE_TOL:
+        raise AssertionError(f"flash vs blocked logits: max abs diff per step "
+                             f"{diff.tolist()} beyond {SERVE_TOL}")
+    differ = (f_tokens != b_tokens).cpu().numpy()
+    near = margins <= SERVE_TOL
+    if np.any(differ & ~near):
+        raise AssertionError(f"flash vs blocked: {int((differ & ~near).sum())} "
+                             f"greedy tokens differ with a margin above {SERVE_TOL}")
+    # the planted faults: q from the neighbouring head in every
+    # flash_mha_fwd of the prefill, and in every flash_decode of one step,
+    # must each move the logits beyond the tolerance
+    with torch.no_grad():
+        with planted(fa, "flash_mha_fwd"):
+            _, bad = api.prefill(model, batch, cfg, max_len)
+        planted_pre = float((bad[:, -1] - b_logits[0]).abs().max())
+        c, _ = api.prefill(model, batch, cfg, max_len)
+        with planted(da, "flash_decode"):
+            _, bad = api.decode(model, c, b_tokens[0].to(torch.int32)[:, None], cfg)
+        del c
+    planted_dec = float((bad[:, -1] - b_logits[1]).abs().max())
+    if min(planted_pre, planted_dec) <= SERVE_TOL:
+        raise AssertionError(f"a planted fault moved the logits by {planted_pre} "
+                             f"(prefill) / {planted_dec} (decode), within the "
+                             f"tolerance {SERVE_TOL}")
+    free_same = int((f_free == b_tokens.T.cpu().numpy()).all(axis=0).cumprod().sum())
+    print(f"  flash vs blocked, teacher-forced on blocked's tokens: max abs "
+          f"logit diff {diff.max():.4f} over {NEW} steps (median "
+          f"{np.median(diff):.4f}; tolerance {SERVE_TOL}; a planted wrong q "
+          f"head moves them {planted_pre:.3f} in flash_mha_fwd, "
+          f"{planted_dec:.3f} in flash_decode); {int(differ.sum())} of "
+          f"{differ.size} greedy tokens differ, all within the top-2 margin "
+          f"{SERVE_TOL} ({int(near.sum())} such); free-running flash equals "
+          f"blocked for the first {free_same} tokens of every request",
+          flush=True)
+
+    # prefill(n) + decode(1) == prefill(n + 1), and onehot == dus, on flash
+    with torch.no_grad():
+        part = dict(batch, tokens=batch["tokens"][:, :P - 1])
+        c, _ = api.prefill(model, part, cfg, max_len)
+        _, lg = api.decode(model, c, batch["tokens"][:, P - 1:P], cfg)
+        consist = float((lg[:, -1] - f_logits[0]).abs().max())
+        del c
+        if consist > SERVE_TOL:
+            raise AssertionError(f"prefill({P - 1}) + decode(1) vs prefill({P}): "
+                                 f"{consist}")
+        c1, _ = api.prefill(model, batch, cfg, max_len)
+        c2 = {k: v.clone() for k, v in c1.items()}
+        dus = dataclasses.replace(cfg, decode_cache_update="dus")
+        for t in range(SERVE_CHECK_STEPS):
+            tok = b_tokens[t].to(torch.int32)[:, None]
+            c1, l1 = api.decode(model, c1, tok, cfg)
+            c2, l2 = api.decode(model, c2, tok, dus)
+            if not torch.equal(l1, l2):
+                raise AssertionError(f"onehot vs dus logits differ at step {t}")
+        if not (torch.equal(c1["k"], c2["k"]) and torch.equal(c1["v"], c2["v"])):
+            raise AssertionError("onehot vs dus caches differ")
+        del c1, c2
+    torch.cuda.empty_cache()
+    print(f"  prefill({P - 1}) + decode(1) vs prefill({P}) on flash: max abs "
+          f"logit diff {consist:.4f} (tolerance {SERVE_TOL}); decode_cache_update "
+          f"'dus' == 'onehot' bit for bit over {SERVE_CHECK_STEPS} steps "
+          f"(logits and the whole cache)", flush=True)
+
+    timing = {}
+    for label, c in (("flash", cfg), ("blocked", blocked)):
+        serve.generate(c, model, batch, 4)  # warm
+        g = serve.generate(c, model, batch, NEW)
+        with torch.no_grad():
+            pre = lambda c=c: api.prefill(model, batch, c, max_len)
+            cache, lg = pre()
+            first = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            ms = _step_ms(c, model, cache, first, NEW - 1)
+            prefill_dev = device_ms(pre)
+            cache, _ = pre()
+            step = lambda: api.decode(model, cache, first, c)
+            bd = _step_breakdown(step)
+            del cache
+        torch.cuda.empty_cache()
+        parts = step_parts(model, c, api, batch, max_len) if label == "flash" else {}
+        dec_s = g["decode_s"]
+        t = {"prefill_wall_ms": g["prefill_s"] * 1e3,
+             "prefill_device_ms": prefill_dev,
+             "decode_wall_ms": dec_s * 1e3,
+             "decode_ms_per_step_median": _p(ms, 50),
+             "decode_ms_per_step_p90": _p(ms, 90),
+             "decode_tok_per_s": B * (NEW - 1) / dec_s,
+             "prefill_tok_per_s": B * P / g["prefill_s"],
+             "step_device_ms": bd["total"],
+             "busy": bd["total"] / (dec_s * 1e3 / (NEW - 1)),
+             "step_by_kind_ms": bd["by_kind"], "step_top": bd["top"],
+             **parts}
+        timing[label] = t
+        print(f"  {label:7s} [{card}] prefill {B}x{P}: wall {t['prefill_wall_ms']:.1f} "
+              f"ms, device {prefill_dev:.1f} ms ({t['prefill_tok_per_s']:.0f} "
+              f"tok/s); decode {NEW - 1} steps: {t['decode_wall_ms']:.1f} ms, "
+              f"per step median {t['decode_ms_per_step_median']:.3f} ms, p90 "
+              f"{t['decode_ms_per_step_p90']:.3f} ms, {t['decode_tok_per_s']:.0f} "
+              f"tok/s, one step's device time {bd['total']:.3f} ms (busy "
+              f"{t['busy']:.0%})", flush=True)
+        print(f"    one decode step's device ms by kind: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in bd["by_kind"].items()), flush=True)
+        for key, kms, n in bd["top"]:
+            print(f"      {kms:9.4f} ms {n:5d} records  {key}", flush=True)
+        if parts:
+            print(f"    a step's parts alone (CUDA events, 20 calls): the "
+                  f"one-hot cache write of the {cfg.n_layers} layers "
+                  f"{parts['cache_write_onehot_ms']:.3f} ms (the 'dus' slice "
+                  f"write {parts['cache_write_dus_ms']:.3f} ms); the float32 -> "
+                  f"bf16 casts of every weight matrix "
+                  f"{parts['weight_casts_ms']:.3f} ms", flush=True)
+
+    # row 6'': flash_decode alone at the serve shape, on the strided views
+    # of a layer of the cache as the path hands them over
+    with torch.no_grad():
+        cache, _ = api.prefill(model, batch, cfg, max_len)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, cfg.n_heads, cfg.d_head), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = cache["k"][0].transpose(1, 2), cache["v"][0].transpose(1, 2)
+    lens = torch.full((B,), P, dtype=torch.int32, device=dev)
+    row = time_serve_decode((q, k, v, lens), dec["max_abs_err"],
+                            launches["flash_decode"])
+    del cache, model, b_logits, f_logits
+    torch.cuda.empty_cache()
+    print_kernel_row(row)
+
+    families = {}
+    for arch, layers in FAMILY_CELLS:
+        families[arch] = run_family(arch, layers, dev, seed, card)
+    return {"arch": SERVE_ARCH, "batch": B, "prompt": P, "new_tokens": NEW,
+            "max_len": max_len, "launches": launches,
+            "recorded": stats, "flash_vs_blocked_max_diff": float(diff.max()),
+            "planted_fault_diff": {"flash_mha_fwd": planted_pre,
+                                   "flash_decode": planted_dec},
+            "tokens_differ": int(differ.sum()),
+            "consistency_diff": consist, "timing": timing, "row": row,
+            "families": families}
+
+
+def step_parts(model, cfg, api, batch, max_len: int) -> dict:
+    """Two parts of a decode step timed alone on a fresh prefill cache: the
+    cache write of every layer (one-hot, and the "dus" slice write beside
+    it) and the per-call float32 -> bf16 casts of every weight matrix."""
+    import torch
+
+    from repro_torch.models import attention as attn
+
+    with torch.no_grad():
+        cache, _ = api.prefill(model, batch, cfg, max_len)
+    B = batch["tokens"].shape[0]
+    new = torch.zeros((B, 1, cfg.n_kv_heads, cfg.d_head), dtype=torch.bfloat16,
+                      device=cache["k"].device)
+
+    def write(upd):
+        for i in range(cache["k"].shape[0]):
+            upd(cache["k"][i], cache["v"][i], new, new, cache["pos"])
+
+    mats = [p for p in model.parameters() if p.dim() >= 2]
+    out = {"cache_write_onehot_ms": cuda_ms(lambda: write(attn.update_cache_layer)),
+           "cache_write_dus_ms": cuda_ms(lambda: write(attn.update_cache_layer_dus)),
+           "weight_casts_ms": cuda_ms(lambda: [p.to(torch.bfloat16) for p in mats])}
+    del cache
+    return out
+
+
+def time_serve_decode(case, err: float, launches: int) -> dict:
+    """Row 6'': flash_decode at the serve shape. Bound: the valid slots'
+    K and V bytes (and q, out) once over HBM_BYTES_PER_S; library: masked
+    SDPA over the same views (GQA)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+
+    q, k, v, lens = case
+    B, H, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    walked = int(lens.clamp(max=S).sum())
+    io = (2 * walked * KV * D + 2 * q.numel()) * q.element_size() + B * 4
+    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None]
+    row = _timed("flash_decode", ("flash_decode_split_kernel",
+                                  "flash_decode_merge_kernel"),
+                 lambda: da.flash_decode(q, k, v, lens),
+                 lambda: da.flash_decode_plain(q, k, v, lens),
+                 lambda: F.scaled_dot_product_attention(
+                     q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
+                 io, 2 * 2 * walked * H * D, err, launches,
+                 f"serve shape: q ({B}, {H}, {D}), cache views ({B}, {KV}, {S}, "
+                 f"{D}) bf16 of (B,S,KV,D) memory, every length {int(lens[0])}, "
+                 f"slices of {da.split_size(B, KV, S)}", ops_per_s=BF16_OPS_PER_S)
+    return row
+
+
+@contextlib.contextmanager
+def routing(record: list, forced=None):
+    """Wraps ``moe._top_k``: each MoE layer's (T, top_k) expert ids are
+    appended to ``record`` in call order; with ``forced`` (such a list),
+    each call takes the next ids in it instead of its own top-k, with its
+    own probabilities there as gates."""
+    from repro_torch.models import moe
+
+    top_k = moe._top_k
+
+    def recorded(probs, k):
+        if forced is None:
+            vals, idx = top_k(probs, k)
+        else:
+            idx = forced[len(record)]
+            vals = probs.gather(-1, idx)
+        record.append(idx)
+        return vals, idx
+
+    moe._top_k = recorded
+    try:
+        yield record
+    finally:
+        moe._top_k = top_k
+
+
+def forced_routing(full: list, B: int, P: int) -> dict:
+    """prefill(P)'s expert ids per layer, cut to what prefill(P - 1) and
+    the decode step of token P - 1 route."""
+    by = [r.reshape(B, P, -1) for r in full]
+    return {"full": full,
+            "part": [r[:, :P - 1].reshape(B * (P - 1), -1) for r in by],
+            "dec": [r[:, P - 1] for r in by]}
+
+
+def routing_flips(recs: dict, B: int, P: int) -> dict:
+    """Tokens whose expert set in some MoE layer differs between prefill(P)
+    and prefill(P - 1) + decode(1): in all, per request, and the requests
+    whose decoded token is among them."""
+    import torch
+
+    flip = torch.zeros((B, P), dtype=torch.bool, device=recs["full"][0].device)
+    for f, p, d in zip(recs["full"], recs["part"], recs["dec"]):
+        f = f.reshape(B, P, -1).sort(dim=-1).values
+        flip[:, :P - 1] |= (f[:, :P - 1] != p.reshape(B, P - 1, -1)
+                            .sort(dim=-1).values).any(dim=-1)
+        flip[:, P - 1] |= (f[:, P - 1] != d.sort(dim=-1).values).any(dim=-1)
+    per = flip.sum(dim=1).tolist()
+    return {"tokens": int(flip.sum()), "per_request": per,
+            "decoded": [b for b in range(B) if bool(flip[b, P - 1])]}
+
+
+def run_family(arch: str, layers, dev, seed: int, card: str) -> dict:
+    """One family at its published widths (depth cut where ``layers`` is
+    given): prefill FAMILY_BATCH x FAMILY_PROMPT, prefill(n) + decode(1)
+    against prefill(n + 1), then serve.generate with FAMILY_STEPS decode
+    steps, its launches counted."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = _serve_cfg(arch, "flash", layers)
+    api = registry.get_api(cfg)
+    t0 = time.perf_counter()
+    model = api.init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    B, P, n = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS
+    batch = serve.make_batch(cfg, B, P, np.random.default_rng(seed), dev)
+    max_len = registry.prefill_cache_len(cfg, P) + n + 1
+    # MoE drops the choices past an expert's capacity, and which it drops
+    # depends on the batch (1,024 tokens in a prefill, 2 in a decode step),
+    # so the consistency check runs dropless (capacity_factor E / top_k:
+    # every expert's capacity holds every token), as the reference's own
+    # consistency tests do at capacity_factor 8; serving below keeps the
+    # published 1.25
+    same = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+    part = dict(batch, tokens=batch["tokens"][:, :P - 1])
+
+    def consistency(forced=None):
+        """prefill(P) against prefill(P - 1) + decode(1): the last logits,
+        their largest difference per request, and each run's routing."""
+        recs = {"full": [], "part": [], "dec": []}
+        with torch.no_grad():
+            with routing(recs["full"], forced and forced["full"]):
+                _, full = api.prefill(model, batch, same, max_len)
+            with routing(recs["part"], forced and forced["part"]):
+                c, _ = api.prefill(model, part, same, max_len)
+            with routing(recs["dec"], forced and forced["dec"]):
+                _, dec = api.decode(model, c, batch["tokens"][:, P - 1:P], same)
+        gap = (full[:, -1].float() - dec[:, -1].float()).abs().amax(dim=-1)
+        return full, dec, gap, recs
+
+    full, dec, gap, recs = consistency()
+    if not (bool(torch.isfinite(full).all()) and bool(torch.isfinite(dec).all())):
+        raise AssertionError(f"{arch}: logits not finite")
+    d = float(gap.max())
+    routed = None
+    if cfg.moe is not None:
+        # With 64 experts some router top-k sit within bf16 noise of the
+        # next choice, and the noise differs between a prefill and a decode
+        # step, so a token may take other experts in the two runs: a jump
+        # no tolerance on logits bounds. Counted per token (prefix and
+        # decoded token, every MoE layer); a request whose tokens all keep
+        # their experts is held to FAMILY_TOL, and so is every request when
+        # prefill(P - 1) and the decode step are made to take prefill(P)'s
+        # experts (each its own gates there). With the routers zeroed every
+        # token takes experts 0..top_k-1 in both runs: held as well.
+        flips = routing_flips(recs, B, P)
+        agree = [b for b in range(B) if not flips["per_request"][b]]
+        if any(float(gap[b]) > FAMILY_TOL for b in agree):
+            raise AssertionError(f"{arch}: requests {agree} keep their experts, "
+                                 f"yet differ by {gap.tolist()}")
+        _, _, fgap, _ = consistency(forced_routing(recs["full"], B, P))
+        held = [blk.moe.router.detach().clone() for blk, moe in model.blocks() if moe]
+        with torch.no_grad():
+            for blk, moe in model.blocks():
+                if moe:
+                    blk.moe.router.zero_()
+            _, _, zgap, _ = consistency()
+            for (blk, _), r in zip([b for b in model.blocks() if b[1]], held):
+                blk.moe.router.copy_(r)
+        routed = {"seeded": gap.tolist(), "flipped_tokens": flips["tokens"],
+                  "flipped_per_request": flips["per_request"],
+                  "decoded_token_flipped": flips["decoded"],
+                  "forced": fgap.tolist(), "zeroed": zgap.tolist()}
+        d = max(float(fgap.max()), float(zgap.max()),
+                max((float(gap[b]) for b in agree), default=0.0))
+        print(f"  {arch} routing, prefill({P}) vs prefill({P - 1}) + decode(1), "
+              f"dropless: {flips['tokens']} of {B * P} tokens take other experts "
+              f"in some MoE layer (per request {flips['per_request']}; the "
+              f"decoded token in requests {flips['decoded']}); last-logit gap "
+              f"per request with the seeded routers {[round(x, 4) for x in gap.tolist()]}, "
+              f"with every run on prefill({P})'s experts "
+              f"{[round(x, 4) for x in fgap.tolist()]}, routers zeroed "
+              f"{[round(x, 4) for x in zgap.tolist()]} (tolerance {FAMILY_TOL} "
+              f"on the forced, zeroed and agreeing runs)", flush=True)
+    if d > FAMILY_TOL:
+        raise AssertionError(f"{arch}: prefill({P - 1}) + decode(1) vs "
+                             f"prefill({P}) {d} beyond {FAMILY_TOL}")
+    attn_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
+                   "encdec": cfg.n_layers, "hybrid": 0, "rwkv": 0}[cfg.family]
+    want_pre = {"encdec": cfg.enc_layers + cfg.n_layers, "rwkv": 0,
+                "hybrid": -(-cfg.n_layers // max(cfg.attn_every, 1))}.get(
+                    cfg.family, cfg.n_layers)
+    serve.generate(cfg, model, batch, 2)  # warm
+    _build.reset_launches()
+    g = serve.generate(cfg, model, batch, n + 1)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = {"flash_mha_fwd": want_pre, "flash_decode": attn_layers * n}
+    if {k: _build.LAUNCHES[k] for k in want} != want:
+        raise AssertionError(f"{arch}: launches {launches}, want {want}")
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    out = {"layers": cfg.n_layers, "params": n_params, "consistency_diff": d,
+           "consistency_diff_routed": routed,
+           "launches": launches, "prefill_ms": g["prefill_s"] * 1e3,
+           "decode_ms_per_step": g["decode_s"] * 1e3 / n,
+           "decode_tok_per_s": B * n / g["decode_s"],
+           "seconds": time.perf_counter() - t0}
+    print(f"  {arch} ({cfg.family}, {cfg.n_layers} layers, {n_params:,} "
+          f"parameters) [{card}]: prefill {B}x{P} {out['prefill_ms']:.1f} ms, "
+          f"decode {out['decode_ms_per_step']:.2f} ms/step "
+          f"({out['decode_tok_per_s']:.0f} tok/s); prefill({P - 1}) + "
+          f"decode(1) vs prefill({P}) {d:.4f} (tolerance {FAMILY_TOL}"
+          + ("" if routed is None else ", the largest of the held MoE runs")
+          + f"); launches {launches}", flush=True)
+    return out
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -2680,11 +3336,12 @@ def time_udf(queries: dict) -> dict:
     return times
 
 
-def time_attention(cases: dict, launches: dict) -> tuple[list[dict], dict]:
-    """The two attention rows of the ``kernels`` line — flash on the model
-    path's strided layout, decode with every length = S — and, beside
-    them, flash on contiguous inputs and decode at phase 2's mixed lengths
-    (bound on the slots those lengths walk)."""
+def time_attention(cases: dict, launches: dict) -> tuple[dict, list[dict]]:
+    """flash_mha_fwd's row of the ``kernels`` line (the model-UDF path's
+    strided layout, with its time on contiguous inputs beside it) and two
+    decode rows at phase 2's shape: every length = S, and the mixed
+    lengths (bound on the slots those lengths walk). The decode row of the
+    ``kernels`` line is phase 10's, at the serve shape."""
     import torch
     import torch.nn.functional as F
 
@@ -2729,9 +3386,8 @@ def time_attention(cases: dict, launches: dict) -> tuple[list[dict], dict]:
                      f"{da.split_size(B, KV, S)}", ops_per_s=BF16_OPS_PER_S)
         return row
 
-    out.append(decode_row("flash_decode", cases["flash_decode"]))
-    mixed = decode_row("flash_decode", cases["flash_decode_mixed"])
-    return out, mixed
+    return out[0], [decode_row("flash_decode", cases["flash_decode"]),
+                    decode_row("flash_decode", cases["flash_decode_mixed"])]
 
 
 # -- phase 5: kernel timings --------------------------------------------------------
@@ -2995,7 +3651,6 @@ def main(argv=None) -> int:
     print(f"phase 4: the model-UDF pipeline, paper-lm over {UDF_ROWS} x "
           f"{UDF_SEQ} tokens", flush=True)
     udf = run_udf_slice(dev, args.seed)
-    decode_launches = run_decode_op(attn_cases["flash_decode"])
 
     print("phase 5: timings", flush=True)
     print(f"  card clocks.sm, max, power, temperature: {smi_clocks()}",
@@ -3019,22 +3674,24 @@ def main(argv=None) -> int:
     print("  (wall: median of 7 host-clock runs, result on the host; device: "
           "one profiled run)", flush=True)
     print_breakdowns(res["breakdowns"])
-    attn_rows, decode_mixed = time_attention(
+    # the decode rows' launches are phase 10's (the serving path): they are
+    # printed once that phase has run
+    flash_row, decode_rows = time_attention(
         attn_cases, {"flash_mha_fwd": udf["launches"]["flash_mha_fwd"],
-                     "flash_decode": decode_launches})
+                     "flash_decode": 0})
     relational, variants = time_kernels(cases, res["launches"])
-    kernels = relational + attn_rows
-    for k in kernels + variants + [decode_mixed]:
+    kernels = relational + [flash_row]
+    for k in kernels + variants:
         print_kernel_row(k)
     print(f"  flash_mha_fwd on contiguous (B,H,S,D) inputs: kernel "
-          f"{attn_rows[0]['contiguous_ms']:.4f} ms (the library call above runs "
+          f"{flash_row['contiguous_ms']:.4f} ms (the library call above runs "
           "on these)", flush=True)
     print("  (kernel, library: device time per call, the mean of each "
           "kernel's records in a profiler trace of 20 calls times its "
           "launches per call; events: CUDA events over 20 back-to-back "
           "calls, host issue included; plain: CUDA events around one call on "
           "an idle stream, median of 5)", flush=True)
-    if not all(math.isfinite(k["ms"]) for k in kernels):
+    if not all(math.isfinite(k["ms"]) for k in kernels + decode_rows):
         raise AssertionError("non-finite kernel time")
 
     print(f"phase 6: live ingestion — {ROWS} rows, then {len(LIVE_MIX)} "
@@ -3070,6 +3727,25 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in mesh["launches"]:
             k["launches_mesh"] = mesh["launches"][k["name"]]
+    print(f"phase 10: serving — {SERVE_ARCH} at its published config, "
+          f"{SERVE_BATCH} requests x ({SERVE_PROMPT} + {SERVE_NEW}) tokens, "
+          f"flash and blocked; then {', '.join(a for a, _ in FAMILY_CELLS)} "
+          f"at {FAMILY_BATCH} x {FAMILY_PROMPT} + {FAMILY_STEPS} steps", flush=True)
+    t0 = time.perf_counter()
+    serving = run_serving(dev, args.seed, card)
+    serving["seconds"] = time.perf_counter() - t0
+    # the main path's launches: the model UDF's and the serving path's
+    serve_launches = serving["launches"]
+    flash_row["launches_by_path"] = {"udf": flash_row["launches"],
+                                     "serve": serve_launches["flash_mha_fwd"]}
+    flash_row["launches"] += serve_launches["flash_mha_fwd"]
+    flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
+                                   serving["recorded"]["flash_mha_fwd"]["max_abs_err"])
+    for k in decode_rows:
+        k["launches"] = serve_launches["flash_decode"]
+        print_kernel_row(k)
+    kernels.append(serving.pop("row"))
+    variants += decode_rows
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -3079,8 +3755,7 @@ def main(argv=None) -> int:
                               "flash_launches_per_pass": udf["flash_per_pass"],
                               "rows_within_margin": udf["rows_near_margin"],
                               "rows_flash_vs_blocked_differ": udf["rows_differ"]},
-                      "flash_decode_mixed_lengths": {
-                          k: v for k, v in decode_mixed.items() if k != "shape"},
+                      "serving": serving,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

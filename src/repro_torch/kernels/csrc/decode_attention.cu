@@ -1,6 +1,10 @@
 // Flash-decode: one-token GQA attention of q (B,H,D) against a KV cache
 // k, v (B,KV,S,D), masking cache positions >= lengths[b]; out (B,H,D) in
-// the input's dtype. bf16 or float32, all contiguous.
+// the input's dtype, contiguous. bf16 or float32. q, k and v are read
+// through the element strides of their leading dimensions (the last has
+// stride 1; every other stride and base is 16-byte aligned), so the
+// decode path hands over the (B,KV,S,D) transposed view of its layer's
+// (B,S,KV,D) cache and nothing is copied.
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/decode_attention.py:flash_decode, whose grid (B, KV, S/BK)
@@ -104,13 +108,19 @@ __device__ __forceinline__ void merge_state(float& m, float& l, float (&a)[N],
   m = mx;
 }
 
+// Element strides of q's (B, H) and of k's and v's (B, KV, S) dimensions.
+struct DecStrides {
+  int64_t qb, qh, kb, kh, ks, vb, vh, vs;
+};
+
 template <typename T, int D, int GM, int U>
 __global__ void __launch_bounds__(kDecThreads)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const int32_t* __restrict__ lengths,
                           float* __restrict__ part_acc, float* __restrict__ part_ml,
-                          int H, int KV, int S, int split, int n_split, float scale) {
+                          int H, int KV, int S, int split, int n_split, float scale,
+                          DecStrides st) {
   constexpr int VN = Vec<T>::N;     // elements per 16-byte load
   constexpr int LPR = D / VN;       // lanes per cache row
   constexpr int RPW = 32 / LPR;     // rows per warp load
@@ -131,12 +141,13 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (s0 >= s1) return;  // wholly past the length: the merge skips it
   const bool live = len > 0;  // else every slot scores -1e30
 
-  const int64_t qh0 = static_cast<int64_t>(b) * H + kvh * G + g0;
+  const int64_t qh0 = static_cast<int64_t>(b) * H + kvh * G + g0;  // scratch row
+  const T* qb = q + b * st.qb + static_cast<int64_t>(kvh * G + g0) * st.qh + sub * VN;
   float qv[GM][VN];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     if (g < ng) {
-      Vec<T>::cvt(*reinterpret_cast<const uint4*>(q + (qh0 + g) * D + sub * VN), qv[g]);
+      Vec<T>::cvt(*reinterpret_cast<const uint4*>(qb + g * st.qh), qv[g]);
     } else {
 #pragma unroll
       for (int e = 0; e < VN; ++e) qv[g][e] = 0.f;
@@ -151,9 +162,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < VN; ++e) acc[g][e] = 0.f;
   }
 
-  const int64_t cache0 = (static_cast<int64_t>(b) * KV + kvh) * S * D + sub * VN;
-  const T* kb = k + cache0;
-  const T* vb = v + cache0;
+  const T* kb = k + b * st.kb + kvh * st.kh + sub * VN;
+  const T* vb = v + b * st.vb + kvh * st.vh + sub * VN;
   for (int base = s0; base < s1; base += STEP) {
     uint4 kr[U], vr[U];  // raw rows: 2U 16-byte loads in flight per lane
     bool ok[U];
@@ -163,8 +173,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ok[u] = pos < s1;
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       if (ok[u]) {
-        kr[u] = load16(kb + static_cast<int64_t>(pos) * D);
-        vr[u] = load16(vb + static_cast<int64_t>(pos) * D);
+        kr[u] = load16(kb + pos * st.ks);
+        vr[u] = load16(vb + pos * st.vs);
       }
     }
     float kx[U][VN], vx[U][VN];
@@ -278,7 +288,7 @@ template <typename T, int D, int GM>
 int launch_decode(const void* q, const void* k, const void* v,
                   const int32_t* lengths, void* out, float* part_acc,
                   float* part_ml, int B, int H, int KV, int S, int split,
-                  float scale, cudaStream_t stream) {
+                  float scale, const DecStrides& st, cudaStream_t stream) {
   constexpr int U = GM == 1 ? 8 : GM == 2 ? 4 : 2;  // rows per lane group per step
   const int G = H / KV;
   const int n_split = (S + split - 1) / split;
@@ -286,7 +296,7 @@ int launch_decode(const void* q, const void* k, const void* v,
   flash_decode_split_kernel<T, D, GM, U><<<grid, kDecThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, part_acc, part_ml, H, KV, S, split,
-      n_split, scale);
+      n_split, scale, st);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int BH = B * H;
@@ -298,23 +308,25 @@ int launch_decode(const void* q, const void* k, const void* v,
 template <typename T, int D>
 int dispatch_g(const void* q, const void* k, const void* v,
                const int32_t* lengths, void* out, float* pa, float* pm, int B,
-               int H, int KV, int S, int split, float scale, cudaStream_t stream) {
+               int H, int KV, int S, int split, float scale, const DecStrides& st,
+               cudaStream_t stream) {
   const int G = H / KV;
-  if (G <= 1) return launch_decode<T, D, 1>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, stream);
-  if (G <= 2) return launch_decode<T, D, 2>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, stream);
-  if (G <= 4) return launch_decode<T, D, 4>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, stream);
-  return launch_decode<T, D, kMaxG>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, stream);
+  if (G <= 1) return launch_decode<T, D, 1>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, st, stream);
+  if (G <= 2) return launch_decode<T, D, 2>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, st, stream);
+  if (G <= 4) return launch_decode<T, D, 4>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, st, stream);
+  return launch_decode<T, D, kMaxG>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, st, stream);
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
                const int32_t* lengths, void* out, float* pa, float* pm, int B,
-               int H, int KV, int S, int split, float scale, cudaStream_t stream) {
+               int H, int KV, int S, int split, float scale, const DecStrides& st,
+               cudaStream_t stream) {
   switch (D) {
-    case 16: return dispatch_g<T, 16>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, stream);
-    case 32: return dispatch_g<T, 32>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, stream);
-    case 64: return dispatch_g<T, 64>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, stream);
-    case 128: return dispatch_g<T, 128>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, stream);
+    case 16: return dispatch_g<T, 16>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, st, stream);
+    case 32: return dispatch_g<T, 32>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, st, stream);
+    case 64: return dispatch_g<T, 64>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, st, stream);
+    case 128: return dispatch_g<T, 128>(q, k, v, lengths, out, pa, pm, B, H, KV, S, split, scale, st, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -324,14 +336,20 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 // dtype: 0 float32, 1 bfloat16. D in {16, 32, 64, 128}; H % KV == 0;
 // S >= 1; lengths (B,) int32; split >= 1 slots per split, at most 65535
 // splits; part_acc (B*H*splits*D) and part_ml (B*H*splits*2) float32
-// scratch. Returns cudaGetLastError() after the two launches.
+// scratch; out (B,H,D) contiguous. strides: 8 element strides, q's (B, H),
+// then k's and v's (B, KV, S) (each last dimension has stride 1; every
+// stride a multiple of 16 bytes and every base 16-byte aligned). Returns
+// cudaGetLastError() after the two launches.
 extern "C" int fd_flash_decode(const void* q, const void* k, const void* v,
                                const int32_t* lengths, void* out,
                                float* part_acc, float* part_ml, int dtype,
                                int B, int H, int KV, int S, int D, int split,
-                               float scale, cudaStream_t stream) {
+                               const int64_t* strides, float scale,
+                               cudaStream_t stream) {
   if (B * H == 0) return static_cast<int>(cudaGetLastError());
+  const DecStrides st{strides[0], strides[1], strides[2], strides[3],
+                      strides[4], strides[5], strides[6], strides[7]};
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, lengths, out, part_acc, part_ml, B, H, KV, S, split, scale, stream);
-  return dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, out, part_acc, part_ml, B, H, KV, S, split, scale, stream);
+    return dispatch_d<float>(D, q, k, v, lengths, out, part_acc, part_ml, B, H, KV, S, split, scale, st, stream);
+  return dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, out, part_acc, part_ml, B, H, KV, S, split, scale, st, stream);
 }

@@ -11,6 +11,12 @@ slots below the length (all S for a length of 0, whose reference output is
 the uniform mean of V); a slice wholly past the length adds nothing. See
 the source's header for its bound on the H100.
 
+The kernels take strides: q may be any (B,H,D) view and k, v any
+(B,KV,S,D) views whose last dimension has stride 1 and whose other strides
+and base addresses are 16-byte aligned (``flash_attention.check_layout``),
+such as the transposed (B,S,KV,D) layer cache the decode path writes. A
+layout the kernel cannot take raises; nothing is copied to make it fit.
+
 ``flash_decode`` launches the kernels for CUDA tensors and runs
 ``flash_decode_plain`` (a port of ``repro.kernels.ref.decode_attention``)
 for CPU tensors; it never runs the plain version on the card.
@@ -23,12 +29,12 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import _DTYPES, HEAD_DIMS, NEG
+from repro_torch.kernels.flash_attention import _DTYPES, NEG, check_layout
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
 TARGET_BLOCKS = 132 * 16   # the H100's SMs, 16 blocks of 4 warps each
 # Slices are rounded up to multiples of SPLIT_ROWS slots. That need not be
 # a whole number of the split kernel's steps (4 warps x rows per warp load
@@ -82,23 +88,23 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if q.device.type != "cpu":
             raise ValueError(f"flash_decode: unsupported device {q.device}")
         return flash_decode_plain(q, k, v, lengths)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_decode: head dim {D} not in {HEAD_DIMS}")
-    _build.require_cuda("flash_decode", q, k, v, lengths)
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_decode: q, k and v must be 16-byte aligned")
+    check_layout(q, k, v, name="flash_decode")
+    if lengths.device != q.device or not lengths.is_contiguous():
+        raise ValueError(f"flash_decode: lengths must be contiguous on {q.device}")
     split = split_size(B, KV, S)
     n_split = -(-S // split)
-    out = torch.empty_like(q)
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     part_acc = torch.empty(B * H * n_split * D, dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty(B * H * n_split * 2, dtype=torch.float32,
                           device=q.device)
+    strides = (ctypes.c_int64 * 8)(*q.stride()[:2], *k.stride()[:3],
+                                   *v.stride()[:3])
     fn = _build.function("fd_flash_decode", _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            _DTYPES[q.dtype], B, H, KV, S, D, split, 1.0 / math.sqrt(D),
-            _build.stream_of(q))
+            _DTYPES[q.dtype], B, H, KV, S, D, split, ctypes.addressof(strides),
+            1.0 / math.sqrt(D), _build.stream_of(q))
     _build.check(rc, "flash_decode")
     _build.count_launch("flash_decode")
     return out

@@ -90,28 +90,29 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_mha_fwd: an empty key sequence")
 
 
-def check_layout(*tensors: torch.Tensor) -> None:
+def check_layout(*tensors: torch.Tensor, name: str = "flash_mha_fwd") -> None:
     """Raise unless the kernel can read each tensor in place: all on the
     first one's device, a head dim in ``HEAD_DIMS``, a unit last stride,
     and every other stride (of a dim longer than 1) and the base address a
-    multiple of 16 bytes (its rows arrive by 16-byte copies)."""
+    multiple of 16 bytes (its rows arrive by 16-byte copies). ``name``
+    heads the message (the decode kernel takes the same layouts)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
-            raise ValueError(f"flash_mha_fwd: operands must all lie on {dev}")
+            raise ValueError(f"{name}: operands must all lie on {dev}")
         if t.shape[-1] not in HEAD_DIMS:
-            raise ValueError(f"flash_mha_fwd: head dim {t.shape[-1]} not in "
+            raise ValueError(f"{name}: head dim {t.shape[-1]} not in "
                              f"{HEAD_DIMS}")
         if t.stride(-1) != 1:
-            raise ValueError("flash_mha_fwd: the head dim must have stride 1, "
+            raise ValueError(f"{name}: the head dim must have stride 1, "
                              f"not {t.stride(-1)}")
         size = t.element_size()
         if any(st * size % 16 for st, n in zip(t.stride()[:-1], t.shape)
                if n > 1):
-            raise ValueError(f"flash_mha_fwd: strides {t.stride()} are not "
+            raise ValueError(f"{name}: strides {t.stride()} are not "
                              "multiples of 16 bytes")
         if t.data_ptr() % 16:
-            raise ValueError("flash_mha_fwd: base address not 16-byte aligned")
+            raise ValueError(f"{name}: base address not 16-byte aligned")
 
 
 def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -191,7 +191,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
-    """Single-token decode attention. q: (B,H,D); k, v: (B,KV,S,D);
-    lengths: (B,) int32."""
+    """Single-token decode attention. q: (B,H,D); k, v: (B,KV,S,D), any
+    views the kernel reads in place (a layer's (B,S,KV,D) cache
+    transposed); lengths: (B,) int32. Its model caller is
+    ``models.attention.decode_attention`` under ``attn_impl="flash"``:
+    every decode step of the dense, MoE and VLM transformers and of
+    whisper's self-attention."""
     _tick("flash_decode", q.device)
     return _da.flash_decode(q, k, v, lengths)

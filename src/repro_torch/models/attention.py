@@ -1,14 +1,25 @@
-"""GQA attention for the full-sequence (prefill) path (port of
-``repro.models.attention``): projections with optional biases and qk-norm,
-rotary embeddings, and the two attention cores the config selects.
+"""GQA attention (port of ``repro.models.attention``): projections with
+optional biases and qk-norm, rotary embeddings, the two attention cores the
+config selects for the full-sequence (prefill) path, and the KV-cache
+decode path.
 
 ``cfg.attn_impl == "blocked"`` (the default) runs ``_blocked_attention``,
 a loop over query chunks with a float32 masked softmax over the whole key
 range per chunk. ``"flash"`` runs ``kernels.ops.flash_attention`` for the
 aligned full-window case — the CUDA kernel on the card (reading the
 projections through strided views, no transpose copies), its plain version
-on CPU tensors. Decode, cache updates and the shard_map decode path wait
-for ROADMAP A10 (serving).
+on CPU tensors.
+
+Decode writes the new token's K and V into the layer's (B,S,KV,hd) cache
+(``cfg.decode_cache_update``: the reference's one-hot rewrite, or an
+in-place slice write; ``"shardmap"`` has no mesh here and takes the one-hot
+write, as the reference does without a sharding context) and attends over
+it: an einsum with a float32 masked softmax, or under ``attn_impl="flash"``
+without a sliding window ``kernels.ops.flash_decode`` on the (B,KV,S,hd)
+views of the cache, read in place. Both writes update the cache's buffers
+in place, where the reference returns new arrays (its serving loop donates
+them): a decode step consumes the cache it is given. The shard_map decode
+over a sequence-sharded cache waits for ROADMAP A9b / A10.
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_rope, he_init, rms_norm
 
@@ -27,15 +39,17 @@ class Attention(nn.Module):
     """wq (d, H*hd), wk / wv (d, KV*hd), wo (H*hd, d), with biases under
     ``cfg.qkv_bias`` and per-head norms under ``cfg.qk_norm``."""
 
-    def __init__(self, cfg: ArchConfig, generator: torch.Generator):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 d_in: int | None = None, d_kv_in: int | None = None):
         super().__init__()
-        d = cfg.d_model
+        d_in = d_in or cfg.d_model
+        d_kv_in = d_kv_in or d_in
         hq = cfg.n_heads * cfg.d_head
         hkv = cfg.n_kv_heads * cfg.d_head
         dev = generator.device
-        self.wq = he_init((d, hq), generator)
-        self.wk = he_init((d, hkv), generator)
-        self.wv = he_init((d, hkv), generator)
+        self.wq = he_init((d_in, hq), generator)
+        self.wk = he_init((d_kv_in, hkv), generator)
+        self.wv = he_init((d_kv_in, hkv), generator)
         self.wo = he_init((hq, cfg.d_model), generator, fan_in=hq)
         if cfg.qkv_bias:
             self.bq = nn.Parameter(torch.zeros(hq, device=dev))
@@ -46,14 +60,17 @@ class Attention(nn.Module):
             self.k_norm = nn.Parameter(torch.ones(cfg.d_head, device=dev))
 
 
-def init_attention(cfg: ArchConfig, generator: torch.Generator) -> Attention:
-    return Attention(cfg, generator)
+def init_attention(cfg: ArchConfig, generator: torch.Generator,
+                   d_in: int | None = None,
+                   d_kv_in: int | None = None) -> Attention:
+    return Attention(cfg, generator, d_in, d_kv_in)
 
 
 def _project_qkv(x, x_kv, p: Attention, cfg: ArchConfig, positions,
                  positions_kv, rope: bool):
     B, Sq, _ = x.shape
     Skv = x_kv.shape[1]
+    x_kv = x_kv.to(x.dtype)  # whisper's bf16 encoder output under float32
     q = x @ p.wq.to(x.dtype)
     k = x_kv @ p.wk.to(x.dtype)
     v = x_kv @ p.wv.to(x.dtype)
@@ -136,3 +153,91 @@ def attention(x, p: Attention, cfg: ArchConfig, *, x_kv=None, causal=True,
     out = attention_core(q, k, v, positions, positions_kv, cfg, causal=causal)
     out = out.reshape(B, Sq, cfg.n_heads * cfg.d_head)
     return out @ p.wo.to(x.dtype)
+
+
+# -- KV-cache decode -------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ArchConfig, n_layers: int, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    """(n_layers, B, S, KV, hd) K and V, zeros, and ``pos`` 0, on
+    ``device`` (``None``: the card, raising without one)."""
+    dev = resolve_device(device)
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def update_cache_layer(cache_k_l, cache_v_l, k_new, v_new, pos):
+    """The reference's masked one-hot write at ``pos`` (attention.py:
+    191-204), computed as it computes it: a (S, T) one-hot in the cache's
+    dtype, its einsum with the new rows, and ``cache * keep + add`` — two
+    full passes over the layer's cache. Written into ``cache_*_l`` in
+    place; returns them. cache_*_l: (B, S, KV, hd); k_new / v_new:
+    (B, T, KV, hd); pos: a 0-d integer tensor."""
+    S, T = cache_k_l.shape[1], k_new.shape[1]
+    dev = cache_k_l.device
+    onehot = (torch.arange(S, device=dev)[:, None]
+              == (pos + torch.arange(T, device=dev))[None, :]).to(cache_k_l.dtype)
+    keep = (1 - onehot.sum(dim=1))[None, :, None, None]
+    for c, new in ((cache_k_l, k_new), (cache_v_l, v_new)):
+        add = torch.einsum("st,btkh->bskh", onehot, new.to(c.dtype))
+        c.mul_(keep).add_(add)
+    return cache_k_l, cache_v_l
+
+
+def update_cache_layer_dus(cache_k_l, cache_v_l, k_new, v_new, pos):
+    """The in-place slice write (the reference's dynamic_update_slice on
+    its donated cache): only the T written rows move. The start is clamped
+    to [0, S - T], as dynamic_update_slice clamps it, and stays on the
+    device (no host sync)."""
+    S, T = cache_k_l.shape[1], k_new.shape[1]
+    start = pos.clamp(0, S - T)
+    rows = start + torch.arange(T, device=cache_k_l.device)
+    cache_k_l.index_copy_(1, rows, k_new.to(cache_k_l.dtype))
+    cache_v_l.index_copy_(1, rows, v_new.to(cache_v_l.dtype))
+    return cache_k_l, cache_v_l
+
+
+def decode_attention(x, p: Attention, cfg: ArchConfig, cache_k_l, cache_v_l,
+                     pos, *, rope: bool = True):
+    """Single-token decode. x: (B, T, d) (T = 1 when serving); cache_*_l:
+    (B, S, KV, hd), updated in place. Returns (out (B, T, d), cache_k_l,
+    cache_v_l).
+
+    Under ``attn_impl="flash"`` without a sliding window (and T = 1) the
+    attention is ``kernels.ops.flash_decode`` over the (B,KV,S,hd) views of
+    the updated cache with lengths ``pos + 1``: slots past ``pos`` are what
+    the einsum path masks. A q of another dtype than the cache's (float32
+    compute) is cast to the cache's, as the kernel takes one dtype."""
+    B, T = x.shape[0], x.shape[1]
+    S = cache_k_l.shape[1]
+    H, hd = cfg.n_heads, cfg.d_head
+    positions = pos + torch.arange(T, device=x.device)
+    q, k_new, v_new = _project_qkv(x, x, p, cfg, positions, positions, rope)
+    upd = update_cache_layer_dus if cfg.decode_cache_update == "dus" \
+        else update_cache_layer
+    ck, cv = upd(cache_k_l, cache_v_l, k_new, v_new, pos)
+
+    if cfg.attn_impl == "flash" and cfg.sliding_window == 0 and T == 1:
+        from repro_torch.kernels import ops as kops
+
+        lengths = (pos + 1).to(torch.int32).reshape(1).expand(B).contiguous()
+        o = kops.flash_decode(q[:, 0].to(ck.dtype), ck.transpose(1, 2),
+                              cv.transpose(1, 2), lengths)
+        out = o.reshape(B, 1, H * hd).to(x.dtype)
+        return out @ p.wo.to(x.dtype), ck, cv
+
+    KV, G = cfg.n_kv_heads, H // cfg.n_kv_heads
+    qq = q.reshape(B, T, KV, G, hd).float()
+    scores = torch.einsum("bckgh,bskh->bkgcs", qq, ck.float()) / math.sqrt(hd)
+    kpos = torch.arange(S, device=x.device)
+    m = kpos[None, :] <= positions[:, None]
+    if cfg.sliding_window:
+        m &= (positions[:, None] - kpos[None, :]) < cfg.sliding_window
+    scores = torch.where(m[None, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgcs,bskh->bckgh", probs.to(cv.dtype), cv)
+    out = out.reshape(B, T, H * hd).to(x.dtype)
+    return out @ p.wo.to(x.dtype), ck, cv

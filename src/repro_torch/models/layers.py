@@ -38,6 +38,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return x * inv * scale.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The reference's own formula (layers.py:33-38), not
+    ``F.layer_norm``: float32 mean and ``var = E[x^2] - mu^2`` clamped at
+    0, the normalisation applied in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.square().mean(dim=-1, keepdim=True) - mu.square()
+    inv = torch.rsqrt(var.clamp_min(0) + eps).to(x.dtype)
+    return (x - mu.to(x.dtype)) * inv * scale.to(x.dtype) + bias.to(x.dtype)
+
+
 # -- rotary embeddings ---------------------------------------------------------
 
 
@@ -62,7 +74,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 class MLP(nn.Module):
-    """SwiGLU (w1, w3 gate, w2 down) or, ungated, GELU (whisper)."""
+    """SwiGLU (w1, w3 gate, w2 down) or, ungated, GELU (whisper; the tanh
+    approximation, ``jax.nn.gelu``'s default)."""
 
     def __init__(self, d_model: int, d_ff: int, generator: torch.Generator,
                  gated: bool = True):

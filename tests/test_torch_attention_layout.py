@@ -137,6 +137,26 @@ def test_check_layout_refuses_what_it_cannot(dtype):
                                        device="meta"))
 
 
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_layout_check_takes_the_cache_views(dtype):
+    """The decode wrapper's check (``check_layout`` under its own name):
+    the (B,KV,S,D) views of a layer of an (L,B,S,KV,D) cache and the
+    (B,H,D) view of (B,1,H,D) projections pass; a cache layer whose rows
+    are not 16-byte strided or whose base is off 16 bytes is refused,
+    the message naming flash_decode (ROADMAP C4)."""
+    cache = torch.zeros(3, 2, 40, 4, 64, dtype=dtype)
+    q = torch.zeros(2, 1, 8, 64, dtype=dtype)[:, 0]
+    fa.check_layout(q, cache[1].transpose(1, 2), cache[2].transpose(1, 2),
+                    name="flash_decode")
+    padded = torch.zeros(2, 40, 4, 66, dtype=dtype)[..., :64]
+    with pytest.raises(ValueError, match="^flash_decode: strides"):
+        fa.check_layout(q, padded.transpose(1, 2), name="flash_decode")
+    flat = torch.zeros(2 * 40 * 4 * 64 + 1, dtype=dtype)
+    with pytest.raises(ValueError, match="^flash_decode: base address"):
+        fa.check_layout(q, flat[1:].view(2, 40, 4, 64).transpose(1, 2),
+                        name="flash_decode")
+
 # -- decode: the split-and-merge rule ------------------------------------------
 
 ROW_GROUPS = 16  # row groups per slice in the model (a block's 4 warps x 4)

@@ -562,3 +562,80 @@ def test_cuda_sharded_session_equals_meshless():
     assert _build.LAUNCHES["segment_agg"] == 8
     assert _build.LAUNCHES["merge_join_count"] == 8
     assert _build.LAUNCHES["block_topk"] == 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_cuda_decode_reads_the_strided_cache_view(dtype, tol, D):
+    """The decode path's layout: k and v the (B,KV,S,D) views of a layer's
+    (B,S,KV,D) cache (the cache itself a slice of the (L,B,S,KV,D) one),
+    q a (B,H,D) view of (B,1,H,D). The kernel on those views equals the
+    plain version at lengths 0, 1, each side of a slice edge and S (ROADMAP
+    C4: before the kernel took strides it read them as contiguous)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(D)
+    B, H, KV, S, L = 8, 8, 2, 700, 3
+    cache = torch.randn((2, L, B, S, KV, D), generator=gen, device=dev).to(dtype)
+    k, v = cache[0, 1].transpose(1, 2), cache[1, 1].transpose(1, 2)
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dtype)[:, 0]
+    assert not k.is_contiguous() and k.stride(2) == KV * D
+    split = da.split_size(B, KV, S)
+    lens = torch.tensor([0, 1, split - 1, split, split + 1, S - 1, S, S],
+                        dtype=torch.int32, device=dev)
+    got = da.flash_decode(q, k, v, lens)
+    want = da.flash_decode_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    _assert_row_close(got, want, tol)
+    _assert_row_close(da.flash_decode(q, k.contiguous(), v.contiguous(), lens),
+                      want, tol)
+    for bad in (q.roll(1, dims=1), torch.zeros_like(q)):
+        assert _refused(da.flash_decode_plain(bad, k, v, lens), want, tol)
+    # a view the kernel cannot read in place is refused, never copied
+    shifted = cache.reshape(-1)[1:1 + B * S * KV * D].view(B, S, KV, D)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.flash_decode(q, shifted.transpose(1, 2), v, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-moe-16b",
+                                  "llava-next-mistral-7b", "whisper-base"])
+def test_cuda_decode_step_kernel_equals_plain(arch):
+    """One reduced-config decode step per family that reaches
+    ``decode_attention``, on the card under ``attn_impl="flash"``: the
+    logits equal those of the same step with ``flash_decode`` swapped for
+    its plain version (bf16, 2e-2 of the row scale), the caches written
+    are equal bit for bit, and ``flash_decode`` launches once per layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models.registry import get_api
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(arch).reduced(), attn_impl="flash")
+    api = get_api(cfg)
+    model = api.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = make_batch(cfg, 4, 12, np.random.default_rng(0), dev)
+    tok = batch["tokens"][:, :1]
+    with torch.no_grad():
+        cache, _ = api.prefill(model, batch, cfg, 20)
+        plain_cache = {k: v.clone() for k, v in cache.items()}
+        _build.reset_launches()
+        cache, logits = api.decode(model, cache, tok, cfg)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_decode"] == cfg.n_layers
+        real = ops._da.flash_decode
+        ops._da.flash_decode = da.flash_decode_plain
+        try:
+            plain_cache, plain_logits = api.decode(model, plain_cache, tok, cfg)
+        finally:
+            ops._da.flash_decode = real
+    _assert_row_close(logits[:, 0], plain_logits[:, 0], 2e-2)
+    for key in ("k", "v"):
+        assert torch.equal(cache[key], plain_cache[key]), key

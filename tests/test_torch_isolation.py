@@ -21,6 +21,10 @@ MODULES = ["repro_torch.core.frame", "repro_torch.core.window",
            "repro_torch.models.config", "repro_torch.models.layers",
            "repro_torch.models.attention", "repro_torch.models.transformer",
            "repro_torch.models.registry", "repro_torch.models.convert",
+           "repro_torch.models.moe", "repro_torch.models.ssm",
+           "repro_torch.models.hybrid", "repro_torch.models.hybrid_groups",
+           "repro_torch.models.rwkv", "repro_torch.models.whisper",
+           "repro_torch.models.steps", "repro_torch.launch.serve",
            "repro_torch.udf.model_udf"]
 
 

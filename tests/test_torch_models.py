@@ -162,13 +162,26 @@ def test_full_paper_lm_config_is_the_published_one():
 
 
 def test_other_families_wait():
+    """Every family serves now; what waits for ROADMAP A10 (training) is
+    the loss of every family, the train and eval steps, and the flash
+    backward (B7)."""
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import steps
     from repro_torch.models.registry import get_api
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        get_api(get_config("rwkv6-1.6b"))
-    api = get_api(get_config("paper-lm").reduced())
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            get_api(cfg).loss(None, {"tokens": None}, cfg)
+    cfg = get_config("paper-lm").reduced()
+    for make in (steps.make_train_step, steps.make_eval_step):
+        with pytest.raises(NotImplementedError, match="A10"):
+            make(cfg)
+    q = torch.zeros((1, 2, 4, 16), requires_grad=True)
+    out = ops.flash_attention(q, q.detach(), q.detach(), True)
     with pytest.raises(NotImplementedError, match="A10"):
-        api.decode()
+        out.sum().backward()
 
 
 def test_lm_from_jax_without_a_device_needs_the_card(monkeypatch):

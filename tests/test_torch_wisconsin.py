@@ -28,8 +28,8 @@ from repro_torch.engine.session import Session as TSession
 from repro_torch.engine.table import ColumnMeta as TMeta
 from repro_torch.engine.table import Table as TTable
 from repro_torch.kernels import ops
+from repro_torch.models import steps
 from repro_torch.models.registry import get_api
-from repro_torch.models.transformer import embed_input, init_lm
 
 N_ROWS = 8_192
 
@@ -349,17 +349,23 @@ def test_session_without_a_card_raises():
         TSession(mode="kernel", device="cuda")
 
 
+def _flash_backward(s, t):
+    q = torch.zeros((1, 2, 4, 16), requires_grad=True)
+    ops.flash_attention(q, q.detach(), q.detach(), True).sum().backward()
+
+
 @pytest.mark.parametrize("call", [
     lambda s, t: get_api(get_config("paper-lm")).loss(),
-    lambda s, t: get_api(get_config("paper-lm")).decode(),
-    lambda s, t: init_lm(get_config("deepseek-moe-16b"), torch.Generator()),
-    lambda s, t: embed_input(None, None, get_config("paper-lm"), patches=object()),
+    lambda s, t: steps.make_train_step(get_config("paper-lm")),
+    lambda s, t: get_api(get_config("deepseek-moe-16b").reduced()).loss(),
+    _flash_backward,
 ])
 def test_features_of_later_slices_raise(call):
-    """Training, decode serving, MoE weights and patch prefixes (A10)
-    raise, naming their ROADMAP item; durability (A8) and meshes with
-    shard_map (A9) have landed (tests/test_torch_durability.py,
-    tests/test_torch_distributed.py)."""
+    """Training (A10: the losses, the train step, the flash backward)
+    raises, naming its ROADMAP item; decode serving, MoE weights and patch
+    prefixes have landed (tests/test_torch_families.py,
+    tests/test_torch_serving.py), as have durability (A8) and meshes with
+    shard_map (A9)."""
     sess = TSession(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(sess, tw.generate(100, seed=0))
