@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py            # Wisconsin at 5,000,000 rows; the
                                      # model UDF over 32,768 x 128 tokens;
                                      # qwen3-1.7b serving 8 x (4,096 + 64)
+                                     # and training on 4 x 2,048 tokens
 
 Phases (any mismatch raises; nothing is caught):
   1. header — the card's name and power limit; build the CUDA kernels from
@@ -30,6 +31,13 @@ Phases (any mismatch raises; nothing is caught):
      bf16 causal, strided), and decode lengths 0, 1, each side of a slice edge, S,
      and every length = S, also on the serving path's layout (the
      (B,KV,S,D) views of a (B,S,KV,D) cache layer) at the serve shape;
+     and the flash backward (B7, ``flash_attention_bwd``) on the
+     reference's sweep (D 16-128, float32 and bf16, causal and not), GQA
+     at S=1024, ragged S on strided views and the training shape (B 4, H
+     16, KV 8, S 2,048, D 128, bf16 causal, strided): dq, dk and dv each
+     within BWD_TOL of its scale, two planted faults refused (dk and dv
+     without one q head of the group, dq doubled), two launches equal bit
+     for bit;
   3. the first slice: the paper's 12 Wisconsin expressions through AFrame →
      Session(mode="kernel"), 3 rounds of randomized literals, held against
      the port's gspmd mode and a numpy oracle (dtypes included), plus two
@@ -163,6 +171,29 @@ Phases (any mismatch raises; nothing is caught):
      decode steps, prefill(n) + decode(1) == prefill(n + 1), finite
      logits, and the flash_mha_fwd / flash_decode launches each family's
      attention layers make.
+ 11. training: qwen3-1.7b at its published config (2.03B float32
+     parameters; with gradients and AdamW's m and v 32.5 GB) takes
+     TRAIN_STEPS train steps through ``steps.init_train_state`` and
+     ``steps.make_train_step`` (attn_impl="flash", remat on, AdamW) on one
+     seeded batch of 4 x 2,048 tokens: launch counts zeroed just before
+     the steps and read just after, 2 x 28 flash_mha_fwd (the forward and
+     remat's recomputation) and 28 flash_attention_bwd a step; the loss
+     finite and falling. Its first step is held against the same step on
+     the blocked path (plain autograd, the reference's default) from the
+     same weights — loss, grad norm, every parameter's gradient and every
+     layer's dq / dk / dv within TRAIN_TOL (the weight update printed) —
+     each of its 28 flash_attention_bwd calls against the plain version on
+     the inputs the step gave it, and a fault planted in the backward
+     kernel (dq doubled; one q head dropped) must move the step past those
+     limits. Printed beside the card: each step's wall, the median after
+     the first, tokens/s, peak memory over the steps after the first
+     (which carry no checks), one step's device time by kind
+     (flash_attention_bwd, flash_mha_fwd, GEMMs, the optimizer, copies and
+     casts, the rest) and the busy share; B7 alone at the training shape
+     (the ``kernels`` line's row). Then one train step of
+     deepseek-moe-16b and llava-next-mistral-7b (cut to 4 layers),
+     zamba2-1.2b, rwkv6-1.6b and whisper-base at their published widths on
+     2 x 512 tokens: a finite loss, gradients and updated weights.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -202,6 +233,14 @@ MARGIN = 0.1
 DECODE_SHAPE = (32, 8, 4096, 64)   # B, H, S, D of the flash_decode checks
 BREAKDOWN = ("3_filter_count", "9_sort_head", "11_range_count")
 TRACE_TRIES = 6             # profiler traces taken before a kernel's absence fails
+# flash_attention_bwd vs its plain version, each gradient's max abs error
+# over its own largest |value|: float32 sums the same float32 terms in
+# another order (up to 3.3e-6 measured); bf16 meets the second products
+# with p and ds rounded to bf16 (up to 0.76% measured; NVIDIA H100 80GB
+# HBM3, 700 W). A dropped head or a doubled dq is off by 34% to 100%.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dq_bf16_kernel",
+               "flash_bwd_dkdv_bf16_kernel")
 
 
 def nvidia_smi() -> str:
@@ -878,6 +917,87 @@ def check_attention_kernels(dev) -> dict:
     torch.cuda.synchronize()
     return {"flash_mha_fwd": main, "flash_mha_fwd_contiguous": contiguous,
             **decode, "errs": errs}
+
+
+def check_flash_backward(dev) -> dict:
+    """flash_attention_bwd (B7) against its plain version on the card:
+    the reference's sweep shapes (D 16-128, float32 and bf16, causal and
+    not), GQA at S=1024, ragged S on strided (B,S,H,D) views, and the
+    training shape (B 4, H 16, KV 8, S 2,048, D 128, bf16 causal, strided).
+    Unit-scale inputs; each of dq, dk, dv within BWD_TOL x its own largest
+    |value|; the same check must refuse the plain version run with two
+    planted faults (dk and dv without the terms of one q head of its
+    group, and dq at twice its scale), and a second launch must give the
+    same bits (no atomics). Returns the training shape's operands and the
+    largest error relative to scale."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = 0.0
+
+    def rand(shape, dtype, strided):
+        if strided:  # (B,H,S,D) views of (B,S,H,D), as attention_core hands over
+            b, h, s, d = shape
+            return torch.randn((b, s, h, d), generator=gen, device=dev) \
+                .to(dtype).transpose(1, 2)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def rel_errs(got, want):
+        return [float((g.float() - w.float()).abs().max())
+                / float(w.float().abs().max()) for g, w in zip(got, want)]
+
+    def case(label, B, H, KV, S, D, dtype, causal, strided=False):
+        nonlocal worst
+        q, do = rand((B, H, S, D), dtype, strided), rand((B, H, S, D), dtype, strided)
+        k, v = rand((B, KV, S, D), dtype, strided), rand((B, KV, S, D), dtype, strided)
+        out, lse = fa.flash_mha_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+        tol = BWD_TOL[str(dtype)[6:]]
+        errs = rel_errs(got, want)
+        if not all(torch.isfinite(g).all() for g in got) or max(errs) > tol:
+            raise AssertionError(f"flash_attention_bwd {label}: dq, dk, dv "
+                                 f"errors {errs} x scale beyond {tol}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {label}: two launches differ")
+        dropped = do.clone()
+        dropped[:, H // KV - 1] = 0  # the group's last head: gone from dk, dv
+        bad = fa.flash_attention_bwd_plain(q, k, v, out, lse, dropped,
+                                           causal=causal)
+        faults = {"dk, dv without one head of the group": max(rel_errs(bad[1:], want[1:])),
+                  "dq at twice its scale": rel_errs([2 * want[0]], want[:1])[0]}
+        if min(faults.values()) <= tol:
+            raise AssertionError(f"flash_attention_bwd {label}: the check passes "
+                                 f"a planted fault: {faults}")
+        worst = max(worst, *errs)
+        print(f"  flash_attention_bwd {label}: dq, dk, dv max abs err "
+              + ", ".join(f"{e:.3g}" for e in errs) + f" x scale (tolerance {tol}; "
+              "planted faults " + ", ".join(f"{e:.3g}" for e in faults.values())
+              + "; repeat bit-equal)", flush=True)
+        return q, k, v, out, lse, do
+
+    for B, H, KV, S, D in [(1, 2, 2, 128, 16), (2, 4, 2, 256, 32),
+                           (1, 8, 1, 64, 64), (2, 4, 2, 192, 128)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                case(f"sweep ({B},{H},{KV},{S},{D}) {str(dtype)[6:]} "
+                     f"causal={causal}", B, H, KV, S, D, dtype, causal)
+    case("GQA S=1024 bf16 causal", 2, 8, 2, 1024, 64, torch.bfloat16, True)
+    case("GQA S=1024 D=128 f32", 2, 8, 2, 1024, 128, torch.float32, False)
+    case("ragged S=1000 bf16 causal, strided", 3, 8, 8, 1000, 64,
+         torch.bfloat16, True, strided=True)
+    case("ragged S=77 D=128 bf16, strided", 2, 4, 2, 77, 128, torch.bfloat16,
+         False, strided=True)
+    case("ragged S=77 f32 causal", 2, 4, 2, 77, 32, torch.float32, True)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    train = case(f"training shape ({B}, 16, 8, {S}, 128) bf16 causal, strided "
+                 "(B,S,H,D) views", B, 16, 8, S, 128, torch.bfloat16, True,
+                 strided=True)
+    torch.cuda.synchronize()
+    return {"flash_attention_bwd": train, "err": worst}
 
 
 # -- phase 4: the model-UDF slice ----------------------------------------------------
@@ -2834,17 +2954,24 @@ def _p(xs: list, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
+def _by_kind(rows, table) -> dict:
+    """Device ms of (name, ms, records) ``rows`` summed by the first kind
+    of ``table`` ((kind, name patterns), ...) a name matches, the rest
+    under "other"."""
+    kinds = {name: 0.0 for name, _ in table}
+    kinds["other"] = 0.0
+    for key, ms, _ in rows:
+        kinds[next((name for name, pats in table
+                    if any(p in key for p in pats)), "other")] += ms
+    return kinds
+
+
 def _step_breakdown(fn) -> dict:
     """One profiled decode step's device ms by kind (flash_decode, GEMMs,
     copies and casts, the rest: the cache write's products and sums and
     the other elementwise work) and the top kernels by name."""
     rows = device_breakdown(fn, top=1000)
-    kinds = {name: 0.0 for name, _ in STEP_KERNELS}
-    kinds["other"] = 0.0
-    for key, ms, _ in rows:
-        kind = next((name for name, pats in STEP_KERNELS
-                     if any(p in key for p in pats)), "other")
-        kinds[kind] += ms
+    kinds = _by_kind(rows, STEP_KERNELS)
     return {"by_kind": kinds, "total": sum(kinds.values()), "top": rows[:12]}
 
 
@@ -3294,6 +3421,504 @@ def run_family(arch: str, layers, dev, seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 11: training --------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"   # the slice's first training path, at its published width
+TRAIN_BATCH = 4             # sequences a step
+TRAIN_SEQ = 2_048           # tokens a sequence: 8,192 a step
+TRAIN_STEPS = 5             # the main path's steps, on one repeated batch
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=0, total_steps=1_000)
+# Flash (flash_mha_fwd + flash_attention_bwd) vs blocked (plain autograd,
+# the reference's default) after one step from the same weights: bf16
+# rounds at other places in the two attention paths (P.V and ds.K on the
+# tensor cores in bf16, the einsum in float32 then bf16), which compounds
+# over 28 layers. The gate holds the loss, the global grad norm, every
+# parameter's gradient before the clip and dq / dk / dv at every layer
+# (each by its relative L2 difference, the worst leaf or layer and
+# tensor); PERF.md gives each limit
+# beside its reading on the card and the planted faults' readings. The
+# relative L2 of the weight update is printed, not held: AdamW's first
+# step is about sign(g) x lr, so every element whose gradient is rounding
+# noise moves a full step either way.
+TRAIN_TOL = {"loss": 1e-3,          # relative
+             "grad_norm": 1e-2,     # relative
+             "grads": 0.1,          # worst leaf: |g_flash - g_blocked| / |g_blocked|
+             "dqkv": 0.1}           # worst layer and tensor, the same ratio
+FAMILY_TRAIN_SEQ = 512      # tokens a sequence of the other families' step (x FAMILY_BATCH)
+TRAIN_KINDS = (("flash_attention_bwd", ("flash_bwd_",)),
+               ("flash_mha_fwd", ("flash_fwd_",)),
+               ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
+               ("copy / cast", ("copy", "Copy")))
+
+
+@contextlib.contextmanager
+def captured_qkv_grads(n_layers: int, out: dict, ref: dict | None = None):
+    """The gradients of every layer's q, k and v projections (the
+    (B,S,H,D) tensors ``attention_core`` takes, after qk-norm and rope):
+    dq, dk and dv of its attention, whichever path computes them. A tensor
+    hook on the forward's own tensors (the first ``n_layers`` calls of a
+    step; remat's recomputations come later) fires as the backward passes
+    them. Without ``ref`` each gradient is kept on the card under
+    ``out[(layer, name)]``; with it (a dict so filled) ``out`` gets the
+    gradient's relative L2 difference from ``ref``'s, a 0-d tensor on the
+    card. Adds no launch."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+
+    real = attn.attention_core
+    calls = [0]
+
+    def keep(key, g):
+        g = g.detach()
+        if ref is None:
+            out[key] = g.clone()
+        else:
+            want = ref[key].float()
+            out[key] = torch.linalg.vector_norm(g.float() - want) \
+                / torch.linalg.vector_norm(want).clamp_min(1e-30)
+
+    def core(q, k, v, *a, **kw):
+        if calls[0] < n_layers:
+            for name, t in (("dq", q), ("dk", k), ("dv", v)):
+                t.register_hook(lambda g, key=(calls[0], name): keep(key, g))
+        calls[0] += 1
+        return real(q, k, v, *a, **kw)
+
+    transformer.attention_core = core
+    try:
+        yield out
+    finally:
+        transformer.attention_core = real
+
+
+@contextlib.contextmanager
+def captured_grads(model, out: dict, ref: dict | None = None):
+    """Every parameter's gradient as the train step hands it to
+    ``adamw_update`` (before the clip). Without ``ref`` each is kept on the
+    card under ``out[name]``; with it ``out[name]`` is the relative L2
+    difference from ``ref[name]``, a 0-d tensor on the card."""
+    import torch
+
+    from repro_torch.models import steps
+
+    real = steps.adamw_update
+
+    def update(*a, **kw):
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if p.grad is None:
+                    continue
+                if ref is None:
+                    out[name] = p.grad.detach().clone()
+                else:
+                    want = ref[name]
+                    out[name] = torch.linalg.vector_norm(p.grad - want) \
+                        / torch.linalg.vector_norm(want).clamp_min(1e-30)
+        return real(*a, **kw)
+
+    steps.adamw_update = update
+    try:
+        yield out
+    finally:
+        steps.adamw_update = real
+
+
+@contextlib.contextmanager
+def checking_bwd(stats: dict):
+    """Every ``flash_attention_bwd`` call the step makes is held at once
+    against ``flash_attention_bwd_plain`` on the same q, k, v, out, lse
+    and dO (the strided views, remat's recomputed lse, dO as the chunked
+    CE's backward hands it): each of dq, dk and dv within
+    BWD_TOL["bfloat16"] of its own largest |value|, as phase 2. The
+    verdicts stay on the card until the block ends; ``stats`` gets
+    "calls", "bad" and "max_err" (relative to scale). Adds no launch."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    real = fa.flash_attention_bwd
+    rows = []
+
+    def checked(q, k, v, out, lse, do, **kw):
+        got = real(q, k, v, out, lse, do, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        errs = torch.stack([(g.float() - w.float()).abs().max()
+                            / w.float().abs().max() for g, w in zip(got, want)])
+        rows.append(errs.max())
+        return got
+
+    fa.flash_attention_bwd = checked
+    try:
+        yield stats
+    finally:
+        fa.flash_attention_bwd = real
+    errs = torch.stack(rows).cpu() if rows else torch.zeros(0)
+    stats["calls"] = len(rows)
+    stats["bad"] = int((errs > BWD_TOL["bfloat16"]).sum())
+    stats["max_err"] = float(errs.max()) if rows else float("nan")
+
+
+def _worst(diffs: dict) -> tuple:
+    """The largest of a dict of 0-d tensors on the card: (key, value)."""
+    import torch
+
+    keys = list(diffs)
+    vals = torch.stack([diffs[k].float() for k in keys]).cpu()
+    i = int(vals.argmax())
+    return keys[i], float(vals[i])
+
+
+@contextlib.contextmanager
+def planted_bwd(fault: str):
+    """``flash_attention_bwd`` with a planted fault, as phase 2's: ``"scale"``
+    returns dq at twice its value; ``"head"`` drops the group's last q head
+    from the cotangent (its terms vanish from dk and dv, and its dq)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    real = fa.flash_attention_bwd
+
+    def bad(q, k, v, out, lse, do, **kw):
+        if fault == "head":
+            do = do.clone()
+            do[:, q.shape[1] // k.shape[1] - 1] = 0
+        dq, dk, dv = real(q, k, v, out, lse, do, **kw)
+        return (2 * dq if fault == "scale" else dq), dk, dv
+
+    fa.flash_attention_bwd = bad
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd = real
+
+
+def _train_breakdown(fn) -> dict:
+    """One profiled train step's device ms by kind: the kernels by name
+    (TRAIN_KINDS), the optimizer as the device time of the kernels
+    ``adamw_update`` launched (a ``record_function`` range around it; its
+    kernels are elementwise and foreach ones, taken out of "other"), the
+    rest under "other"; and the top kernels by name. A trace that holds no
+    kernel record is taken again, up to ``TRACE_TRIES`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import steps
+
+    real = steps.adamw_update
+
+    def ranged(*a, **kw):
+        with record_function("adamw_update"):
+            return real(*a, **kw)
+
+    steps.adamw_update = ranged
+    try:
+        for _ in range(TRACE_TRIES):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                fn()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            # the range itself also shows as a device-side record spanning
+            # its kernels (gaps included): not a kernel, left out
+            rows = sorted([(e.key, e.self_device_time_total / 1e3, e.count)
+                           for e in events
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and e.self_device_time_total > 0
+                           and e.key != "adamw_update"], key=lambda r: -r[1])
+            if rows:
+                break
+    finally:
+        steps.adamw_update = real
+    opt_ms = sum(e.device_time_total for e in events if e.key == "adamw_update"
+                 and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    kinds = _by_kind(rows, TRAIN_KINDS)
+    kinds["optimizer"] = opt_ms
+    kinds["other"] -= opt_ms
+    return {"by_kind": kinds, "total": sum(kinds.values()),
+            "top": [[k[:200], ms, n] for k, ms, n in rows[:12]]}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def run_training(dev, seed: int, card: str, bwd_case: dict) -> dict:
+    """Phase 11: qwen3-1.7b at its published config takes train steps
+    through ``steps.init_train_state`` / ``steps.make_train_step``
+    (attn_impl="flash", remat on, AdamW) on one seeded batch of
+    TRAIN_BATCH x TRAIN_SEQ tokens; then one step of each other family
+    at phase 10's cut depths. Returns the phase's numbers and B7's row of
+    the ``kernels`` line."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import optim, steps
+
+    cfg = _serve_cfg(TRAIN_ARCH, "flash")
+    check_published(cfg)
+    if not cfg.remat:
+        raise AssertionError(f"{TRAIN_ARCH}: remat is off")
+    blocked = _serve_cfg(TRAIN_ARCH, "blocked")
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    t0 = time.perf_counter()
+    model, state = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(seed))
+    params = list(model.parameters())
+    w0 = [p.detach().to("cpu", copy=True) for p in params]
+    batch = serve.make_batch(cfg, B, S, np.random.default_rng(seed), dev)
+    n_params = sum(p.numel() for p in params)
+    opt_cfg = optim.OptimConfig(**TRAIN_OPT)
+    print(f"  {TRAIN_ARCH}: {n_params:,} float32 parameters ({n_params * 4 / 1e9:.2f} "
+          f"GB; with grads and AdamW m, v {n_params * 16 / 1e9:.2f} GB), "
+          f"batch {B} x {S} tokens, remat on, loss_chunk {cfg.loss_chunk}, "
+          f"{opt_cfg}; set up in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def reset():
+        with torch.no_grad():
+            for p, w in zip(params, w0):
+                p.copy_(w)
+            for mom in (state["m"], state["v"]):
+                for t in mom.values():
+                    t.zero_()
+            state["step"].zero_()
+
+    # blocked (the reference's default path, plain autograd) from W0: its
+    # gradients and every layer's dq / dk / dv stay on the card as the
+    # reference the flash steps are held to
+    step_b = steps.make_train_step(blocked, opt_cfg)
+    qkv_b: dict = {}
+    grads_b: dict = {}
+    with captured_qkv_grads(L, qkv_b), captured_grads(model, grads_b):
+        _, _, met_b = step_b(model, state, batch)
+    w1_b = [p.detach().to("cpu", copy=True) for p in params]
+    met_b = {k: float(v) for k, v in met_b.items()}
+
+    def against_blocked(met: dict, qkv: dict, grads: dict) -> dict:
+        """One flash step's distances from blocked's, each a TRAIN_TOL key
+        (the worst leaf and layer named beside), and the update's."""
+        qkv_at, qkv_v = _worst(qkv)
+        leaf, grads_v = _worst(grads)
+        return {"loss": _rel(met["loss"], met_b["loss"]),
+                "grad_norm": _rel(met["grad_norm"], met_b["grad_norm"]),
+                "grads": grads_v, "dqkv": qkv_v,
+                "update": _update_rel(params, w0, w1_b),
+                "worst_leaf": leaf, "worst_qkv": f"layer {qkv_at[0]} {qkv_at[1]}"}
+
+    # a planted fault in the backward kernel, each from W0
+    step_f = steps.make_train_step(cfg, opt_cfg)
+    moved = {}
+    for fault in ("scale", "head"):
+        reset()
+        qkv, grads = {}, {}
+        with planted_bwd(fault), captured_qkv_grads(L, qkv, qkv_b), \
+                captured_grads(model, grads, grads_b):
+            _, _, m = step_f(model, state, batch)
+        moved[fault] = against_blocked({k: float(v) for k, v in m.items()},
+                                       qkv, grads)
+    reset()
+
+    # the main path: TRAIN_STEPS flash steps from W0, launch counts zeroed
+    # just before and read just after; step 1 is held against blocked's,
+    # and each of its flash_attention_bwd calls against the plain version
+    torch.cuda.synchronize()
+    qkv_f: dict = {}
+    grads_f: dict = {}
+    bwd_stats: dict = {}
+    losses, walls, per_step = [], [], []
+    _build.reset_launches()
+    for i in range(TRAIN_STEPS):
+        before = dict(_build.LAUNCHES)
+        t1 = time.perf_counter()
+        with contextlib.ExitStack() as held:
+            if i == 0:
+                held.enter_context(captured_qkv_grads(L, qkv_f, qkv_b))
+                held.enter_context(captured_grads(model, grads_f, grads_b))
+                held.enter_context(checking_bwd(bwd_stats))
+            _, _, m = step_f(model, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        per_step.append({k: _build.LAUNCHES[k] - before[k]
+                         for k in ("flash_mha_fwd", "flash_attention_bwd")})
+        m = {k: float(v) for k, v in m.items()}
+        losses.append(m["loss"])
+        if i == 0:
+            met_f = m
+            diffs = against_blocked(m, qkv_f, grads_f)
+            # the references go before the peak is taken over the steps
+            # that carry no checks
+            del qkv_b, grads_b, qkv_f, grads_f
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_mha_fwd": 2 * L, "flash_attention_bwd": L}
+    if any(s != want for s in per_step):
+        raise AssertionError(f"train launches per step {per_step}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {losses}: not finite and falling")
+    print(f"  step 1's {bwd_stats['calls']} flash_attention_bwd calls (the "
+          f"step's own q, k, v, out, lse, dO) == plain: worst dq / dk / dv "
+          f"max abs err {bwd_stats['max_err']:.3e} x scale (tolerance "
+          f"{BWD_TOL['bfloat16']}), {bwd_stats['bad']} beyond", flush=True)
+    if bwd_stats["calls"] != L or bwd_stats["bad"]:
+        raise AssertionError(f"step 1's flash_attention_bwd vs plain: {bwd_stats}, "
+                             f"want {L} calls, none beyond {BWD_TOL['bfloat16']}")
+
+    def show(d: dict) -> str:
+        return (f"loss {d['loss']:.2e}, grad norm {d['grad_norm']:.2e}, "
+                f"grads {d['grads']:.3e} (worst leaf {d['worst_leaf']}), dq / dk "
+                f"/ dv {d['dqkv']:.3e} ({d['worst_qkv']}), update {d['update']:.3e}")
+    print(f"  step 1 flash vs blocked from the same weights: loss "
+          f"{met_f['loss']:.5f} / {met_b['loss']:.5f}, grad norm "
+          f"{met_f['grad_norm']:.5f} / {met_b['grad_norm']:.5f}; " + show(diffs)
+          + f" (limits {TRAIN_TOL}; the update printed only)", flush=True)
+    for f, mv in moved.items():
+        print(f"  planted fault in flash_attention_bwd ({f}), vs blocked: "
+              + show(mv) + " (must pass a limit)", flush=True)
+    if any(diffs[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+        raise AssertionError(f"flash vs blocked step: {diffs} beyond {TRAIN_TOL}")
+    for f, mv in moved.items():
+        if all(mv[k] <= TRAIN_TOL[k] for k in TRAIN_TOL):
+            raise AssertionError(f"a planted fault ({f}) moved the step by {mv}, "
+                                 f"within {TRAIN_TOL}")
+    tok_s = B * S / statistics.median(walls[1:])
+    print(f"  main path ({TRAIN_STEPS} train steps, flash): launches per step "
+          f"{per_step[0]} = 2 x {L} flash_mha_fwd (forward + remat) and {L} "
+          f"flash_attention_bwd; total { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]} (falling); step wall "
+          f"[{card}] {[round(w * 1e3, 1) for w in walls]} ms, median after the "
+          f"first {statistics.median(walls[1:]) * 1e3:.1f} ms, {tok_s:.0f} tokens/s; "
+          f"peak memory {peak_gb:.2f} GB (max_memory_allocated)", flush=True)
+    # one more step, profiled: device time by kind
+    bd = _train_breakdown(lambda: step_f(model, state, batch))
+    step_ms = statistics.median(walls[1:]) * 1e3
+    print(f"  one step's device time [{card}]: {bd['total']:.1f} ms of "
+          f"{step_ms:.1f} ms wall (busy {bd['total'] / step_ms:.0%}); by kind: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in bd["by_kind"].items()), flush=True)
+    for key, kms, n in bd["top"]:
+        print(f"      {kms:9.3f} ms {n:5d} records  {key}", flush=True)
+    del model, state, params, w0, w1_b
+    torch.cuda.empty_cache()
+
+    row = time_flash_backward(bwd_case, launches["flash_attention_bwd"])
+    print_kernel_row(row)
+
+    families = {}
+    for arch, layers in FAMILY_CELLS:
+        families[arch] = train_family(arch, layers, dev, seed, card)
+    return {"arch": TRAIN_ARCH, "batch": B, "seq": S, "steps": TRAIN_STEPS,
+            "optim": TRAIN_OPT, "losses": losses, "step_wall_ms": [w * 1e3 for w in walls],
+            "step_ms_median": step_ms, "tokens_per_s": tok_s,
+            "peak_memory_gb": peak_gb, "launches": launches,
+            "launches_per_step": per_step[0], "flash_vs_blocked": diffs,
+            "bwd_vs_plain": bwd_stats, "planted": moved, "breakdown": bd,
+            "row": row, "families": families}
+
+
+def _update_rel(params, w0, w1_ref) -> float:
+    """|(W - W0) - (W1_ref - W0)| / |W1_ref - W0| over every weight (L2),
+    W the parameters now on the card; W0 and W1_ref host copies."""
+    import torch
+
+    num = den = 0.0
+    with torch.no_grad():
+        for p, a, b in zip(params, w0, w1_ref):
+            ref = (b - a).to(p.device)
+            num += float((p - a.to(p.device) - ref).square().sum())
+            den += float(ref.square().sum())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def time_flash_backward(case: dict, launches: int) -> dict:
+    """B7's row of the ``kernels`` line at the training shape (phase 2's
+    operands): the kernel alone (its three kernels' records), its plain
+    version, and the library call: the backward of SDPA (GQA, causal) on
+    contiguous copies, ``torch.autograd.grad`` of an output it computed
+    once. Bound: the larger of 2.5 x the causal forward's operations at
+    the bf16 tensor-core rate and the bytes of q, k, v, out, dO, lse read
+    once and dq, dk, dv written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, out, lse, do = case["flash_attention_bwd"]
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    del got, want
+    qc, kc, vc = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+    ref_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                             enable_gqa=True)
+    doc = do.contiguous()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
+    ops = 2.5 * 2 * 2 * B * H * S * S * D / 2
+    row = _timed("flash_attention_bwd", BWD_KERNELS,
+                 lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+                 lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                      causal=True),
+                 lambda: torch.autograd.grad(ref_out, (qc, kc, vc), doc,
+                                             retain_graph=True),
+                 nbytes, ops, err, launches,
+                 f"training shape: q, out, dO ({B}, {H}, {S}, {D}), k, v ({B}, "
+                 f"{KV}, {S}, {D}) bf16 causal, (B,H,S,D) views of (B,S,H,D)",
+                 ops_per_s=BF16_OPS_PER_S)
+    del ref_out, qc, kc, vc
+    return row
+
+
+def train_family(arch: str, layers, dev, seed: int, card: str) -> dict:
+    """One train step of ``arch`` at its published widths (depth cut where
+    ``layers`` is given) on FAMILY_BATCH x FAMILY_TRAIN_SEQ tokens: a
+    finite loss, a finite grad norm (every gradient finite) and finite
+    updated weights, through the MoE dispatch, the SSD scan, WKV6 and the
+    cross-attention on the card. The model, its gradients and its AdamW
+    state are freed before the next family."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import optim, steps
+
+    cfg = _serve_cfg(arch, "flash", layers)
+    t0 = time.perf_counter()
+    model, state = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(seed))
+    batch = serve.make_batch(cfg, FAMILY_BATCH, FAMILY_TRAIN_SEQ,
+                             np.random.default_rng(seed), dev)
+    step = steps.make_train_step(cfg, optim.OptimConfig(**TRAIN_OPT))
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t1 = time.perf_counter()
+    _, _, m = step(model, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    m = {k: float(v) for k, v in m.items()}
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    if not (finite and math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+        raise AssertionError(f"{arch} train step: {m}, weights finite {finite}")
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    n = sum(p.numel() for p in model.parameters())
+    out = {"layers": cfg.n_layers, "params": n, "loss": m["loss"],
+           "grad_norm": m["grad_norm"], "step_ms": wall * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "setup_s": t1 - t0}
+    del model, state
+    torch.cuda.empty_cache()
+    print(f"  {arch} ({cfg.n_layers} layers, {n:,} parameters) [{card}]: one "
+          f"train step on {FAMILY_BATCH} x {FAMILY_TRAIN_SEQ} tokens, loss "
+          f"{m['loss']:.4f}, grad norm {m['grad_norm']:.4f} (finite, weights "
+          f"finite), {wall * 1e3:.1f} ms, peak {out['peak_memory_gb']:.1f} GB; "
+          f"launches {launches}", flush=True)
+    return out
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -3437,7 +4062,8 @@ SOURCES = {"filter_count": "filter_count.cu", "segment_agg": "segment_agg.cu",
            "block_topk": "topk_mask.cu", "topk_merge": "topk_mask.cu",
            "merge_join_count": "merge_join.cu",
            "flash_mha_fwd": "flash_attention.cu",
-           "flash_decode": "decode_attention.cu"}
+           "flash_decode": "decode_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 REPLACES = {"filter_count": "src/repro/kernels/filter_count.py:97",
             "segment_agg": "src/repro/kernels/segment_agg.py:103",
             "block_topk": "src/repro/kernels/topk_mask.py:39",
@@ -3445,7 +4071,9 @@ REPLACES = {"filter_count": "src/repro/kernels/filter_count.py:97",
             "topk_merge": "src/repro/kernels/topk_mask.py:73",
             "merge_join_count": "src/repro/kernels/merge_join.py:46",
             "flash_mha_fwd": "src/repro/kernels/flash_attention.py:73",
-            "flash_decode": "src/repro/kernels/decode_attention.py:61"}
+            "flash_decode": "src/repro/kernels/decode_attention.py:61",
+            # not Pallas: the jnp custom_vjp backward of flash_mha_fwd
+            "flash_attention_bwd": "src/repro/kernels/ops.py:297"}
 
 
 SEGMENT_AGG_KERNELS = ("segment_agg_partial_kernel", "segment_agg_merge_kernel")
@@ -3644,6 +4272,7 @@ def main(argv=None) -> int:
     print("phase 2: kernels vs plain versions on the card", flush=True)
     cases = check_kernels(raw, dev)
     attn_cases = check_attention_kernels(dev)
+    bwd_cases = check_flash_backward(dev)
 
     print(f"phase 3: the 12 Wisconsin expressions at {ROWS} rows", flush=True)
     res = run_slice(table, raw, dev)
@@ -3746,6 +4375,17 @@ def main(argv=None) -> int:
         print_kernel_row(k)
     kernels.append(serving.pop("row"))
     variants += decode_rows
+    print(f"phase 11: training — {TRAIN_ARCH} at its published config, "
+          f"{TRAIN_STEPS} train steps on {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"(flash, remat, AdamW), against blocked; then one step of "
+          f"{', '.join(a for a, _ in FAMILY_CELLS)} at {FAMILY_BATCH} x "
+          f"{FAMILY_TRAIN_SEQ}", flush=True)
+    t0 = time.perf_counter()
+    training = run_training(dev, args.seed, card, bwd_cases)
+    training["seconds"] = time.perf_counter() - t0
+    bwd_row = training.pop("row")
+    bwd_row["max_abs_err_rel"] = bwd_cases["err"]
+    kernels.append(bwd_row)
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -3755,7 +4395,7 @@ def main(argv=None) -> int:
                               "flash_launches_per_pass": udf["flash_per_pass"],
                               "rows_within_margin": udf["rows_near_margin"],
                               "rows_flash_vs_blocked_differ": udf["rows_differ"]},
-                      "serving": serving,
+                      "serving": serving, "training": training,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

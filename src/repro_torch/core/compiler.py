@@ -45,6 +45,7 @@ from repro_torch.core.expr import collect_params, param_values
 from repro_torch.core.stats import mesh_shards
 from repro_torch.core.window import execute_window
 from repro_torch.engine import physical
+from repro_torch.engine.distributed import ShardBlocks
 from repro_torch.engine.index import _search
 from repro_torch.engine.table import encode_strings, is_lane_column
 from repro_torch.runtime import telemetry as tel
@@ -594,7 +595,6 @@ def _lower_kernel_segment_agg(node: PH.KernelSegmentAgg, ctx: ExecContext,
             continue
         ids, zb, nsh, bp, rps = blk
         if nsh > 1:
-            from repro_torch.engine.distributed import ShardBlocks
             from repro_torch.kernels import ops
             from repro_torch.kernels.segment_agg import BLOCK as _SA_BLOCK
             resolved.append((None, ShardBlocks(ops.shard_block_arrays(
@@ -749,7 +749,6 @@ def _lower_kernel_range_count(node: PH.KernelRangeCount, ctx: ExecContext) -> Ca
     shard_blocks = None
     nsh, bp, rps = node.shard_layout()
     if block_ids is not None and nsh > 1:
-        from repro_torch.engine.distributed import ShardBlocks
         from repro_torch.kernels import ops
         from repro_torch.kernels.filter_count import BLOCK as _FC_BLOCK
         shard_blocks = ShardBlocks(ops.shard_block_arrays(

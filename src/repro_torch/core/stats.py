@@ -133,6 +133,10 @@ class TableStats:
     def column(self, name: str) -> Optional[ColumnStats]:
         return self.columns.get(name)
 
+    def span(self, name: str) -> Optional[tuple[float, float]]:
+        c = self.columns.get(name)
+        return c.span if c is not None else None
+
     def index_on(self, name: str) -> Optional[str]:
         c = self.columns.get(name)
         return c.index if c is not None else None

@@ -67,6 +67,10 @@ def topk(env: Env, mask: torch.Tensor, key: str, k: int, ascending: bool,
     score = col if col.dtype.is_floating_point else col.to(torch.float32)
     if ascending:
         score = -score
+    # head(k) of a shorter stream is all of it, sorted (pandas' head): the
+    # reference raises in jax.lax.top_k instead (ROADMAP C5), and neither
+    # selection primitive may be asked for more rows than there are
+    k = min(k, mask.shape[0])
     idx = select(score, mask, k)
     found = torch.clamp(mask.sum(), max=k)
     out = {kk: v[idx] for kk, v in env.items()}

@@ -88,6 +88,40 @@ class _StatsView(Mapping):
         return repr({k: self._value(k) for k in self._KEYS})
 
 
+class _TimingsView(Mapping):
+    """``Session.timings``: a read-only view over this session's last-*
+    gauges (the reference's ``_TimingsView``). A gauge not yet set is not
+    a key: reading it raises ``KeyError``."""
+
+    _GAUGES = {
+        "last_execute": "session.last_execute_seconds",
+        "last_point_lookup": "session.last_point_lookup_seconds",
+        "last_create": "session.last_create_seconds",
+        "last_view_recompute": "session.last_view_recompute_seconds",
+    }
+
+    def __init__(self, sid: str):
+        self._sid = sid
+
+    def __getitem__(self, key: str):
+        name = self._GAUGES.get(key)
+        v = tel.gauge_value(name, sid=self._sid) if name else None
+        if v is None:
+            raise KeyError(key)
+        return v
+
+    def __iter__(self):
+        for key, name in self._GAUGES.items():
+            if tel.gauge_value(name, sid=self._sid) is not None:
+                yield key
+
+    def __len__(self) -> int:
+        return sum(1 for _ in self)
+
+    def __repr__(self) -> str:
+        return repr({k: self[k] for k in self})
+
+
 @dataclasses.dataclass
 class _PlanEntry:
     """One raw-fingerprint plan-cache entry, valid for one (stats epoch,
@@ -190,6 +224,7 @@ class Session:
             else:
                 tel.inc(f"session.{key}_total", 0, sid=self.sid)
         self.stats = _StatsView(self.sid)
+        self.timings = _TimingsView(self.sid)
         # incrementally-maintained materialized views (engine/lsm.py),
         # refreshed from each feed flush's delta batch
         self.views: dict[str, object] = {}

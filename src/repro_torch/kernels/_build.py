@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"filter_count": 0, "segment_agg": 0,
                             "block_topk": 0, "topk_merge": 0,
                             "merge_join_count": 0, "flash_mha_fwd": 0,
-                            "flash_decode": 0}
+                            "flash_decode": 0, "flash_attention_bwd": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -166,18 +166,32 @@ def topk(scores: torch.Tensor, mask: torch.Tensor, n_valid: int,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel under autograd, as the reference's ``custom_vjp``;
-    the backward arrives with training."""
+    """The forward kernel under autograd, as the reference's ``custom_vjp``:
+    the forward keeps q, k, v, out and lse; the backward is the B7 kernel
+    (``flash_attention.flash_attention_bwd``), or its plain version on CPU
+    tensors. Both passes are deterministic, so ``torch.utils.checkpoint``
+    recomputes the same forward. The gradient of the output arrives as the
+    caller made it: on the model path the (B,H,S,D) view of a contiguous
+    (B,S,H,D) tensor, read in place; a layout the kernel cannot read (a
+    broadcast gradient, an odd stride) is copied to a contiguous one
+    first."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        return _fa.flash_mha_fwd(q, k, v, causal=causal)[0]
+        out, lse = _fa.flash_mha_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the flash-attention backward waits for ROADMAP A10 (training: "
-            "lm_loss, steps, optim, the flash backward kernel)")
+        q, k, v, out, lse = ctx.saved_tensors
+        if _fa.layout_problem(grad_out) is not None:
+            grad_out = grad_out.contiguous()
+        _tick("flash_attention_bwd", q.device)
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, out, lse, grad_out,
+                                             causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters into the port's modules.
+"""Carry the JAX package's parameters into the port's modules
+(:func:`from_jax`) and back out as its pytree (:func:`to_jax`).
 
 The reference keeps parameters as a dict pytree with every layer's arrays
 stacked on a leading L axis (``params["layers"]["attn"]["wq"]`` is
@@ -29,6 +30,15 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import LM
 
 STACKED = ("layers", "first_layers", "enc_layers", "dec_layers")
+
+
+def leaf_ndim(name: str, p: torch.Tensor) -> int:
+    """The ndim of parameter ``name`` (a ``named_parameters()`` name) as a
+    leaf of the reference's pytree: one more than its own inside a stacked
+    key, whose leaves carry the layer axis. The reference's AdamW decays,
+    and its ``cast_once`` casts, every leaf with ndim >= 2 — so a
+    per-layer norm scale or bias, an (L, d) leaf there, counts as 2-D."""
+    return p.ndim + (name.split(".", 1)[0] in STACKED)
 
 
 def _copy(dst: nn.Parameter, src, where: str) -> None:
@@ -71,6 +81,42 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+def _tree(mod: nn.Module, value, prefix: str) -> dict:
+    out = {}
+    for n, p in mod._parameters.items():
+        if p is not None:
+            out[n] = value(prefix + n, p)
+    for n, m in mod._modules.items():
+        if n in STACKED:
+            blocks = [_tree(b, value, f"{prefix}{n}.{i}.")
+                      for i, b in enumerate(m)]
+            out[n] = _stack(blocks)
+        else:
+            out[n] = _tree(m, value, f"{prefix}{n}.")
+    return out
+
+
+def _stack(blocks: list) -> dict:
+    return {k: _stack([b[k] for b in blocks]) if isinstance(blocks[0][k], dict)
+            else np.stack([b[k] for b in blocks]) for k in blocks[0]}
+
+
+def to_jax(model: nn.Module, cfg: ArchConfig, values=None) -> dict:
+    """The inverse of :func:`from_jax`: the model's parameters as the
+    reference's pytree, numpy float32 leaves in its stacked layout (block i
+    of a stacked key at index i of every leaf below it). ``values``, a dict
+    keyed by the names of ``model.named_parameters()`` (the parameters'
+    gradients, AdamW's ``m`` or ``v``), lays those tensors out instead.
+    ``cfg`` names the model in errors, as for :func:`from_jax`."""
+    if values is None:
+        values = dict(model.named_parameters())
+    missing = set(dict(model.named_parameters())) - set(values)
+    if missing:
+        raise ValueError(f"{cfg.name}: no value for {sorted(missing)}")
+    return _tree(model, lambda name, p: values[name].detach().float().cpu()
+                 .numpy().copy(), "")
 
 
 def from_jax(params: dict, cfg: ArchConfig, device=None) -> nn.Module:

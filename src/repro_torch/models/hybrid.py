@@ -4,9 +4,10 @@ attention block applied every ``attn_every`` layers (port of
 
 The shared block's input is ``concat(hidden, original embedding)`` (2 d
 wide), its weights are shared across invocations, and each invocation owns
-its output linear (``inv_proj[inv]``). Its prefill attention goes through
-``attention_core`` (flash under ``attn_impl="flash"`` without a sliding
-window). Its KV cache is a ring of W slots (W = the sliding window, or
+its output linear (``inv_proj[inv]``). Its full-sequence attention
+(``_shared_attn_full``: training's ``forward_hidden`` and the prefill)
+goes through ``attention_core`` (flash under ``attn_impl="flash"``
+without a sliding window). Its KV cache is a ring of W slots (W = the sliding window, or
 max_len): slot j holds position ``pos - ((pos - j) mod W)``. The ring's
 decode stays on plain torch, as in the reference: once the ring wraps its
 valid slots are not a prefix, which is what ``flash_decode``'s lengths
@@ -25,8 +26,9 @@ from repro_torch.models.attention import (Attention, _project_qkv,
                                           attention_core)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.hybrid_groups import group_bounds
-from repro_torch.models.layers import (MLP, embed_tokens, he_init, init_embed,
-                                       logits_from_hidden, mlp, rms_norm)
+from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_tokens,
+                                       he_init, init_embed, logits_from_hidden,
+                                       mlp, remat, rms_norm)
 from repro_torch.models.ssm import CONV_W, SSMBlock, dims, ssm_mixer
 
 NEG_INF = -1e30
@@ -78,6 +80,54 @@ def _ssm_layer(x, blk, cfg: ArchConfig, cache=None, sequential=False):
     h, st = ssm_mixer(rms_norm(x, blk.ln, cfg.norm_eps), blk.ssm, cfg,
                       cache=cache, sequential=sequential)
     return x + h, st
+
+
+def _shared_attn_full(x, emb0, model: Hybrid, cfg: ArchConfig, inv: int,
+                      positions):
+    """Invocation ``inv`` of the shared block over the full sequence ->
+    (x, k, v), k and v (B, S, KV, hd) for a prefill's ring."""
+    acfg = _attn_cfg(cfg)
+    xin = _shared_in(x, emb0, model, cfg)
+    q, k, v = _project_qkv(xin, xin, model.shared_attn, acfg, positions,
+                           positions, True)
+    o = attention_core(q, k, v, positions, positions, acfg, causal=True)
+    o = o.reshape(x.shape[0], x.shape[1], -1) @ model.shared_attn.wo.to(x.dtype)
+    o = _shared_mlp(o, model, cfg)
+    return x + o @ model.inv_proj[inv].to(x.dtype), k, v
+
+
+def _train_shared(x, emb0, model, cfg, inv, positions):
+    return _shared_attn_full(x, emb0, model, cfg, inv, positions)[0]
+
+
+def _train_ssm(x, blk, cfg):
+    return _ssm_layer(x, blk, cfg)[0]
+
+
+def forward_hidden(model: Hybrid, tokens: torch.Tensor,
+                   cfg: ArchConfig) -> torch.Tensor:
+    """The training trunk: the shared block before each group of SSD
+    layers (``hybrid_groups.group_bounds``), each block checkpointed under
+    ``cfg.remat`` -> the final-normed (B, S, d) hidden states."""
+    x = embed_tokens(model.embed, tokens)
+    emb0 = x
+    positions = torch.arange(x.shape[1], device=x.device)
+    for inv, (s, e) in enumerate(group_bounds(cfg)):
+        x = remat(_train_shared, x, emb0, model, cfg, inv, positions,
+                  enabled=cfg.remat)
+        for blk in model.layers[s:e]:
+            x = remat(_train_ssm, x, blk, cfg, enabled=cfg.remat)
+    return rms_norm(x, model.final_norm, cfg.norm_eps)
+
+
+def hybrid_loss(model: Hybrid, batch: dict, cfg: ArchConfig):
+    """Next-token cross entropy -> (loss, {"ce"})."""
+    tokens = batch["tokens"]
+    hidden = forward_hidden(model, tokens, cfg)
+    loss_sum = chunked_ce_loss(hidden[:, :-1], model.lm_head, tokens[:, 1:],
+                               chunk=cfg.loss_chunk)
+    loss = loss_sum / (tokens.shape[0] * (tokens.shape[1] - 1))
+    return loss, {"ce": loss}
 
 
 # -- serving -------------------------------------------------------------------
@@ -159,7 +209,6 @@ def hybrid_prefill(model: Hybrid, batch: dict, cfg: ArchConfig,
     emb0 = x
     dev = x.device
     positions = torch.arange(S, device=dev)
-    acfg = _attn_cfg(cfg)
 
     # the final ring layout: slot j holds position S-1-((S-1-j) mod W),
     # gathered as jax gathers: a negative index wraps once, then clamps
@@ -168,13 +217,7 @@ def hybrid_prefill(model: Hybrid, batch: dict, cfg: ArchConfig,
 
     aks, avs, convs, states = [], [], [], []
     for inv, (s, e) in enumerate(group_bounds(cfg)):
-        xin = _shared_in(x, emb0, model, cfg)
-        q, k, v = _project_qkv(xin, xin, model.shared_attn, acfg, positions,
-                               positions, True)
-        o = attention_core(q, k, v, positions, positions, acfg, causal=True)
-        o = o.reshape(x.shape[0], S, -1) @ model.shared_attn.wo.to(x.dtype)
-        o = _shared_mlp(o, model, cfg)
-        x = x + o @ model.inv_proj[inv].to(x.dtype)
+        x, k, v = _shared_attn_full(x, emb0, model, cfg, inv, positions)
         aks.append(k[:, ring_src].to(torch.bfloat16))
         avs.append(v[:, ring_src].to(torch.bfloat16))
         for blk in model.layers[s:e]:

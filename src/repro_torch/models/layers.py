@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -116,3 +117,44 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def logits_from_hidden(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """h: (..., d); head: (d, V) -> float32 logits."""
     return (h @ head.to(h.dtype)).float()
+
+
+def _ce_from_logits(logits: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Summed cross entropy: sum(logsumexp - gold logit)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def remat(fn, *args, enabled: bool = True):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant: the
+    backward recomputes ``fn``'s activations instead of keeping them) when
+    ``enabled`` and autograd is recording; a plain call otherwise (serving,
+    the eval step)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _chunk_loss(h_c, head, l_c):
+    return _ce_from_logits(logits_from_hidden(h_c, head), l_c)
+
+
+def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+    """Cross entropy without materialising the whole (B, S, V) float32
+    logits: a loop over sequence chunks (the last one the remainder), each
+    under :func:`remat` (the reference's ``jax.checkpoint``), so the
+    backward recomputes a chunk's logits and the peak is one chunk
+    of them. Returns the summed loss (the caller divides by the token
+    count). The reference's optional ``mask`` has no caller and is left
+    out."""
+    S = hidden.shape[1]
+    chunk = min(chunk, S)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        total = total + remat(_chunk_loss, hidden[:, sl], head,
+                              labels[:, sl])
+    return total

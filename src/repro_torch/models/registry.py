@@ -7,12 +7,13 @@ PartitionSpecs and ``shape_adjusted_cfg`` serve its XLA dry-run and mesh
 Signatures (the port's, beside the reference's):
   * ``init(cfg, generator)`` — random weights on the generator's device
     (the reference: ``init(key, cfg)``);
+  * ``loss(model, batch, cfg) -> (loss, metrics)``, 0-d float32 tensors
+    that autograd can differentiate;
   * ``prefill(model, batch, cfg, max_len=None) -> (cache, logits (B,1,V))``;
   * ``decode(model, cache, tokens (B,1), cfg) -> (cache, logits (B,1,V))``,
     writing the cache's buffers in place (the reference donates them);
   * ``make_cache(cfg, batch, max_len, device=None)`` — ``None`` means the
-    card, and raises without one;
-  * ``loss`` raises: training waits for ROADMAP A10.
+    card, and raises without one.
 """
 from __future__ import annotations
 
@@ -32,30 +33,22 @@ class ModelAPI:
     make_cache: Callable
 
 
-def _waits(what: str) -> Callable:
-    def raise_(*a, **kw):
-        raise NotImplementedError(
-            f"{what} waits for ROADMAP A10 (training: the losses, steps, "
-            "optim, the flash backward B7)")
-    return raise_
-
-
 def get_api(cfg: ArchConfig) -> ModelAPI:
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
-        return ModelAPI(transformer.init_lm, _waits("lm_loss"),
+        return ModelAPI(transformer.init_lm, transformer.lm_loss,
                         transformer.lm_prefill, transformer.lm_decode_step,
                         transformer.make_cache)
     if fam == "rwkv":
-        return ModelAPI(rwkv.init_rwkv_lm, _waits("rwkv_loss"),
+        return ModelAPI(rwkv.init_rwkv_lm, rwkv.rwkv_loss,
                         rwkv.rwkv_prefill, rwkv.rwkv_decode_step,
                         rwkv.make_cache)
     if fam == "hybrid":
-        return ModelAPI(hybrid.init_hybrid, _waits("hybrid_loss"),
+        return ModelAPI(hybrid.init_hybrid, hybrid.hybrid_loss,
                         hybrid.hybrid_prefill, hybrid.hybrid_decode_step,
                         hybrid.make_cache)
     if fam == "encdec":
-        return ModelAPI(whisper.init_whisper, _waits("whisper_loss"),
+        return ModelAPI(whisper.init_whisper, whisper.whisper_loss,
                         whisper.whisper_prefill, whisper.whisper_decode_step,
                         whisper.make_cache)
     raise ValueError(f"unknown family {fam}")

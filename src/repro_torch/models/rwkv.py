@@ -18,9 +18,9 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (embed_tokens, he_init, init_embed,
-                                       layer_norm, logits_from_hidden,
-                                       rms_norm)
+from repro_torch.models.layers import (chunked_ce_loss, embed_tokens, he_init,
+                                       init_embed, layer_norm,
+                                       logits_from_hidden, remat, rms_norm)
 
 CHUNK = 16
 LW_MIN = -4.0  # per-step log-decay clamp for the chunked path
@@ -218,6 +218,31 @@ def rwkv_block(x, p: RWKVBlock, cfg: ArchConfig, cache=None, *,
                                p.cmix, c.get("ffn_x"))
     x = x + ffn
     return x, {"att_x": ax, "att_state": astate, "ffn_x": fx}
+
+
+def _train_block(x, blk, cfg):
+    return rwkv_block(x, blk, cfg)[0]
+
+
+def rwkv_forward_hidden(model: RWKVLM, tokens: torch.Tensor,
+                        cfg: ArchConfig) -> torch.Tensor:
+    """The training trunk (the chunked WKV6 form), each block checkpointed
+    under ``cfg.remat`` -> the final-normed (B, S, d) hidden states."""
+    x = embed_tokens(model.embed, tokens)
+    x = layer_norm(x, model.ln0, model.ln0_b, cfg.norm_eps)
+    for blk in model.layers:
+        x = remat(_train_block, x, blk, cfg, enabled=cfg.remat)
+    return layer_norm(x, model.final_norm, model.final_norm_b, cfg.norm_eps)
+
+
+def rwkv_loss(model: RWKVLM, batch: dict, cfg: ArchConfig):
+    """Next-token cross entropy -> (loss, {"ce"})."""
+    tokens = batch["tokens"]
+    hidden = rwkv_forward_hidden(model, tokens, cfg)
+    loss_sum = chunked_ce_loss(hidden[:, :-1], model.lm_head, tokens[:, 1:],
+                               chunk=cfg.loss_chunk)
+    loss = loss_sum / (tokens.shape[0] * (tokens.shape[1] - 1))
+    return loss, {"ce": loss}
 
 
 # -- serving -------------------------------------------------------------------

@@ -2,13 +2,19 @@
 (port of ``repro.models.transformer``).
 
 The reference stacks layer parameters on a leading L axis and scans a
-checkpointed block over them; here the layers are an ``nn.ModuleList`` and
-inference walks them in a plain loop (no remat: nothing is kept for a
-backward). DeepSeek-style MoE keeps its first ``first_dense_layers`` blocks
-dense, in ``first_layers``; their cache entries fill the leading slots of
-the (n_layers, ...) cache. The vlm family prepends its projected patch
-prefix to the token embeddings. ``forward_hidden`` and ``lm_loss`` wait for
-ROADMAP A10 (training).
+checkpointed block over them; here the layers are an ``nn.ModuleList``
+walked in a plain loop, one :func:`_block` shared by training
+(``forward_hidden``, ``lm_loss``) and serving (``lm_prefill``, which also
+keeps each layer's K and V). Under ``cfg.remat`` training checkpoints every
+block (``layers.remat``: the backward recomputes a block's activations and
+keeps only the (B, S, d) carries); the reference's ``remat_segments``
+(nested remat, which only changes how XLA lays out memory, not the
+numbers) is the same per-layer checkpoint here. DeepSeek-style MoE keeps
+its first ``first_dense_layers`` blocks dense, in ``first_layers``; their
+cache entries fill the leading slots of the (n_layers, ...) cache, and
+the MoE aux loss sums over the MoE blocks. The vlm family prepends its
+projected patch prefix to the token embeddings; ``lm_loss`` drops those
+positions.
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ from repro_torch.models.attention import (Attention, _project_qkv,
                                           attention_core, decode_attention,
                                           init_kv_cache)
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (MLP, embed_tokens, he_init, init_embed,
-                                       logits_from_hidden, mlp, rms_norm)
+from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_tokens,
+                                       he_init, init_embed, logits_from_hidden,
+                                       mlp, remat, rms_norm)
 from repro_torch.models.moe import MoE, moe_ffn
 
 
@@ -100,11 +107,62 @@ def embed_input(model: LM, tokens: torch.Tensor, cfg: ArchConfig,
 
 
 def _ffn(x: torch.Tensor, blk: Block, cfg: ArchConfig,
-         moe_layer: bool) -> torch.Tensor:
+         moe_layer: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block's feed-forward on its normed input -> (y, MoE aux loss; 0
+    for a dense layer)."""
     hidden = rms_norm(x, blk.ln2, cfg.norm_eps)
     if moe_layer:
-        return moe_ffn(hidden, blk.moe, cfg, cfg.moe)[0]
-    return mlp(hidden, blk.mlp)
+        return moe_ffn(hidden, blk.moe, cfg, cfg.moe)
+    return mlp(hidden, blk.mlp), torch.zeros((), dtype=torch.float32,
+                                             device=x.device)
+
+
+def _block(x: torch.Tensor, blk: Block, cfg: ArchConfig,
+           positions: torch.Tensor, moe_layer: bool):
+    """One block over the full sequence -> (x, aux, k, v): the reference's
+    ``_block_apply``, with the layer's K and V (B, S, KV, hd) for a
+    prefill's cache."""
+    B, S = x.shape[0], x.shape[1]
+    h_in = rms_norm(x, blk.ln1, cfg.norm_eps)
+    q, k, v = _project_qkv(h_in, h_in, blk.attn, cfg, positions, positions,
+                           True)
+    o = attention_core(q, k, v, positions, positions, cfg, causal=True)
+    x = x + o.reshape(B, S, -1) @ blk.attn.wo.to(x.dtype)
+    f, aux = _ffn(x, blk, cfg, moe_layer)
+    return x + f, aux, k, v
+
+
+def _train_block(x, blk, cfg, positions, moe_layer):
+    return _block(x, blk, cfg, positions, moe_layer)[:2]
+
+
+def forward_hidden(model: LM, tokens: torch.Tensor, cfg: ArchConfig,
+                   patches=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training trunk: (B, S [+ P], d) final-normed hidden states and
+    the MoE aux loss summed over the layers (float32 0-d)."""
+    x = embed_input(model, tokens, cfg, patches)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk, moe_layer in model.blocks():
+        x, a = remat(_train_block, x, blk, cfg, positions, moe_layer,
+                     enabled=cfg.remat)
+        aux = aux + a
+    return rms_norm(x, model.final_norm, cfg.norm_eps), aux
+
+
+def lm_loss(model: LM, batch: dict, cfg: ArchConfig):
+    """Next-token cross entropy over ``batch["tokens"]`` (B, S) (the vlm
+    patch positions dropped), plus ``aux_loss_weight`` x the MoE aux loss
+    -> (loss, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    hidden, aux = forward_hidden(model, tokens, cfg, batch.get("patches"))
+    S = tokens.shape[1]
+    hidden = hidden[:, -S:]
+    loss_sum = chunked_ce_loss(hidden[:, :-1], _head(model, cfg),
+                               tokens[:, 1:], chunk=cfg.loss_chunk)
+    ce = loss_sum / (tokens.shape[0] * (S - 1))
+    loss = ce + cfg.moe.aux_loss_weight * aux if cfg.moe is not None else ce
+    return loss, {"ce": ce, "aux": aux}
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -125,17 +183,12 @@ def lm_prefill(model: LM, batch: dict, cfg: ArchConfig,
     would throw away."""
     tokens = batch["tokens"]
     x = embed_input(model, tokens, cfg, batch.get("patches"))
-    B, S = x.shape[0], x.shape[1]
+    S = x.shape[1]
     max_len = max(max_len or 0, S)
     positions = torch.arange(S, device=x.device)
     ks, vs = [], []
     for blk, moe_layer in model.blocks():
-        h_in = rms_norm(x, blk.ln1, cfg.norm_eps)
-        q, k, v = _project_qkv(h_in, h_in, blk.attn, cfg, positions, positions,
-                               True)
-        o = attention_core(q, k, v, positions, positions, cfg, causal=True)
-        x = x + o.reshape(B, S, -1) @ blk.attn.wo.to(x.dtype)
-        x = x + _ffn(x, blk, cfg, moe_layer)
+        x, _, k, v = _block(x, blk, cfg, positions, moe_layer)
         if cache:
             pad = (0, 0, 0, 0, 0, max_len - S)
             ks.append(nn.functional.pad(k, pad).to(torch.bfloat16))
@@ -160,7 +213,7 @@ def lm_decode_step(model: LM, cache: dict, tokens: torch.Tensor,
                                    blk.attn, cfg, cache["k"][i],
                                    cache["v"][i], pos)
         x = x + h
-        x = x + _ffn(x, blk, cfg, moe_layer)
+        x = x + _ffn(x, blk, cfg, moe_layer)[0]
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = logits_from_hidden(x, _head(model, cfg))
     return {"k": cache["k"], "v": cache["v"],

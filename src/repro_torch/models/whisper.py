@@ -24,8 +24,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import (Attention, _project_qkv, attention,
                                           attention_core, decode_attention)
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (MLP, embed_tokens, init_embed,
-                                       logits_from_hidden, mlp, rms_norm)
+from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_tokens,
+                                       init_embed, logits_from_hidden, mlp,
+                                       remat, rms_norm)
 
 
 def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -79,16 +80,74 @@ def init_whisper(cfg: ArchConfig, generator: torch.Generator) -> Whisper:
     return Whisper(cfg, generator)
 
 
+def _enc_block(x, lp: EncBlock, cfg: ArchConfig):
+    x = x + attention(rms_norm(x, lp.ln1, cfg.norm_eps), lp.attn, cfg,
+                      causal=False, rope=False)
+    return x + mlp(rms_norm(x, lp.ln2, cfg.norm_eps), lp.mlp)
+
+
 def encode(model: Whisper, frames: torch.Tensor, cfg: ArchConfig):
-    """frames: (B, enc_len, d) stub frame embeddings -> (B, enc_len, d)."""
+    """frames: (B, enc_len, d) stub frame embeddings -> (B, enc_len, d);
+    each layer checkpointed under ``cfg.remat`` when autograd records."""
     x = frames.to(torch.bfloat16)
     x = x + sinusoid(torch.arange(x.shape[1], device=x.device),
                      cfg.d_model).to(x.dtype)
     for lp in model.enc_layers:
-        x = x + attention(rms_norm(x, lp.ln1, cfg.norm_eps), lp.attn, cfg,
-                          causal=False, rope=False)
-        x = x + mlp(rms_norm(x, lp.ln2, cfg.norm_eps), lp.mlp)
+        x = remat(_enc_block, x, lp, cfg, enabled=cfg.remat)
     return rms_norm(x, model.enc_norm, cfg.norm_eps)
+
+
+def _dec_block(x, lp: DecBlock, enc_out, cfg: ArchConfig, positions,
+               enc_pos):
+    """One decoder layer over the full sequence -> (x, k, v, xk, xv): the
+    self- and cross-attention K and V (B, S | enc_len, KV, hd) for a
+    prefill's cache."""
+    B, S = x.shape[0], x.shape[1]
+    h_in = rms_norm(x, lp.ln1, cfg.norm_eps)
+    q, k, v = _project_qkv(h_in, h_in, lp.attn, cfg, positions, positions,
+                           False)
+    o = attention_core(q, k, v, positions, positions, cfg, causal=True)
+    x = x + o.reshape(B, S, -1) @ lp.attn.wo.to(x.dtype)
+    h_in = rms_norm(x, lp.ln2, cfg.norm_eps)
+    q2, xk, xv = _project_qkv(h_in, enc_out, lp.xattn, cfg, positions,
+                              enc_pos, False)
+    o2 = attention_core(q2, xk, xv, positions, enc_pos, cfg, causal=False)
+    x = x + o2.reshape(B, S, -1) @ lp.xattn.wo.to(x.dtype)
+    x = x + mlp(rms_norm(x, lp.ln3, cfg.norm_eps), lp.mlp)
+    return x, k, v, xk, xv
+
+
+def _train_dec_block(x, lp, enc_out, cfg, positions, enc_pos):
+    return _dec_block(x, lp, enc_out, cfg, positions, enc_pos)[0]
+
+
+def _decoder_hidden(model: Whisper, tokens: torch.Tensor, enc_out,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """The training decoder over ``tokens`` (B, S) attending to
+    ``enc_out``, each layer checkpointed under ``cfg.remat`` -> the
+    final-normed (B, S, d) hidden states."""
+    S = tokens.shape[1]
+    dev = enc_out.device
+    positions = torch.arange(S, device=dev)
+    enc_pos = torch.arange(enc_out.shape[1], device=dev)
+    x = embed_tokens(model.embed, tokens)
+    x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
+    for lp in model.dec_layers:
+        x = remat(_train_dec_block, x, lp, enc_out, cfg, positions, enc_pos,
+                  enabled=cfg.remat)
+    return rms_norm(x, model.final_norm, cfg.norm_eps)
+
+
+def whisper_loss(model: Whisper, batch: dict, cfg: ArchConfig):
+    """Next-token cross entropy of the decoder over ``batch["tokens"]``
+    given ``batch["frames"]`` (tied head) -> (loss, {"ce"})."""
+    enc_out = encode(model, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    hidden = _decoder_hidden(model, tokens, enc_out, cfg)
+    loss_sum = chunked_ce_loss(hidden[:, :-1], model.embed.T, tokens[:, 1:],
+                               chunk=cfg.loss_chunk)
+    loss = loss_sum / (tokens.shape[0] * (tokens.shape[1] - 1))
+    return loss, {"ce": loss}
 
 
 # -- serving -------------------------------------------------------------------
@@ -115,7 +174,7 @@ def whisper_prefill(model: Whisper, batch: dict, cfg: ArchConfig,
     self- and cross-attention caches -> (cache, last-token logits)."""
     enc_out = encode(model, batch["frames"], cfg)
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    S = tokens.shape[1]
     max_len = max_len or S
     dev = enc_out.device
     positions = torch.arange(S, device=dev)
@@ -125,17 +184,7 @@ def whisper_prefill(model: Whisper, batch: dict, cfg: ArchConfig,
     ks, vs, xks, xvs = [], [], [], []
     pad = (0, 0, 0, 0, 0, max_len - S)
     for lp in model.dec_layers:
-        h_in = rms_norm(x, lp.ln1, cfg.norm_eps)
-        q, k, v = _project_qkv(h_in, h_in, lp.attn, cfg, positions, positions,
-                               False)
-        o = attention_core(q, k, v, positions, positions, cfg, causal=True)
-        x = x + o.reshape(B, S, -1) @ lp.attn.wo.to(x.dtype)
-        h_in = rms_norm(x, lp.ln2, cfg.norm_eps)
-        q2, xk, xv = _project_qkv(h_in, enc_out, lp.xattn, cfg, positions,
-                                  enc_pos, False)
-        o2 = attention_core(q2, xk, xv, positions, enc_pos, cfg, causal=False)
-        x = x + o2.reshape(B, S, -1) @ lp.xattn.wo.to(x.dtype)
-        x = x + mlp(rms_norm(x, lp.ln3, cfg.norm_eps), lp.mlp)
+        x, k, v, xk, xv = _dec_block(x, lp, enc_out, cfg, positions, enc_pos)
         ks.append(nn.functional.pad(k, pad).to(torch.bfloat16))
         vs.append(nn.functional.pad(v, pad).to(torch.bfloat16))
         xks.append(xk.to(torch.bfloat16))

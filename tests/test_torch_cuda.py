@@ -639,3 +639,112 @@ def test_cuda_decode_step_kernel_equals_plain(arch):
     _assert_row_close(logits[:, 0], plain_logits[:, 0], 2e-2)
     for key in ("k", "v"):
         assert torch.equal(cache[key], plain_cache[key]), key
+
+
+def _grads_close(got, want, tol) -> bool:
+    """Each gradient within ``tol`` x its own largest |value|."""
+    return all(bool(torch.isfinite(g).all()) and
+               float((g.float() - w.float()).abs().max())
+               <= tol * float(w.float().abs().max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_cuda_flash_backward_matches_plain(dtype, tol, D):
+    """The B7 kernel against its plain version on the card: GQA (G = 2),
+    causal and not, a ragged S (100: one full 64-row tile and a part),
+    strided (B,S,H,D) views; each gradient within ``tol`` x its scale
+    (float32: the same float32 sums in another order; bf16: p and ds meet
+    the second products rounded to bf16). The same check refuses planted
+    faults (dk and dv without one q head of the group; dq at twice its
+    scale), and two launches give the same bits (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(D)
+    B, H, KV, S = 2, 4, 2, 100
+    q, do = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+             .transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((B, S, KV, D), generator=g, device=dev).to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    for causal in (True, False):
+        out, lse = fa.flash_mha_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+        assert [t.dtype for t in got] == [dtype] * 3
+        assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+        assert _grads_close(got, want, tol), causal
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        dropped = do.clone()
+        dropped[:, 1] = 0  # head 1's terms missing from its group's dk, dv
+        bad = fa.flash_attention_bwd_plain(q, k, v, out, lse, dropped, causal=causal)
+        assert not _grads_close(bad[1:], want[1:], tol)
+        assert not _grads_close((2 * want[0],), want[:1], tol)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_flash_equals_blocked():
+    """One reduced qwen3 train step on the card under attn_impl="flash"
+    (flash_mha_fwd twice a layer with remat, flash_attention_bwd once)
+    against the same step on the blocked path from the same weights: loss
+    and grad norm within 2e-2 relative (bf16 compute; the paths round
+    attention at other places)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import optim, steps
+
+    dev = torch.device("cuda")
+    base = get_config("qwen3-1.7b").reduced()
+    batch = make_batch(base, 2, 64, np.random.default_rng(0), dev)
+    out = {}
+    for impl in ("flash", "blocked"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        model, state = steps.init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0))
+        step = steps.make_train_step(cfg, optim.OptimConfig(warmup_steps=0))
+        _build.reset_launches()
+        _, _, m = step(model, state, batch)
+        torch.cuda.synchronize()
+        out[impl] = m
+        if impl == "flash":
+            assert _build.LAUNCHES["flash_mha_fwd"] == 2 * cfg.n_layers
+            assert _build.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    for key in ("loss", "grad_norm"):
+        a, b = float(out["flash"][key]), float(out["blocked"][key])
+        assert abs(a - b) <= 2e-2 * abs(b), (key, a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_topk_head_past_the_row_count():
+    """ROADMAP C5 on the card: ``sort_values("v").head(7)`` over 4 rows in
+    kernel mode returns the 4 rows sorted, as gspmd and numpy; the block
+    kernel is never asked for more rows than the stream has."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    from repro_torch.core.frame import AFrame
+    from repro_torch.engine.session import Session
+    from repro_torch.engine.table import Table
+    from repro_torch.kernels import _build
+
+    v = np.array([5, -3, 9, 0], np.int32)
+    got = {}
+    for mode in ("kernel", "gspmd"):
+        sess = Session(mode=mode)
+        sess.create_dataset("F", Table({"k": np.arange(4, dtype=np.int32), "v": v}),
+                            dataverse="d")
+        _build.reset_launches()
+        got[mode] = AFrame("d", "F", session=sess).sort_values("v").head(7)
+        if mode == "kernel":
+            assert _build.LAUNCHES["block_topk"] >= 1
+    order = np.argsort(v, kind="stable")
+    for mode, res in got.items():
+        np.testing.assert_array_equal(np.asarray(res["v"]), v[order], err_msg=mode)
+        np.testing.assert_array_equal(np.asarray(res["k"]), order, err_msg=mode)

@@ -267,9 +267,19 @@ def test_make_cache_matches_reference_and_needs_a_device(family, monkeypatch):
 
 @pytest.mark.parametrize("family", list(FAMILY_ARCH))
 def test_loss_waits_for_training(family):
+    """Training has landed (ROADMAP A10.1): every family's ``loss`` gives a
+    finite float32 scalar that autograd differentiates into every
+    parameter. tests/test_torch_train.py holds the values and gradients
+    to the reference's."""
     jcfg, tcfg = cfgs(FAMILY_ARCH[family])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10 \\(training"):
-        get_api(tcfg).loss(None, {}, tcfg)
+    model = from_jax(ref_params(jcfg), tcfg, device="cpu")
+    _, tb = batches(jcfg, 2, 8)
+    loss, metrics = get_api(tcfg).loss(model, tb, tcfg)
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    assert bool(torch.isfinite(loss)) and "ce" in metrics
+    loss.backward()
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
 
 
 def test_convert_refuses_keys_without_a_home():

@@ -14,6 +14,7 @@ row, since attention outputs are weighted means of V whose scale falls
 with the length. ``test_tolerance_catches_a_wrong_q_head`` shows that a
 fault the size of a wrong q head fails that check. The CUDA kernels run
 only on the card: tests/test_torch_cuda.py and chip_smoke.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,12 +103,18 @@ def test_flash_plain_matches_xla_twin(B, H, KV, Sq, D, bq, causal):
 
 
 def test_flash_backward_waits_for_training():
+    """The backward landed (B7): under autograd the op's gradients on CPU
+    tensors are the plain backward's on the saved out and lse."""
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.normal(size=(1, 2, 8, 16)).astype(np.float32))
     q.requires_grad_(True)
     out = ops.flash_attention(q, q.detach(), q.detach(), True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        out.sum().backward()
+    do = torch.from_numpy(rng.normal(size=out.shape).astype(np.float32))
+    out.backward(do)
+    o, lse = fa.flash_mha_fwd_plain(q.detach(), q.detach(), q.detach())
+    want = fa.flash_attention_bwd_plain(q.detach(), q.detach(), q.detach(),
+                                        o, lse, do)[0]
+    torch.testing.assert_close(q.grad, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("B,H,KV,S,D,bk", [(2, 4, 2, 256, 32, 64),
@@ -177,3 +184,107 @@ def test_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError, match="lengths"):
         da.flash_decode(torch.zeros(1, 4, 16), torch.zeros(1, 2, 8, 16),
                         torch.zeros(1, 2, 8, 16), torch.zeros(1, dtype=torch.int64))
+
+
+# -- the backward (B7): the op under autograd against jax.vjp of the
+# reference's custom_vjp on its jnp twin (repro/kernels/ops.py:297-361)
+
+
+def _vjp_case(rng, B, H, KV, S, D, dtype):
+    shapes = [(B, H, S, D), (B, KV, S, D), (B, KV, S, D), (B, H, S, D)]
+    return _inputs(rng, shapes, dtype)
+
+
+def _grad_close(got: torch.Tensor, want, tol: float, what: str):
+    """Within ``tol`` x the gradient's own largest |value|."""
+    g, w = got.float().numpy(), np.asarray(want, np.float32)
+    assert g.shape == w.shape, what
+    np.testing.assert_allclose(g, w, rtol=0, atol=tol * np.abs(w).max(),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("KV", [4, 2, 1])          # G = 1, 2, 4 (H = 4)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [96, 100])            # a multiple of bq = 32, and not
+@pytest.mark.parametrize("D", [16, 64])
+def test_flash_backward_matches_reference_vjp(KV, causal, S, D):
+    """dq, dk, dv of ``ops.flash_attention`` (the plain backward on CPU
+    tensors) == ``jax.vjp`` of the reference's ``flash_attention(...,
+    bq=32, "xla")`` with the same cotangent, float32: 1e-4 x each
+    gradient's scale (both sides sum the same float32 terms in other
+    orders and chunkings)."""
+    rng = np.random.default_rng(S * 7 + D + KV)
+    (jq, jk, jv, jdo), (q, k, v, do) = _vjp_case(rng, 2, 4, KV, S, D, "float32")
+    out, vjp = jax.vjp(lambda a, b, c: ref_ops.flash_attention(
+        a, b, c, causal, 32, "xla"), jq, jk, jv)
+    want = vjp(jdo)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    got = ops.flash_attention(q, k, v, causal)
+    _close(got.detach(), out, 2e-4)
+    got.backward(do)
+    for name, t, w in zip("qkv", (q, k, v), want):
+        assert t.grad.dtype == t.dtype
+        _grad_close(t.grad, w, 1e-4, f"d{name}")
+
+
+def test_flash_backward_matches_reference_vjp_bf16():
+    """bf16 in, bf16 gradients out: both sides recompute in float32 from
+    the bf16 inputs and their bf16 forward output, so they differ by the
+    rounding of that output and of the result: 2e-2 x each gradient's
+    scale."""
+    rng = np.random.default_rng(5)
+    (jq, jk, jv, jdo), (q, k, v, do) = _vjp_case(rng, 2, 8, 2, 100, 64,
+                                                 "bfloat16")
+    _, vjp = jax.vjp(lambda a, b, c: ref_ops.flash_attention(
+        a, b, c, True, 32, "xla"), jq, jk, jv)
+    want = vjp(jdo)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    ops.flash_attention(q, k, v, True).backward(do)
+    for name, t, w in zip("qkv", (q, k, v), want):
+        assert t.grad.dtype == torch.bfloat16
+        _grad_close(t.grad, w, 2e-2, f"d{name}")
+
+
+def test_flash_vjp_matches_oracle_grads():
+    """tests/test_kernels.py:96-105 on the port: the gradients of
+    sum(tanh(flash)) against those of the reference's dense oracle
+    ``ref.mha``, at the reference's tolerance 1e-3."""
+    rng = np.random.default_rng(0)
+    arrs = [rng.normal(size=s).astype(np.float32) * 0.4
+            for s in ((1, 4, 96, 16), (1, 2, 96, 16), (1, 2, 96, 16))]
+    g = lambda a, b, c: jnp.sum(jnp.tanh(ref.mha(a, b, c, causal=True)))
+    want = jax.grad(g, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    torch.tanh(ops.flash_attention(*ts, True)).sum().backward()
+    for t, w in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=1e-3, atol=1e-3)
+
+
+def test_flash_backward_reads_strided_views_and_copies_odd_gradients():
+    """The model path's layout: q, k, v the (B,H,S,D) views of (B,S,H,D)
+    projections, the gradient of the output the view of a contiguous
+    (B,S,H,D) tensor; gradients equal those of contiguous inputs. A
+    gradient the kernel cannot read in place (a broadcast, stride 0) is
+    copied first and gives the same result."""
+    rng = np.random.default_rng(9)
+    base = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((2, 40, 4, 16), (2, 40, 2, 16), (2, 40, 2, 16))]
+    views = [b.clone().requires_grad_(True) for b in base]
+    flat = [b.transpose(1, 2).contiguous().requires_grad_(True) for b in base]
+    do = torch.from_numpy(rng.normal(size=(2, 40, 4, 16)).astype(np.float32))
+    ops.flash_attention(*(v.transpose(1, 2) for v in views), True) \
+        .backward(do.transpose(1, 2))
+    ops.flash_attention(*flat, True).backward(do.transpose(1, 2).contiguous())
+    for v, f in zip(views, flat):
+        torch.testing.assert_close(v.grad.transpose(1, 2), f.grad)
+    q = flat[0].detach().requires_grad_(True)
+    ops.flash_attention(q, flat[1].detach(), flat[2].detach(), True) \
+        .sum().backward()
+    assert fa.layout_problem(torch.ones(()).expand(2, 4, 40, 16)) is not None
+    q2 = flat[0].detach().requires_grad_(True)
+    ops.flash_attention(q2, flat[1].detach(), flat[2].detach(), True) \
+        .backward(torch.ones(()).expand(2, 4, 40, 16))
+    torch.testing.assert_close(q.grad, q2.grad)
+    assert ops.DISPATCH_COUNTS["flash_attention_bwd"] >= 4

@@ -17,7 +17,6 @@ from repro.data import wisconsin as rw
 from repro.engine.session import Session as RSession
 from repro.engine.table import ColumnMeta as RMeta
 from repro.engine.table import Table as RTable
-from repro_torch.configs import get_config
 from repro_torch.core import physical as PH
 from repro_torch.core import plan as TP
 from repro_torch.core.expr import Col as TCol
@@ -28,8 +27,7 @@ from repro_torch.engine.session import Session as TSession
 from repro_torch.engine.table import ColumnMeta as TMeta
 from repro_torch.engine.table import Table as TTable
 from repro_torch.kernels import ops
-from repro_torch.models import steps
-from repro_torch.models.registry import get_api
+from repro_torch.launch.mesh import make_production_mesh
 
 N_ROWS = 8_192
 
@@ -349,23 +347,15 @@ def test_session_without_a_card_raises():
         TSession(mode="kernel", device="cuda")
 
 
-def _flash_backward(s, t):
-    q = torch.zeros((1, 2, 4, 16), requires_grad=True)
-    ops.flash_attention(q, q.detach(), q.detach(), True).sum().backward()
-
-
 @pytest.mark.parametrize("call", [
-    lambda s, t: get_api(get_config("paper-lm")).loss(),
-    lambda s, t: steps.make_train_step(get_config("paper-lm")),
-    lambda s, t: get_api(get_config("deepseek-moe-16b").reduced()).loss(),
-    _flash_backward,
+    lambda s, t: make_production_mesh(),
+    lambda s, t: make_production_mesh(multi_pod=True),
 ])
 def test_features_of_later_slices_raise(call):
-    """Training (A10: the losses, the train step, the flash backward)
-    raises, naming its ROADMAP item; decode serving, MoE weights and patch
-    prefixes have landed (tests/test_torch_families.py,
-    tests/test_torch_serving.py), as have durability (A8) and meshes with
-    shard_map (A9)."""
+    """What waits for a later slice raises, naming its ROADMAP item: the
+    pod meshes of the dry-run (A11). Training (A10.1: the losses, the
+    train step, the flash backward) has landed (tests/test_torch_train.py),
+    as have serving, durability (A8) and meshes with shard_map (A9)."""
     sess = TSession(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(sess, tw.generate(100, seed=0))
