@@ -33,11 +33,14 @@ Phases (any mismatch raises; nothing is caught):
      (B,KV,S,D) views of a (B,S,KV,D) cache layer) at the serve shape;
      and the flash backward (B7, ``flash_attention_bwd``) on the
      reference's sweep (D 16-128, float32 and bf16, causal and not), GQA
-     at S=1024, ragged S on strided views and the training shape (B 4, H
-     16, KV 8, S 2,048, D 128, bf16 causal, strided): dq, dk and dv each
-     within BWD_TOL of its scale, two planted faults refused (dk and dv
-     without one q head of the group, dq doubled), two launches equal bit
-     for bit;
+     at S=1024, ragged S on strided views, the bf16 kernels' tile edges
+     (S = 129 and 2,047 at D 128, G = 8 at S 1,024) and the training shape
+     (B 4, H 16, KV 8, S 2,048, D 128, bf16 causal, strided): dq, dk and
+     dv each within BWD_TOL of its scale, two planted faults refused (dk
+     and dv without one q head of the group, dq doubled), two launches
+     equal bit for bit; after the build, the HGMMA and UTMALDG
+     instructions ``cuobjdump -sass`` finds in the bf16 B7 kernels (both
+     must be there: the kernels reached wgmma and TMA);
   3. the first slice: the paper's 12 Wisconsin expressions through AFrame →
      Session(mode="kernel"), 3 rounds of randomized literals, held against
      the port's gspmd mode and a numpy oracle (dtypes included), plus two
@@ -239,8 +242,29 @@ TRACE_TRIES = 6             # profiler traces taken before a kernel's absence fa
 # with p and ds rounded to bf16 (up to 0.76% measured; NVIDIA H100 80GB
 # HBM3, 700 W). A dropped head or a doubled dq is off by 34% to 100%.
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dq_bf16_kernel",
-               "flash_bwd_dkdv_bf16_kernel")
+BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dq_wgmma_kernel",
+               "flash_bwd_dkdv_wgmma_kernel")
+
+
+def sass_counts(lib_path, kernels: tuple[str, ...]) -> dict:
+    """HGMMA and UTMALDG instructions (wgmma, TMA loads) in the SASS of
+    each named kernel of the built library, all its template instances
+    summed, by ``cuobjdump -sass`` beside the nvcc that built it."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {k: {"HGMMA": 0, "UTMALDG": 0} for k in kernels}
+    name = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = next((k for k in kernels if k in line), None)
+        elif name is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[name][op] += op in line
+    return counts
 
 
 def nvidia_smi() -> str:
@@ -922,7 +946,9 @@ def check_attention_kernels(dev) -> dict:
 def check_flash_backward(dev) -> dict:
     """flash_attention_bwd (B7) against its plain version on the card:
     the reference's sweep shapes (D 16-128, float32 and bf16, causal and
-    not), GQA at S=1024, ragged S on strided (B,S,H,D) views, and the
+    not), GQA at S=1024, ragged S on strided (B,S,H,D) views, the bf16
+    kernels' tile edges (128-row blocks, 64-row streamed tiles: S = 129
+    and 2,047 at D 128; G = 8 heads a KV head at S 1,024), and the
     training shape (B 4, H 16, KV 8, S 2,048, D 128, bf16 causal, strided).
     Unit-scale inputs; each of dq, dk, dv within BWD_TOL x its own largest
     |value|; the same check must refuse the plain version run with two
@@ -992,6 +1018,12 @@ def check_flash_backward(dev) -> dict:
     case("ragged S=77 D=128 bf16, strided", 2, 4, 2, 77, 128, torch.bfloat16,
          False, strided=True)
     case("ragged S=77 f32 causal", 2, 4, 2, 77, 32, torch.float32, True)
+    case("tile edge S=129 D=128 bf16 causal, strided", 2, 4, 2, 129, 128,
+         torch.bfloat16, True, strided=True)
+    case("tile edge S=2047 D=128 bf16 causal, strided", 1, 16, 8, 2047, 128,
+         torch.bfloat16, True, strided=True)
+    case("G=8 (H 8, KV 1) S=1024 D=128 bf16 causal, strided", 2, 8, 1, 1024,
+         128, torch.bfloat16, True, strided=True)
     B, S = TRAIN_BATCH, TRAIN_SEQ
     train = case(f"training shape ({B}, 16, 8, {S}, 128) bf16 causal, strided "
                  "(B,S,H,D) views", B, 16, 8, S, 128, torch.bfloat16, True,
@@ -4262,6 +4294,12 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or line.startswith("==") \
                 or "Compiling entry" in line:
             print("  " + line.strip(), flush=True)
+    sass = sass_counts(lib_path, BWD_KERNELS[1:])
+    print("  cuobjdump -sass, the bf16 B7 kernels: " + "; ".join(
+        f"{k} {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG"
+        for k, c in sass.items()), flush=True)
+    if not all(c["HGMMA"] and c["UTMALDG"] for c in sass.values()):
+        raise AssertionError(f"the bf16 B7 kernels lack wgmma or TMA: {sass}")
 
     t0 = time.perf_counter()
     table = wisconsin.generate(ROWS, seed=args.seed)

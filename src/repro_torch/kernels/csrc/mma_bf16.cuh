@@ -1,6 +1,6 @@
-// bf16 tensor-core and copy helpers shared by the attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): cp.async into shared
-// memory, ldmatrix, mma.sync.m16n8k16 over bf16 with float32 accumulators.
+// bf16 tensor-core and copy helpers of the flash forward
+// (flash_attention.cu): cp.async into shared memory, ldmatrix,
+// mma.sync.m16n8k16 over bf16 with float32 accumulators.
 #pragma once
 
 #include <cstdint>

@@ -28,9 +28,13 @@ softmax per q chunk of ``bq`` rows (a memory bound only: rows are
 independent), emitting the same (out, lse).
 
 The backward's kernels (``csrc/flash_attention_bwd.cu``) recompute the
-probabilities from the forward's lse, with no (Sq x Skv) residual; its
-plain version is the reference's VJP (``repro.kernels.ops._flash_bwd_rule``)
-in PyTorch, chunked over q the same way.
+probabilities from the forward's lse, with no (Sq x Skv) residual. In bf16
+they are warp-specialised Hopper kernels: per block one TMA producer
+warpgroup streams 64-row tiles through a ring of shared-memory stages and
+two consumer warpgroups run every product on ``wgmma``, dq per 128-row q
+tile and dk/dv per 128-key tile (no atomics). Its plain version is the
+reference's VJP (``repro.kernels.ops._flash_bwd_rule``) in PyTorch,
+chunked over q the same way.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ NEG = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Q_TILE = 64          # q rows per thread block
+BWD_TILE = 128       # q rows of a bf16 dq block, keys of a bf16 dk/dv block
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -218,12 +223,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The backward kernel's wrapper (B7), the contract of
     :func:`flash_attention_bwd_plain`: CPU tensors go through the plain
     version, CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (three
-    kernels: delta = rowsum(dO.O), dq per (b, h, 64-row q tile), dk and dv
-    per (b, kv head, 64-key tile) over the G heads of the group: no
-    atomics, so the result is the same bit for bit from run to run). q,
-    out, do, k and v are read in place through their strides, under the
-    forward's layout rule (:func:`check_layout`); ``lse`` must be the
-    contiguous (B,H,Sq) float32 the forward wrote. dq is the (B,H,Sq,D)
+    kernels: delta = rowsum(dO.O), dq per (b, h, 128-row q tile), dk and dv
+    per (b, kv head, 128-key tile) over the G heads of the group; in bf16
+    both on ``wgmma`` fed by TMA; no atomics, so the result is the same bit
+    for bit from run to run). q, out, do, k and v are read in place through
+    their strides, under the forward's layout rule (:func:`check_layout`);
+    ``lse`` must be the contiguous, 16-byte aligned (B,H,Sq) float32 the
+    forward wrote. dq is the (B,H,Sq,D)
     view of a (B,Sq,H,D) buffer, dk and dv the (B,KV,Skv,D) views of
     (B,Skv,KV,D) buffers: the layouts of the projections the forward
     read."""
@@ -240,10 +246,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
     check_layout(q, k, v, out, do, name="flash_attention_bwd")
-    if lse.device != q.device or not lse.is_contiguous():
-        raise ValueError("flash_attention_bwd: lse must be contiguous, on "
-                         f"{q.device}")
-    n_qt, n_kt = -(-Sq // Q_TILE), -(-Skv // Q_TILE)
+    if lse.device != q.device or not lse.is_contiguous() \
+            or lse.data_ptr() % 16:
+        raise ValueError("flash_attention_bwd: lse must be contiguous and "
+                         f"16-byte aligned, on {q.device}")
+    n_qt, n_kt = -(-Sq // BWD_TILE), -(-Skv // BWD_TILE)
     if max(B * H * n_qt, B * KV * n_kt, B * H * Sq) >= 2 ** 31:
         raise ValueError("flash_attention_bwd: the problem exceeds the grid")
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype,

@@ -652,37 +652,42 @@ def _grads_close(got, want, tol) -> bool:
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
-def test_cuda_flash_backward_matches_plain(dtype, tol, D):
-    """The B7 kernel against its plain version on the card: GQA (G = 2),
-    causal and not, a ragged S (100: one full 64-row tile and a part),
-    strided (B,S,H,D) views; each gradient within ``tol`` x its scale
-    (float32: the same float32 sums in another order; bf16: p and ds meet
-    the second products rounded to bf16). The same check refuses planted
-    faults (dk and dv without one q head of the group; dq at twice its
-    scale), and two launches give the same bits (no atomics)."""
+@pytest.mark.parametrize("S", [100, 129, 300])
+def test_cuda_flash_backward_matches_plain(dtype, tol, D, S):
+    """The B7 kernel against its plain version on the card: GQA (G = 2,
+    and G = 4 on a second layout), causal and not, ragged S on both sides
+    of the bf16 kernels' tiles (100: one 128-row block, part of its second
+    64-row half; 129: a second block holding one row, a ragged lse row
+    offset; 300: three blocks), strided (B,S,H,D) views; each gradient
+    within ``tol`` x its scale (float32: the same float32 sums in another
+    order; bf16: p and ds meet the second products rounded to bf16). The
+    same check refuses planted faults (dk and dv without one q head of the
+    group; dq at twice its scale), and two launches give the same bits (no
+    atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(D)
-    B, H, KV, S = 2, 4, 2, 100
-    q, do = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
-             .transpose(1, 2) for _ in range(2))
-    k, v = (torch.randn((B, S, KV, D), generator=g, device=dev).to(dtype)
-            .transpose(1, 2) for _ in range(2))
-    for causal in (True, False):
-        out, lse = fa.flash_mha_fwd(q, k, v, causal=causal)
-        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
-        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
-        assert [t.dtype for t in got] == [dtype] * 3
-        assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
-        assert _grads_close(got, want, tol), causal
-        again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
-        assert all(torch.equal(a, b) for a, b in zip(got, again))
-        dropped = do.clone()
-        dropped[:, 1] = 0  # head 1's terms missing from its group's dk, dv
-        bad = fa.flash_attention_bwd_plain(q, k, v, out, lse, dropped, causal=causal)
-        assert not _grads_close(bad[1:], want[1:], tol)
-        assert not _grads_close((2 * want[0],), want[:1], tol)
+    g = torch.Generator(device=dev).manual_seed(D + S)
+    for B, H, KV in ((2, 4, 2), (1, 8, 2)):
+        q, do = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+                 .transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn((B, S, KV, D), generator=g, device=dev).to(dtype)
+                .transpose(1, 2) for _ in range(2))
+        for causal in (True, False):
+            out, lse = fa.flash_mha_fwd(q, k, v, causal=causal)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+            assert [t.dtype for t in got] == [dtype] * 3
+            assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+            assert _grads_close(got, want, tol), (H, KV, causal)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            dropped = do.clone()
+            dropped[:, 1] = 0  # head 1's terms missing from its group's dk, dv
+            bad = fa.flash_attention_bwd_plain(q, k, v, out, lse, dropped,
+                                               causal=causal)
+            assert not _grads_close(bad[1:], want[1:], tol)
+            assert not _grads_close((2 * want[0],), want[:1], tol)
 
 
 @pytest.mark.cuda

@@ -102,9 +102,9 @@ def test_flash_plain_matches_xla_twin(B, H, KV, Sq, D, bq, causal):
     assert ops.DISPATCH_COUNTS["flash_attention"] == 1
 
 
-def test_flash_backward_waits_for_training():
-    """The backward landed (B7): under autograd the op's gradients on CPU
-    tensors are the plain backward's on the saved out and lse."""
+def test_flash_op_cpu_gradient_is_plain_backward():
+    """Under autograd the op's gradients on CPU tensors are the plain
+    backward's (B7's plain version) on the saved out and lse."""
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.normal(size=(1, 2, 8, 16)).astype(np.float32))
     q.requires_grad_(True)
