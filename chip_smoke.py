@@ -5,8 +5,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # Wisconsin at 5,000,000 rows; the
                                      # model UDF over 32,768 x 128 tokens;
-                                     # qwen3-1.7b serving 8 x (4,096 + 64)
-                                     # and training on 4 x 2,048 tokens
+                                     # qwen3-1.7b serving 8 x (4,096 + 64),
+                                     # training on 4 x 2,048 tokens, and
+                                     # training through launch/train.py with
+                                     # checkpoints, failures and a resume
 
 Phases (any mismatch raises; nothing is caught):
   1. header — the card's name and power limit; build the CUDA kernels from
@@ -197,6 +199,29 @@ Phases (any mismatch raises; nothing is caught):
      deepseek-moe-16b and llava-next-mistral-7b (cut to 4 layers),
      zamba2-1.2b, rwkv6-1.6b and whisper-base at their published widths on
      2 x 512 tokens: a finite loss, gradients and updated weights.
+ 12. the training runtime: qwen3-1.7b at its published widths, its depth
+     cut only as far as the checkpoints' disk (RUNTIME_KEEP + 1 train
+     states of 24.4 GB at full depth: the kept ones and the one being
+     written) or the host's memory (two snapshots) forces, the cut and its
+     reason printed, trained through ``launch/train.run`` with a flash
+     config: RUNTIME_STEPS steps of 4 x 2,048 tokens, a checkpoint every
+     RUNTIME_CKPT_EVERY steps into a fresh temporary directory (removed at
+     the end), a node failure at step 2 and a straggler at 5. Launch counts
+     zeroed just before the run and read just after: 2 x L flash_mha_fwd
+     and L flash_attention_bwd for every step run; the first step's B7
+     calls held against plain. Checked: the events equal the schedule, the
+     rollbacks land on steps 0 and 3 (the straggler's waits for step 3's
+     async save), the log's steps are 0, 1, 0, 1, 2, 3, 4, 3, 4, 5, the
+     loss finite and falling, each re-run step's loss equal to its first
+     run's (bit for bit, else within RUNTIME_TOL, printed which); a second
+     ``run(..., resume=True)`` starts at step 6 and holds every parameter,
+     m, v and the step bit-equal to the first run's. Planted: a writer that
+     swaps two layers' blocks must fail that check, and a flipped byte in a
+     leaf file must make the restore raise "crc". Printed beside the card:
+     the checkpoint's bytes, one save's synchronous snapshot and
+     background write, each restore's seconds and GB/s, each step's wall
+     (marking those a background write overlapped), the loop's wall and
+     its share of checkpoint work.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -3558,14 +3583,15 @@ def captured_grads(model, out: dict, ref: dict | None = None):
 
 
 @contextlib.contextmanager
-def checking_bwd(stats: dict):
-    """Every ``flash_attention_bwd`` call the step makes is held at once
-    against ``flash_attention_bwd_plain`` on the same q, k, v, out, lse
-    and dO (the strided views, remat's recomputed lse, dO as the chunked
-    CE's backward hands it): each of dq, dk and dv within
-    BWD_TOL["bfloat16"] of its own largest |value|, as phase 2. The
-    verdicts stay on the card until the block ends; ``stats`` gets
-    "calls", "bad" and "max_err" (relative to scale). Adds no launch."""
+def checking_bwd(stats: dict, limit: int | None = None):
+    """Every ``flash_attention_bwd`` call the step makes (the first
+    ``limit`` where given) is held at once against
+    ``flash_attention_bwd_plain`` on the same q, k, v, out, lse and dO (the
+    strided views, remat's recomputed lse, dO as the chunked CE's backward
+    hands it): each of dq, dk and dv within BWD_TOL["bfloat16"] of its own
+    largest |value|, as phase 2. The verdicts stay on the card until the
+    block ends; ``stats`` gets "calls", "bad" and "max_err" (relative to
+    scale). Adds no launch."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -3575,6 +3601,8 @@ def checking_bwd(stats: dict):
 
     def checked(q, k, v, out, lse, do, **kw):
         got = real(q, k, v, out, lse, do, **kw)
+        if limit is not None and len(rows) >= limit:
+            return got
         want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
         errs = torch.stack([(g.float() - w.float()).abs().max()
                             / w.float().abs().max() for g, w in zip(got, want)])
@@ -3948,6 +3976,364 @@ def train_family(arch: str, layers, dev, seed: int, card: str) -> dict:
           f"{m['loss']:.4f}, grad norm {m['grad_norm']:.4f} (finite, weights "
           f"finite), {wall * 1e3:.1f} ms, peak {out['peak_memory_gb']:.1f} GB; "
           f"launches {launches}", flush=True)
+    return out
+
+
+# -- phase 12: the training runtime (checkpoints, failures, rollback, resume) --
+
+RUNTIME_STEPS = 6           # launch/train.py's steps in phase 12
+RUNTIME_CKPT_EVERY = 3      # a checkpoint at steps 0, 3, 6 (and the final one)
+RUNTIME_SCHEDULE = {2: "node", 5: "straggler"}
+RUNTIME_LOG_STEPS = [0, 1, 0, 1, 2, 3, 4, 3, 4, 5]   # the schedule's replays
+RUNTIME_KEEP = 3            # launch/train.py's CheckpointManager(keep=3)
+RUNTIME_DISK_MARGIN = 2e9   # bytes of the checkpoints' disk left free
+RUNTIME_MEM_MARGIN = 12e9   # host bytes left beside the snapshots (and a
+                            # RAM-backed checkpoint directory)
+# The card's machine ends a run that has written 45 GiB (48.3 GB) to its
+# disk, deleted files included; phase 12 writes 6 train states (run 1's
+# saves at steps 0, 3, 6 and the final one, the resume's two), 8.1 GB each
+# at one layer of qwen3-1.7b's widths. So its checkpoints go to a
+# RAM-backed directory (RUNTIME_SHM) where there is one; on a disk they
+# may take RUNTIME_DISK_WRITES in all, the earlier phases' writes beside.
+RUNTIME_SHM = "/dev/shm"
+RUNTIME_SAVES = 6
+RUNTIME_DISK_WRITES = 30e9
+# A re-run step's loss against its first run's: the same restored state,
+# batch and kernels. Bit-equal is expected (B7 repeats bit-equal); where
+# it is not, the losses must agree within this (relative) and the cause
+# goes into PERF.md.
+RUNTIME_TOL = 1e-4
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def state_bytes(cfg) -> int:
+    """A train state's bytes: float32 parameters, AdamW's m and v, the
+    int32 step."""
+    return 12 * cfg.n_params() + 4
+
+
+def _is_tmpfs(path: str) -> bool:
+    """Whether ``path`` lies on a RAM-backed (tmpfs) mount."""
+    import os
+
+    path = os.path.realpath(path)
+    best, kind = "", ""
+    with open("/proc/mounts") as f:
+        for line in f:
+            point, fstype = line.split()[1:3]
+            inside = path == point or path.startswith(point.rstrip("/") + "/")
+            if inside and len(point) > len(best):
+                best, kind = point, fstype
+    return kind == "tmpfs"
+
+
+def runtime_depth(cfg, free: int, mem: int, in_memory: bool) -> tuple[int, str]:
+    """The largest depth up to the published one at which phase 12 fits.
+    Its directory holds RUNTIME_KEEP checkpoints and the one being written
+    beside them (RUNTIME_DISK_MARGIN to spare). The host holds two
+    snapshots (a save copies before it waits for the write in flight); in
+    a RAM-backed directory the states on it count too, and the most at
+    once is RUNTIME_KEEP + 2 (the kept ones, the one being written and a
+    snapshot; or one fewer on it beside two snapshots), with
+    RUNTIME_MEM_MARGIN to spare. On a disk, the run's RUNTIME_SAVES saves
+    stay within RUNTIME_DISK_WRITES. Returns (layers, the needs at the
+    published depth)."""
+    import dataclasses
+
+    def needs(layers: int) -> tuple[float, float, float]:
+        b = state_bytes(dataclasses.replace(cfg, n_layers=layers))
+        return ((RUNTIME_KEEP + 1) * b + RUNTIME_DISK_MARGIN,
+                ((RUNTIME_KEEP + 2) if in_memory else 2) * b + RUNTIME_MEM_MARGIN,
+                0 if in_memory else RUNTIME_SAVES * b)
+
+    def fits(layers: int) -> bool:
+        space, host, writes = needs(layers)
+        return space <= free and host <= mem and writes <= RUNTIME_DISK_WRITES
+
+    layers = cfg.n_layers
+    while layers > 0 and not fits(layers):
+        layers -= 1
+    space, host, writes = needs(cfg.n_layers)
+    why = (f"{cfg.n_layers} layers need {space:,.0f} bytes in the checkpoint "
+           f"directory ({RUNTIME_KEEP + 1} train states of {state_bytes(cfg):,}: "
+           f"{RUNTIME_KEEP} kept and one being written, + margin) and "
+           f"{host:,.0f} host bytes ("
+           + (f"{RUNTIME_KEEP + 2} states: the RAM-backed directory's and a "
+              "snapshot" if in_memory else "two snapshots")
+           + f", + margin){'' if in_memory else f', and {writes:,.0f} bytes of disk writes (limit {RUNTIME_DISK_WRITES:,.0f})'}; "
+           f"there are {free:,} and {mem:,}")
+    if layers == 0:
+        raise AssertionError(f"phase 12: no depth fits: {why}")
+    return layers, why
+
+
+def _union_s(spans: list) -> float:
+    """Seconds covered by a list of spans (overlaps counted once)."""
+    total, end = 0.0, -math.inf
+    for s in sorted(spans, key=lambda s: s["t0"]):
+        if s["t1"] > end:
+            total += s["t1"] - max(s["t0"], end)
+            end = s["t1"]
+    return total
+
+
+def _equal_state(a, b) -> tuple[int, int]:
+    """(tensors that differ, tensors compared) over two (model, AdamW
+    state) pairs: every parameter, m, v and the step, bit for bit."""
+    import torch
+
+    (ma, oa), (mb, ob) = a, b
+    pairs = [(p, q) for (_, p), (_, q) in zip(ma.named_parameters(),
+                                              mb.named_parameters())]
+    pairs += [(oa[k][n], ob[k][n]) for k in ("m", "v") for n in oa[k]]
+    pairs.append((oa["step"], ob["step"]))
+    differ = sum(not torch.equal(x, y) for x, y in pairs)
+    return differ, len(pairs)
+
+
+@contextlib.contextmanager
+def swapped_blocks():
+    """``load_train_state``'s in-place writer with a planted fault: every
+    stacked leaf's blocks 0 and 1 land in each other's layer."""
+    from repro_torch.models import convert
+
+    real = convert._scatter
+
+    def swapped(names, src, values, where):
+        if names.ndim == 1 and len(names) > 1:
+            names = names.copy()
+            names[[0, 1]] = names[[1, 0]]
+        real(names, src, values, where)
+
+    convert._scatter = swapped
+    try:
+        yield
+    finally:
+        convert._scatter = real
+
+
+def run_runtime(dev, card: str) -> dict:
+    """Phase 12: qwen3-1.7b at its published widths (depth cut only where
+    the disk or the host's memory forces it) trained through
+    ``launch/train.run`` with a flash config, 4 x 2,048 tokens a step,
+    RUNTIME_STEPS steps, a checkpoint every RUNTIME_CKPT_EVERY, a node
+    failure and a straggler; then resumed from the last checkpoint; then
+    two planted faults. Returns the phase's numbers and launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    import os
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    from repro_torch.runtime.fault import FailureInjector
+
+
+    cfg = _serve_cfg(TRAIN_ARCH, "flash")
+    check_published(cfg)
+    shm = RUNTIME_SHM if os.path.isdir(RUNTIME_SHM) and _is_tmpfs(RUNTIME_SHM) \
+        else None
+    ckdir = tempfile.mkdtemp(prefix="repro_torch_ckpt_", dir=shm)
+    try:
+        in_memory = _is_tmpfs(ckdir)
+        free, mem = shutil.disk_usage(ckdir).free, _mem_available()
+        disk_free = shutil.disk_usage(tempfile.gettempdir()).free
+        print(f"  checkpoints in a fresh directory, {ckdir} "
+              f"({'RAM-backed' if in_memory else 'on disk'}): {free:,} bytes "
+              f"free there; the disk of {tempfile.gettempdir()}: {disk_free:,} "
+              f"bytes free; host MemAvailable {mem:,} bytes", flush=True)
+        layers, why = runtime_depth(cfg, free, mem, in_memory)
+        if layers != cfg.n_layers:
+            print(f"  {TRAIN_ARCH} reduced: n_layers {cfg.n_layers} → {layers}, "
+                  f"because {why}", flush=True)
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        L = cfg.n_layers
+
+        # the main path: launch/train.run, launch counts zeroed just before
+        # and read just after; the first step's B7 calls held against plain
+        bwd: dict = {}
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with checking_bwd(bwd, limit=L):
+            first = train.run(cfg, RUNTIME_STEPS, TRAIN_BATCH, TRAIN_SEQ, ckdir,
+                              RUNTIME_CKPT_EVERY,
+                              injector=FailureInjector(dict(RUNTIME_SCHEDULE)),
+                              device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: _build.LAUNCHES[k] for k in ("flash_mha_fwd",
+                                                    "flash_attention_bwd")}
+        loop, ckpt, log = first["loop"], first["ckpt"], first["log"]
+        steps_run = len(log)
+        losses = [l for _, l in log]
+        want_events = [(2, "NodeFailure: injected node failure at step 2"),
+                       (5, "Straggler: injected straggler at step 5")]
+        if first["events"] != want_events:
+            raise AssertionError(f"phase 12 events {first['events']}")
+        if [s for s, _ in log] != RUNTIME_LOG_STEPS:
+            raise AssertionError(f"phase 12 log steps {[s for s, _ in log]}")
+        rolled = [s["step"] for s in loop.spans if s["span"] == "rollback"]
+        if rolled != [0, 3]:
+            raise AssertionError(f"phase 12 rolled back to {rolled}, want [0, 3]")
+        # the loss falls: step 0's batch scored by the trained model against
+        # the first step's loss on it (the initial weights). The launcher's
+        # OptimConfig(total_steps=6) keeps the reference's 100 warmup steps,
+        # so the lr stays under 2e-5 and each step's loss on a fresh random
+        # batch moves within the batches' spread
+        batch0 = next(train.data_factory(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)(0))
+        trained0 = float(steps.make_eval_step(cfg)(first["model"], batch0)["loss"])
+        del batch0
+        if not all(math.isfinite(x) for x in losses + [trained0]) \
+                or not trained0 < losses[0]:
+            raise AssertionError(f"phase 12 losses {losses}, step 0's batch after "
+                                 f"the run {trained0}: not finite and falling")
+        want_launches = {"flash_mha_fwd": steps_run * 2 * L,
+                         "flash_attention_bwd": steps_run * L}
+        if launches != want_launches:
+            raise AssertionError(f"phase 12 launches {launches}, want {want_launches}")
+        if bwd["calls"] != L or bwd["bad"]:
+            raise AssertionError(f"phase 12 first step's B7 vs plain: {bwd}")
+        # a re-run step against its first run (log entries: 0,1 again at
+        # 2,3; 3,4 again at 7,8)
+        reruns = [(0, 2), (1, 3), (5, 7), (6, 8)]
+        rel = [abs(losses[a] - losses[b]) / abs(losses[a]) for a, b in reruns]
+        bit_equal = all(losses[a] == losses[b] for a, b in reruns)
+        if max(rel) > RUNTIME_TOL:
+            raise AssertionError(f"phase 12 re-run losses {losses}: {rel}")
+
+        # resume: a new run restores the last checkpoint in place and runs
+        # no step; its model and state equal the first run's bit for bit
+        _build.reset_launches()
+        second = train.run(cfg, RUNTIME_STEPS, TRAIN_BATCH, TRAIN_SEQ, ckdir,
+                           RUNTIME_CKPT_EVERY, resume=True, device=dev)
+        torch.cuda.synchronize()
+        if second["start"] != RUNTIME_STEPS or second["log"] \
+                or any(_build.LAUNCHES.values()):
+            raise AssertionError(f"phase 12 resume: start {second['start']}, log "
+                                 f"{second['log']}, launches {dict(_build.LAUNCHES)}")
+        a = (first["model"], first["opt_state"])
+        b = (second["model"], second["opt_state"])
+        differ, n_tensors = _equal_state(a, b)
+        if differ:
+            raise AssertionError(f"phase 12 resume: {differ} of {n_tensors} tensors "
+                                 "differ from the first run's")
+
+        # planted faults: a writer that swaps two layers' blocks; a flipped
+        # byte in a leaf file
+        state = train.ModelState(cfg)
+        with swapped_blocks():
+            state.restore(second["ckpt"], *b)
+        swapped, _ = _equal_state(a, b)
+        if not swapped:
+            raise AssertionError("phase 12: a restore that swaps layers 0 and 1 "
+                                 "passed the bit-equality check")
+        leaf = Path(ckdir) / f"step_{RUNTIME_STEPS}" / "leaf_0.npy"
+        ckpt_bytes = sum(p.stat().st_size for p in leaf.parent.iterdir())
+        with open(leaf, "r+b") as f:
+            f.seek(-1, 2)
+            byte = f.read(1)
+            f.seek(-1, 2)
+            f.write(bytes([byte[0] ^ 0x01]))
+        try:
+            state.restore(second["ckpt"], *b)
+        except IOError as e:
+            if "crc" not in str(e):
+                raise
+            crc_error = str(e)
+        else:
+            raise AssertionError("phase 12: a flipped byte restored without a crc error")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # the numbers: the loop's and the checkpoint manager's spans
+    spans = loop.spans + ckpt.spans
+    t_start = min(s["t0"] for s in spans)
+    loop_s = max(s["t1"] for s in spans) - t_start
+    writes = [s for s in ckpt.spans if s["span"] == "write"]
+    background = [s for s in writes if s["background"]]
+    main_ckpt = [s for s in loop.spans if s["span"] in ("snapshot", "rollback")] \
+        + [s for s in ckpt.spans if s["span"] in ("copy", "wait")] \
+        + [s for s in writes if not s["background"]]
+    ckpt_share = _union_s(main_ckpt) / loop_s
+    step_rows = []
+    for s in loop.spans:
+        if s["span"] != "step" or not s["ok"]:
+            continue
+        over = any(w["t0"] < s["t1"] and s["t0"] < w["t1"] for w in background)
+        step_rows.append({"step": s["step"], "ms": (s["t1"] - s["t0"]) * 1e3,
+                          "overlaps_write": over})
+    save3 = next(s for s in loop.spans if s["span"] == "snapshot" and s["step"] == 3)
+    write3 = next(s for s in writes if s["step"] == 3)
+    reads = [s for s in ckpt.spans if s["span"] == "read"]
+    rollbacks = [s for s in loop.spans if s["span"] == "rollback"]
+    out = {"layers": L, "free_bytes": free, "disk_free_bytes": disk_free,
+           "in_memory": in_memory, "mem_available_bytes": mem,
+           "state_bytes": write3["bytes"], "checkpoint_bytes": ckpt_bytes,
+           "snapshot_s": save3["t1"] - save3["t0"],
+           "write_s": write3["t1"] - write3["t0"],
+           "restore_s": [r["t1"] - r["t0"] for r in reads],
+           "restore_gb_s": [r["bytes"] / (r["t1"] - r["t0"]) / 1e9 for r in reads],
+           "rollback_s": [r["t1"] - r["t0"] for r in rollbacks],
+           "steps": step_rows, "loop_s": loop_s, "run_s": run_s,
+           "ckpt_share": ckpt_share, "losses": losses, "batch0_after": trained0,
+           "rerun_rel": rel,
+           "rerun_bit_equal": bit_equal, "events": first["events"],
+           "launches": launches, "bwd_vs_plain": bwd, "resume_tensors": n_tensors,
+           "planted_swap_tensors": swapped, "planted_crc": crc_error}
+    print(f"  [{card}] launch/train.run: {TRAIN_ARCH} ({L} layers), "
+          f"{RUNTIME_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, checkpoint "
+          f"every {RUNTIME_CKPT_EVERY}, injected {RUNTIME_SCHEDULE}: events "
+          f"{first['events']}; rolled back to steps {rolled}; log steps "
+          f"{[s for s, _ in log]}", flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]}; step 0's batch "
+          f"{losses[0]:.5f} before the run, {trained0:.5f} after (finite, "
+          f"falling); re-run "
+          f"steps' losses {'bit-equal' if bit_equal else 'NOT bit-equal'} to their "
+          f"first runs (worst relative {max(rel):.2e}, limit {RUNTIME_TOL})", flush=True)
+    print(f"  main path launches {launches} = {steps_run} steps run x (2 x {L}, "
+          f"{L}); the first step's {bwd['calls']} flash_attention_bwd calls == "
+          f"plain: worst {bwd['max_err']:.3e} x scale (tolerance "
+          f"{BWD_TOL['bfloat16']})", flush=True)
+    print(f"  resume: a new run restored step {second['start']} in place and ran "
+          f"no step; {n_tensors} tensors (parameters, m, v, step) bit-equal to the "
+          f"first run's. Planted: a writer swapping layers 0 and 1 left {swapped} "
+          f"tensors unequal (caught); a flipped byte in leaf_0.npy raised "
+          f"{crc_error!r}", flush=True)
+    print(f"  [{card}] checkpoint of step {RUNTIME_STEPS}: {ckpt_bytes:,} bytes "
+          f"({write3['bytes']:,} of arrays); one save (step 3): snapshot "
+          f"{out['snapshot_s']:.2f} s on the loop's thread, then the background "
+          f"write {out['write_s']:.2f} s (CRC + np.save + rename, "
+          f"{write3['bytes'] / out['write_s'] / 1e9:.2f} GB/s)", flush=True)
+    print(f"  [{card}] restores: "
+          + ", ".join(f"read {r:.2f} s ({g:.2f} GB/s)" for r, g in
+                      zip(out["restore_s"], out["restore_gb_s"]))
+          + "; rollbacks with the in-place write: "
+          + ", ".join(f"{r:.2f} s" for r in out["rollback_s"]), flush=True)
+    over = [r["ms"] for r in step_rows if r["overlaps_write"]]
+    alone = [r["ms"] for r in step_rows if not r["overlaps_write"]]
+    print(f"  [{card}] step walls (ms; * = a background write ran during it): "
+          + ", ".join(f"{r['step']}:{r['ms']:.1f}{'*' if r['overlaps_write'] else ''}"
+                      for r in step_rows)
+          + f"; median with a write {statistics.median(over) if over else float('nan'):.1f}"
+          f", without {statistics.median(alone) if alone else float('nan'):.1f}",
+          flush=True)
+    print(f"  [{card}] the loop: {loop_s:.2f} s, {ckpt_share:.0%} of it checkpoint "
+          f"work on the loop's thread (snapshots, waits, synchronous writes, "
+          f"rollbacks); run() with set-up {run_s:.2f} s", flush=True)
+    del first, second, a, b
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4424,6 +4810,21 @@ def main(argv=None) -> int:
     bwd_row = training.pop("row")
     bwd_row["max_abs_err_rel"] = bwd_cases["err"]
     kernels.append(bwd_row)
+    torch.cuda.empty_cache()
+    print(f"phase 12: the training runtime — {TRAIN_ARCH} through "
+          f"launch/train.run (flash), {RUNTIME_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, checkpoints every {RUNTIME_CKPT_EVERY}, injected "
+          f"{RUNTIME_SCHEDULE}, then a resume and two planted faults", flush=True)
+    t0 = time.perf_counter()
+    runtime = run_runtime(dev, card)
+    runtime["seconds"] = time.perf_counter() - t0
+    print(f"  [{card}] phase 12 in {runtime['seconds']:.1f} s", flush=True)
+    # the main path's launches: each path's, counted apart
+    flash_row["launches_by_path"]["runtime"] = runtime["launches"]["flash_mha_fwd"]
+    flash_row["launches"] += runtime["launches"]["flash_mha_fwd"]
+    bwd_row["launches_by_path"] = {"training": bwd_row["launches"],
+                                   "runtime": runtime["launches"]["flash_attention_bwd"]}
+    bwd_row["launches"] += runtime["launches"]["flash_attention_bwd"]
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -4434,6 +4835,7 @@ def main(argv=None) -> int:
                               "rows_within_margin": udf["rows_near_margin"],
                               "rows_flash_vs_blocked_differ": udf["rows_differ"]},
                       "serving": serving, "training": training,
+                      "runtime": runtime,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

@@ -654,15 +654,18 @@ class Session:
         if e is not None:  # stale epoch/LSN: sweep dead queries with it
             self._compiled = {k: v for k, v in self._compiled.items()
                               if k[1:] == (snap.stats_epoch, snap.lsn)}
+        e = self._new_entry(plan, raw_lits, snap)
+        self._plans[raw_fp] = e
+        return e
+
+    def _new_entry(self, plan: P.Plan, raw_lits: list, snap) -> _PlanEntry:
         tel.inc("session.optimizes_total", sid=self.sid)
         with tel.span("session.optimize", sid=self.sid):
             opt = optimize(plan, snap, enable_pushdown=self.enable_pushdown)
         with tel.span("session.prune_build", sid=self.sid):
             pruner = build_pruner(opt, snap, raw_lits,
                                   n_shards=self.n_shards)
-        e = _PlanEntry(snap.stats_epoch, snap.lsn, opt, list(raw_lits), pruner)
-        self._plans[raw_fp] = e
-        return e
+        return _PlanEntry(snap.stats_epoch, snap.lsn, opt, list(raw_lits), pruner)
 
     def _variant(self, e: _PlanEntry, raw_lits: list, snap):
         """Levels 2+3: prune signature → (compiled query, binding); compiled
@@ -739,8 +742,15 @@ class Session:
         raw_lits = ordered_lits(P.all_exprs(plan))
         self._ensure_bound(plan)
         with self.catalog.snapshot() as snap:
-            e = self._plan_entry(plan, plan.fingerprint(), raw_lits, snap)
-            cq, binding = self._variant(e, raw_lits, snap)
+            # as the reference's: optimized (counted), then planned and
+            # compiled once outside the plan cache (neither kept nor counted)
+            e = self._new_entry(plan, raw_lits, snap)
+            phys = plan_physical(e.opt, snap, mode=self.mode,
+                                 decisions=self._decide(e, raw_lits),
+                                 enable_index=self.enable_index)
+            cq = compile_physical(phys, self.exec_context(snap))
+            binding = _literal_binding(e.raw_lits0,
+                                       ordered_lits(PH.all_exprs(phys)))
             out = cq.run(snap, params=_bind_params(binding, raw_lits,
                                                    self.device))
         if cq.kind == "scalar":

@@ -1,5 +1,8 @@
 """Carry the JAX package's parameters into the port's modules
-(:func:`from_jax`) and back out as its pytree (:func:`to_jax`).
+(:func:`from_jax`) and back out as its pytree (:func:`to_jax`); lay a
+train state out as the reference's (:func:`train_state_tree`, what a
+checkpoint of either package holds) and write one back in place
+(:func:`load_train_state`).
 
 The reference keeps parameters as a dict pytree with every layer's arrays
 stacked on a leading L axis (``params["layers"]["attn"]["wq"]`` is
@@ -83,24 +86,54 @@ def _leaves(tree):
             yield v
 
 
-def _tree(mod: nn.Module, value, prefix: str) -> dict:
+def _layout(mod: nn.Module, prefix: str = "") -> dict:
+    """The reference's pytree of ``mod`` with, at each leaf, a numpy object
+    array of the port's parameter names that fill it: 0-d for a parameter
+    of its own, (L,) for a stacked key (block i at index i)."""
     out = {}
     for n, p in mod._parameters.items():
         if p is not None:
-            out[n] = value(prefix + n, p)
+            out[n] = np.array(prefix + n, dtype=object)
     for n, m in mod._modules.items():
         if n in STACKED:
-            blocks = [_tree(b, value, f"{prefix}{n}.{i}.")
-                      for i, b in enumerate(m)]
-            out[n] = _stack(blocks)
+            out[n] = _stack([_layout(b, f"{prefix}{n}.{i}.")
+                             for i, b in enumerate(m)])
         else:
-            out[n] = _tree(m, value, f"{prefix}{n}.")
+            out[n] = _layout(m, f"{prefix}{n}.")
     return out
 
 
 def _stack(blocks: list) -> dict:
     return {k: _stack([b[k] for b in blocks]) if isinstance(blocks[0][k], dict)
             else np.stack([b[k] for b in blocks]) for k in blocks[0]}
+
+
+def _map(fn, layout: dict) -> dict:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in layout.items()}
+
+
+def _gather(names: np.ndarray, values: dict, dtype=None) -> np.ndarray:
+    """One leaf of the reference's tree on the host: each named tensor
+    copied (synchronously) into its slot of one fresh array, of ``dtype``
+    or the tensors' own (a dtype numpy cannot hold raises)."""
+    first = values[names.flat[0]]
+    if dtype is None:
+        dtype = torch.empty(0, dtype=first.dtype).numpy().dtype
+    out = np.empty(names.shape + tuple(first.shape), dtype)
+    for idx in np.ndindex(names.shape):
+        torch.from_numpy(out[idx + (...,)]).copy_(values[names[idx]].detach())
+    return out
+
+
+def _values(model: nn.Module, cfg: ArchConfig, values) -> dict:
+    params = dict(model.named_parameters())
+    if values is None:
+        return params
+    missing = set(params) - set(values)
+    if missing:
+        raise ValueError(f"{cfg.name}: no value for {sorted(missing)}")
+    return values
 
 
 def to_jax(model: nn.Module, cfg: ArchConfig, values=None) -> dict:
@@ -110,13 +143,88 @@ def to_jax(model: nn.Module, cfg: ArchConfig, values=None) -> dict:
     keyed by the names of ``model.named_parameters()`` (the parameters'
     gradients, AdamW's ``m`` or ``v``), lays those tensors out instead.
     ``cfg`` names the model in errors, as for :func:`from_jax`."""
-    if values is None:
-        values = dict(model.named_parameters())
-    missing = set(dict(model.named_parameters())) - set(values)
-    if missing:
-        raise ValueError(f"{cfg.name}: no value for {sorted(missing)}")
-    return _tree(model, lambda name, p: values[name].detach().float().cpu()
-                 .numpy().copy(), "")
+    values = _values(model, cfg, values)
+    return _map(lambda names: _gather(names, values, np.float32), _layout(model))
+
+
+def train_state_tree(model: nn.Module, opt_state: dict, cfg: ArchConfig) -> dict:
+    """The train state as the reference's pytree, ``{"params": ...,
+    "opt": {"m": ..., "v": ..., "step": int32 0-d}}`` in its stacked
+    layout: fresh host arrays in the tensors' own dtypes (a dtype numpy
+    cannot hold raises), filled one leaf at a time. What a checkpoint of
+    either package holds."""
+    layout = _layout(model)
+
+    def tree(values):
+        values = _values(model, cfg, values)
+        return _map(lambda names: _gather(names, values), layout)
+
+    return {"params": tree(None),
+            "opt": {"m": tree(opt_state["m"]), "v": tree(opt_state["v"]),
+                    "step": _gather(np.array("step", dtype=object), opt_state)}}
+
+
+def train_state_like(model: nn.Module, opt_state: dict, cfg: ArchConfig) -> dict:
+    """:func:`train_state_tree`'s structure, shapes and dtypes as tensors
+    on the "meta" device (no data, no copy): the ``like`` of a restore."""
+    layout = _layout(model)
+
+    def like(values):
+        values = _values(model, cfg, values)
+
+        def meta(names):
+            t = values[names.flat[0]]
+            return torch.empty(names.shape + tuple(t.shape), dtype=t.dtype,
+                               device="meta")
+        return _map(meta, layout)
+
+    return {"params": like(None),
+            "opt": {"m": like(opt_state["m"]), "v": like(opt_state["v"]),
+                    "step": torch.empty((), dtype=opt_state["step"].dtype,
+                                        device="meta")}}
+
+
+def _scatter(names: np.ndarray, src: torch.Tensor, values: dict,
+             where: str) -> None:
+    """The inverse of :func:`_gather`, in place: slot ``idx`` of ``src``
+    into the tensor it names. Shapes and dtypes must agree (nothing is
+    cast)."""
+    for idx in np.ndindex(names.shape):
+        dst, s = values[names[idx]], src[idx]
+        if s.dtype != dst.dtype or tuple(s.shape) != tuple(dst.shape):
+            raise ValueError(f"{where} -> {names[idx]}: {s.dtype} "
+                             f"{tuple(s.shape)} into {dst.dtype} "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(s)
+
+
+@torch.no_grad()
+def load_train_state(tree: dict, model: nn.Module, opt_state: dict,
+                     cfg: ArchConfig) -> tuple[nn.Module, dict]:
+    """The inverse of :func:`train_state_tree`, in place: every parameter,
+    AdamW moment and the step take their values from ``tree`` (tensors on
+    any device; stacked leaf i into block i). Keys, shapes and dtypes must
+    agree (``ValueError``: nothing is cast). Returns ``(model,
+    opt_state)``."""
+    layout = _layout(model)
+
+    def load(sub: dict, lay: dict, values: dict, where: str):
+        if set(sub) != set(lay):
+            raise ValueError(f"{where}: keys {sorted(sub)} != the model's "
+                             f"{sorted(lay)}")
+        for k, names in lay.items():
+            if isinstance(names, dict):
+                load(sub[k], names, values, f"{where}/{k}")
+            else:
+                _scatter(names, sub[k], values, f"{where}/{k}")
+
+    load(tree["params"], layout, dict(model.named_parameters()),
+         f"{cfg.name} params")
+    load(tree["opt"]["m"], layout, opt_state["m"], f"{cfg.name} opt/m")
+    load(tree["opt"]["v"], layout, opt_state["v"], f"{cfg.name} opt/v")
+    _scatter(np.array("step", dtype=object), tree["opt"]["step"], opt_state,
+             f"{cfg.name} opt/step")
+    return model, opt_state
 
 
 def from_jax(params: dict, cfg: ArchConfig, device=None) -> nn.Module:

@@ -753,3 +753,76 @@ def test_cuda_topk_head_past_the_row_count():
     for mode, res in got.items():
         np.testing.assert_array_equal(np.asarray(res["v"]), v[order], err_msg=mode)
         np.testing.assert_array_equal(np.asarray(res["k"]), order, err_msg=mode)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip(tmp_path):
+    """A reduced qwen3's train state on the card through a checkpoint: the
+    snapshot is taken before ``save`` returns (the model changed in place
+    at once does not leak into it), a restore onto the card (the default
+    device) gives every leaf bit for bit, and the in-place writer puts the
+    model and its AdamW state back exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import ModelState
+    from repro_torch.models import convert, steps
+    from repro_torch.runtime.checkpoint import CheckpointManager
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-1.7b").reduced()
+    model, opt = steps.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        for t in opt["m"].values():
+            t.normal_()
+    opt["step"] += 5
+    want = {n: p.detach().clone() for n, p in model.named_parameters()}
+    want_m = {n: t.clone() for n, t in opt["m"].items()}
+    cm = CheckpointManager(tmp_path, async_save=True)
+    state = ModelState(cfg)
+    cm.save(5, state.tree(model, opt))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1.0)
+        for t in opt["m"].values():
+            t.zero_()
+    opt["step"] += 1
+    step, tree = cm.restore(None, convert.train_state_like(model, opt, cfg))
+    assert step == 5 and tree["opt"]["step"].device.type == "cuda"
+    assert int(tree["opt"]["step"]) == 5
+    state.restore(cm, model, opt)
+    for n, p in model.named_parameters():
+        assert torch.equal(p, want[n]), n
+    for n, t in opt["m"].items():
+        assert torch.equal(t, want_m[n]), n
+    assert int(opt["step"]) == 5
+
+
+@pytest.mark.cuda
+def test_cuda_fault_loop_two_steps(tmp_path):
+    """Two train steps of a reduced qwen3 on the card under attn_impl="flash"
+    through ``launch/train.run``, a checkpoint after every step and a
+    straggler at step 1: the rollback waits for step 1's async save and
+    restores it, the flash kernels launch for the two steps run only, and
+    the losses equal, bit for bit, those of a run without the failure
+    from the same seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.runtime.fault import FailureInjector
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(), attn_impl="flash")
+    _build.reset_launches()
+    out = train.run(cfg, 2, 2, 64, tmp_path, 1, injector=FailureInjector({1: "straggler"}))
+    torch.cuda.synchronize()
+    assert out["events"] == [(1, "Straggler: injected straggler at step 1")]
+    assert [s for s, _ in out["log"]] == [0, 1]
+    assert _build.LAUNCHES["flash_mha_fwd"] == 2 * 2 * cfg.n_layers
+    assert _build.LAUNCHES["flash_attention_bwd"] == 2 * cfg.n_layers
+    assert [s["step"] for s in out["loop"].spans if s["span"] == "rollback"] == [1]
+    again = train.run(cfg, 2, 2, 64, tmp_path / "again", 1)
+    assert [l for _, l in again["log"]] == [l for _, l in out["log"]]

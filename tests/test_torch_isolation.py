@@ -25,7 +25,12 @@ MODULES = ["repro_torch.core.frame", "repro_torch.core.window",
            "repro_torch.models.hybrid", "repro_torch.models.hybrid_groups",
            "repro_torch.models.rwkv", "repro_torch.models.whisper",
            "repro_torch.models.steps", "repro_torch.models.optim",
-           "repro_torch.launch.serve",
+           "repro_torch.launch.serve", "repro_torch.launch.train",
+           "repro_torch.runtime.tree", "repro_torch.runtime.checkpoint",
+           "repro_torch.runtime.compress",
+           "repro_torch.examples.quickstart",
+           "repro_torch.examples.sentiment_pipeline",
+           "repro_torch.examples.serve_model", "repro_torch.examples.train_lm",
            "repro_torch.udf.model_udf"]
 
 
