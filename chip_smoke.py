@@ -6,9 +6,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py            # Wisconsin at 5,000,000 rows; the
                                      # model UDF over 32,768 x 128 tokens;
                                      # qwen3-1.7b serving 8 x (4,096 + 64),
-                                     # training on 4 x 2,048 tokens, and
+                                     # training on 4 x 2,048 tokens,
                                      # training through launch/train.py with
-                                     # checkpoints, failures and a resume
+                                     # checkpoints, failures and a resume,
+                                     # and serving and training on a
+                                     # data 2 x model 2 mesh of the card
 
 Phases (any mismatch raises; nothing is caught):
   1. header — the card's name and power limit; build the CUDA kernels from
@@ -222,6 +224,33 @@ Phases (any mismatch raises; nothing is caught):
      background write, each restore's seconds and GB/s, each step's wall
      (marking those a background write overlapped), the loop's wall and
      its share of checkpoint work.
+ 13. the model mesh on one card (``make_local_mesh`` + ``sharding_ctx``,
+     every shard on the card). (a) qwen3-1.7b at its published config
+     serves 4 x (2,048 + 16) tokens on a data 2 x model 2 mesh: the flash
+     prefill equal to the meshless one bit for bit, then 16 decode steps
+     with ``decode_cache_update="shardmap"`` (each model rank owns half the
+     cache's rows) against the meshless one-hot decode, teacher-forced on
+     the same tokens: each shardmap call of the first step against the
+     one-hot body on the same inputs (bf16 row tolerance, the cache
+     written bit-equal), the logits and the cache at every step within
+     SERVE_TOL, argmax equal where the one-hot top-2 margin exceeds it; a
+     merge without model rank 1 must fail both. (b) its
+     data-parallel train step on 4 x 2,048 tokens (flash, remat) against
+     the meshless step from the same weights and batch: loss within 5e-3,
+     grad norm and every parameter's gradient within MESH_GRAD_TOL; a merge
+     that drops shard 1 or sums for a mean must fail that; launch counts
+     zeroed just before the meshed step and read just after (2 x 28
+     flash_mha_fwd and 28 flash_attention_bwd per data shard), every B7
+     call of one meshed step against plain. (d) ``compressed_psum`` over
+     the step's two shard gradient trees: every leaf within max|t| / 127
+     of the exact mean, layer 0's leaves equal on the CPU bit for bit.
+     (c) deepseek-moe-16b (4 layers) expert-parallel on data 2 x model 4
+     (16 experts a rank): its prefill of 4 x 512 against the meshless path
+     on each data shard's rows, tokens whose experts flip counted, the
+     requests that keep theirs and a run forced onto the meshless experts
+     held to FAMILY_TOL, and that forced run without one rank's partials
+     must fail it. Printed beside the card: prefill and decode ms of
+     both (a) runs, both (b) step walls and the meshed step's peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -3551,18 +3580,21 @@ def captured_qkv_grads(n_layers: int, out: dict, ref: dict | None = None):
 
 
 @contextlib.contextmanager
-def captured_grads(model, out: dict, ref: dict | None = None):
+def captured_grads(model, out: dict, ref: dict | None = None,
+                   update: bool = True):
     """Every parameter's gradient as the train step hands it to
-    ``adamw_update`` (before the clip). Without ``ref`` each is kept on the
-    card under ``out[name]``; with it ``out[name]`` is the relative L2
-    difference from ``ref[name]``, a 0-d tensor on the card."""
+    ``adamw_update`` (before the clip; on a mesh, the merged one). Without
+    ``ref`` each is kept on the card under ``out[name]``; with it
+    ``out[name]`` is the relative L2 difference from ``ref[name]``, a 0-d
+    tensor on the card. Without ``update`` the step leaves the weights and
+    the AdamW state as they were and reports the gradients' global norm."""
     import torch
 
-    from repro_torch.models import steps
+    from repro_torch.models import optim, steps
 
     real = steps.adamw_update
 
-    def update(*a, **kw):
+    def update_fn(*a, **kw):
         with torch.no_grad():
             for name, p in model.named_parameters():
                 if p.grad is None:
@@ -3573,9 +3605,13 @@ def captured_grads(model, out: dict, ref: dict | None = None):
                     want = ref[name]
                     out[name] = torch.linalg.vector_norm(p.grad - want) \
                         / torch.linalg.vector_norm(want).clamp_min(1e-30)
+            if not update:
+                return {"grad_norm": optim.global_norm(
+                            [p.grad for p in model.parameters()]),
+                        "lr": torch.full((), float("nan"))}
         return real(*a, **kw)
 
-    steps.adamw_update = update
+    steps.adamw_update = update_fn
     try:
         yield out
     finally:
@@ -4337,6 +4373,514 @@ def run_runtime(dev, card: str) -> dict:
     return out
 
 
+# -- phase 13: the model mesh on one card -----------------------------------------
+
+MESH_ARCH = "qwen3-1.7b"    # the serve and train paths' model, at its published width
+MESH_DATA, MESH_MODEL = 2, 2
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_NEW = 4, 2_048, 16
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 2_048
+# The shardmap decode against the one-hot one. The reference's test holds
+# them to 8e-2 on the logits and 0.06 on the cache at its reduced width
+# (tests/test_distributed.py:216-218; tests/test_torch_mesh_models.py holds
+# the port there). At 28 layers and d 2,048 in bf16 the two read 0.09-0.11
+# apart on an H100 (700 W), with one shardmap layer within bf16 rounding of
+# the one-hot layer on the same inputs: the shardmap body rounds each
+# rank's partial P.V to bf16 before the float32 merge and divides after
+# it, the one-hot body rounds once after normalising, and 28 layers
+# compound the difference, as flash against blocked does in phase 10. So
+# each shardmap call of the first step is held to its one-hot twin on the
+# same inputs (phase 2's bf16 row tolerance, the cache written bit-equal),
+# and the 16 steps end to end to phase 10's SERVE_TOL; a merge that drops
+# model rank 1 must fail both.
+MESH_LOSS_TOL = 5e-3        # the DP step's loss (tests/test_distributed.py:142)
+# The data-parallel step against the meshless one from the same weights and
+# batch: each shard's rows go through the same kernels (B5 / B7 work per
+# (batch, head) tile, so a row's attention is bit-equal either way), but
+# the GEMMs run at half the rows (cuBLAS may tile and split K otherwise,
+# rounding bf16 activations apart) and a weight gradient sums its tokens
+# in two halves; 28 layers compound it. The CPU tests read 2e-2 at most
+# at the reduced width in bf16; a dropped shard or a sum for a mean moves
+# a leaf by 0.5-1.0.
+MESH_GRAD_TOL = {"grad_norm": 1e-2,   # relative
+                 "grads": 2e-2}       # worst leaf's relative L2
+MESH_MOE = ("deepseek-moe-16b", 4)    # phase 10's depth
+MESH_MOE_DATA, MESH_MOE_MODEL = 2, 4  # 16 of 64 experts a rank
+MESH_MOE_BATCH, MESH_MOE_SEQ = 4, 512
+MESH_CPU_LEAVES = "layers.0."         # (d)'s leaves also reduced on the CPU
+
+
+@contextlib.contextmanager
+def checking_smap(stats: dict, limit: int):
+    """Counts every shardmap decode call in ``stats["calls"]``, and holds
+    the first ``limit`` against the one-hot body on the same inputs: the
+    layer's cache written by ``update_cache_layer`` on copies, then
+    ``cache_attention``; the output within phase 2's bf16 row tolerance
+    (2e-2 x (|want| + the row's largest |want|)) and the cache written
+    bit-equal. Verdicts stay on the card until the block ends."""
+    import torch
+
+    from repro_torch.models import attention as attn
+
+    real = attn._decode_attention_smap
+    rows = []
+
+    def checked(q, k_new, v_new, ck, cv, pos, cfg, ctx):
+        stats["calls"] += 1
+        if len(rows) >= limit:
+            return real(q, k_new, v_new, ck, cv, pos, cfg, ctx)
+        wk, wv = ck.clone(), cv.clone()
+        attn.update_cache_layer(wk, wv, k_new, v_new, pos)
+        want = attn.cache_attention(q, wk, wv, pos.reshape(1), cfg).float()
+        out = real(q, k_new, v_new, ck, cv, pos, cfg, ctx)
+        got = out.reshape(want.shape).float()
+        err = (got - want).abs()
+        bound = 2e-2 * (want.abs() + want.abs().amax(dim=-1, keepdim=True))
+        rows.append(torch.stack([(err > bound).any().float(), err.max(),
+                                 (torch.equal(wk, ck) and torch.equal(wv, cv))
+                                 * torch.ones((), device=err.device)]))
+        return out
+
+    attn._decode_attention_smap = checked
+    try:
+        yield stats
+    finally:
+        attn._decode_attention_smap = real
+    r = torch.stack(rows).cpu() if rows else torch.zeros((0, 3))
+    stats.update(checked=len(rows), bad=int(r[:, 0].sum()),
+                 max_err=float(r[:, 1].max()) if rows else float("nan"),
+                 cache_equal=bool(r[:, 2].all()))
+
+
+@contextlib.contextmanager
+def planted_smap_merge():
+    """The shardmap decode's merge over the model ranks (``pmax`` and the
+    two ``psum``s) taking rank 0's partials only: the context rank 1 owns
+    drops out."""
+    import types
+
+    from repro_torch.engine import distributed
+    from repro_torch.models import attention as attn
+
+    attn.D = types.SimpleNamespace(psum=lambda parts: distributed.psum(parts[:1]),
+                                   pmax=lambda parts: distributed.pmax(parts[:1]))
+    try:
+        yield
+    finally:
+        attn.D = distributed
+
+
+@contextlib.contextmanager
+def planted_rank_merge(ranks: int):
+    """The expert-parallel MoE's ``psum`` over its ``ranks`` model ranks
+    without the last rank's partial output."""
+    import types
+
+    from repro_torch.engine import distributed
+    from repro_torch.models import moe
+
+    moe.D = types.SimpleNamespace(
+        psum=lambda parts: distributed.psum(parts[:-1] if len(parts) == ranks
+                                            else parts),
+        pmean=distributed.pmean)
+    try:
+        yield
+    finally:
+        moe.D = distributed
+
+
+@contextlib.contextmanager
+def merged_with(fn):
+    """``steps.merge_grads`` replaced by ``fn(real, parts, weights)``."""
+    from repro_torch.models import steps
+
+    real = steps.merge_grads
+    steps.merge_grads = lambda parts, weights: fn(real, parts, weights)
+    try:
+        yield
+    finally:
+        steps.merge_grads = real
+
+
+def check_compressed(parts: list, names: list) -> dict:
+    """(d): ``compressed_psum`` over the data shards' gradient trees, leaf
+    by leaf on the card (zero error state): each leaf's mean within
+    max|t| / 127 of the exact mean, and the leaves under MESH_CPU_LEAVES
+    reduced again on the CPU, bit for bit."""
+    import torch
+
+    from repro_torch.runtime import compress
+
+    ratios, cpu = [], {"leaves": 0, "elements": 0, "unequal": 0}
+    for j, name in enumerate(names):
+        gs = [{"g": part[j]} for part in parts]
+        errs = [{"g": torch.zeros_like(part[j])} for part in parts]
+        mean, _ = compress.compressed_psum(gs, errs)
+        exact = sum(p[j] for p in parts) / len(parts)
+        scale = max(float(p[j].abs().max()) for p in parts) / 127.0
+        ratios.append(float((mean["g"] - exact).abs().max()) / max(scale, 1e-30))
+        if name.startswith(MESH_CPU_LEAVES) or name == "final_norm":
+            host, _ = compress.compressed_psum(
+                [{"g": g["g"].cpu()} for g in gs], [{"g": e["g"].cpu()} for e in errs])
+            got = mean["g"].cpu()
+            cpu["leaves"] += 1
+            cpu["elements"] += got.numel()
+            cpu["unequal"] += int((got.view(torch.int32)
+                                   != host["g"].view(torch.int32)).sum())
+    return {"leaves": len(ratios), "worst_err_over_scale": max(ratios), "cpu": cpu}
+
+
+def run_mesh_models(dev, seed: int, card: str) -> dict:
+    """Phase 13: the model paths on a data x model mesh of the card
+    (``launch/mesh.make_local_mesh`` + ``models/sharding.sharding_ctx``):
+    (a) qwen3-1.7b served with the shardmap decode against the meshless
+    one-hot decode, (b) its data-parallel train step against the meshless
+    step, (c) deepseek-moe-16b's expert-parallel prefill against the
+    meshless path, (d) ``compressed_psum`` over (b)'s shards' gradients.
+    Returns the phase's numbers and its B5 / B7 launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import optim, registry, steps
+    from repro_torch.models.sharding import sharding_ctx
+
+    t_phase = time.perf_counter()
+    mesh = make_local_mesh(MESH_DATA, MESH_MODEL, device=dev)
+    launches = {"flash_mha_fwd": 0, "flash_attention_bwd": 0}
+
+    def counted(fn):
+        """``fn()`` with the launch counts zeroed before and read after:
+        the main path's own launches, added to ``launches``."""
+        _build.reset_launches()
+        out = fn()
+        for k in launches:
+            launches[k] += _build.LAUNCHES[k]
+        return out
+
+    # -- (a) serve ---------------------------------------------------------------
+    cfg = _serve_cfg(MESH_ARCH, "flash")
+    check_published(cfg)
+    onehot = dataclasses.replace(cfg, attn_impl="blocked", decode_cache_update="onehot")
+    smap = dataclasses.replace(cfg, decode_cache_update="shardmap")
+    api = registry.get_api(cfg)
+    B, P, NEW = MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_NEW
+    model = api.init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    batch = serve.make_batch(cfg, B, P, np.random.default_rng(seed), dev)
+    max_len = P + NEW
+    if max_len % MESH_MODEL:
+        raise AssertionError(f"cache length {max_len} does not split over "
+                             f"{MESH_MODEL} model ranks")
+
+    def prefill(ctx):
+        with torch.no_grad(), ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, lg = api.prefill(model, batch, cfg, max_len)
+            torch.cuda.synchronize()
+        return cache, lg[:, -1].float(), (time.perf_counter() - t0) * 1e3
+
+    cache1, first1, pre1_ms = prefill(contextlib.nullcontext())
+    cache2, first2, pre2_ms = counted(lambda: prefill(sharding_ctx(mesh)))
+    if not (torch.equal(cache1["k"], cache2["k"]) and torch.equal(first1, first2)):
+        raise AssertionError("the meshed prefill differs from the meshless one")
+    del cache2
+    cache2 = {k: v.clone() for k, v in cache1.items()}
+    cache_p = {k: v.clone() for k, v in cache1.items()}
+    forced = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (NEW, B, 1)).astype(np.int32)).to(dev)
+
+    def decode(run_cfg, cache, ctx, steps_=NEW):
+        logits = []
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps_ + 1)]
+        with torch.no_grad(), ctx:
+            ev[0].record()
+            for t in range(steps_):
+                cache, lg = api.decode(model, cache, forced[t], run_cfg)
+                logits.append(lg[:, -1].float())
+                ev[t + 1].record()
+            torch.cuda.synchronize()
+        return torch.stack(logits), cache, [ev[i].elapsed_time(ev[i + 1])
+                                            for i in range(steps_)]
+
+    lg1, cache1, dec1 = decode(onehot, cache1, contextlib.nullcontext())
+    smap_stats = {"calls": 0}
+    with checking_smap(smap_stats, cfg.n_layers):
+        lg2, cache2, dec2 = decode(smap, cache2, sharding_ctx(mesh))
+    if smap_stats["calls"] != NEW * cfg.n_layers:
+        raise AssertionError(f"shardmap decode ran {smap_stats['calls']} times, "
+                             f"want {NEW} x {cfg.n_layers}")
+    planted_stats = {"calls": 0}
+    with planted_smap_merge(), checking_smap(planted_stats, cfg.n_layers):
+        lg_p, _, _ = decode(smap, cache_p, sharding_ctx(mesh), 1)
+    del cache_p
+    gap = (lg1 - lg2).abs().amax(dim=(1, 2)).cpu()          # per step
+    top2 = lg1.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > SERVE_TOL        # (steps, B)
+    argmax_bad = int(((lg1.argmax(-1) != lg2.argmax(-1)) & sure).sum())
+    k_gap = float((cache1["k"].float() - cache2["k"].float()).abs().max())
+    k0_equal = torch.equal(cache1["k"][0], cache2["k"][0])
+    pos_ok = int(cache2["pos"]) == P + NEW
+    p_gap = float((lg_p[0] - lg1[0]).abs().max())
+    serve_out = {"batch": B, "prompt": P, "new": NEW,
+                 "prefill_ms": {"meshless": pre1_ms, "mesh": pre2_ms},
+                 "decode_ms_per_step": {"meshless_onehot": statistics.median(dec1),
+                                        "mesh_shardmap": statistics.median(dec2)},
+                 "max_logit_diff_per_step": gap.tolist(),
+                 "argmax_differs_beyond_margin": argmax_bad,
+                 "argmax_equal_all": bool((lg1.argmax(-1) == lg2.argmax(-1)).all()),
+                 "cache_k_diff": k_gap, "cache_layer0_equal": k0_equal,
+                 "layer_check": smap_stats, "planted": {"layer_check": planted_stats,
+                                                        "logit_diff": p_gap}}
+    print(f"  (a) serve {MESH_ARCH}, {B} x ({P} + {NEW}) tokens on a data "
+          f"{MESH_DATA} x model {MESH_MODEL} mesh, flash prefill (== the meshless "
+          f"one bit for bit), decode_cache_update=shardmap against the meshless "
+          f"one-hot decode, teacher-forced on the same tokens", flush=True)
+    print(f"  (a) step 1's {smap_stats['checked']} shardmap calls against the one-hot "
+          f"body on the same q, k, v and cache: worst |diff| {smap_stats['max_err']:.3e} "
+          f"(bf16 row tolerance), {smap_stats['bad']} beyond, caches written "
+          f"{'bit-equal' if smap_stats['cache_equal'] else 'UNEQUAL'}; planted merge "
+          f"without model rank 1: {planted_stats['bad']} of {planted_stats['checked']} "
+          f"layers beyond, logits {p_gap:.3f} apart (must pass {SERVE_TOL})", flush=True)
+    print(f"  (a) end to end: max |logit diff| per step "
+          f"{[round(x, 4) for x in gap.tolist()]} (limit {SERVE_TOL}; the reference "
+          f"test's 8e-2 is its reduced width's), argmax "
+          f"{'equal' if serve_out['argmax_equal_all'] else 'differs'} at every step, "
+          f"{argmax_bad} differing where the one-hot top-2 margin exceeds {SERVE_TOL}; "
+          f"cache k within {k_gap:.4f} (layer 0 {'bit-equal' if k0_equal else 'UNEQUAL'};"
+          f" limit {SERVE_TOL})", flush=True)
+    print(f"  (a) [{card}] prefill {pre1_ms:.1f} ms meshless, {pre2_ms:.1f} ms "
+          f"meshed; decode ms per step (median of {NEW}, CUDA events): one-hot "
+          f"meshless {statistics.median(dec1):.2f}, shardmap meshed "
+          f"{statistics.median(dec2):.2f}", flush=True)
+    if smap_stats["bad"] or not smap_stats["cache_equal"] \
+            or smap_stats["checked"] != cfg.n_layers or float(gap.max()) > SERVE_TOL \
+            or argmax_bad or k_gap > SERVE_TOL or not k0_equal or not pos_ok:
+        raise AssertionError(f"shardmap decode vs one-hot: {serve_out}")
+    if not planted_stats["bad"] or p_gap <= SERVE_TOL:
+        raise AssertionError(f"the planted shardmap merge passed: {serve_out}")
+    del cache1, cache2, lg1, lg2, lg_p
+    torch.cuda.empty_cache()
+
+    # -- (b) train, (d) compressed_psum --------------------------------------------
+    state = optim.init_opt_state(model)
+    Bt, St = MESH_TRAIN_BATCH, MESH_TRAIN_SEQ
+    tbatch = serve.make_batch(cfg, Bt, St, np.random.default_rng(seed), dev)
+    opt_cfg = optim.OptimConfig(**TRAIN_OPT)
+    step = steps.make_train_step(cfg, opt_cfg)
+    L = cfg.n_layers
+    # the meshless step's gradients: the reference the meshed steps are held to
+    grads_ref: dict = {}
+    with captured_grads(model, grads_ref, update=False):
+        _, _, m_ref = step(model, state, tbatch)
+    m_ref = {k: float(v) for k, v in m_ref.items() if k != "lr"}
+
+    def meshed(ref_diffs: dict, update: bool):
+        with sharding_ctx(mesh), captured_grads(model, ref_diffs, grads_ref, update):
+            _, _, m = step(model, state, tbatch)
+        return {k: float(v) for k, v in m.items()}
+
+    def against(m: dict, diffs: dict) -> dict:
+        leaf, worst = _worst(diffs)
+        return {"loss": abs(m["loss"] - m_ref["loss"]),
+                "grad_norm": _rel(m["grad_norm"], m_ref["grad_norm"]),
+                "grads": worst, "worst_leaf": leaf}
+
+    planted = {}
+    for fault, fn in (("drop shard 1", lambda real, p, w: real(p[:1], w[:1])),
+                      ("sum, not mean", lambda real, p, w: real(p, [1.0] * len(p)))):
+        diffs: dict = {}
+        with merged_with(fn):
+            planted[fault] = against(meshed(diffs, update=False), diffs)
+    # (d): the shards' gradient trees as the step merges them, and every
+    # flash_attention_bwd call of the step against its plain version
+    comp: dict = {}
+    names = [n for n, _ in model.named_parameters()]
+    bwd_stats: dict = {}
+
+    def with_compressed(real, parts, weights):
+        comp.update(check_compressed(parts, names))
+        return real(parts, weights)
+
+    diffs_d: dict = {}
+    t0 = time.perf_counter()
+    with merged_with(with_compressed), checking_bwd(bwd_stats):
+        meshed(diffs_d, update=False)
+    comp["seconds"] = time.perf_counter() - t0
+    # the main path: one meshed step with its update
+    diffs: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m_mesh = counted(lambda: meshed(diffs, update=True))
+    torch.cuda.synchronize()
+    wall_mesh = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_launches = dict(launches)
+    dp = against(m_mesh, diffs)
+    # a meshless step with its update, for its wall
+    t0 = time.perf_counter()
+    step(model, state, tbatch)
+    torch.cuda.synchronize()
+    wall_plain = (time.perf_counter() - t0) * 1e3
+    want = {"flash_mha_fwd": 2 * L * MESH_DATA, "flash_attention_bwd": L * MESH_DATA}
+    got = {k: step_launches[k] - (L if k == "flash_mha_fwd" else 0) for k in want}
+    print(f"  (b) train {MESH_ARCH}, {Bt} x {St} tokens (flash, remat, loss_chunk "
+          f"{cfg.loss_chunk}), data-parallel over {MESH_DATA} shards of {Bt // MESH_DATA} "
+          f"rows, against the meshless step from the same weights and batch: loss "
+          f"{m_mesh['loss']:.5f} / {m_ref['loss']:.5f} (|diff| {dp['loss']:.2e}, "
+          f"limit {MESH_LOSS_TOL}), grad norm {m_mesh['grad_norm']:.5f} / "
+          f"{m_ref['grad_norm']:.5f} (relative {dp['grad_norm']:.2e}, limit "
+          f"{MESH_GRAD_TOL['grad_norm']}), worst leaf's gradient {dp['grads']:.3e} "
+          f"relative L2 ({dp['worst_leaf']}; limit {MESH_GRAD_TOL['grads']})", flush=True)
+    for f, mv in planted.items():
+        print(f"  (b) planted merge fault ({f}): loss |diff| {mv['loss']:.2e}, grad "
+              f"norm {mv['grad_norm']:.2e}, worst leaf {mv['grads']:.3e} "
+              f"({mv['worst_leaf']}) (must pass a limit)", flush=True)
+    print(f"  (b) main path launches (the meshed step; the meshed prefill adds {L} "
+          f"flash_mha_fwd): flash_mha_fwd {got['flash_mha_fwd']} = "
+          f"{got['flash_mha_fwd'] // MESH_DATA} per shard x {MESH_DATA}, "
+          f"flash_attention_bwd {got['flash_attention_bwd']} = "
+          f"{got['flash_attention_bwd'] // MESH_DATA} per shard x {MESH_DATA}; "
+          f"(d)'s step's {bwd_stats['calls']} flash_attention_bwd calls == plain: "
+          f"worst {bwd_stats['max_err']:.3e} x scale (tolerance {BWD_TOL['bfloat16']}), "
+          f"{bwd_stats['bad']} beyond", flush=True)
+    print(f"  (b) [{card}] step wall: meshed {wall_mesh:.1f} ms, meshless "
+          f"{wall_plain:.1f} ms ({wall_mesh / wall_plain:.2f}x); peak memory of "
+          f"the meshed step {peak_gb:.2f} GB (max_memory_allocated)", flush=True)
+    print(f"  (d) compressed_psum over the {MESH_DATA} shards' gradient trees, "
+          f"{comp['leaves']} leaves on the card: worst |mean - exact mean| "
+          f"{comp['worst_err_over_scale']:.3f} x max|t|/127 (limit 1); "
+          f"{comp['cpu']['leaves']} leaves ({comp['cpu']['elements']:,} elements) "
+          f"again on the CPU: {comp['cpu']['unequal']} elements unequal (bit for "
+          f"bit); {comp['seconds']:.1f} s with its step", flush=True)
+    if got != want:
+        raise AssertionError(f"meshed step launches {got}, want {want}")
+    if dp["loss"] > MESH_LOSS_TOL or dp["grad_norm"] > MESH_GRAD_TOL["grad_norm"] \
+            or dp["grads"] > MESH_GRAD_TOL["grads"]:
+        raise AssertionError(f"data-parallel step vs meshless: {dp}")
+    for f, mv in planted.items():
+        if mv["grads"] <= MESH_GRAD_TOL["grads"]:
+            raise AssertionError(f"a planted merge fault ({f}) passed: {mv}")
+    if comp["worst_err_over_scale"] > 1.0 or comp["cpu"]["unequal"] \
+            or not comp["cpu"]["leaves"]:
+        raise AssertionError(f"compressed_psum: {comp}")
+    if bwd_stats["calls"] != L * MESH_DATA or bwd_stats["bad"]:
+        raise AssertionError(f"meshed flash_attention_bwd vs plain: {bwd_stats}")
+    if not math.isfinite(m_mesh["loss"]):
+        raise AssertionError("meshed loss not finite")
+    del model, state, grads_ref, diffs, diffs_d
+    torch.cuda.empty_cache()
+
+    # -- (c) expert-parallel MoE ---------------------------------------------------
+    arch, layers = MESH_MOE
+    mcfg = _serve_cfg(arch, "flash", layers)
+    mapi = registry.get_api(mcfg)
+    mmesh = make_local_mesh(MESH_MOE_DATA, MESH_MOE_MODEL, device=dev)
+    e_local = mcfg.moe.num_experts // MESH_MOE_MODEL
+    mmodel = mapi.init(mcfg, torch.Generator(device=dev).manual_seed(seed))
+    Bm, Sm = MESH_MOE_BATCH, MESH_MOE_SEQ
+    mbatch = serve.make_batch(mcfg, Bm, Sm, np.random.default_rng(seed), dev)
+    rows = Bm // MESH_MOE_DATA
+    n_moe = sum(1 for _, m in mmodel.blocks() if m)
+
+    def moe_prefill(b, ctx, forced=None):
+        recs: list = []
+        with torch.no_grad(), ctx, routing(recs, forced):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, lg = mapi.prefill(mmodel, b, mcfg, Sm)
+            torch.cuda.synchronize()
+        return lg[:, -1].float(), cache["k"], recs, (time.perf_counter() - t0) * 1e3
+
+    # the meshless path on each data shard's rows: its block's capacity and
+    # its rank order within an expert are what each EP block computes
+    blocks = [{k: v[i * rows:(i + 1) * rows] for k, v in mbatch.items()}
+              for i in range(MESH_MOE_DATA)]
+    plain = [moe_prefill(b, contextlib.nullcontext()) for b in blocks]
+    ranks = []
+    real_dispatch = moe_mod._dispatch
+    moe_mod._dispatch = lambda *a, **kw: ranks.append(kw["rank"]) or real_dispatch(*a, **kw)
+    try:
+        lg_ep, k_ep, rec_ep, ep_ms = moe_prefill(mbatch, sharding_ctx(mmesh))
+    finally:
+        moe_mod._dispatch = real_dispatch
+    if ranks != list(range(MESH_MOE_MODEL)) * (MESH_MOE_DATA * n_moe):
+        raise AssertionError(f"EP ranks {ranks}")
+    lg_plain = torch.cat([p[0] for p in plain])
+    k_plain = torch.cat([p[1] for p in plain], dim=1)
+    plain_ms = sum(p[3] for p in plain)
+    # EP records each layer's blocks in turn; the meshless runs a block's layers
+    flip = torch.zeros((Bm, Sm), dtype=torch.bool, device=dev)
+    forced_ep = []
+    for layer in range(n_moe):
+        for i in range(MESH_MOE_DATA):
+            want_idx = plain[i][2][layer]
+            got_idx = rec_ep[layer * MESH_MOE_DATA + i]
+            forced_ep.append(want_idx)
+            f = (want_idx.sort(dim=-1).values != got_idx.sort(dim=-1).values).any(-1)
+            flip[i * rows:(i + 1) * rows] |= f.reshape(rows, Sm)
+    per_req = flip.sum(dim=1).tolist()
+    gap = (lg_ep - lg_plain).abs().amax(dim=-1).cpu()
+    k_gap = (k_ep.float() - k_plain.float()).abs().amax(dim=(0, 2, 3, 4)).cpu()
+    agree = [b for b in range(Bm) if not per_req[b]]
+    lg_f, k_f, _, _ = moe_prefill(mbatch, sharding_ctx(mmesh), forced_ep)
+    fgap = (lg_f - lg_plain).abs().amax(dim=-1).cpu()
+    fk = float((k_f.float() - k_plain.float()).abs().max())
+    with planted_rank_merge(MESH_MOE_MODEL):
+        lg_p, _, _, _ = moe_prefill(mbatch, sharding_ctx(mmesh), forced_ep)
+    pgap = float((lg_p - lg_plain).abs().max())
+    moe_out = {"arch": arch, "layers": layers, "mesh": [MESH_MOE_DATA, MESH_MOE_MODEL],
+               "experts_per_rank": e_local, "batch": Bm, "seq": Sm,
+               "flipped_tokens": int(flip.sum()), "flipped_per_request": per_req,
+               "last_logit_gap": gap.tolist(), "forced_gap": fgap.tolist(),
+               "cache_k_gap": k_gap.tolist(), "forced_cache_k_gap": fk,
+               "planted_gap": pgap,
+               "ep_prefill_ms": ep_ms, "meshless_prefill_ms": plain_ms}
+    print(f"  (c) {arch} ({layers} layers; {mcfg.moe.num_experts} experts, top-"
+          f"{mcfg.moe.top_k}, {mcfg.moe.num_shared} shared, capacity factor "
+          f"{mcfg.moe.capacity_factor}) prefill {Bm} x {Sm} on a data "
+          f"{MESH_MOE_DATA} x model {MESH_MOE_MODEL} mesh ({e_local} experts a "
+          f"rank, {n_moe} MoE layers x {MESH_MOE_DATA} blocks x {MESH_MOE_MODEL} "
+          f"ranks dispatched) against the meshless path on each data shard's "
+          f"{rows} rows: {int(flip.sum())} of {Bm * Sm} tokens take other experts "
+          f"in some layer (per request {per_req}); last-logit gap per request "
+          f"{[round(x, 4) for x in gap.tolist()]}, cache k per request "
+          f"{[round(x, 4) for x in k_gap.tolist()]}; with the EP run on the "
+          f"meshless experts {[round(x, 4) for x in fgap.tolist()]}, cache k "
+          f"{fk:.4f} (tolerance {FAMILY_TOL} on logits and on the cache, as "
+          f"phase 10's families, for the forced run and "
+          f"the requests {agree} whose tokens keep their experts); planted, the "
+          f"forced run without model rank {MESH_MOE_MODEL - 1}'s partials: logits "
+          f"{pgap:.3f} apart (must pass {FAMILY_TOL})", flush=True)
+    print(f"  (c) [{card}] prefill: EP {ep_ms:.1f} ms, meshless {plain_ms:.1f} ms "
+          f"(its {MESH_MOE_DATA} blocks)", flush=True)
+    if any(float(gap[b]) > FAMILY_TOL or float(k_gap[b]) > FAMILY_TOL
+           for b in agree) or float(fgap.max()) > FAMILY_TOL \
+            or fk > FAMILY_TOL or not bool(torch.isfinite(lg_ep).all()):
+        raise AssertionError(f"EP prefill vs meshless: {moe_out}")
+    if pgap <= FAMILY_TOL:
+        raise AssertionError(f"the planted EP merge passed: {moe_out}")
+    del mmodel, plain
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"  [{card}] phase 13 in {seconds:.1f} s; B5 / B7 launches on its main "
+          f"path {launches}", flush=True)
+    return {"serve": serve_out,
+            "train": {"batch": Bt, "seq": St, "loss": m_mesh["loss"],
+                      "loss_meshless": m_ref["loss"], "vs_meshless": dp,
+                      "planted": planted, "step_wall_ms": {"mesh": wall_mesh,
+                                                           "meshless": wall_plain},
+                      "peak_memory_gb": peak_gb, "launches": got,
+                      "bwd_vs_plain": bwd_stats},
+            "compressed_psum": comp, "moe": moe_out, "launches": launches,
+            "seconds": seconds}
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -4825,6 +5369,17 @@ def main(argv=None) -> int:
     bwd_row["launches_by_path"] = {"training": bwd_row["launches"],
                                    "runtime": runtime["launches"]["flash_attention_bwd"]}
     bwd_row["launches"] += runtime["launches"]["flash_attention_bwd"]
+    torch.cuda.empty_cache()
+    print(f"phase 13: the model mesh on one card — {MESH_ARCH} served "
+          f"({MESH_SERVE_BATCH} x ({MESH_SERVE_PROMPT} + {MESH_SERVE_NEW}), "
+          f"shardmap decode) and trained ({MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, "
+          f"data-parallel) on a data {MESH_DATA} x model {MESH_MODEL} mesh, "
+          f"{MESH_MOE[0]} expert-parallel on {MESH_MOE_DATA} x {MESH_MOE_MODEL}, "
+          f"compressed_psum over the data shards' gradients", flush=True)
+    mesh_models = run_mesh_models(dev, args.seed, card)
+    for row, name in ((flash_row, "flash_mha_fwd"), (bwd_row, "flash_attention_bwd")):
+        row["launches_by_path"]["mesh"] = mesh_models["launches"][name]
+        row["launches"] += mesh_models["launches"][name]
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -4835,7 +5390,7 @@ def main(argv=None) -> int:
                               "rows_within_margin": udf["rows_near_margin"],
                               "rows_flash_vs_blocked_differ": udf["rows_differ"]},
                       "serving": serving, "training": training,
-                      "runtime": runtime,
+                      "runtime": runtime, "mesh_models": mesh_models,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

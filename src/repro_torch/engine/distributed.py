@@ -19,7 +19,7 @@ then merges the partials with the smallest collective:
 The mesh's shards all live on one device (``launch/mesh.py``), so a
 table's column is one tensor and shard ``s`` is the view of rows
 ``[s * rps, (s + 1) * rps)`` — nothing is copied to split it. The
-collectives below (``psum``, ``pmax``, ``pmin``, ``all_gather``,
+collectives below (``psum``, ``pmax``, ``pmin``, ``pmean``, ``all_gather``,
 ``all_to_all``) take one partial per shard, in shard order, and return the
 merged value every shard would hold; work that follows a collective and is
 the same on every shard runs once. On a one-shard mesh every operator
@@ -69,6 +69,11 @@ def pmax(parts: list[torch.Tensor]) -> torch.Tensor:
 
 def pmin(parts: list[torch.Tensor]) -> torch.Tensor:
     return functools.reduce(torch.minimum, parts)
+
+
+def pmean(parts: list[torch.Tensor]) -> torch.Tensor:
+    """``psum`` over the shard count (``jax.lax.pmean``)."""
+    return psum(parts) / len(parts)
 
 
 def all_gather(parts: list[torch.Tensor]) -> torch.Tensor:

@@ -2,11 +2,14 @@
 
 The DataFrame engine row-shards every table over the mesh's data axes and
 runs its operators shard by shard, merging the partials through the
-collectives of ``engine/distributed.py``. This slice places every shard on
-ONE device: a mesh of S row shards on the card (or, when the caller asks,
-on the CPU). It is the counterpart of the reference's single-controller
-mesh of S devices forced onto one host; placement over several cards and
-``torch.distributed`` across processes are queued as ROADMAP A9b.
+collectives of ``engine/distributed.py``; the model paths split a batch
+over the data axes and experts or the decode cache over "model"
+(``models/sharding.py``). Every shard lives on ONE device: a mesh of
+shards on the card (or, when the caller asks, on the CPU), the
+counterpart of the reference's single-controller mesh of devices forced
+onto one host. Placement over several cards and ``torch.distributed``
+across processes wait for ROADMAP A9b; the pod mesh of the dry-run
+(``make_production_mesh``) for A11.
 
 Axis convention (as the reference): ``make_local_mesh`` builds
 ``("data", "model")``; the engine shards rows over ``("data",)``.
@@ -67,6 +70,18 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     raise NotImplementedError(
         "make_production_mesh (the pod mesh of the dry-run and cost tools) "
         "waits for ROADMAP A11")
+
+
+def launcher_mesh(n: int, device=None, multi_pod: bool = False) -> Mesh:
+    """The launchers' mesh over ``n`` devices (``--local-devices``), as the
+    reference's launchers build it: the pod mesh from 512 devices or under
+    ``multi_pod`` (ROADMAP A11: it raises), else ``make_local_mesh(data=n
+    // mp, model=mp)`` with mp = 2 when n is even and above 1; every shard
+    on ``device``."""
+    if multi_pod or n >= 512:
+        return make_production_mesh(multi_pod=multi_pod)
+    mp = 2 if n % 2 == 0 and n > 1 else 1
+    return make_local_mesh(data=n // mp, model=mp, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,12 +12,20 @@ the config's (``attn_impl``, "blocked" as in the reference); the flash
 kernels serve through :func:`generate` with a flash config. Weights are seeded random
 (``torch.Generator``, seed 0), the prompts drawn by numpy (seed 0). The
 cache is deep enough for the prompt (with vlm's patch prefix,
-``registry.prefill_cache_len``) and every new token. The reference's
-``--local-devices`` mesh waits for ROADMAP A9b / A10.
+``registry.prefill_cache_len``) and every new token.
+
+``--local-devices N`` serves on a mesh of N shards of the one device, as
+``launch/train.py`` builds it (data N // mp x model mp, mp = 2 when N is
+even and above 1): prefill and decode run inside ``sharding_ctx``, so an
+MoE layer is expert-parallel over the model ranks and a config with
+``decode_cache_update="shardmap"`` splits the cache's sequence over them
+(``models/sharding.py``). Meshes across several cards wait for ROADMAP
+A9b, the pod mesh (N >= 512) for A11.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -26,8 +34,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import launcher_mesh
 from repro_torch.models import registry
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import sharding_ctx
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 
 
@@ -84,10 +94,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--local-devices", type=int, default=0,
+                    help="a mesh of N shards of the one device")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.local_devices:
+        mesh = launcher_mesh(args.local_devices, args.device)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -99,7 +114,11 @@ def main(argv=None) -> int:
     batch = make_batch(cfg, args.batch, args.prompt,
                        np.random.default_rng(0), device)
     print(f"device: {device}; {cfg.name}, attn_impl={cfg.attn_impl}")
-    out = generate(cfg, model, batch, args.new_tokens)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            print(f"mesh: {mesh.shape}")
+            stack.enter_context(sharding_ctx(mesh))
+        out = generate(cfg, model, batch, args.new_tokens)
     print(f"prefill {args.batch}×{args.prompt}: "
           f"{out['prefill_s'] * 1e3:.1f}ms")
     n = args.new_tokens - 1

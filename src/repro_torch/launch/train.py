@@ -17,13 +17,20 @@ directory (``TMPDIR``); ``--resume`` restores the latest one in place.
 The attention core is the config's (``attn_impl``, "blocked" as in the
 reference): :func:`run` takes any config, a flash one included.
 
-The reference's pod mesh (``--multi-pod``) and forced host devices
-(``--local-devices``) have no counterpart on one card: they raise, naming
-ROADMAP A9b and A11; ``models/sharding.py`` is not ported.
+``--local-devices N`` trains on a mesh of N shards of the one device
+(``make_local_mesh(data=N // mp, model=mp)``, mp = 2 when N is even and
+above 1, as the reference builds it from its N forced host devices):
+the loop runs inside ``sharding_ctx``, so each step is data-parallel over
+the data shards and an MoE layer expert-parallel over the model ranks
+(``models/sharding.py``), and ``--resume`` restores the parameters with
+their shardings. N >= 512 asks for the pod mesh, and ``--multi-pod``
+names it: both raise until ROADMAP A11. Meshes across several cards
+(``torch.distributed``) wait for ROADMAP A9b.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import tempfile
@@ -34,9 +41,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import Mesh, MeshAxes, launcher_mesh
 from repro_torch.models import convert
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.optim import OptimConfig
+from repro_torch.models.sharding import param_shardings, sharding_ctx
 from repro_torch.models.steps import init_train_state, make_train_step
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.fault import (FailureInjector, FaultTolerantLoop,
@@ -49,17 +58,24 @@ class ModelState:
     ``convert.train_state_tree`` (the reference's stacked train state, a
     host snapshot), and a rollback restores it on the host and writes it
     back into the same model and AdamW state, every leaf (the int32 step
-    too: the schedule reads it)."""
+    too: the schedule reads it). With a ``mesh`` the parameters are
+    restored with their shardings (onto the mesh's device), the rest on
+    the host, as the reference's launcher restores them."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, mesh: Mesh | None = None):
         self.cfg = cfg
+        self.mesh = mesh
 
     def tree(self, model, opt_state):
         return convert.train_state_tree(model, opt_state, self.cfg)
 
     def restore(self, ckpt: CheckpointManager, model, opt_state):
         like = convert.train_state_like(model, opt_state, self.cfg)
-        step, tree = ckpt.restore(None, like, device="cpu")
+        shardings = None if self.mesh is None else {
+            "params": param_shardings(like["params"], self.mesh,
+                                      MeshAxes.for_mesh(self.mesh)),
+            "opt": None}
+        step, tree = ckpt.restore(None, like, device="cpu", shardings=shardings)
         convert.load_train_state(tree, model, opt_state, self.cfg)
         return step, model, opt_state
 
@@ -84,29 +100,34 @@ def default_ckpt_dir() -> str:
 
 def run(cfg: ArchConfig, steps: int, global_batch: int, seq: int,
         ckpt_dir, ckpt_every: int = 25, resume: bool = False,
-        injector: FailureInjector | None = None, device=None) -> dict:
+        injector: FailureInjector | None = None, device=None,
+        mesh: Mesh | None = None) -> dict:
     """Train ``cfg`` for ``steps`` steps through the fault-tolerant loop
     (``OptimConfig(total_steps=steps)``, ``CheckpointManager(ckpt_dir,
     keep=3)``, a checkpoint every ``ckpt_every`` steps, failures from
     ``injector``) from seeded random weights (seed 0) on ``device``
     (``None``: the card); ``resume`` first restores the latest checkpoint
-    into them. Prints the log every 10% of the run and the events;
+    into them. With a ``mesh`` the loop runs inside its sharding context.
+    Prints the log every 10% of the run and the events;
     returns the model, the AdamW state, the log, the events, the step it
     started at, the loop and the checkpoint manager."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     model, opt = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
-    state = ModelState(cfg)
+    state = ModelState(cfg, mesh)
     ckpt = CheckpointManager(ckpt_dir, keep=3)
-    start = 0
-    if resume and ckpt.latest_step() is not None:
-        start, model, opt = state.restore(ckpt, model, opt)
-        print(f"resumed at step {start}", flush=True)
-    step_fn = make_train_step(cfg, OptimConfig(total_steps=steps))
-    loop = FaultTolerantLoop(step_fn, ckpt, TrainLoopConfig(ckpt_every=ckpt_every),
-                             injector, state)
-    model, opt, log = loop.run(model, opt,
-                               data_factory(cfg, global_batch, seq, dev),
-                               steps, start_step=start)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(sharding_ctx(mesh))
+        start = 0
+        if resume and ckpt.latest_step() is not None:
+            start, model, opt = state.restore(ckpt, model, opt)
+            print(f"resumed at step {start}", flush=True)
+        step_fn = make_train_step(cfg, OptimConfig(total_steps=steps))
+        loop = FaultTolerantLoop(step_fn, ckpt, TrainLoopConfig(ckpt_every=ckpt_every),
+                                 injector, state)
+        model, opt, log = loop.run(model, opt,
+                                   data_factory(cfg, global_batch, seq, dev),
+                                   steps, start_step=start)
     for s, l in log[:: max(len(log) // 10, 1)]:
         print(f"step {s:5d}  loss {l:.4f}", flush=True)
     final = f"final loss {log[-1][1]:.4f}" if log else f"no step left after {start}"
@@ -123,7 +144,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--local-devices", type=int, default=0,
-                    help="force N host devices (the reference's CPU dry runs)")
+                    help="a mesh of N shards of the one device")
     ap.add_argument("--ckpt-dir", default=default_ckpt_dir())
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
@@ -132,19 +153,19 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    mesh = None
     if args.multi_pod or args.local_devices:
-        raise NotImplementedError(
-            "--multi-pod and --local-devices shard training over a mesh of "
-            "devices: ROADMAP A9b (several cards) and A11 (the pod mesh)")
+        mesh = launcher_mesh(args.local_devices, args.device, args.multi_pod)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced or (device.type != "cuda" and cfg.n_params() > 5e8):
         cfg = cfg.reduced()
         print(f"[{device.type}] using reduced config {cfg.name}")
-    print(f"device: {device} (one device; models/sharding.py waits for A9b)")
+    print(f"device: {device}" + ("" if mesh is None else
+                                 f"; mesh: {mesh.shape} ({mesh.size} shards)"))
     run(cfg, args.steps, args.global_batch, args.seq, args.ckpt_dir,
-        args.ckpt_every, args.resume, device=device)
+        args.ckpt_every, args.resume, device=device, mesh=mesh)
     return 0
 
 

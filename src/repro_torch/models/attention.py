@@ -12,14 +12,24 @@ on CPU tensors.
 
 Decode writes the new token's K and V into the layer's (B,S,KV,hd) cache
 (``cfg.decode_cache_update``: the reference's one-hot rewrite, or an
-in-place slice write; ``"shardmap"`` has no mesh here and takes the one-hot
-write, as the reference does without a sharding context) and attends over
-it: an einsum with a float32 masked softmax, or under ``attn_impl="flash"``
-without a sliding window ``kernels.ops.flash_decode`` on the (B,KV,S,hd)
-views of the cache, read in place. Both writes update the cache's buffers
-in place, where the reference returns new arrays (its serving loop donates
-them): a decode step consumes the cache it is given. The shard_map decode
-over a sequence-sharded cache waits for ROADMAP A9b / A10.
+in-place slice write) and attends over it: an einsum with a float32 masked
+softmax, or under ``attn_impl="flash"`` without a sliding window
+``kernels.ops.flash_decode`` on the (B,KV,S,hd) views of the cache, read
+in place. Both writes update the cache's buffers in place, where the
+reference returns new arrays (its serving loop donates them): a decode
+step consumes the cache it is given.
+
+``"shardmap"`` under a sharding context whose model extent M divides the
+cache length is the reference's shard_map decode on the port's
+one-device mesh (``models/sharding.py``): model rank r owns cache rows
+[r*S/M, (r+1)*S/M), a view of the one cache tensor, and each data shard
+its batch rows. A rank writes the new token in place only where it owns
+``pos``, scores its rows under the causal (and sliding-window) mask, and
+the online softmax merges over the ranks with a ``pmax`` and two
+``psum``s in float32. The reference's local body is an einsum, not its
+Pallas kernel, so the port's is too: ``flash_decode`` is not on this
+path. Without a context ``"shardmap"`` takes the one-hot write, as the
+reference does. Across several cards it waits for ROADMAP A9b.
 """
 from __future__ import annotations
 
@@ -29,8 +39,10 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.engine import distributed as D
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_rope, he_init, rms_norm
+from repro_torch.models.sharding import current_ctx
 
 NEG_INF = -1e30
 
@@ -200,6 +212,53 @@ def update_cache_layer_dus(cache_k_l, cache_v_l, k_new, v_new, pos):
     return cache_k_l, cache_v_l
 
 
+def _decode_attention_smap(q, k_new, v_new, cache_k_l, cache_v_l, pos,
+                           cfg: ArchConfig, ctx):
+    """The shard_map decode (the reference's attention.py:197-259) over
+    the mesh's data x model shards. q: (B, 1, H, hd); k_new / v_new:
+    (B, 1, KV, hd); cache_*_l: (B, S, KV, hd), written in place. Returns
+    the (B, 1, KV, G, hd) attention output in q's dtype."""
+    B, S = cache_k_l.shape[0], cache_k_l.shape[1]
+    KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    M = ctx.model_size
+    S_loc = S // M
+    nb = ctx.data_blocks(B)
+    b_loc = B // nb
+    dev = q.device
+    outs = []
+    for b0 in range(0, B, b_loc):
+        rows = slice(b0, b0 + b_loc)
+        qq = q[rows].reshape(b_loc, 1, KV, G, hd).float()
+        scores, values = [], []
+        for rank in range(M):
+            ck = cache_k_l[rows, rank * S_loc:(rank + 1) * S_loc]
+            cv = cache_v_l[rows, rank * S_loc:(rank + 1) * S_loc]
+            # -- 1-token in-place write, taken only on the owning rank ----
+            lpos = pos - rank * S_loc
+            in_range = (lpos >= 0) & (lpos < S_loc)
+            idx = lpos.clamp(0, S_loc - 1).reshape(1).long()
+            for c, new in ((ck, k_new[rows]), (cv, v_new[rows])):
+                old = c.index_select(1, idx)
+                c.index_copy_(1, idx, torch.where(in_range, new.to(c.dtype), old))
+            # -- local scores ----------------------------------------------
+            s = torch.einsum("bckgh,bskh->bkgcs", qq, ck.float()) / math.sqrt(hd)
+            kpos = rank * S_loc + torch.arange(S_loc, device=dev)
+            valid = kpos <= pos
+            if cfg.sliding_window:
+                valid &= (pos - kpos) < cfg.sliding_window
+            scores.append(torch.where(valid[None, None, None, None, :], s, NEG_INF))
+            values.append(cv)
+        # -- the online softmax, merged over the ranks ------------------------
+        m = D.pmax([s.amax(dim=-1) for s in scores])
+        ps = [torch.exp(s - m[..., None]) for s in scores]
+        l = D.psum([p_.sum(dim=-1) for p_ in ps])
+        o = D.psum([torch.einsum("bkgcs,bskh->bckgh", p_.to(cv.dtype), cv).float()
+                    for p_, cv in zip(ps, values)])            # (b, 1, KV, G, hd)
+        norm = l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]  # (b, 1, KV, G, 1)
+        outs.append((o / norm).to(q.dtype))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
 def decode_attention(x, p: Attention, cfg: ArchConfig, cache_k_l, cache_v_l,
                      pos, *, rope: bool = True):
     """Single-token decode. x: (B, T, d) (T = 1 when serving); cache_*_l:
@@ -216,6 +275,15 @@ def decode_attention(x, p: Attention, cfg: ArchConfig, cache_k_l, cache_v_l,
     H, hd = cfg.n_heads, cfg.d_head
     positions = pos + torch.arange(T, device=x.device)
     q, k_new, v_new = _project_qkv(x, x, p, cfg, positions, positions, rope)
+    ctx = current_ctx()
+    if cfg.decode_cache_update == "shardmap" and ctx is not None \
+            and S % ctx.model_size == 0:
+        if T != 1:
+            raise ValueError(f"the shardmap decode writes one token, not {T}")
+        out5 = _decode_attention_smap(q, k_new, v_new, cache_k_l, cache_v_l,
+                                      pos, cfg, ctx)
+        out = out5.reshape(B, 1, H * hd).to(x.dtype)
+        return out @ p.wo.to(x.dtype), cache_k_l, cache_v_l
     upd = update_cache_layer_dus if cfg.decode_cache_update == "dus" \
         else update_cache_layer
     ck, cv = upd(cache_k_l, cache_v_l, k_new, v_new, pos)
@@ -229,15 +297,25 @@ def decode_attention(x, p: Attention, cfg: ArchConfig, cache_k_l, cache_v_l,
         out = o.reshape(B, 1, H * hd).to(x.dtype)
         return out @ p.wo.to(x.dtype), ck, cv
 
+    out = cache_attention(q, ck, cv, positions, cfg).to(x.dtype)
+    return out @ p.wo.to(x.dtype), ck, cv
+
+
+def cache_attention(q, ck, cv, positions, cfg: ArchConfig) -> torch.Tensor:
+    """The einsum decode attention over a written cache: q (B, T, H, hd)
+    at ``positions`` (T,), ck / cv (B, S, KV, hd) -> (B, T, H*hd) in the
+    cache's dtype; float32 scores, the causal (and sliding-window) mask, the
+    probabilities in the cache's dtype against V."""
+    B, T, H, hd = q.shape
+    S = ck.shape[1]
     KV, G = cfg.n_kv_heads, H // cfg.n_kv_heads
     qq = q.reshape(B, T, KV, G, hd).float()
     scores = torch.einsum("bckgh,bskh->bkgcs", qq, ck.float()) / math.sqrt(hd)
-    kpos = torch.arange(S, device=x.device)
+    kpos = torch.arange(S, device=q.device)
     m = kpos[None, :] <= positions[:, None]
     if cfg.sliding_window:
         m &= (positions[:, None] - kpos[None, :]) < cfg.sliding_window
     scores = torch.where(m[None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgcs,bskh->bckgh", probs.to(cv.dtype), cv)
-    out = out.reshape(B, T, H * hd).to(x.dtype)
-    return out @ p.wo.to(x.dtype), ck, cv
+    return out.reshape(B, T, H * hd)

@@ -164,19 +164,28 @@ def train_state_tree(model: nn.Module, opt_state: dict, cfg: ArchConfig) -> dict
                     "step": _gather(np.array("step", dtype=object), opt_state)}}
 
 
+def _like(layout: dict, values: dict) -> dict:
+    def meta(names):
+        t = values[names.flat[0]]
+        return torch.empty(names.shape + tuple(t.shape), dtype=t.dtype,
+                           device="meta")
+    return _map(meta, layout)
+
+
+def params_like(model: nn.Module) -> dict:
+    """The model's parameters as the reference's pytree of tensors on the
+    "meta" device (shapes and dtypes, no data): what the sharding rules
+    read (``sharding.param_specs``)."""
+    return _like(_layout(model), dict(model.named_parameters()))
+
+
 def train_state_like(model: nn.Module, opt_state: dict, cfg: ArchConfig) -> dict:
     """:func:`train_state_tree`'s structure, shapes and dtypes as tensors
     on the "meta" device (no data, no copy): the ``like`` of a restore."""
     layout = _layout(model)
 
     def like(values):
-        values = _values(model, cfg, values)
-
-        def meta(names):
-            t = values[names.flat[0]]
-            return torch.empty(names.shape + tuple(t.shape), dtype=t.dtype,
-                               device="meta")
-        return _map(meta, layout)
+        return _like(layout, _values(model, cfg, values))
 
     return {"params": like(None),
             "opt": {"m": like(opt_state["m"]), "v": like(opt_state["v"]),

@@ -1,18 +1,28 @@
 """Fine-grained MoE (DeepSeek-MoE / Moonlight family): shared experts +
-top-k routed experts (port of ``repro.models.moe``, single rank).
+top-k routed experts, expert-parallel over the mesh's "model" axis (port
+of ``repro.models.moe``).
 
-The reference dispatches per (data, model) shard under a mesh; without one
-it runs the same body, ``_local_moe``, with every expert local, rank 0 and
-``psum`` / ``pmean`` the identity — which is what this port runs (the
-expert-parallel mesh waits for ROADMAP A9b / A10). Dispatch is sort-based
-with a capacity bound, in plain torch as the reference computes it outside
-any Pallas kernel: a stable argsort of the expert ids, ``searchsorted`` for
-each expert's first slot, the rank of each (token, choice) within its
-expert, and ``index_add_`` for the reference's ``jax.ops.segment_sum``.
+Without a mesh the layer is the reference's ``_local_moe`` with every
+expert local, rank 0 and ``psum`` / ``pmean`` the identity. Under a
+sharding context with a model extent M > 1 that divides the expert count
+it is the reference's expert-parallel shard_map on the port's one-device
+mesh (``models/sharding.py``): each data shard's row block goes to M
+ranks, rank r runs experts [r*E/M, (r+1)*E/M) with the capacity of its
+block's tokens (``cfg.moe_gather_dtype="bf16"`` casts the expert weights
+first, as the reference does before its shard_map), and a ``psum`` over
+the ranks combines their partial outputs; the aux loss takes ``pmean``
+over the data shards. The router runs once per row block: every rank of
+the reference computes the same routing redundantly.
 
-The top-k is a stable descending sort, so equal probabilities go to the
-lower expert index, as ``jax.lax.top_k`` orders them (``torch.topk`` makes
-no such promise).
+Dispatch is sort-based with a capacity bound, in plain torch as the
+reference computes it outside any Pallas kernel: a stable argsort of the
+expert ids, ``searchsorted`` for each expert's first slot, the rank of
+each (token, choice) within its expert, and ``index_add_`` for the
+reference's ``jax.ops.segment_sum``. The top-k is a stable descending
+sort, so equal probabilities go to the lower expert index, as
+``jax.lax.top_k`` orders them (``torch.topk`` makes no such promise).
+Expert parallelism across several cards (``torch.distributed``) waits
+for ROADMAP A9b.
 """
 from __future__ import annotations
 
@@ -22,8 +32,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.engine import distributed as D
 from repro_torch.models.config import ArchConfig, MoESpec
 from repro_torch.models.layers import MLP, he_init, mlp
+from repro_torch.models.sharding import current_ctx
 
 
 class Experts(nn.Module):
@@ -67,28 +79,35 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _local_moe(xl, router_w, w1, w3, w2, *, spec: MoESpec, e_local: int,
-               rank: int, psum, pmean):
-    """One rank's MoE body (moe.py:60-113 of the reference). xl: (B, S, d).
-    Returns (y (B, S, d), aux loss)."""
-    B, S, d = xl.shape
-    T = B * S
-    xf = xl.reshape(T, d)
-    k = spec.top_k
-    E = spec.num_experts
-    C = _capacity(T, spec)
-    off = rank * e_local
-    dev = xl.device
-
+def _route(xf: torch.Tensor, router_w: torch.Tensor, spec: MoESpec):
+    """(probs (T, E) float32, gates (T, k), expert ids (T, k)) of tokens
+    xf (T, d): the softmax router, its top k, the gates renormalised."""
     logits = (xf @ router_w.to(xf.dtype)).float()             # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    gates, idx = _top_k(probs, k)                              # (T, k)
+    gates, idx = _top_k(probs, spec.top_k)                     # (T, k)
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return probs, gates, idx
 
-    # switch-style load-balance aux loss over the (global) tokens
-    onehot_frac = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
-    mean_prob = probs.mean(dim=0)
-    aux = E * torch.sum(pmean(onehot_frac) * pmean(mean_prob)) / k
+
+def _frac(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """Each expert's share of the (token, choice) pairs, times k."""
+    return F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
+
+
+def _dispatch(xf, gates, idx, w1, w3, w2, *, e_local: int, rank: int,
+              capacity: int, rank_offset=None) -> torch.Tensor:
+    """One rank's experts over tokens xf (T, d) -> its partial output
+    (T, d): every (token, choice) routed to one of experts
+    [rank * e_local, (rank + 1) * e_local) takes a slot by its rank within
+    its expert (``rank_offset`` (e_local,), where given, adds the tokens
+    of earlier row blocks to that rank), up to ``capacity`` slots an
+    expert; each slot goes through its expert's SwiGLU and comes back
+    weighted by its gate."""
+    T, d = xf.shape
+    k = idx.shape[1]
+    C = capacity
+    off = rank * e_local
+    dev = xf.device
 
     # -- local dispatch (sort-based rank-in-expert, capacity C) --------------
     flat_idx = idx.reshape(-1)                                 # (T*k,)
@@ -105,6 +124,8 @@ def _local_moe(xl, router_w, w1, w3, w2, *, spec: MoESpec, e_local: int,
         - starts[sorted_key.clamp(0, e_local).long()]
     rank_in_e = torch.zeros(T * k, dtype=torch.int64, device=dev)
     rank_in_e[order] = rank_sorted
+    if rank_offset is not None:
+        rank_in_e = rank_in_e + rank_offset[lidx]
     keep = is_local & (rank_in_e < C)
     slot = lidx * C + rank_in_e.clamp(max=C - 1)
     token_of = torch.arange(T * k, device=dev) // k
@@ -118,24 +139,111 @@ def _local_moe(xl, router_w, w1, w3, w2, *, spec: MoESpec, e_local: int,
     h3 = torch.einsum("ecd,edf->ecf", xdisp, w3.to(xdisp.dtype))
     yd = torch.einsum("ecf,efd->ecd", F.silu(h1) * h3, w2.to(xdisp.dtype))
 
-    # -- combine: gather own slots, weight, sum over k, psum over ranks -------
+    # -- combine: gather own slots, weight, sum over k -------------------------
     y_flat = yd.reshape(e_local * C, d)
     w = torch.where(keep, flat_gate, 0.0).to(y_flat.dtype)
     y_tok = y_flat[slot] * w[:, None]
-    y_part = y_tok.reshape(T, k, d).sum(dim=1)
-    return psum(y_part).reshape(B, S, d), aux
+    return y_tok.reshape(T, k, d).sum(dim=1)
+
+
+def _local_moe(xl, router_w, w1, w3, w2, *, spec: MoESpec, e_local: int,
+               rank: int, psum, pmean):
+    """One rank's MoE body (moe.py:60-113 of the reference). xl: (B, S, d).
+    Returns (y (B, S, d), aux loss)."""
+    B, S, d = xl.shape
+    T = B * S
+    xf = xl.reshape(T, d)
+    E, k = spec.num_experts, spec.top_k
+    probs, gates, idx = _route(xf, router_w, spec)
+    # switch-style load-balance aux loss over the (global) tokens
+    aux = E * torch.sum(pmean(_frac(idx, E)) * pmean(probs.mean(dim=0))) / k
+    y = _dispatch(xf, gates, idx, w1, w3, w2, e_local=e_local, rank=rank,
+                  capacity=_capacity(T, spec))
+    return psum(y).reshape(B, S, d), aux
 
 
 def _identity(v):
     return v
 
 
+def _mesh_moe(x, p: MoE, cfg: ArchConfig, spec: MoESpec, ctx):
+    """``moe_ffn`` under a sharding context. With expert parallelism (a
+    model extent M > 1 that divides E) the batch splits into the data
+    shards' row blocks and each block into M ranks of E/M experts, each
+    with the capacity of its block's tokens; a ``psum`` over the ranks
+    combines a block (the reference's shard_map). Without it the layer is
+    the reference's GSPMD one: every expert over the whole batch, one
+    capacity. The aux loss takes ``pmean`` over the data shards of the
+    routing fractions and mean probabilities.
+
+    Inside one data shard's body (``ctx.data_index``; the data-parallel
+    train step) the batch is that shard's block. The step's first pass
+    (``ctx.gathering``, no gradients) records each block's routing
+    fractions and per-expert token counts in ``ctx.gathered``; its second
+    pass reads them: the aux loss is its global value split over the
+    shards (E / k * sum(pmean(frac) * probs_i), whose mean over the
+    shards is the reference's), and without expert parallelism each
+    block's ranks within an expert start after the earlier blocks' tokens
+    and the capacity is the whole batch's, as GSPMD computes it."""
+    B, S, d = x.shape
+    E, k = spec.num_experts, spec.top_k
+    M = ctx.model_size
+    ep = M > 1 and E % M == 0
+    e_local = E // M if ep else E
+    ranks = range(M) if ep else range(1)
+    w1, w3, w2 = p.experts.w1, p.experts.w3, p.experts.w2
+    if ep and cfg.moe_gather_dtype == "bf16":
+        w1, w3, w2 = (w.to(torch.bfloat16) for w in (w1, w3, w2))
+
+    def block(xb, capacity, rank_offset=None):
+        xf = xb.reshape(-1, d)
+        probs, gates, idx = _route(xf, p.router, spec)
+        parts = [_dispatch(xf, gates, idx, w1[r * e_local:(r + 1) * e_local],
+                           w3[r * e_local:(r + 1) * e_local],
+                           w2[r * e_local:(r + 1) * e_local], e_local=e_local,
+                           rank=r, capacity=capacity,
+                           rank_offset=None if rank_offset is None
+                           else rank_offset[r * e_local:(r + 1) * e_local])
+                 for r in ranks]
+        return D.psum(parts).reshape(xb.shape), probs, idx
+
+    if ctx.data_index is None:
+        blocks = x.chunk(ctx.data_blocks(B) if ep else 1)
+        outs = [block(xb, _capacity(xb.shape[0] * S, spec)) for xb in blocks]
+        y = torch.cat([o[0] for o in outs]) if len(outs) > 1 else outs[0][0]
+        aux = E * torch.sum(D.pmean([_frac(o[2], E) for o in outs])
+                            * D.pmean([o[1].mean(dim=0) for o in outs])) / k
+        return y, aux
+
+    i, n = ctx.data_index, ctx.data_size
+    stats = ctx.gathered.setdefault(id(p), [None] * n)
+    T = B * S
+    offset = None
+    capacity = _capacity(T, spec)
+    if not ep:
+        capacity = _capacity(T * n, spec)
+        earlier = [c for _, c in stats[:i]]
+        offset = D.psum(earlier) if earlier else torch.zeros(
+            E, dtype=torch.int64, device=x.device)
+    y, probs, idx = block(x, capacity, offset)
+    if ctx.gathering:
+        stats[i] = (_frac(idx, E),
+                    torch.bincount(idx.reshape(-1), minlength=E))
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    frac = D.pmean([f for f, _ in stats])
+    return y, E * torch.sum(frac * probs.mean(dim=0)) / k
+
+
 def moe_ffn(x: torch.Tensor, p: MoE, cfg: ArchConfig,
             spec: MoESpec) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux loss); the shared experts add on top."""
-    y, aux = _local_moe(x, p.router, p.experts.w1, p.experts.w3, p.experts.w2,
-                        spec=spec, e_local=spec.num_experts, rank=0,
-                        psum=_identity, pmean=_identity)
+    ctx = current_ctx()
+    if ctx is None:
+        y, aux = _local_moe(x, p.router, p.experts.w1, p.experts.w3,
+                            p.experts.w2, spec=spec, e_local=spec.num_experts,
+                            rank=0, psum=_identity, pmean=_identity)
+    else:
+        y, aux = _mesh_moe(x, p, cfg, spec, ctx)
     if getattr(p, "shared", None) is not None:
         y = y + mlp(x, p.shared)
     return y, aux

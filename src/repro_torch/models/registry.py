@@ -1,8 +1,11 @@
 """Uniform model API per architecture family (port of
 ``repro.models.registry``): ``get_api(cfg)`` gives init / loss / prefill /
-decode / make_cache for the family. The reference's abstract specs,
-PartitionSpecs and ``shape_adjusted_cfg`` serve its XLA dry-run and mesh
-(their only callers) and have no counterpart here.
+decode / make_cache for the family; ``abstract_params`` (the model on the
+"meta" device, nothing allocated, as the reference's pytree) and the
+PartitionSpecs of the mesh (``params_pspecs``, ``batch_pspecs``,
+``cache_pspecs``). ``batch_specs``, ``decode_specs`` and
+``shape_adjusted_cfg`` serve only the reference's dry-run and wait with it
+for ROADMAP A11.
 
 Signatures (the port's, beside the reference's):
   * ``init(cfg, generator)`` — random weights on the generator's device
@@ -18,10 +21,14 @@ Signatures (the port's, beside the reference's):
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
-from repro_torch.models import hybrid, rwkv, transformer, whisper
+import torch
+
+from repro_torch.launch.mesh import MeshAxes
+from repro_torch.models import convert, hybrid, rwkv, transformer, whisper
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import P, param_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,3 +65,62 @@ def prefill_cache_len(cfg: ArchConfig, seq: int) -> int:
     """Cache depth a prefill of ``seq`` tokens produces (vlm prepends its
     projected patch prefix to the context)."""
     return seq + (cfg.num_patches if cfg.family == "vlm" else 0)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the "meta" device: ``init`` builds
+    the model's shapes and dtypes without allocating."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def abstract_params(cfg: ArchConfig) -> Any:
+    """The reference's ``eval_shape`` over init: the family's model built
+    on the "meta" device, as the reference's pytree of meta tensors."""
+    return convert.params_like(get_api(cfg).init(cfg, _MetaGenerator()))
+
+
+# -- PartitionSpecs ----------------------------------------------------------------
+
+
+def batch_pspecs(cfg: ArchConfig, axes: MeshAxes) -> dict:
+    D = axes.data if len(axes.data) > 1 else axes.data[0]
+    specs = {"tokens": P(D, None)}
+    if cfg.family == "encdec":
+        specs["frames"] = P(D, None, None)
+    if cfg.family == "vlm":
+        specs["patches"] = P(D, None, None)
+    return specs
+
+
+def cache_pspecs(cfg: ArchConfig, axes: MeshAxes) -> dict:
+    """Decode-cache shardings: batch over data; the model axis goes where
+    ``cfg.cache_shard_dim`` says: "seq" (the cache's sequence dim, what
+    the shardmap decode splits) or "head" (head_dim)."""
+    D = axes.data if len(axes.data) > 1 else axes.data[0]
+    M = axes.model
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        if cfg.cache_shard_dim == "head":
+            spec = P(None, D, None, None, M)
+        else:
+            spec = P(None, D, M, None, None)
+        return {"k": spec, "v": spec, "pos": P()}
+    if fam == "rwkv":
+        return {"att_x": P(None, D, None), "att_state": P(None, D, M, None, None),
+                "ffn_x": P(None, D, None), "pos": P()}
+    if fam == "hybrid":
+        return {"conv": P(None, D, None, M), "state": P(None, D, M, None, None),
+                "attn_k": P(None, D, None, M, None),
+                "attn_v": P(None, D, None, M, None), "pos": P()}
+    if fam == "encdec":
+        return {"k": P(None, D, M, None, None), "v": P(None, D, M, None, None),
+                "xk": P(None, D, None, None, None), "xv": P(None, D, None, None, None),
+                "pos": P()}
+    raise ValueError(fam)
+
+
+def params_pspecs(cfg: ArchConfig, axes: MeshAxes) -> Any:
+    return param_specs(abstract_params(cfg), axes)

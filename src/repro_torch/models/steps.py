@@ -7,6 +7,16 @@ The reference's steps are pure functions that return new parameters and
 optimizer state; the port's train step updates the model's parameters and
 the state's moments in place (``models/optim.py``) and returns them with
 the metrics, so the calls read alike.
+
+Under a sharding context with more than one data shard
+(``models/sharding.py``) the train step is data-parallel: the batch splits
+into the shards' row blocks, each shard takes its block's loss and its
+gradients (a tree of its own), :func:`merge_grads` merges them into the
+global batch's mean gradient (``psum`` of each shard's gradients times
+its share of the rows), and the clip and AdamW run once on the merged
+tree. The metrics are the global batch's. An MoE model's step first runs
+every block forward without gradients to gather the routing statistics
+the aux loss and the capacity read across the shards (``moe._mesh_moe``).
 """
 from __future__ import annotations
 
@@ -15,10 +25,12 @@ import contextlib
 import torch
 from torch import nn
 
+from repro_torch.engine import distributed as D
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.convert import leaf_ndim
 from repro_torch.models.optim import OptimConfig, adamw_update, init_opt_state
 from repro_torch.models.registry import ModelAPI, get_api
+from repro_torch.models.sharding import current_ctx
 
 
 @contextlib.contextmanager
@@ -46,25 +58,80 @@ def cast_once(model: nn.Module, cfg: ArchConfig):
             mod._parameters[name] = p
 
 
+def data_blocks(batch: dict, n: int) -> list[dict]:
+    """The batch's ``n`` contiguous row blocks (views), every entry split
+    along its first dim."""
+    parts = {k: v.chunk(n) for k, v in batch.items()}
+    return [{k: parts[k][i] for k in batch} for i in range(n)]
+
+
+def merge_grads(parts: list[list[torch.Tensor]],
+                weights: list[float]) -> list[torch.Tensor]:
+    """The data shards' gradients (``parts[i]``: shard i's, one tensor per
+    parameter) merged into the global batch's: ``psum`` over the shards,
+    in shard order, of each gradient times its shard's weight. Each
+    shard's tensors are scaled in place and let go leaf by leaf, so the
+    merge holds the shards' trees and one merged leaf at a time."""
+    out = []
+    for j in range(len(parts[0])):
+        out.append(D.psum([part[j].mul_(w) for part, w in zip(parts, weights)]))
+        for part in parts:
+            part[j] = None
+    return out
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: OptimConfig):
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``: the family's loss and its backward (inside ``cast_once``),
     then ``adamw_update``; the parameters and the state change in place
     and the gradients are dropped after the update. ``metrics`` holds the
     loss, the family's metrics ("ce", and "aux" for the transformers),
-    "grad_norm" (before the clip) and "lr", as 0-d float32 tensors."""
+    "grad_norm" (before the clip) and "lr", as 0-d float32 tensors. Under
+    a context with data shards the step is data-parallel (module
+    docstring)."""
     api = get_api(cfg)
 
     def train_step(model, opt_state, batch):
         model.zero_grad(set_to_none=True)
-        with cast_once(model, cfg):
-            loss, metrics = api.loss(model, batch, cfg)
-            loss.backward()
+        ctx = current_ctx()
+        n = 1 if ctx is None else ctx.data_blocks(batch["tokens"].shape[0])
+        if n == 1:
+            with cast_once(model, cfg):
+                loss, metrics = api.loss(model, batch, cfg)
+                loss.backward()
+            metrics = {"loss": loss, **metrics}
+        else:
+            metrics = _data_parallel_grads(model, batch, ctx, n)
         opt_metrics = adamw_update(model, opt_state, opt_cfg)
         model.zero_grad(set_to_none=True)
-        return model, opt_state, {"loss": loss.detach(),
-                                  **{k: v.detach() for k, v in metrics.items()},
+        return model, opt_state, {**{k: v.detach() for k, v in metrics.items()},
                                   **opt_metrics}
+
+    def _data_parallel_grads(model, batch, ctx, n) -> dict:
+        blocks = data_blocks(batch, n)
+        rows = batch["tokens"].shape[0]
+        weights = [b["tokens"].shape[0] / rows for b in blocks]
+        params = list(model.parameters())
+        ctx.gathered = {}
+        if cfg.moe is not None:
+            with torch.no_grad():
+                for i, b in enumerate(blocks):
+                    with ctx.data_shard(i, gathering=True), cast_once(model, cfg):
+                        api.loss(model, b, cfg)
+        parts, mets = [], []
+        try:
+            for i, b in enumerate(blocks):
+                with ctx.data_shard(i), cast_once(model, cfg):
+                    loss, metrics = api.loss(model, b, cfg)
+                    parts.append(list(torch.autograd.grad(loss, params)))
+                mets.append({"loss": loss.detach(),
+                             **{k: v.detach() for k, v in metrics.items()}})
+        finally:
+            ctx.gathered = {}
+        for p, g in zip(params, merge_grads(parts, weights)):
+            p.grad = g
+        return {k: D.psum([m[k] * w for m, w in zip(mets, weights)])
+                for k in mets[0]}
 
     return train_step
 

@@ -146,17 +146,24 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: Optional[int], like: Any,
-                device=None) -> tuple[int, Any]:
+    def restore(self, step: Optional[int], like: Any, device=None,
+                shardings: Any = None) -> tuple[int, Any]:
         """Restore into the structure of ``like`` (the latest step when
         ``step`` is None, once the save in flight is published) as tensors
         on ``device``: ``None`` means the CUDA card (and raises without
         one), ``"cpu"`` keeps the loaded arrays without a copy. The leaves
-        are full arrays whatever produced them (the reference's elastic
-        restore). A CRC mismatch raises ``IOError``; where a leaf of
-        ``like`` has a shape and a dtype, the saved leaf must have the
-        same ones (``ValueError``: nothing is cast)."""
-        dev = resolve_device(device)
+        are full arrays whatever produced them. A CRC mismatch raises
+        ``IOError``; where a leaf of ``like`` has a shape and a dtype, the
+        saved leaf must have the same ones (``ValueError``: nothing is
+        cast).
+
+        ``shardings`` (the reference's elastic restore) is a tree of
+        ``sharding.NamedSharding`` over ``like``, or a prefix of it: a
+        sharding, or ``None``, at a node covers its subtree. A leaf under
+        a sharding goes whole to its mesh's device, where every shard of
+        the port's mesh lives (a spec longer than the leaf's rank raises
+        ``ValueError``, as jax's placement does); a leaf under ``None``
+        goes to ``device``. The saved layout does not matter."""
         # the save in flight first: it may publish the latest step (the
         # reference picks the latest step before it waits)
         self.wait()
@@ -170,6 +177,17 @@ class CheckpointManager:
         if meta["num_leaves"] != len(like_leaves):
             raise ValueError(f"checkpoint step {step} holds {meta['num_leaves']} "
                              f"leaves, {treedef} {len(like_leaves)}")
+        places = []
+        _leaf_shardings(shardings, like, places)
+        devs = []
+        for i, (sh, ref) in enumerate(zip(places, like_leaves)):
+            if sh is None:
+                devs.append(resolve_device(device))
+                continue
+            if hasattr(ref, "shape") and len(sh.spec) > len(ref.shape):
+                raise ValueError(f"checkpoint leaf {i}: spec {sh.spec} "
+                                 f"longer than its shape {tuple(ref.shape)}")
+            devs.append(torch.device(sh.device))
 
         def leaf(i: int) -> np.ndarray:
             a = np.load(d / f"leaf_{i}.npy")
@@ -188,7 +206,7 @@ class CheckpointManager:
                     f.cancel()
                 raise
         out, nbytes = [], 0
-        for i, (a, ref) in enumerate(zip(arrays, like_leaves)):
+        for i, (a, ref, dev) in enumerate(zip(arrays, like_leaves, devs)):
             t = torch.from_numpy(a)
             if hasattr(ref, "shape") and hasattr(ref, "dtype") and (
                     tuple(ref.shape) != tuple(t.shape)
@@ -200,6 +218,25 @@ class CheckpointManager:
             nbytes += a.nbytes
         self._span("read", step, t0, nbytes)
         return step, unflatten(treedef, out)
+
+
+def _leaf_shardings(shardings, like, out: list, inherited=None) -> None:
+    """Append, in ``runtime/tree.py``'s leaf order of ``like``, the
+    sharding that covers each leaf (``None``: none)."""
+    if shardings is not None and not isinstance(shardings, (dict, list, tuple)):
+        inherited, shardings = shardings, None
+    if like is None:
+        return
+    if isinstance(like, dict):
+        for k in sorted(like):
+            _leaf_shardings(None if shardings is None else shardings[k],
+                            like[k], out, inherited)
+    elif isinstance(like, (list, tuple)):
+        for i, v in enumerate(like):
+            _leaf_shardings(None if shardings is None else shardings[i], v,
+                            out, inherited)
+    else:
+        out.append(inherited)
 
 
 def _torch_dtype(dtype) -> torch.dtype:

@@ -7,8 +7,13 @@ a data-parallel all-reduce's wire bytes 4x against float32 and keep
 SGD / Adam converging. ``torch.round`` rounds half to even as
 ``jnp.round`` does, so every result equals the reference's bit for bit.
 
-The collective ``compressed_psum`` (the reference's shard_map building
-block) needs several cards: it raises until ROADMAP A9b.
+``compressed_psum`` is the data-parallel all-reduce over a mesh's data
+shards (``launch/mesh.py``: every shard on one device): it takes the
+shards' gradient and error trees in shard order and merges them with
+``engine/distributed.py``'s collectives, as the reference's does inside
+shard_map. It is elementwise work that the reference computes in jnp, so
+it is plain torch here too. Across several cards (``torch.distributed``)
+it waits for ROADMAP A9b.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.engine import distributed as D
 from repro_torch.runtime.tree import flatten, tree_map, unflatten
 
 
@@ -57,9 +63,42 @@ def decompress_grads(qs: Any, ss: Any) -> Any:
     return tree_map(dequantize, qs, ss)
 
 
-def compressed_psum(grads: Any, err: Any, axis_name) -> tuple[Any, Any]:
-    """The reference's int8 error-feedback all-reduce inside shard_map;
-    the port's collectives over several cards are ROADMAP A9b."""
-    raise NotImplementedError(
-        "compressed_psum (the int8 all-reduce of data-parallel training) "
-        "waits for ROADMAP A9b: collectives over several cards")
+def compressed_psum(grads: list, err: list) -> tuple[Any, list]:
+    """The int8 error-feedback all-reduce of the shards' gradient trees
+    ``grads`` with their error trees ``err`` (lists in shard order).
+
+    Every shard quantizes against one SHARED scale (``pmax`` of the local
+    max-abs values) so the int32 ``psum`` of the int8 payloads dequantizes
+    exactly: mean = total * s / n. Each shard's new error is t - q * s.
+    Returns (the mean gradient tree every shard holds, the shards' new
+    error trees); bit for bit the reference's formula."""
+    if len(grads) != len(err) or not grads:
+        raise ValueError(f"{len(grads)} gradient trees, {len(err)} error trees")
+    flat, treedef = [], None
+    for g, e in zip(grads, err):
+        fg, gdef = flatten(g)
+        fe, edef = flatten(e)
+        if treedef is None:
+            treedef = gdef
+        if gdef != treedef or edef != treedef:
+            raise ValueError(f"shard trees {gdef} / {edef} do not match "
+                             f"{treedef}")
+        flat.append((fg, fe))
+    means, errs = [], [[] for _ in grads]
+    for j in range(treedef.num_leaves):
+        ts = [fg[j].to(torch.float32) + fe[j] for fg, fe in flat]
+        # the divisors are tensors on the leaves' device: CUDA divides by a
+        # host scalar as a product with its reciprocal, which can round apart
+        # from the CPU's (and the reference's) division
+        dev = ts[0].device
+        n = D.psum([torch.ones((), dtype=torch.float32, device=dev)
+                    for _ in ts])
+        m = D.pmax([t.abs().max() for t in ts])
+        s = torch.clamp(m, min=1e-12) / torch.full((), 127.0, device=dev)
+        qs = [torch.clamp(torch.round(t / s), -127, 127).to(torch.int8)
+              for t in ts]
+        total = D.psum([q.to(torch.int32) for q in qs])   # the int8 payload
+        means.append(total.to(torch.float32) * s / n)
+        for i, (t, q) in enumerate(zip(ts, qs)):
+            errs[i].append(t - q.to(torch.float32) * s)
+    return unflatten(treedef, means), [unflatten(treedef, e) for e in errs]

@@ -121,5 +121,10 @@ def test_structures_must_agree_and_psum_waits_for_several_cards():
         T.compress_grads(g, {"v": torch.zeros(3)})
     with pytest.raises(ValueError):
         T.decompress_grads({"w": torch.ones(3, dtype=torch.int8)}, {})
-    with pytest.raises(NotImplementedError, match="A9b"):
-        T.compressed_psum(g, T.init_error_state(g), "data")
+    # the all-reduce over a mesh's data shards runs on one card now
+    # (tests/test_torch_mesh_models.py holds it to the reference); its
+    # shard trees must agree as well
+    with pytest.raises(ValueError):
+        T.compressed_psum([g, {"v": torch.ones(3)}], [T.init_error_state(g)] * 2)
+    mean, errs = T.compressed_psum([g, g], [T.init_error_state(g)] * 2)
+    assert torch.equal(mean["w"], g["w"]) and len(errs) == 2

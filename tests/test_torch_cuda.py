@@ -826,3 +826,113 @@ def test_cuda_fault_loop_two_steps(tmp_path):
     assert [s["step"] for s in out["loop"].spans if s["span"] == "rollback"] == [1]
     again = train.run(cfg, 2, 2, 64, tmp_path / "again", 1)
     assert [l for _, l in again["log"]] == [l for _, l in out["log"]]
+
+
+# -- the model mesh on the card (models/sharding.py) ---------------------------------
+
+
+def _mesh(dev, data, model):
+    from repro_torch.launch.mesh import make_local_mesh
+
+    return make_local_mesh(data, model, device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_expert_parallel_equals_cpu():
+    """deepseek-moe-16b's reduced MoE layer (4 experts, top 2), seeded on
+    the CPU and copied to the card, expert-parallel on a data 2 x model 4
+    mesh of the card against the same call on a CPU mesh: y and the aux
+    loss within 1e-4 (float32; GEMMs sum in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import sharding_ctx
+
+    cfg = get_config("deepseek-moe-16b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+    layer = moe.init_moe(cfg, cfg.moe, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(4, 16, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        lay = copy.deepcopy(layer).to(dev)
+        with torch.no_grad(), sharding_ctx(_mesh(dev, 2, 4)):
+            y, aux = moe.moe_ffn(x.to(dev), lay, cfg, cfg.moe)
+        out[dev.type] = (y.cpu(), float(aux))
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-4 * abs(out["cpu"][1])
+
+
+@pytest.mark.cuda
+def test_cuda_shardmap_decode_equals_cpu():
+    """A reduced qwen3 (float32 weights, bf16 cache) prefills 8 tokens of a
+    20-row cache, then decodes at pos 8, 9, 10 (rank 1's first row) and 11
+    with the shardmap decode on a data 2 x model 2 mesh, on the card and on
+    the CPU from the same weights: logits within 2e-2, argmax equal, the
+    cache within 2e-2 (bf16 compute rounds apart on the two devices)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.sharding import sharding_ctx
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              decode_cache_update="shardmap")
+    api = registry.get_api(cfg)
+    model = api.init(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32))
+    new = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2, 1)).astype(np.int32))
+    out = {}
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        m = copy.deepcopy(model).to(dev)
+        logits = []
+        with torch.no_grad():
+            cache, _ = api.prefill(m, {"tokens": toks.to(dev)}, cfg, 20)
+            with sharding_ctx(_mesh(dev, 2, 2)):
+                for t in range(4):
+                    cache, lg = api.decode(m, cache, new[t].to(dev), cfg)
+                    logits.append(lg[:, -1].float().cpu())
+        out[dev.type] = (torch.stack(logits), cache["k"].float().cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=2e-2)
+    assert torch.equal(out["cuda"][0].argmax(-1), out["cpu"][0].argmax(-1))
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_psum_equals_cpu_bit_for_bit():
+    """The int8 all-reduce over 8 shards, twice (the second with the first's
+    error state), on the card and on the CPU: every mean and error tensor
+    equal bit for bit (the divisors are device tensors on both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    from repro_torch.runtime import compress
+
+    rng = np.random.default_rng(0)
+    shards = [{"w": rng.normal(size=(257, 3)).astype(np.float32),
+               "b": (rng.normal(size=(31,)) * 1e-3).astype(np.float32),
+               "ties": np.array([127.0, 2.5, -0.5, 126.5], np.float32) * (i + 1),
+               "zero": np.zeros((4, 4), np.float32)} for i in range(8)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = [{k: torch.from_numpy(v).to(dev) for k, v in s.items()} for s in shards]
+        err = [compress.init_error_state(x) for x in g]
+        means = []
+        for _ in range(2):
+            mean, err = compress.compressed_psum(g, err)
+            means.append(mean)
+        out[dev] = (means, err)
+    for (mc, ec), (mg, eg) in [(out["cpu"], out["cuda"])]:
+        for a, b in zip(mc, mg):
+            for k in a:
+                assert torch.equal(a[k].view(torch.int32), b[k].cpu().view(torch.int32)), k
+        for a, b in zip(ec, eg):
+            for k in a:
+                assert torch.equal(a[k].view(torch.int32), b[k].cpu().view(torch.int32)), k

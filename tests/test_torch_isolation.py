@@ -25,6 +25,7 @@ MODULES = ["repro_torch.core.frame", "repro_torch.core.window",
            "repro_torch.models.hybrid", "repro_torch.models.hybrid_groups",
            "repro_torch.models.rwkv", "repro_torch.models.whisper",
            "repro_torch.models.steps", "repro_torch.models.optim",
+           "repro_torch.models.sharding",
            "repro_torch.launch.serve", "repro_torch.launch.train",
            "repro_torch.runtime.tree", "repro_torch.runtime.checkpoint",
            "repro_torch.runtime.compress",

@@ -93,9 +93,17 @@ def test_large_config_reduced_off_the_card(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--multi-pod"], ["--local-devices", "8"]])
-def test_mesh_flags_wait_for_several_cards(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="A9b"):
-        train.main(["--device", "cpu", "--ckpt-dir", str(tmp_path)] + flag)
+def test_mesh_flags_wait_for_several_cards(tmp_path, flag, capsys):
+    """The pod mesh waits for ROADMAP A11; a local mesh of 8 shards of the
+    one device (data 4 x model 2) trains."""
+    argv = ["--device", "cpu", "--ckpt-dir", str(tmp_path)] + flag
+    if flag == ["--multi-pod"]:
+        with pytest.raises(NotImplementedError, match="A11"):
+            train.main(argv)
+        return
+    assert train.main(argv + ["--reduced", "--steps", "1", "--global-batch",
+                              "8", "--seq", "8"]) == 0
+    assert "mesh: {'data': 4, 'model': 2} (8 shards)" in capsys.readouterr().out
 
 
 def test_default_device_is_the_card(tmp_path):
