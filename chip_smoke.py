@@ -9,8 +9,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                      # training on 4 x 2,048 tokens,
                                      # training through launch/train.py with
                                      # checkpoints, failures and a resume,
-                                     # and serving and training on a
-                                     # data 2 x model 2 mesh of the card
+                                     # serving and training on a
+                                     # data 2 x model 2 mesh of the card,
+                                     # and the dry-run's cost model held
+                                     # on the card against meta
 
 Phases (any mismatch raises; nothing is caught):
   1. header — the card's name and power limit; build the CUDA kernels from
@@ -251,6 +253,26 @@ Phases (any mismatch raises; nothing is caught):
      held to FAMILY_TOL, and that forced run without one rank's partials
      must fail it. Printed beside the card: prefill and decode ms of
      both (a) runs, both (b) step walls and the meshed step's peak memory.
+ 14. the dry-run and its cost model (``launch/dryrun.py``,
+     ``launch/hlocost.py``). (b) The cost model over one real
+     step on the card and the same step on meta, each on a mesh of one
+     chip: phase 11's train step (flash, remat; B5 and B7 launched) and
+     phase 10's flash decode step (B6 launched), launch counts zeroed just
+     before the counted step and read just after. flops, bytes, each
+     kernel's count and charge and the collectives must be equal, and the
+     meta run with the step's B7 (or B6) charge dropped must differ.
+     Printed beside the card: the step's device time (one profiled
+     step), compute_s and memory_s, model flops over device time at
+     989e12 flop/s, and the meta peak of live bytes beside
+     ``torch.cuda.max_memory_allocated``. (a) Eight low-priority
+     processes on the host, started after phase 13's last timing and
+     running beside 14(b) alone: qwen3-1.7b x train_4k (depth cut to 7
+     layers), deepseek-moe-16b x train_4k (depth cut to 2 layers),
+     qwen3-1.7b x decode_32k under attn_impl=flash (B6 charged) and
+     zamba2-1.2b x long_500k, at published width on the meta device, each
+     on the pod (256) and multi-pod (512) mesh: every record ``ok``, its
+     roofline terms (H100 data-sheet model terms, not measurements) and
+     its meta run's seconds printed.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -259,21 +281,32 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor float32 peak (data sheet)
-BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak (data sheet)
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the H100 SXM's data-sheet peaks: HBM3 bytes/s, float32 flop/s outside
+    # the tensor cores, dense bf16 flop/s on them (one source with the
+    # dry-run's hardware model)
+    from repro_torch.launch.dryrun import FP32_FLOPS as FP32_OPS_PER_S
+    from repro_torch.launch.dryrun import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.dryrun import PEAK_FLOPS as BF16_OPS_PER_S
+except ImportError as e:   # the script alone, without the port beside it
+    sys.exit(f"chip_smoke: the port is not beside this script ({e})")
 ROUNDS = 3
 ROWS = 5_000_000            # the paper's XL size (src/repro/data/wisconsin.py)
 RELATIONAL = ("filter_count", "segment_agg", "block_topk", "topk_merge",
@@ -3304,9 +3337,10 @@ def step_parts(model, cfg, api, batch, max_len: int) -> dict:
 
 
 def time_serve_decode(case, err: float, launches: int) -> dict:
-    """Row 6'': flash_decode at the serve shape. Bound: the valid slots'
-    K and V bytes (and q, out) once over HBM_BYTES_PER_S; library: masked
-    SDPA over the same views (GQA)."""
+    """Row 6'': flash_decode at the serve shape. Bound: the kernel's
+    ``flash_decode_cost`` (the valid slots' K and V bytes, q and out once
+    over HBM_BYTES_PER_S); library: masked SDPA over the same views
+    (GQA)."""
     import torch
     import torch.nn.functional as F
 
@@ -3315,8 +3349,7 @@ def time_serve_decode(case, err: float, launches: int) -> dict:
     q, k, v, lens = case
     B, H, D = q.shape
     KV, S = k.shape[1], k.shape[2]
-    walked = int(lens.clamp(max=S).sum())
-    io = (2 * walked * KV * D + 2 * q.numel()) * q.element_size() + B * 4
+    work = da.flash_decode_cost(q, k, lens)
     mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None]
     row = _timed("flash_decode", ("flash_decode_split_kernel",
                                   "flash_decode_merge_kernel"),
@@ -3324,7 +3357,7 @@ def time_serve_decode(case, err: float, launches: int) -> dict:
                  lambda: da.flash_decode_plain(q, k, v, lens),
                  lambda: F.scaled_dot_product_attention(
                      q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
-                 io, 2 * 2 * walked * H * D, err, launches,
+                 work["bytes"], work["flops"], err, launches,
                  f"serve shape: q ({B}, {H}, {D}), cache views ({B}, {KV}, {S}, "
                  f"{D}) bf16 of (B,S,KV,D) memory, every length {int(lens[0])}, "
                  f"slices of {da.split_size(B, KV, S)}", ops_per_s=BF16_OPS_PER_S)
@@ -3934,9 +3967,9 @@ def time_flash_backward(case: dict, launches: int) -> dict:
     operands): the kernel alone (its three kernels' records), its plain
     version, and the library call: the backward of SDPA (GQA, causal) on
     contiguous copies, ``torch.autograd.grad`` of an output it computed
-    once. Bound: the larger of 2.5 x the causal forward's operations at
-    the bf16 tensor-core rate and the bytes of q, k, v, out, dO, lse read
-    once and dq, dk, dv written once."""
+    once. Bound: ``flash_attention_bwd_cost``, the larger of 2.5 x the
+    causal forward's operations at the bf16 tensor-core rate and the bytes
+    of q, k, v, out, dO, lse read once and dq, dk, dv written once."""
     import torch
     import torch.nn.functional as F
 
@@ -3953,15 +3986,14 @@ def time_flash_backward(case: dict, launches: int) -> dict:
     ref_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
                                              enable_gqa=True)
     doc = do.contiguous()
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
-    ops = 2.5 * 2 * 2 * B * H * S * S * D / 2
+    work = fa.flash_attention_bwd_cost(q, k, causal=True)
     row = _timed("flash_attention_bwd", BWD_KERNELS,
                  lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True),
                  lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
                                                       causal=True),
                  lambda: torch.autograd.grad(ref_out, (qc, kc, vc), doc,
                                              retain_graph=True),
-                 nbytes, ops, err, launches,
+                 work["bytes"], work["flops"], err, launches,
                  f"training shape: q, out, dO ({B}, {H}, {S}, {D}), k, v ({B}, "
                  f"{KV}, {S}, {D}) bf16 causal, (B,H,S,D) views of (B,S,H,D)",
                  ops_per_s=BF16_OPS_PER_S)
@@ -4881,6 +4913,218 @@ def run_mesh_models(dev, seed: int, card: str) -> dict:
             "seconds": seconds}
 
 
+# -- phase 14: the dry-run, and its cost model held on the card ------------------
+
+# (arch, shape, --set overrides) of the dry-run cells phase 14(a) runs on
+# "meta" at published width, each on both pod meshes. The train cells'
+# depth is cut, to fit the script's time limit: a meta op costs ~100 us
+# of Python (PyTorch's meta kernels), and on the H100 machine's host
+# qwen3-1.7b's 28 layers took 84 s (pod) and 171 s (multi-pod), and
+# deepseek-moe-16b's 4 layers 56 s and 105 s (every expert rank of every
+# data shard runs in turn). qwen3-1.7b keeps 7 of 28 layers,
+# deepseek-moe-16b 2 (1 dense, 1 MoE: expert-parallel on the model axis)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", ("n_layers=7",)),
+                ("deepseek-moe-16b", "train_4k", ("n_layers=2",)),
+                ("qwen3-1.7b", "decode_32k", ("attn_impl=flash",)),
+                ("zamba2-1.2b", "long_500k", ()))
+DRYRUN_WAIT_S = 180         # the longest phase 14 waits for a cell still running
+COST_KEYS = ("flops", "matmul_flops", "bytes", "kernels", "collectives")
+
+
+def start_dryruns(out_dir: Path) -> list:
+    """Phase 14(a)'s cells, one process per (cell, mesh), all at once on
+    the host's cores at the lowest priority. They start after phase 13's
+    last timing and run beside 14(b) alone, whose one timing is the
+    device time in a profiler trace (host gaps are not in it)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch, shape, sets in DRYRUN_CELLS:
+        for mesh in ("pod", "multipod"):
+            cmd = ["nice", "-n", "19", sys.executable, "-m",
+                   "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                   "--mesh", mesh, "--out", str(out_dir)]
+            cmd += [a for s in sets for a in ("--set", s)]
+            procs.append(((arch, shape, mesh, sets), subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env, cwd=ROOT)))
+    return procs
+
+
+def finish_dryruns(procs: list, out_dir: Path, card: str) -> list:
+    """Phase 14(a): each cell's record on both meshes, its roofline terms
+    and the seconds of its meta run. A cell that failed, or whose record
+    is not ``ok`` on 256 / 512 chips, raises; the flash decode cell must
+    charge flash_decode (B6) once per layer."""
+    from repro_torch.launch.dryrun import NET_BW, summary
+
+    t0 = time.perf_counter()
+    recs = []
+    for (arch, shape, mesh, sets), p in procs:
+        try:
+            _, err = p.communicate(
+                timeout=max(DRYRUN_WAIT_S - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 14: the dry-run of {arch} x {shape} "
+                                 f"on {mesh} ran past {DRYRUN_WAIT_S} s") from None
+        if p.returncode:
+            raise AssertionError(f"phase 14: the dry-run of {arch} x {shape} on "
+                                 f"{mesh} failed:\n{err[-3000:]}")
+        rec = json.loads((out_dir / mesh / f"{arch}__{shape}.json").read_text())
+        if rec["status"] != "ok" or rec["chips"] != (512 if mesh == "multipod" else 256):
+            raise AssertionError(f"phase 14: {rec}")
+        if "attn_impl=flash" in sets and "flash_decode" not in rec["kernels"]:
+            raise AssertionError(f"phase 14: {arch} x {shape} {sets} charged no "
+                                 f"flash_decode: {rec['kernels']}")
+        r = rec["roofline"]
+        print(f"  (a) [{card}] {summary(rec)} {' '.join(sets)}", flush=True)
+        coll = rec["collectives"]
+        print(f"      compute_s {r['compute_s']:.6g}, memory_s {r['memory_s']:.6g}, "
+              f"collective_s {r['collective_s']:.6g} (the mesh mean; a device "
+              f"in every call {coll['wire_bytes_per_device'] / NET_BW:.6g}) (H100 "
+              f"data-sheet model, not a measurement); {coll['by_kind']}; "
+              f"kernels {rec['kernels'] or 'none'}", flush=True)
+        recs.append({k: rec[k] for k in ("arch", "shape", "mesh", "chips", "lower_s",
+                                          "hlo_model", "collectives", "kernels",
+                                          "roofline", "memory_analysis")}
+                    | {"overrides": list(sets)})
+    return recs
+
+
+def cost_diffs(card: dict, meta: dict) -> list:
+    """The cost-model keys on which a card run and a meta run differ."""
+    return [k for k in COST_KEYS if card[k] != meta[k]]
+
+
+@contextlib.contextmanager
+def dropped_charge(name: str):
+    """The cost model with kernel ``name``'s charges dropped: the planted
+    fault the card-vs-meta check must see."""
+    from repro_torch.launch import hlocost
+
+    real = hlocost.CostModel.kernel
+    hlocost.CostModel.kernel = lambda self, n, cost, out: \
+        None if n == name else real(self, n, cost, out)
+    try:
+        yield
+    finally:
+        hlocost.CostModel.kernel = real
+
+
+def run_cost_model(dev, seed: int, card: str) -> dict:
+    """Phase 14(b): the cost model over one real step on the card and over
+    the same step on "meta", both on a mesh of one chip: qwen3-1.7b at its
+    published config, phase 11's train step (flash, remat; B5 and B7
+    launched) and phase 10's flash decode step (B6 launched). flops,
+    bytes, every kernel's count and charge and the collectives must be
+    equal, and a meta run with B7's (and B6's) charge dropped must differ.
+    Printed beside the card: the step's device time, compute_s and
+    memory_s at the H100's data-sheet peaks, model flops over device time
+    at 989e12 flop/s, and the meta run's peak of live bytes beside
+    ``torch.cuda.max_memory_allocated``. Returns the numbers and the
+    kernels' launches on these steps."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import hlocost, serve
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import optim, registry, steps
+    from repro_torch.models.sharding import sharding_ctx
+
+    t_phase = time.perf_counter()
+    launches = {"flash_mha_fwd": 0, "flash_attention_bwd": 0, "flash_decode": 0}
+    out = {}
+
+    def measured(label, step, args, meta_args, model_flops, planted):
+        """Device time of one uncounted step, then the counted step on the
+        card (launch counts zeroed before and read after), the same step
+        on meta, and the planted fault."""
+        with sharding_ctx(make_local_mesh(1, 1, device=dev)):
+            ms = device_ms(lambda: step(*args))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            got, _ = hlocost.analyze(step, *args, device=dev)
+            torch.cuda.synchronize()
+            for k in launches:
+                launches[k] += _build.LAUNCHES[k]
+            peak = torch.cuda.max_memory_allocated() - base
+        with sharding_ctx(make_local_mesh(1, 1, device="meta")):
+            meta, _ = hlocost.analyze(step, *meta_args(), device="meta")
+            with dropped_charge(planted):
+                bad, _ = hlocost.analyze(step, *meta_args(), device="meta")
+        diffs = cost_diffs(got, meta)
+        if diffs:
+            raise AssertionError(f"phase 14 {label}: card and meta differ on {diffs}:"
+                                 f"\n card {got}\n meta {meta}")
+        if not cost_diffs(got, bad):
+            raise AssertionError(f"phase 14 {label}: the meta run without "
+                                 f"{planted}'s charge passed")
+        compute_s, memory_s = got["flops"] / PEAK_FLOPS, got["bytes"] / HBM_BW
+        mfu = None if ms is None else model_flops / (ms / 1e3 * PEAK_FLOPS)
+        print(f"  (b) [{card}] {label}: card == meta: flops {got['flops']:.6e} "
+              f"(matmul {got['matmul_flops']:.6e}), bytes {got['bytes']:.6e}, "
+              f"collectives {got['collectives']['by_kind'] or 'none'}", flush=True)
+        for name, k in got["kernels"].items():
+            print(f"      {name}: {k['count']} calls, {k['flops']:.6e} flops, "
+                  f"{k['bytes']:.6e} bytes", flush=True)
+        dev_s = "not measured" if ms is None else f"{ms:.3f} ms"
+        print(f"      device time {dev_s} beside compute_s {compute_s * 1e3:.3f} ms "
+              f"and memory_s {memory_s * 1e3:.3f} ms (data-sheet model); model "
+              f"flops {model_flops:.6e} / (device time x 989e12) = "
+              f"{'not measured' if mfu is None else f'{mfu:.4f}'}; meta peak of "
+              f"live bytes {meta['peak_bytes'] / 1e9:.3f} GB, "
+              f"torch.cuda.max_memory_allocated over the step {peak / 1e9:.3f} GB; "
+              f"planted ({planted}'s charge dropped) differs on "
+              f"{cost_diffs(got, bad)}", flush=True)
+        out[label] = {"cost": got, "device_ms": ms, "compute_s": compute_s,
+                      "memory_s": memory_s, "model_flops": model_flops,
+                      "model_flops_per_device_s": mfu,
+                      "meta_peak_bytes": meta["peak_bytes"],
+                      "cuda_peak_bytes": peak, "planted_diffs": cost_diffs(got, bad)}
+
+    cfg = _serve_cfg(TRAIN_ARCH, "flash")
+    check_published(cfg)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model, state = steps.init_train_state(cfg, gen)
+    batch = serve.make_batch(cfg, B, S, np.random.default_rng(seed), dev)
+    step = steps.make_train_step(cfg, optim.OptimConfig(**TRAIN_OPT))
+
+    def meta_train():
+        m, st = steps.init_train_state(cfg, registry._MetaGenerator())
+        return m, st, registry.batch_specs(cfg, B, S)
+
+    measured(f"train step {B} x {S}", step, (model, state, batch), meta_train,
+             6 * cfg.n_params() * B * S, "flash_attention_bwd")
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+    scfg = _serve_cfg(SERVE_ARCH, "flash")
+    api = registry.get_api(scfg)
+    max_len = registry.prefill_cache_len(scfg, SERVE_PROMPT) + SERVE_NEW
+    model = api.init(scfg, torch.Generator(device=dev).manual_seed(seed))
+    batch = serve.make_batch(scfg, SERVE_BATCH, SERVE_PROMPT,
+                             np.random.default_rng(seed), dev)
+    cache, tok = steps.make_prefill_step(scfg, api, max_len=max_len)(model, batch)
+    decode = steps.make_decode_step(scfg, api)
+
+    def meta_decode():
+        toks, c = registry.decode_specs(scfg, SERVE_BATCH, max_len)
+        return api.init(scfg, registry._MetaGenerator()), c, toks["tokens"]
+
+    measured(f"decode step {SERVE_BATCH} x ({SERVE_PROMPT} + {SERVE_NEW})", decode,
+             (model, cache, tok), meta_decode, 2 * scfg.n_params() * SERVE_BATCH,
+             "flash_decode")
+    del model, cache, batch
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"  [{card}] phase 14(b) in {seconds:.1f} s; launches on its steps "
+          f"{launches}", flush=True)
+    return {"steps": out, "launches": launches, "seconds": seconds}
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -4927,7 +5171,8 @@ def time_attention(cases: dict, launches: dict) -> tuple[dict, list[dict]]:
     """flash_mha_fwd's row of the ``kernels`` line (the model-UDF path's
     strided layout, with its time on contiguous inputs beside it) and two
     decode rows at phase 2's shape: every length = S, and the mixed
-    lengths (bound on the slots those lengths walk). The decode row of the
+    lengths (bound on the slots those lengths walk). The bounds are the
+    kernel modules' ``flash_mha_fwd_cost`` and ``flash_decode_cost``. The decode row of the
     ``kernels`` line is phase 10's, at the serve shape."""
     import torch
     import torch.nn.functional as F
@@ -4939,13 +5184,13 @@ def time_attention(cases: dict, launches: dict) -> tuple[dict, list[dict]]:
     q, k, v = cases["flash_mha_fwd"]
     qc, kc, vc = cases["flash_mha_fwd_contiguous"]
     B, H, S, D = q.shape
-    io = 4 * q.numel() * q.element_size() + B * H * S * 4
+    work = fa.flash_mha_fwd_cost(q, k, causal=True)
     flash_row = _timed("flash_mha_fwd", "flash_fwd_bf16_kernel",
                        lambda: fa.flash_mha_fwd(q, k, v, causal=True),
                        lambda: fa.flash_mha_fwd_plain(q, k, v, causal=True),
                        lambda: F.scaled_dot_product_attention(qc, kc, vc,
                                                               is_causal=True),
-                       io, 2 * 2 * B * H * S * S * D / 2,
+                       work["bytes"], work["flops"],
                        cases["errs"]["flash_mha_fwd"], launches["flash_mha_fwd"],
                        f"q, k, v ({B}, {H}, {S}, {D}) bf16 causal, (B,H,S,D) "
                        "views of (B,S,H,D)", ops_per_s=BF16_OPS_PER_S)
@@ -4959,17 +5204,16 @@ def time_attention(cases: dict, launches: dict) -> tuple[dict, list[dict]]:
         B, H, D = q.shape
         KV, S = k.shape[1], k.shape[2]
         mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None]
-        walked = int(torch.where(lens > 0, lens.clamp(max=S), S).sum())
-        io = (2 * walked * KV * D + 2 * q.numel()) * q.element_size() + B * 4
+        work = da.flash_decode_cost(q, k, lens)
         row = _timed(name, ("flash_decode_split_kernel", "flash_decode_merge_kernel"),
                      lambda: da.flash_decode(q, k, v, lens),
                      lambda: da.flash_decode_plain(q, k, v, lens),
                      lambda: F.scaled_dot_product_attention(
                          q[:, :, None], k, v, attn_mask=mask),
-                     io, 2 * 2 * walked * H * D, cases["errs"]["flash_decode"],
+                     work["bytes"], work["flops"], cases["errs"]["flash_decode"],
                      launches["flash_decode"],
                      f"q ({B}, {H}, {D}), cache ({B}, {KV}, {S}, {D}) bf16, "
-                     f"{walked} of {B * S} slots walked, slices of "
+                     f"{work['walked']} of {B * S} slots walked, slices of "
                      f"{da.split_size(B, KV, S)}", ops_per_s=BF16_OPS_PER_S)
         return row
 
@@ -5201,7 +5445,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.data import wisconsin
         from repro_torch.kernels import _build
@@ -5380,6 +5623,34 @@ def main(argv=None) -> int:
     for row, name in ((flash_row, "flash_mha_fwd"), (bwd_row, "flash_attention_bwd")):
         row["launches_by_path"]["mesh"] = mesh_models["launches"][name]
         row["launches"] += mesh_models["launches"][name]
+    torch.cuda.empty_cache()
+    print(f"phase 14: the dry-run — {len(DRYRUN_CELLS)} cells at published width "
+          f"on both pod meshes of the meta device; the cost model over "
+          f"{TRAIN_ARCH}'s train step and flash decode step on the card and on "
+          f"meta", flush=True)
+    t0 = time.perf_counter()
+    # phase 14(a)'s meta runs, after phase 13's last timing, beside 14(b)
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dryruns = start_dryruns(dry_dir)
+
+    def stop_dryruns():
+        for _, p in dryruns:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+    atexit.register(stop_dryruns)
+    print(f"  started {len(dryruns)} dry-run processes (phase 14(a))", flush=True)
+    cost = run_cost_model(dev, args.seed, card)
+    cost["dryrun"] = finish_dryruns(dryruns, dry_dir, card)
+    cost["seconds"] = time.perf_counter() - t0
+    print(f"  [{card}] phase 14 in {cost['seconds']:.1f} s", flush=True)
+    decode_row = next(k for k in kernels if k["name"] == "flash_decode")
+    for row, name in ((flash_row, "flash_mha_fwd"), (bwd_row, "flash_attention_bwd"),
+                      (decode_row, "flash_decode")):
+        row.setdefault("launches_by_path", {"serve": row["launches"]})
+        row["launches_by_path"]["cost"] = cost["launches"][name]
+        row["launches"] += cost["launches"][name]
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -5391,6 +5662,7 @@ def main(argv=None) -> int:
                               "rows_flash_vs_blocked_differ": udf["rows_differ"]},
                       "serving": serving, "training": training,
                       "runtime": runtime, "mesh_models": mesh_models,
+                      "cost_model": cost,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

@@ -25,6 +25,14 @@ merged value every shard would hold; work that follows a collective and is
 the same on every shard runs once. On a one-shard mesh every operator
 reduces to the local op. The kernel compositions launch the relational
 kernels once per shard, each over its own view.
+
+Each collective reports itself to the active cost counters
+(``runtime/costs.py``, ``launch/hlocost.py``): its kind (the
+reference's HLO name), the number of parts, and the bytes one device
+reads and receives — one part for ``psum`` / ``pmax`` / ``pmin`` /
+``pmean``, the concatenated result for ``all_gather``, one destination's
+block for ``all_to_all``. The ops that merge the parts on the one device
+are not counted as elementwise work.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 
 from repro_torch.engine import physical
 from repro_torch.engine.index import _search
+from repro_torch.runtime import costs
 
 
 def n_shards(mesh, data_axes) -> int:
@@ -58,34 +67,55 @@ def shard_views(x: torch.Tensor, nsh: int) -> list[torch.Tensor]:
 # -- collectives ------------------------------------------------------------------
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _collective(kind: str, parts: list, merge, received):
+    """``merge()`` of ``parts``: one ``kind`` collective over
+    ``len(parts)`` devices for the active cost counters, each reading its
+    part and receiving ``received(result)`` bytes."""
+    return costs.collective(kind, len(parts), _nbytes(parts[0]), merge, received)
+
+
 def psum(parts: list[torch.Tensor]) -> torch.Tensor:
     """Sum of the shards' partials, in shard order and in their dtype."""
-    return functools.reduce(torch.add, parts)
+    return _collective("all-reduce", parts,
+                       lambda: functools.reduce(torch.add, parts), _nbytes)
 
 
 def pmax(parts: list[torch.Tensor]) -> torch.Tensor:
-    return functools.reduce(torch.maximum, parts)
+    return _collective("all-reduce", parts,
+                       lambda: functools.reduce(torch.maximum, parts), _nbytes)
 
 
 def pmin(parts: list[torch.Tensor]) -> torch.Tensor:
-    return functools.reduce(torch.minimum, parts)
+    return _collective("all-reduce", parts,
+                       lambda: functools.reduce(torch.minimum, parts), _nbytes)
 
 
 def pmean(parts: list[torch.Tensor]) -> torch.Tensor:
     """``psum`` over the shard count (``jax.lax.pmean``)."""
-    return psum(parts) / len(parts)
+    return _collective("all-reduce", parts,
+                       lambda: functools.reduce(torch.add, parts) / len(parts),
+                       _nbytes)
 
 
 def all_gather(parts: list[torch.Tensor]) -> torch.Tensor:
     """Tiled all-gather: the shards' blocks concatenated in shard order."""
-    return torch.cat(parts, dim=0)
+    return _collective("all-gather", parts, lambda: torch.cat(parts, dim=0),
+                       _nbytes)
 
 
 def all_to_all(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     """Tiled all-to-all over axis 0: shard ``s`` sends row ``d`` of its
     (S, ...) block to shard ``d``, which concatenates what it receives in
     source order."""
-    return [torch.cat([p[d] for p in parts], dim=0) for d in range(len(parts))]
+    return _collective(
+        "all-to-all", parts,
+        lambda: [torch.cat([p[d] for p in parts], dim=0)
+                 for d in range(len(parts))],
+        lambda out: _nbytes(out[0]))
 
 
 _MERGE = {"sum": psum, "max": pmax, "min": pmin}

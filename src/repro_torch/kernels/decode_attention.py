@@ -19,7 +19,9 @@ layout the kernel cannot take raises; nothing is copied to make it fit.
 
 ``flash_decode`` launches the kernels for CUDA tensors and runs
 ``flash_decode_plain`` (a port of ``repro.kernels.ref.decode_attention``)
-for CPU tensors; it never runs the plain version on the card.
+for CPU tensors; it never runs the plain version on the card: on "meta"
+tensors it returns an empty meta output and launches nothing.
+:func:`flash_decode_cost` gives the operations and bytes its work needs.
 """
 from __future__ import annotations
 
@@ -70,6 +72,24 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def flash_decode_cost(q: torch.Tensor, k: torch.Tensor,
+                      lengths: torch.Tensor | None) -> dict:
+    """The kernels' work: the slots walked, 2 products of 2 flops a (q
+    head, walked slot, head dim) element, and the bytes: the walked
+    slots' K and V, q and out read or written once, and the int32
+    lengths. A slice walks the slots below its sequence's length, and
+    all S of a length of 0; with ``lengths`` None (the cost model, which
+    reads no data) every slot is walked."""
+    B, H, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    if lengths is None:
+        walked = B * S
+    else:
+        walked = int(torch.where(lengths > 0, lengths.clamp(max=S), S).sum())
+    nbytes = (2 * walked * KV * D + 2 * q.numel()) * q.element_size() + B * 4
+    return {"flops": 2 * 2 * walked * H * D, "bytes": nbytes, "walked": walked}
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
     """The kernel wrapper: same contract as :func:`flash_decode_plain`."""
@@ -84,7 +104,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_decode: lengths (B,) int32")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_decode: q, k, v all float32 or all bfloat16")
-    if not q.is_cuda:
+    meta = q.device.type == "meta"
+    if not q.is_cuda and not meta:
         if q.device.type != "cpu":
             raise ValueError(f"flash_decode: unsupported device {q.device}")
         return flash_decode_plain(q, k, v, lengths)
@@ -94,6 +115,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     split = split_size(B, KV, S)
     n_split = -(-S // split)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    if meta:
+        return out
     part_acc = torch.empty(B * H * n_split * D, dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty(B * H * n_split * 2, dtype=torch.float32,

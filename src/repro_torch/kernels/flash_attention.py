@@ -25,7 +25,13 @@ it fit: a layout the kernel cannot take raises.
 the card. The plain version is the reference's jnp twin
 (``repro.kernels.ops._xla_flash_fwd``) in PyTorch: a float32 masked
 softmax per q chunk of ``bq`` rows (a memory bound only: rows are
-independent), emitting the same (out, lse).
+independent), emitting the same (out, lse). On "meta" tensors (the
+dry-run, ``launch/dryrun.py``) both wrappers return empty meta outputs
+with the kernel's shapes, dtypes and strides and launch nothing.
+:func:`flash_mha_fwd_cost` and :func:`flash_attention_bwd_cost` give the
+operations and the bytes each kernel's work needs: the bound of its row
+in ``chip_smoke.py``'s ``kernels`` line and its charge in the cost model
+(``launch/hlocost.py``).
 
 The backward's kernels (``csrc/flash_attention_bwd.cu``) recompute the
 probabilities from the forward's lse, with no (Sq x Skv) residual. In bf16
@@ -87,6 +93,28 @@ def flash_mha_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=2).to(q.dtype), torch.cat(lses, dim=2)
 
 
+def flash_mha_fwd_cost(q: torch.Tensor, k: torch.Tensor, *,
+                       causal: bool = True) -> dict:
+    """The forward's work: 2 products of 2 flops a (q row, key, head dim)
+    element, half the pairs under ``causal``; q, k and v read once, out
+    (q's bytes) and the float32 lse written once."""
+    B, H, Sq, D = q.shape
+    pairs = B * H * Sq * k.shape[2] / (2 if causal else 1)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + B * H * Sq * 4
+    return {"flops": 2 * 2 * pairs * D, "bytes": nbytes}
+
+
+def flash_attention_bwd_cost(q: torch.Tensor, k: torch.Tensor, *,
+                             causal: bool = True) -> dict:
+    """The backward's work: 5 products (S recomputed, dP, dV, dK, dQ), 2.5x
+    the forward's flops; q, k, v, out, dO and lse read once, dq, dk and dv
+    written once."""
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + q.shape[0] * q.shape[1] * q.shape[2] * 4
+    return {"flops": 2.5 * flash_mha_fwd_cost(q, k, causal=causal)["flops"],
+            "bytes": nbytes}
+
+
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_mha_fwd: q (B,H,Sq,D), k and v (B,KV,Skv,D)")
@@ -138,7 +166,8 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CPU tensors go through the plain version at its default chunk. On the
     card ``out`` is the (B,H,Sq,D) view of a (B,Sq,H,D) buffer."""
     _check(q, k, v)
-    if not q.is_cuda:
+    meta = q.device.type == "meta"
+    if not q.is_cuda and not meta:
         if q.device.type != "cpu":
             raise ValueError(f"flash_mha_fwd: unsupported device {q.device}")
         return flash_mha_fwd_plain(q, k, v, causal=causal)
@@ -153,6 +182,8 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_layout(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if meta:
+        return out, lse
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
     fn = _build.function("fa_flash_fwd", _ARGS)
@@ -241,7 +272,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd: out and do must match q")
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd: lse (B,H,Sq) float32")
-    if not q.is_cuda:
+    meta = q.device.type == "meta"
+    if not q.is_cuda and not meta:
         if q.device.type != "cpu":
             raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
@@ -259,6 +291,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      device=q.device).transpose(1, 2)
     dv = torch.empty((B, Skv, KV, D), dtype=v.dtype,
                      device=q.device).transpose(1, 2)
+    if meta:
+        return dq, dk, dv
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(
         *(st for t in (q, k, v, out, do, dq, dk, dv) for st in t.stride()[:3]))

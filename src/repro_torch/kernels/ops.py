@@ -11,6 +11,12 @@ CUDA launch counts themselves live in ``_build.LAUNCHES``.
 The reference's flash ops default to its jnp twins on every platform
 (``backend="xla"``); here, as for the relational ops, the operand's device
 decides, so on the card ``attn_impl="flash"`` launches the CUDA kernel.
+
+Each attention kernel call is charged to the active cost counters
+(``runtime/costs.py``) by its kernel module's cost (``flash_mha_fwd_cost``,
+``flash_attention_bwd_cost``, ``flash_decode_cost``) in place of whatever
+ops its wrapper dispatches, so a counter charges a kernel call the same on
+every device.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import merge_join as _mj
 from repro_torch.kernels import segment_agg as _sa
 from repro_torch.kernels import topk_mask as _tk
+from repro_torch.runtime import costs
 from repro_torch.runtime import telemetry as tel
 
 # Zone-map block size the planner's block-skip lists are expressed in: the
@@ -178,7 +185,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse = _fa.flash_mha_fwd(q, k, v, causal=causal)
+        out, lse = costs.kernel(
+            "flash_mha_fwd", lambda: _fa.flash_mha_fwd_cost(q, k, causal=causal),
+            _fa.flash_mha_fwd, q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -189,8 +198,11 @@ class _FlashAttention(torch.autograd.Function):
         if _fa.layout_problem(grad_out) is not None:
             grad_out = grad_out.contiguous()
         _tick("flash_attention_bwd", q.device)
-        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, out, lse, grad_out,
-                                             causal=ctx.causal)
+        dq, dk, dv = costs.kernel(
+            "flash_attention_bwd",
+            lambda: _fa.flash_attention_bwd_cost(q, k, causal=ctx.causal),
+            _fa.flash_attention_bwd, q, k, v, out, lse, grad_out,
+            causal=ctx.causal)
         return dq, dk, dv, None
 
 
@@ -212,4 +224,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     every decode step of the dense, MoE and VLM transformers and of
     whisper's self-attention."""
     _tick("flash_decode", q.device)
-    return _da.flash_decode(q, k, v, lengths)
+    # charged every slot: a counter reads no data, so the same call costs
+    # the same on the card and on "meta"
+    return costs.kernel("flash_decode", lambda: _da.flash_decode_cost(q, k, None),
+                        _da.flash_decode, q, k, v, lengths)

@@ -8,11 +8,16 @@ over the data axes and experts or the decode cache over "model"
 shards on the card (or, when the caller asks, on the CPU), the
 counterpart of the reference's single-controller mesh of devices forced
 onto one host. Placement over several cards and ``torch.distributed``
-across processes wait for ROADMAP A9b; the pod mesh of the dry-run
-(``make_production_mesh``) for A11.
+across processes wait for ROADMAP A9b.
 
-Axis convention (as the reference): ``make_local_mesh`` builds
-``("data", "model")``; the engine shards rows over ``("data",)``.
+Axis convention (as the reference):
+  single-pod : (16, 16)    over ("data", "model")            — 256 shards
+  multi-pod  : (2, 16, 16) over ("pod", "data", "model")     — 512 shards
+  local      : ``make_local_mesh(data, model)`` over ("data", "model").
+The engine row-shards tables over the data axes (("pod", "data") on the
+multi-pod mesh); the model paths split a batch over them. The dry-run
+(``launch/dryrun.py``) runs its cells on the pod meshes of the "meta"
+device.
 """
 from __future__ import annotations
 
@@ -50,6 +55,14 @@ class Mesh:
         return f"Mesh({self.shape}, device={self.device})"
 
 
+def _mesh(shape: dict, device) -> Mesh:
+    dev = resolve_device(device)
+    devices = np.empty(tuple(shape.values()), dtype=object)
+    for idx in np.ndindex(devices.shape):
+        devices[idx] = dev
+    return Mesh(dict(shape), devices)
+
+
 def make_local_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
     """A mesh of ``data * model`` shards, every one on ``device`` (None:
     the CUDA card, and without one this raises; ``device="cpu"`` asks for
@@ -57,29 +70,27 @@ def make_local_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
     if data < 1 or model < 1:
         raise ValueError(f"mesh extents must be >= 1, got data={data}, "
                          f"model={model}")
-    dev = resolve_device(device)
-    devices = np.empty((data, model), dtype=object)
-    for idx in np.ndindex(data, model):
-        devices[idx] = dev
-    return Mesh({"data": data, "model": model}, devices)
+    return _mesh({"data": data, "model": model}, device)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's 256/512-chip pod mesh serves its dry-run; it has no
-    counterpart on one card."""
-    raise NotImplementedError(
-        "make_production_mesh (the pod mesh of the dry-run and cost tools) "
-        "waits for ROADMAP A11")
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The reference's pod mesh: (16, 16) over ("data", "model"), or
+    (2, 16, 16) over ("pod", "data", "model") under ``multi_pod``, every
+    shard on ``device`` (None: the card, raising without one; "cpu" and
+    "meta" when asked for — the dry-run's is on "meta")."""
+    if multi_pod:
+        return _mesh({"pod": 2, "data": 16, "model": 16}, device)
+    return _mesh({"data": 16, "model": 16}, device)
 
 
 def launcher_mesh(n: int, device=None, multi_pod: bool = False) -> Mesh:
     """The launchers' mesh over ``n`` devices (``--local-devices``), as the
-    reference's launchers build it: the pod mesh from 512 devices or under
-    ``multi_pod`` (ROADMAP A11: it raises), else ``make_local_mesh(data=n
-    // mp, model=mp)`` with mp = 2 when n is even and above 1; every shard
-    on ``device``."""
+    reference's launchers build it: the pod mesh under ``multi_pod`` or
+    from 512 devices (the multi-pod one only under ``multi_pod``), else
+    ``make_local_mesh(data=n // mp, model=mp)`` with mp = 2 when n is even
+    and above 1; every shard on ``device``."""
     if multi_pod or n >= 512:
-        return make_production_mesh(multi_pod=multi_pod)
+        return make_production_mesh(multi_pod=multi_pod, device=device)
     mp = 2 if n % 2 == 0 and n > 1 else 1
     return make_local_mesh(data=n // mp, model=mp, device=device)
 

@@ -19,8 +19,9 @@ cache is deep enough for the prompt (with vlm's patch prefix,
 even and above 1): prefill and decode run inside ``sharding_ctx``, so an
 MoE layer is expert-parallel over the model ranks and a config with
 ``decode_cache_update="shardmap"`` splits the cache's sequence over them
-(``models/sharding.py``). Meshes across several cards wait for ROADMAP
-A9b, the pod mesh (N >= 512) for A11.
+(``models/sharding.py``); N >= 512 serves on the pod mesh (data 16 x
+model 16), as the reference's launcher does. Meshes across several cards
+wait for ROADMAP A9b.
 """
 from __future__ import annotations
 

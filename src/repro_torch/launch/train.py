@@ -23,8 +23,10 @@ above 1, as the reference builds it from its N forced host devices):
 the loop runs inside ``sharding_ctx``, so each step is data-parallel over
 the data shards and an MoE layer expert-parallel over the model ranks
 (``models/sharding.py``), and ``--resume`` restores the parameters with
-their shardings. N >= 512 asks for the pod mesh, and ``--multi-pod``
-names it: both raise until ROADMAP A11. Meshes across several cards
+their shardings. N >= 512 asks for the pod mesh (data 16 x model 16),
+and ``--multi-pod`` for the multi-pod one (pod 2 x data 16 x model 16:
+32 data shards), as the reference's launcher builds them
+(``launch/mesh.py`` ``launcher_mesh``). Meshes across several cards
 (``torch.distributed``) wait for ROADMAP A9b.
 """
 from __future__ import annotations

@@ -90,8 +90,20 @@ def _route(xf: torch.Tensor, router_w: torch.Tensor, spec: MoESpec):
 
 
 def _frac(idx: torch.Tensor, E: int) -> torch.Tensor:
-    """Each expert's share of the (token, choice) pairs, times k."""
-    return F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
+    """Each expert's share of the (token, choice) pairs, times k. The
+    one-hot rows are built by comparison, not ``F.one_hot``, whose CPU
+    path first checks the ids' range on the host (an extra reduction a
+    cost model would count on the CPU alone); the values are the same."""
+    onehot = idx[..., None] == torch.arange(E, device=idx.device)
+    return onehot.float().sum(dim=1).mean(dim=0)
+
+
+def _expert_counts(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """Tokens routed to each expert, (E,) int64: ``torch.bincount``'s
+    counts as a scatter-add, which also runs on "meta" (the dry-run)."""
+    flat = idx.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
 
 
 def _dispatch(xf, gates, idx, w1, w3, w2, *, e_local: int, rank: int,
@@ -227,8 +239,7 @@ def _mesh_moe(x, p: MoE, cfg: ArchConfig, spec: MoESpec, ctx):
             E, dtype=torch.int64, device=x.device)
     y, probs, idx = block(x, capacity, offset)
     if ctx.gathering:
-        stats[i] = (_frac(idx, E),
-                    torch.bincount(idx.reshape(-1), minlength=E))
+        stats[i] = (_frac(idx, E), _expert_counts(idx, E))
         return y, torch.zeros((), dtype=torch.float32, device=x.device)
     frac = D.pmean([f for f, _ in stats])
     return y, E * torch.sum(frac * probs.mean(dim=0)) / k

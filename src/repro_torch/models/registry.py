@@ -3,9 +3,9 @@
 decode / make_cache for the family; ``abstract_params`` (the model on the
 "meta" device, nothing allocated, as the reference's pytree) and the
 PartitionSpecs of the mesh (``params_pspecs``, ``batch_pspecs``,
-``cache_pspecs``). ``batch_specs``, ``decode_specs`` and
-``shape_adjusted_cfg`` serve only the reference's dry-run and wait with it
-for ROADMAP A11.
+``cache_pspecs``), and what the dry-run (``launch/dryrun.py``) lowers a
+cell with: ``shape_adjusted_cfg`` and the inputs of a cell on "meta",
+``batch_specs`` and ``decode_specs`` (the reference's ShapeDtypeStructs).
 
 Signatures (the port's, beside the reference's):
   * ``init(cfg, generator)`` — random weights on the generator's device
@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.launch.mesh import MeshAxes
 from repro_torch.models import convert, hybrid, rwkv, transformer, whisper
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, ShapeSpec
 from repro_torch.models.sharding import P, param_specs
 
 
@@ -65,6 +65,43 @@ def prefill_cache_len(cfg: ArchConfig, seq: int) -> int:
     """Cache depth a prefill of ``seq`` tokens produces (vlm prepends its
     projected patch prefix to the context)."""
     return seq + (cfg.num_patches if cfg.family == "vlm" else 0)
+
+
+def shape_adjusted_cfg(cfg: ArchConfig, shape: ShapeSpec) -> ArchConfig:
+    """Per-shape config tweaks: zamba2's shared attention gets a 4k sliding
+    window at 500k context (the reference's deviation for sub-quadratic
+    serving)."""
+    if cfg.family == "hybrid" and shape.seq_len > 100_000:
+        return dataclasses.replace(cfg, sliding_window=4096)
+    return cfg
+
+
+# -- a cell's inputs on "meta" ----------------------------------------------------
+
+_META = torch.device("meta")
+
+
+def batch_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
+    """The train / prefill batch as meta tensors: tokens (B, S) int32, with
+    frames (B, enc_len, d) for encdec and patches (B, P, patch_dim) for
+    vlm, both bf16."""
+    specs = {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                                   device=_META)}
+    if cfg.family == "encdec":
+        specs["frames"] = torch.empty((batch, cfg.enc_len, cfg.d_model),
+                                      dtype=torch.bfloat16, device=_META)
+    if cfg.family == "vlm":
+        specs["patches"] = torch.empty((batch, cfg.num_patches, cfg.patch_dim),
+                                       dtype=torch.bfloat16, device=_META)
+    return specs
+
+
+def decode_specs(cfg: ArchConfig, batch: int, cache_len: int) -> tuple[dict, dict]:
+    """(token spec, cache) of a decode cell: tokens (B, 1) int32 and the
+    family's cache ``cache_len`` deep, both on "meta"."""
+    tokens = torch.empty((batch, 1), dtype=torch.int32, device=_META)
+    cache = get_api(cfg).make_cache(cfg, batch, cache_len, device=_META)
+    return {"tokens": tokens}, cache
 
 
 class _MetaGenerator(torch.Generator):

@@ -936,3 +936,25 @@ def test_cuda_compressed_psum_equals_cpu_bit_for_bit():
         for a, b in zip(ec, eg):
             for k in a:
                 assert torch.equal(a[k].view(torch.int32), b[k].cpu().view(torch.int32)), k
+
+
+@pytest.mark.cuda
+def test_cuda_moe_counts_and_fractions_equal_bincount_and_one_hot():
+    """The MoE routing statistics as the meta device can run them: the
+    expert counts by scatter-add equal ``torch.bincount``'s bit for bit
+    (dtype too), and the fractions by comparison equal ``F.one_hot``'s,
+    on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    for E, k in ((4, 2), (64, 6)):
+        idx = torch.from_numpy(np.random.default_rng(E).integers(
+            0, E, (4096, k))).to("cuda")
+        got = moe._expert_counts(idx, E)
+        want = torch.bincount(idx.reshape(-1), minlength=E)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert torch.equal(moe._frac(idx, E),
+                           F.one_hot(idx, E).float().sum(dim=1).mean(dim=0))

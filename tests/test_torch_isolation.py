@@ -13,7 +13,8 @@ MODULES = ["repro_torch.core.frame", "repro_torch.core.window",
            "repro_torch.core.dialect", "repro_torch.engine.session",
            "repro_torch.engine.lsm", "repro_torch.engine.ingest",
            "repro_torch.engine.index", "repro_torch.engine.distributed",
-           "repro_torch.launch.mesh",
+           "repro_torch.launch.mesh", "repro_torch.launch.hlocost",
+           "repro_torch.launch.dryrun",
            "repro_torch.data.wisconsin", "repro_torch.kernels.ops",
            "repro_torch.kernels._build", "repro_torch.runtime.telemetry",
            "repro_torch.runtime.fault", "repro_torch.runtime.durable",
@@ -28,7 +29,7 @@ MODULES = ["repro_torch.core.frame", "repro_torch.core.window",
            "repro_torch.models.sharding",
            "repro_torch.launch.serve", "repro_torch.launch.train",
            "repro_torch.runtime.tree", "repro_torch.runtime.checkpoint",
-           "repro_torch.runtime.compress",
+           "repro_torch.runtime.compress", "repro_torch.runtime.costs",
            "repro_torch.examples.quickstart",
            "repro_torch.examples.sentiment_pipeline",
            "repro_torch.examples.serve_model", "repro_torch.examples.train_lm",

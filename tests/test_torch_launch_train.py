@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch import train
-from repro_torch.models import convert
+from repro_torch.models import convert, steps
 from repro_torch.runtime.tree import flatten
 
 ARGS = ["--device", "cpu", "--reduced", "--arch", "qwen3-1.7b",
@@ -93,17 +93,26 @@ def test_large_config_reduced_off_the_card(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--multi-pod"], ["--local-devices", "8"]])
-def test_mesh_flags_wait_for_several_cards(tmp_path, flag, capsys):
-    """The pod mesh waits for ROADMAP A11; a local mesh of 8 shards of the
-    one device (data 4 x model 2) trains."""
-    argv = ["--device", "cpu", "--ckpt-dir", str(tmp_path)] + flag
+def test_mesh_flags_wait_for_several_cards(tmp_path, flag, capsys, monkeypatch):
+    """``--multi-pod`` trains on the multi-pod mesh (pod 2 x data 16 x
+    model 16) of the one device, a global batch of 32 split over its 32
+    data shards; a local mesh of 8 shards (data 4 x model 2) trains too.
+    Meshes across several cards wait for ROADMAP A9b."""
+    seen = []
+    real_merge = steps.merge_grads
+    argv = ["--device", "cpu", "--ckpt-dir", str(tmp_path), "--reduced",
+            "--steps", "1", "--seq", "8"] + flag
+    monkeypatch.setattr(steps, "merge_grads",
+                        lambda p, w: seen.append(len(p)) or real_merge(p, w))
     if flag == ["--multi-pod"]:
-        with pytest.raises(NotImplementedError, match="A11"):
-            train.main(argv)
+        assert train.main(argv + ["--global-batch", "32"]) == 0
+        out = capsys.readouterr().out
+        assert "mesh: {'pod': 2, 'data': 16, 'model': 16} (512 shards)" in out
+        assert seen == [32]
         return
-    assert train.main(argv + ["--reduced", "--steps", "1", "--global-batch",
-                              "8", "--seq", "8"]) == 0
+    assert train.main(argv + ["--global-batch", "8"]) == 0
     assert "mesh: {'data': 4, 'model': 2} (8 shards)" in capsys.readouterr().out
+    assert seen == [4]
 
 
 def test_default_device_is_the_card(tmp_path):

@@ -567,8 +567,27 @@ def test_train_with_local_devices_and_resume(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--multi-pod"], ["--local-devices", "512"]])
-def test_pod_mesh_waits_for_a11(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttrain.main(["--device", "cpu", "--ckpt-dir", str(tmp_path)] + argv)
-    with pytest.raises(NotImplementedError, match="A11"):
-        launcher_mesh(512)
+def test_pod_mesh_waits_for_a11(tmp_path, argv, capsys, monkeypatch):
+    """The pod meshes have landed (A11): ``launcher_mesh`` builds (16, 16)
+    from 512 devices and (2, 16, 16) under ``multi_pod``, as the
+    reference's launchers do, and both launchers run on them: the train
+    step data-parallel over the 16 or 32 data shards, the serve path
+    whole on the pod mesh."""
+    assert launcher_mesh(512, "cpu").shape == {"data": 16, "model": 16}
+    assert launcher_mesh(0, "cpu", multi_pod=True).shape == \
+        {"pod": 2, "data": 16, "model": 16}
+    multi = argv == ["--multi-pod"]
+    shards = 32 if multi else 16
+    seen = []
+    real_merge = tsteps.merge_grads
+    monkeypatch.setattr(tsteps, "merge_grads",
+                        lambda p, w: seen.append(len(p)) or real_merge(p, w))
+    assert ttrain.main(["--device", "cpu", "--ckpt-dir", str(tmp_path),
+                        "--reduced", "--steps", "1", "--seq", "8",
+                        "--global-batch", str(shards)] + argv) == 0
+    assert seen == [shards]
+    assert f"({16 * shards} shards)" in capsys.readouterr().out
+    if not multi:
+        assert tserve.main(["--device", "cpu", "--reduced", "--batch", "16",
+                            "--prompt", "8", "--new-tokens", "2"] + argv) == 0
+        assert "mesh: {'data': 16, 'model': 16}" in capsys.readouterr().out

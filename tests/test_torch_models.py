@@ -164,8 +164,8 @@ def test_full_paper_lm_config_is_the_published_one():
 def test_other_families_wait():
     """Every family serves and trains now (ROADMAP A10.1): each reduced
     architecture's loss is finite, the train and eval steps exist, and the
-    flash op has its backward. What still waits is the pod mesh of the
-    dry-run tools (A11)."""
+    flash op has its backward. The pod mesh of the dry-run tools (A11)
+    has landed too: the families' specs build on it, on "meta"."""
     from repro_torch.configs import ALL_ARCHS
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_production_mesh
@@ -181,8 +181,9 @@ def test_other_families_wait():
     q = torch.zeros((1, 2, 4, 16), requires_grad=True)
     ops.flash_attention(q, q.detach(), q.detach(), True).sum().backward()
     assert q.grad is not None and not q.grad.any()  # constant v: no gradient
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_production_mesh()
+    mesh = make_production_mesh(device="meta")
+    assert mesh.shape == {"data": 16, "model": 16}
+    assert mesh.device == torch.device("meta")
 
 
 def test_lm_from_jax_without_a_device_needs_the_card(monkeypatch):

@@ -348,31 +348,60 @@ def test_session_without_a_card_raises():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s, t: make_production_mesh(),
-    lambda s, t: make_production_mesh(multi_pod=True),
+    lambda: make_production_mesh(device="cpu"),
+    lambda: make_production_mesh(multi_pod=True, device="cpu"),
 ])
 def test_features_of_later_slices_raise(call):
-    """What waits for a later slice raises, naming its ROADMAP item: the
-    pod meshes of the dry-run (A11). Training (A10.1: the losses, the
-    train step, the flash backward) has landed (tests/test_torch_train.py),
-    as have serving, durability (A8) and meshes with shard_map (A9)."""
-    sess = TSession(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(sess, tw.generate(100, seed=0))
+    """The pod meshes of the dry-run (A11), the last feature that raised,
+    have landed: the reference's (16, 16) over ("data", "model") and (2,
+    16, 16) over ("pod", "data", "model"), every shard on the device asked
+    for; the pod axis joins the data axes. Without a device they need the
+    card."""
+    from repro_torch.launch.mesh import MeshAxes
+
+    mesh = call()
+    multi = "pod" in mesh.shape
+    want = {"pod": 2, "data": 16, "model": 16} if multi else {"data": 16, "model": 16}
+    assert mesh.shape == want and list(mesh.shape) == list(want)
+    assert mesh.devices.shape == tuple(want.values())
+    assert mesh.size == (512 if multi else 256)
+    assert all(d == torch.device("cpu") for d in mesh.devices.flat)
+    axes = MeshAxes.for_mesh(mesh)
+    assert axes.data == (("pod", "data") if multi else ("data",))
+    assert axes.data_size(mesh) == (32 if multi else 16)
+    assert axes.model_size(mesh) == 16
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_production_mesh()
 
 
-def test_mesh_session_takes_shard_map_on_auto():
+def test_mesh_session_takes_shard_map_on_auto(tables):
     """A mesh of more than one shard makes "auto" mean shard_map (one
-    shard: gspmd), as in the reference; the pod mesh of the dry-run waits
-    for A11."""
-    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    shard: gspmd), as in the reference. On the pod mesh of the CPU the
+    engine row-shards a table over the 16 data shards, and a session
+    there answers as the meshless session and numpy do."""
+    from repro_torch.launch.mesh import make_local_mesh
 
     assert TSession(mesh=make_local_mesh(2, device="cpu")).mode == "shard_map"
     assert TSession(mesh=make_local_mesh(1, device="cpu")).mode == "gspmd"
     assert TSession(mode="kernel",
                     mesh=make_local_mesh(2, device="cpu")).mode == "kernel"
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        make_production_mesh()
+    pod = make_production_mesh(device="cpu")
+    assert TSession(mesh=pod).mode == "shard_map"
+    t = tables[1]
+    raw = {k: v.numpy() for k, v in t.columns.items()}
+    flat = _tsession(t, "gspmd")
+    for mode in ("shard_map", "kernel"):
+        sess = _tsession(t, mode, mesh=pod)
+        for name in ("1_count", "3_filter_count", "4_group_count", "6_max",
+                     "8_group_max", "11_range_count", "12_join_count"):
+            fn = EXPRESSIONS[name]
+            got = fn(*_frames(sess), np.random.default_rng(3))
+            _assert_same(got, fn(*_frames(flat), np.random.default_rng(3)),
+                         f"{name}[{mode}] on the pod mesh")
+        df = _frames(sess)[0]
+        assert len(df[df["ten"] == 4]) == int((raw["ten"] == 4).sum())
+        assert df["unique1"].max() == raw["unique1"].max()
 
 
 def test_string_dictionary_fast_path_raises_in_kernel_mode(tables):
