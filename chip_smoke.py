@@ -273,6 +273,25 @@ Phases (any mismatch raises; nothing is caught):
      on the pod (256) and multi-pod (512) mesh: every record ``ok``, its
      roofline terms (H100 data-sheet model terms, not measurements) and
      its meta run's seconds printed.
+ 15. the model mesh across processes (``launch/mesh.init_rank_mesh``,
+     ``models/sharding.place_params``). (a) A one-rank NCCL group (a
+     FileStore rendezvous in a temporary directory): qwen3-1.7b at its
+     published config, its weights placed, one train step (flash,
+     remat) through the rank path held to TRAIN_TOL against the meshless
+     step from the same weights and batch (two of its B7 calls against
+     plain), two timed steps of each path, each with nothing of the
+     other on the card; then a flash prefill of 4 x 2,048 on the rank
+     mesh and 16 teacher-forced decode steps of the shardmap decode and
+     of the flash decode (B6) there, each within SERVE_TOL of the
+     meshless one-hot decode (argmax equal where the one-hot top-2
+     margin exceeds it). B5, B6 and B7 launch on local tensors; their
+     counts, zeroed before each part and read after it, join the
+     ``kernels`` line (path "rank"). (b) Two spawned gloo ranks sharing
+     the card: all-reduce, all-gather, reduce-scatter and all-to-all over
+     CUDA tensors; where all four carry, data 2 x model 1 at 2 layers
+     against the meshless step, else the error text is printed and (b)
+     left out. Printed beside the card: both step walls and peaks, the
+     three decodes' ms a step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -5125,6 +5144,373 @@ def run_cost_model(dev, seed: int, card: str) -> dict:
     return {"steps": out, "launches": launches, "seconds": seconds}
 
 
+# -- phase 15: the model mesh across processes (torch.distributed ranks) --------
+
+RANK_ARCH = "qwen3-1.7b"    # the train and serve paths' model, at its published width
+RANK_BATCH, RANK_SEQ = 4, 2_048           # phase 11's train batch
+RANK_SERVE_BATCH, RANK_PROMPT, RANK_NEW = 4, 2_048, 16   # phase 13's serve cell
+RANK_STEPS = 3              # steps of each path: one held, two timed
+RANK_B_LAYERS = 2           # 15(b)'s depth: two processes share the card
+RANK_B_TIMEOUT = 240        # s: 15(b)'s two processes, their start included
+RANK_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
+
+
+def _file_init(tmp: str) -> str:
+    """A ``FileStore`` rendezvous in ``tmp``: no port to find free."""
+    return "file://" + os.path.join(tmp, "store")
+
+
+def _gloo_cuda_probe(rank: int, world: int, init: str, out: str) -> None:
+    """One of two gloo ranks on the one card: each collective the rank path
+    needs, over CUDA tensors, against its value computed by hand; the
+    verdicts (or the error text) to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    dev = torch.device("cuda", 0)
+    x = torch.arange(8, dtype=torch.float32, device=dev) + 10 * rank
+    want = {"all_reduce": sum(torch.arange(8.0) + 10 * r for r in range(world)),
+            "all_gather": torch.cat([torch.arange(8.0) + 10 * r
+                                     for r in range(world)]),
+            "reduce_scatter": sum(torch.arange(8.0) + 10 * r for r in range(world)
+                                  ).chunk(world)[rank],
+            "all_to_all": torch.cat([(torch.arange(8.0) + 10 * r).chunk(world)[rank]
+                                     for r in range(world)])}
+    verdicts = {}
+    for name in RANK_COLLECTIVES:
+        try:
+            if name == "all_reduce":
+                got = x.clone()
+                dist.all_reduce(got)
+            elif name == "all_gather":
+                got = x.new_empty(8 * world)
+                dist.all_gather_into_tensor(got, x)
+            elif name == "reduce_scatter":
+                got = x.new_empty(8 // world)
+                dist.reduce_scatter_tensor(got, x)
+            else:
+                got = torch.empty_like(x)
+                dist.all_to_all_single(got, x)
+            torch.cuda.synchronize()
+            ok = torch.equal(got.cpu(), want[name])
+            verdicts[name] = "ok" if ok else f"wrong values {got.cpu().tolist()}"
+        except Exception as e:  # recorded: the probe's finding
+            verdicts[name] = f"{type(e).__name__}: {e}"[:400]
+    dist.destroy_process_group()
+    Path(out, f"probe{rank}.json").write_text(json.dumps(verdicts))
+
+
+def _rank_15b(rank: int, world: int, init: str, out: str) -> None:
+    """15(b)'s rank: qwen3-1.7b at its published width, RANK_B_LAYERS
+    layers, data 2 x model 1 over gloo on the one card; its placed train
+    step against the meshless one it also runs (same seed and batch)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+    from repro_torch.models import optim, registry, steps
+    from repro_torch.models.sharding import (local_slice, place_params,
+                                             placements, sharding_ctx)
+
+    mesh = init_rank_mesh(world, 1, None, rank=rank, world_size=world,
+                          local_rank=0, init_method=init, backend="gloo")
+    try:
+        dev = mesh.device
+        cfg = dataclasses.replace(_serve_cfg(RANK_ARCH, "flash"),
+                                  n_layers=RANK_B_LAYERS)
+        batch = serve.make_batch(cfg, RANK_BATCH, RANK_SEQ // 4,
+                                 np.random.default_rng(7), dev)
+        step = steps.make_train_step(cfg, optim.OptimConfig(**TRAIN_OPT))
+        model = registry.get_api(cfg).init(cfg, torch.Generator(device=dev).manual_seed(7))
+        ref: dict = {}
+        with captured_grads(model, ref, update=False):
+            _, _, m_ref = step(model, None, batch)
+        place_params(model, cfg, mesh)
+        pls = placements(model)
+        ref = {n: local_slice(g, pls[n].spec, mesh) for n, g in ref.items()}
+        diffs: dict = {}
+        _build.reset_launches()
+        with sharding_ctx(mesh), captured_grads(model, diffs, ref, update=False):
+            _, _, m = step(model, None, batch)
+        torch.cuda.synchronize()
+        leaf, worst = _worst(diffs)
+        Path(out, f"rank{rank}.json").write_text(json.dumps({
+            "loss": float(m["loss"]), "loss_ref": float(m_ref["loss"]),
+            "grads": worst, "worst_leaf": leaf,
+            "launches": {k: _build.LAUNCHES[k] for k in
+                         ("flash_mha_fwd", "flash_attention_bwd")}}))
+    finally:
+        close_rank_mesh()
+
+
+def _spawn_pair(fn, tmp: str, timeout: float) -> None:
+    """``fn(rank, 2, init, tmp)`` in two spawned processes, joined within
+    ``timeout`` (killed after it); a rank's failure raises here."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(fn, args=(2, _file_init(tmp), tmp), nprocs=2, join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__}: not done after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+
+
+def run_rank_mesh(dev, seed: int, card: str) -> dict:
+    """Phase 15: the model mesh across ``torch.distributed`` ranks.
+    (a) A one-rank NCCL group (a FileStore rendezvous): qwen3-1.7b at its
+    published config, its weights placed (``sharding.place_params``), one
+    train step (flash, remat) through the rank path held to TRAIN_TOL
+    against the meshless step from the same weights and batch, and two
+    timed steps of each; then a prefill on the rank mesh and RANK_NEW
+    teacher-forced decode steps of the shardmap decode and of the flash
+    decode (B6) on it, each held to SERVE_TOL against the meshless one-hot
+    decode. (b) Whether two gloo ranks that share the card carry the
+    collectives the path needs over CUDA tensors; where they do, a
+    data 2 x model 1 step at RANK_B_LAYERS layers against the meshless
+    one. Returns the numbers and the B5 / B6 / B7 launches of (a)'s
+    rank path."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    launches = {"flash_mha_fwd": 0, "flash_attention_bwd": 0, "flash_decode": 0}
+
+    def counted(fn):
+        _build.reset_launches()
+        r = fn()
+        for k in launches:
+            launches[k] += _build.LAUNCHES[k]
+        return r
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        mesh = init_rank_mesh(1, 1, None, rank=0, world_size=1, local_rank=0,
+                              init_method=_file_init(tmp))
+        try:
+            out["a"] = _rank_15a(mesh, dev, seed, card, counted)
+        finally:
+            close_rank_mesh()
+        out["b"] = _rank_15b_run(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  [{card}] phase 15 in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _rank_15a(mesh, dev, seed: int, card: str, counted) -> dict:
+    """15(a) on ``mesh`` (one rank); ``counted(fn)`` runs the rank path's
+    parts, adding their launches to the phase's."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import optim, registry, steps
+    from repro_torch.models.sharding import place_params, sharding_ctx
+
+    cfg = _serve_cfg(RANK_ARCH, "flash")
+    check_published(cfg)
+    L = cfg.n_layers
+    api = registry.get_api(cfg)
+    batch = serve.make_batch(cfg, RANK_BATCH, RANK_SEQ, np.random.default_rng(seed), dev)
+    opt_cfg = optim.OptimConfig(**TRAIN_OPT)
+    step = steps.make_train_step(cfg, opt_cfg)
+
+    def timed_steps(model, state, ctx) -> tuple[list, float]:
+        walls = []
+        for i in range(RANK_STEPS - 1):
+            torch.cuda.synchronize()
+            if i == RANK_STEPS - 2:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with ctx():
+                _, _, m = step(model, state, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(float(m["loss"])):
+                raise AssertionError(f"phase 15: non-finite loss {m}")
+        return walls, torch.cuda.max_memory_allocated() / 1e9
+
+    # the meshless step's gradients: the reference (its walls come last,
+    # each path timed with nothing of the other on the card)
+    model = api.init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    ref: dict = {}
+    with captured_grads(model, ref, update=False):
+        _, _, m_ref = step(model, None, batch)
+    m_ref = {k: float(v) for k, v in m_ref.items() if k != "lr"}
+    del model
+    torch.cuda.empty_cache()
+
+    # the rank path from the same weights: placed, one held step, two timed
+    model = api.init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    place_params(model, cfg, mesh)
+    state = optim.init_opt_state(model)
+    diffs: dict = {}
+    bwd_stats: dict = {}
+
+    def held():
+        with sharding_ctx(mesh), checking_bwd(bwd_stats, limit=2), \
+                captured_grads(model, diffs, ref, update=False):
+            _, _, m = step(model, state, batch)
+        return {k: float(v) for k, v in m.items() if k != "lr"}
+
+    m_rank = counted(held)
+    del ref
+    torch.cuda.empty_cache()
+    walls_rank, peak_rank = counted(lambda: timed_steps(
+        model, state, lambda: sharding_ctx(mesh)))
+    del state
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    serve_out = _rank_serve(model, cfg, api, mesh, dev, seed, card, counted)
+    del model
+    torch.cuda.empty_cache()
+    model = api.init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    state = optim.init_opt_state(model)
+    walls_plain, peak_plain = timed_steps(model, state, contextlib.nullcontext)
+    del model, state
+    torch.cuda.empty_cache()
+    leaf, worst = _worst(diffs)
+    train = {"loss": _rel(m_rank["loss"], m_ref["loss"]),
+             "grad_norm": _rel(m_rank["grad_norm"], m_ref["grad_norm"]),
+             "grads": worst, "worst_leaf": leaf,
+             "walls_ms": {"meshless": walls_plain, "rank": walls_rank},
+             "peak_gb": {"meshless": peak_plain, "rank": peak_rank},
+             "bwd_vs_plain": bwd_stats}
+    print(f"  (a) train {RANK_ARCH} ({L} layers, {RANK_BATCH} x {RANK_SEQ} tokens, "
+          f"flash, remat) on a one-rank {mesh.backend} mesh, weights placed: loss "
+          f"{m_rank['loss']:.5f} / meshless {m_ref['loss']:.5f} (relative "
+          f"{train['loss']:.2e}, limit {TRAIN_TOL['loss']}), grad norm relative "
+          f"{train['grad_norm']:.2e} (limit {TRAIN_TOL['grad_norm']}), worst leaf "
+          f"{worst:.3e} ({leaf}; limit {TRAIN_TOL['grads']}); "
+          f"{bwd_stats['calls']} of its flash_attention_bwd calls == plain, worst "
+          f"{bwd_stats['max_err']:.3e} x scale, {bwd_stats['bad']} beyond", flush=True)
+    print(f"  (a) [{card}] step wall ms: meshless {[round(w, 1) for w in walls_plain]}, "
+          f"rank path {[round(w, 1) for w in walls_rank]}; peak memory "
+          f"(max_memory_allocated, the last step) meshless {peak_plain:.2f} GB, "
+          f"rank path {peak_rank:.2f} GB", flush=True)
+    if any(train[k] > TRAIN_TOL[k] for k in ("loss", "grad_norm", "grads")) \
+            or bwd_stats["bad"] or bwd_stats["calls"] != 2:
+        raise AssertionError(f"phase 15 (a) rank step vs meshless: {train}")
+    return {"layers": L, "train": train, "serve": serve_out,
+            "backend": mesh.backend}
+
+
+def _rank_serve(model, cfg, api, mesh, dev, seed: int, card: str, counted) -> dict:
+    """15(a)'s serving on the rank mesh with the placed ``model``: the
+    prefill (B5), then the shardmap decode and the flash decode (B6), each
+    against the meshless one-hot decode from the same cache."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.sharding import sharding_ctx
+
+    B, P, NEW = RANK_SERVE_BATCH, RANK_PROMPT, RANK_NEW
+    onehot = dataclasses.replace(cfg, attn_impl="blocked", decode_cache_update="onehot")
+    smap = dataclasses.replace(cfg, decode_cache_update="shardmap")
+    flash = dataclasses.replace(cfg, decode_cache_update="dus")
+    sbatch = serve.make_batch(cfg, B, P, np.random.default_rng(seed), dev)
+    forced = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (NEW, B, 1)).astype(np.int32)).to(dev)
+
+    def prefill():
+        with torch.no_grad(), sharding_ctx(mesh):
+            return api.prefill(model, sbatch, cfg, P + NEW)[0]
+
+    cache = counted(prefill)
+
+    def decode(run_cfg, ctx):
+        c = {k: v.clone() for k, v in cache.items()}
+        logits = []
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(NEW + 1)]
+        with torch.no_grad(), ctx():
+            ev[0].record()
+            for t in range(NEW):
+                c, lg = api.decode(model, c, forced[t], run_cfg)
+                logits.append(lg[:, -1].float())
+                ev[t + 1].record()
+            torch.cuda.synchronize()
+        return torch.stack(logits), [ev[i].elapsed_time(ev[i + 1]) for i in range(NEW)]
+
+    lg_ref, ms_ref = decode(onehot, contextlib.nullcontext)
+    lg_smap, ms_smap = counted(lambda: decode(smap, lambda: sharding_ctx(mesh)))
+    lg_flash, ms_flash = counted(lambda: decode(flash, lambda: sharding_ctx(mesh)))
+    top2 = lg_ref.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > SERVE_TOL
+    serve_out = {}
+    for name, lg, ms in (("shardmap", lg_smap, ms_smap), ("flash", lg_flash, ms_flash)):
+        gap = float((lg - lg_ref).abs().max())
+        bad = int(((lg.argmax(-1) != lg_ref.argmax(-1)) & sure).sum())
+        serve_out[name] = {"max_logit_diff": gap, "argmax_differs_beyond_margin": bad,
+                           "decode_ms_median": statistics.median(ms)}
+        if not math.isfinite(gap) or gap > SERVE_TOL or bad:
+            raise AssertionError(f"phase 15 (a) {name} decode on the rank mesh "
+                                 f"vs one-hot: {serve_out[name]}")
+    serve_out["onehot_meshless_ms_median"] = statistics.median(ms_ref)
+    print(f"  (a) serve {B} x ({P} + {NEW}) on the rank mesh (flash prefill), "
+          f"teacher-forced, against the meshless one-hot decode: shardmap max "
+          f"|logit diff| {serve_out['shardmap']['max_logit_diff']:.4f}, flash decode "
+          f"{serve_out['flash']['max_logit_diff']:.4f} (limit {SERVE_TOL}; argmax "
+          f"differing beyond the margin: {serve_out['shardmap']['argmax_differs_beyond_margin']}"
+          f", {serve_out['flash']['argmax_differs_beyond_margin']}); [{card}] decode ms "
+          f"a step (median of {NEW}, CUDA events): one-hot meshless "
+          f"{serve_out['onehot_meshless_ms_median']:.2f}, shardmap rank "
+          f"{serve_out['shardmap']['decode_ms_median']:.2f}, flash rank "
+          f"{serve_out['flash']['decode_ms_median']:.2f}", flush=True)
+    return serve_out
+
+
+def _rank_15b_run(card: str, tmp: str) -> dict:
+    """15(b): the gloo probe over CUDA tensors; the data 2 x model 1 step
+    where every collective passed."""
+    probe_dir = tempfile.mkdtemp(dir=tmp)
+    _spawn_pair(_gloo_cuda_probe, probe_dir, RANK_B_TIMEOUT)
+    verdicts = [json.loads(Path(probe_dir, f"probe{r}.json").read_text())
+                for r in range(2)]
+    carried = all(v[c] == "ok" for v in verdicts for c in RANK_COLLECTIVES)
+    print(f"  (b) two gloo ranks on the one card, CUDA tensors: "
+          + "; ".join(f"{c} {verdicts[0][c]}" + ("" if verdicts[1][c] == verdicts[0][c]
+                                                 else f" / rank 1 {verdicts[1][c]}")
+                      for c in RANK_COLLECTIVES), flush=True)
+    out = {"probe": verdicts, "carried": carried}
+    if not carried:
+        print("  (b) left out: gloo does not carry every collective the rank "
+              "path needs over CUDA tensors (the probe's text above)", flush=True)
+        return out
+    run_dir = tempfile.mkdtemp(dir=tmp)
+    t0 = time.perf_counter()
+    _spawn_pair(_rank_15b, run_dir, RANK_B_TIMEOUT)
+    ranks = [json.loads(Path(run_dir, f"rank{r}.json").read_text()) for r in range(2)]
+    out.update(ranks=ranks, seconds=time.perf_counter() - t0)
+    print(f"  (b) [{card}] data 2 x model 1 over gloo on the one card, "
+          f"{RANK_ARCH} at {RANK_B_LAYERS} layers, {RANK_BATCH} x {RANK_SEQ // 4} "
+          f"tokens: " + "; ".join(
+              f"rank {r}: loss {x['loss']:.5f} / meshless {x['loss_ref']:.5f}, worst "
+              f"leaf {x['grads']:.3e} ({x['worst_leaf']}), launches {x['launches']}"
+              for r, x in enumerate(ranks)) + f" ({out['seconds']:.1f} s)", flush=True)
+    for x in ranks:
+        if _rel(x["loss"], x["loss_ref"]) > TRAIN_TOL["loss"] \
+                or x["grads"] > TRAIN_TOL["grads"] or not all(x["launches"].values()):
+            raise AssertionError(f"phase 15 (b): {ranks}")
+    return out
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -5651,6 +6037,18 @@ def main(argv=None) -> int:
         row.setdefault("launches_by_path", {"serve": row["launches"]})
         row["launches_by_path"]["cost"] = cost["launches"][name]
         row["launches"] += cost["launches"][name]
+    torch.cuda.empty_cache()
+    print(f"phase 15: the model mesh across processes — {RANK_ARCH} at its "
+          f"published config on a one-rank nccl group, weights placed: a train "
+          f"step against the meshless one, the shardmap and flash decodes against "
+          f"the one-hot one; gloo ranks sharing the card", flush=True)
+    ranks = run_rank_mesh(dev, args.seed, card)
+    for row, name in ((flash_row, "flash_mha_fwd"), (bwd_row, "flash_attention_bwd"),
+                      (decode_row, "flash_decode")):
+        row["launches_by_path"]["rank"] = ranks["launches"][name]
+        row["launches"] += ranks["launches"][name]
+        if not ranks["launches"][name]:
+            raise AssertionError(f"phase 15: {name} never launched on the rank path")
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -5662,7 +6060,7 @@ def main(argv=None) -> int:
                               "rows_flash_vs_blocked_differ": udf["rows_differ"]},
                       "serving": serving, "training": training,
                       "runtime": runtime, "mesh_models": mesh_models,
-                      "cost_model": cost,
+                      "cost_model": cost, "rank_mesh": ranks,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

@@ -213,6 +213,10 @@ class Snapshot:
                                 dataverse, base_name, comp)
         return self.manifest(dataverse, name).base
 
+    def names(self) -> list[str]:
+        """The pinned datasets' ``"dataverse.name"`` keys."""
+        return [f"{dv}.{n}" for dv, n in self._manifests]
+
     def release(self) -> None:
         if self._released:
             return
@@ -430,6 +434,10 @@ class Catalog:
         for k, v in out.items():
             tel.set_gauge(f"catalog.{k}", v)
         return out
+
+    def names(self) -> list[str]:
+        """Every registered dataset's ``"dataverse.name"`` key."""
+        return [f"{dv}.{n}" for dv, n in self._datasets]
 
 
 def open_widen(table: Table) -> Table:

@@ -16,15 +16,21 @@ then merges the partials with the smallest collective:
                     ``hash_repartition_counts``)
   index range count searchsorted per shard    psum
 
-The mesh's shards all live on one device (``launch/mesh.py``), so a
-table's column is one tensor and shard ``s`` is the view of rows
-``[s * rps, (s + 1) * rps)`` — nothing is copied to split it. The
-collectives below (``psum``, ``pmax``, ``pmin``, ``pmean``, ``all_gather``,
-``all_to_all``) take one partial per shard, in shard order, and return the
-merged value every shard would hold; work that follows a collective and is
-the same on every shard runs once. On a one-shard mesh every operator
-reduces to the local op. The kernel compositions launch the relational
-kernels once per shard, each over its own view.
+The engine's mesh is the one-process one: its shards all live on one
+device (``launch/mesh.py``), so a table's column is one tensor and shard
+``s`` is the view of rows ``[s * rps, (s + 1) * rps)`` — nothing is copied
+to split it. The collectives below (``psum``, ``pmax``, ``pmin``,
+``pmean``, ``all_gather``, ``all_to_all``) take one partial per shard, in
+shard order, and return the merged value every shard would hold; work
+that follows a collective and is the same on every shard runs once. On a
+one-shard mesh every operator reduces to the local op. The kernel
+compositions launch the relational kernels once per shard, each over its
+own view.
+
+The same collectives (and ``reduce_scatter``) have a rank form, the seam
+to ``torch.distributed``: this rank's own part and the process group of
+a ``RankMesh`` axis (``group=``). The model paths use it on a rank mesh
+(``models/sharding.py``); the DataFrame operators do not run on ranks yet.
 
 Each collective reports itself to the active cost counters
 (``runtime/costs.py``, ``launch/hlocost.py``): its kind (the
@@ -65,6 +71,17 @@ def shard_views(x: torch.Tensor, nsh: int) -> list[torch.Tensor]:
 
 
 # -- collectives ------------------------------------------------------------------
+#
+# Each collective has two forms. The list form (``group=None``) takes one
+# partial per shard of the one-process mesh, in shard order, and merges
+# them on the one device. The rank form takes this rank's own part and a
+# ``torch.distributed`` process group (an axis of ``launch/mesh.RankMesh``)
+# and runs the collective over it: ``all_reduce`` (SUM / MAX / MIN; pmean
+# is a SUM, then a divide in the part's dtype, since gloo has no AVG),
+# ``all_gather_into_tensor``, ``all_to_all_single``,
+# ``reduce_scatter_tensor``. A float sum across ranks is in the backend's
+# order (NCCL's rings and trees, gloo's), not shard order; integer sums
+# are exact either way.
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -78,44 +95,118 @@ def _collective(kind: str, parts: list, merge, received):
     return costs.collective(kind, len(parts), _nbytes(parts[0]), merge, received)
 
 
-def psum(parts: list[torch.Tensor]) -> torch.Tensor:
-    """Sum of the shards' partials, in shard order and in their dtype."""
+def _ranked(kind: str, part: torch.Tensor, group, merge, received):
+    """``merge()``, a collective over ``group``'s ranks, booked as the
+    list form books it: ``group.size()`` parts, this rank's part read."""
+    return costs.collective(kind, group.size(), _nbytes(part), merge, received)
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def _gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    # ``all_gather_single`` where the installed torch has it (the older
+    # name warns there), ``all_gather_into_tensor`` before it
+    dist = _dist()
+    fn = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    fn(out, x, group=group)
+
+
+def _scatter_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    dist = _dist()
+    fn = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+    fn(out, x, group=group)
+
+
+def _all_reduce(part: torch.Tensor, group, op: str) -> torch.Tensor:
+    dist = _dist()
+    out = part.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=getattr(dist.ReduceOp, op), group=group)
+    return out
+
+
+def psum(parts, group=None) -> torch.Tensor:
+    """Sum of the shards' partials, in shard order and in their dtype (the
+    rank form: this rank's part summed over ``group``)."""
+    if group is not None:
+        return _ranked("all-reduce", parts, group,
+                       lambda: _all_reduce(parts, group, "SUM"), _nbytes)
     return _collective("all-reduce", parts,
                        lambda: functools.reduce(torch.add, parts), _nbytes)
 
 
-def pmax(parts: list[torch.Tensor]) -> torch.Tensor:
+def pmax(parts, group=None) -> torch.Tensor:
+    if group is not None:
+        return _ranked("all-reduce", parts, group,
+                       lambda: _all_reduce(parts, group, "MAX"), _nbytes)
     return _collective("all-reduce", parts,
                        lambda: functools.reduce(torch.maximum, parts), _nbytes)
 
 
-def pmin(parts: list[torch.Tensor]) -> torch.Tensor:
+def pmin(parts, group=None) -> torch.Tensor:
+    if group is not None:
+        return _ranked("all-reduce", parts, group,
+                       lambda: _all_reduce(parts, group, "MIN"), _nbytes)
     return _collective("all-reduce", parts,
                        lambda: functools.reduce(torch.minimum, parts), _nbytes)
 
 
-def pmean(parts: list[torch.Tensor]) -> torch.Tensor:
+def pmean(parts, group=None) -> torch.Tensor:
     """``psum`` over the shard count (``jax.lax.pmean``)."""
+    if group is not None:
+        return _ranked("all-reduce", parts, group,
+                       lambda: _all_reduce(parts, group, "SUM") / group.size(),
+                       _nbytes)
     return _collective("all-reduce", parts,
                        lambda: functools.reduce(torch.add, parts) / len(parts),
                        _nbytes)
 
 
-def all_gather(parts: list[torch.Tensor]) -> torch.Tensor:
-    """Tiled all-gather: the shards' blocks concatenated in shard order."""
-    return _collective("all-gather", parts, lambda: torch.cat(parts, dim=0),
+def all_gather(parts, group=None, dim: int = 0) -> torch.Tensor:
+    """Tiled all-gather: the shards' blocks concatenated along ``dim`` in
+    shard order."""
+    if group is not None:
+        def merge():
+            x = parts.detach().movedim(dim, 0).contiguous()
+            out = x.new_empty((group.size() * x.shape[0],) + tuple(x.shape[1:]))
+            _gather_into(out, x, group)
+            return out.movedim(0, dim)
+        return _ranked("all-gather", parts, group, merge, _nbytes)
+    return _collective("all-gather", parts, lambda: torch.cat(parts, dim=dim),
                        _nbytes)
 
 
-def all_to_all(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+def all_to_all(parts, group=None):
     """Tiled all-to-all over axis 0: shard ``s`` sends row ``d`` of its
     (S, ...) block to shard ``d``, which concatenates what it receives in
-    source order."""
+    source order. The list form returns every destination's result; the
+    rank form this rank's."""
+    if group is not None:
+        def merge():
+            out = torch.empty_like(parts, memory_format=torch.contiguous_format)
+            _dist().all_to_all_single(out, parts.detach().contiguous(),
+                                      group=group)
+            return out.flatten(0, 1)
+        return _ranked("all-to-all", parts, group, merge, _nbytes)
     return _collective(
         "all-to-all", parts,
         lambda: [torch.cat([p[d] for p in parts], dim=0)
                  for d in range(len(parts))],
         lambda out: _nbytes(out[0]))
+
+
+def reduce_scatter(part: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Rank form only: the sum over ``group`` of the ranks' parts, split
+    along ``dim`` into ``group.size()`` equal blocks, this rank's block
+    (the transpose of ``all_gather``)."""
+    def merge():
+        x = part.detach().movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // group.size(),) + tuple(x.shape[1:]))
+        _scatter_into(out, x, group)
+        return out.movedim(0, dim)
+    return _ranked("reduce-scatter", part, group, merge, _nbytes)
 
 
 _MERGE = {"sum": psum, "max": pmax, "min": pmin}

@@ -123,6 +123,16 @@ class Table:
     def __len__(self) -> int:
         return self.num_rows
 
+    def select(self, names: Sequence[str]) -> "Table":
+        """A Table of the named columns (the same tensors), their meta and
+        the row count."""
+        return Table({n: self.columns[n] for n in names},
+                     {n: self.meta[n] for n in names}, self.num_rows)
+
+    def head_dict(self, k: int) -> dict[str, np.ndarray]:
+        """The first ``k`` rows of every column, as numpy arrays."""
+        return {name: col[:k].cpu().numpy() for name, col in self.columns.items()}
+
     def to(self, device) -> "Table":
         return Table({k: v.to(device) for k, v in self.columns.items()},
                      self.meta, self.num_rows)

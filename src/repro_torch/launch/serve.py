@@ -20,13 +20,24 @@ even and above 1): prefill and decode run inside ``sharding_ctx``, so an
 MoE layer is expert-parallel over the model ranks and a config with
 ``decode_cache_update="shardmap"`` splits the cache's sequence over them
 (``models/sharding.py``); N >= 512 serves on the pod mesh (data 16 x
-model 16), as the reference's launcher does. Meshes across several cards
-wait for ROADMAP A9b.
+model 16), as the reference's launcher does. Every shard holds every
+weight.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the processes are the ranks of a
+rank mesh by the same rule (``launch/mesh.py`` ``rank_launcher_mesh``:
+NCCL, one rank a card, or gloo with ``--device cpu``), the weights are
+placed (``sharding.place_params``: each rank keeps its shard of every
+weight the rule table shards), each data rank serves its rows of the
+batch (the batch must split over the data ranks), and rank 0 reports::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen3-1.7b --batch 8
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 import time
 
@@ -35,10 +46,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import launcher_mesh
+from repro_torch.launch.mesh import (RankMesh, close_rank_mesh, launcher_mesh,
+                                     rank_launcher_mesh, reporter)
 from repro_torch.models import registry
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.sharding import sharding_ctx
+from repro_torch.models.sharding import place_params, sharding_ctx
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 
 
@@ -101,31 +113,53 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    mesh = None
-    if args.local_devices:
-        mesh = launcher_mesh(args.local_devices, args.device)
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if ranks > 1:
+        if args.local_devices:
+            ap.error("under torchrun the ranks are the mesh: no --local-devices")
+        mesh = rank_launcher_mesh(ranks, args.device)
+    else:
+        mesh = launcher_mesh(args.local_devices, args.device) \
+            if args.local_devices else None
+    try:
+        return _serve(args, mesh)
+    finally:
+        if isinstance(mesh, RankMesh):
+            close_rank_mesh()
 
-    device = resolve_device(args.device)
+
+def _serve(args, mesh) -> int:
+    ranked = isinstance(mesh, RankMesh)
+    say = reporter(mesh)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = get_config(args.arch)
     if args.reduced or (device.type != "cuda" and cfg.n_params() > 5e8):
         cfg = cfg.reduced()
-        print(f"[{device.type}] using reduced config {cfg.name}")
+        say(f"[{device.type}] using reduced config {cfg.name}")
     api = registry.get_api(cfg)
     model = api.init(cfg, torch.Generator(device=device).manual_seed(0))
     batch = make_batch(cfg, args.batch, args.prompt,
                        np.random.default_rng(0), device)
-    print(f"device: {device}; {cfg.name}, attn_impl={cfg.attn_impl}")
+    say(f"device: {device}; {cfg.name}, attn_impl={cfg.attn_impl}")
+    if ranked:
+        n = mesh.shape["data"]
+        if args.batch % n:
+            raise ValueError(f"a batch of {args.batch} does not split over "
+                             f"{n} data ranks")
+        place_params(model, cfg, mesh)
+        batch = {k: v.chunk(n)[mesh.coords["data"]] for k, v in batch.items()}
     with contextlib.ExitStack() as stack:
         if mesh is not None:
-            print(f"mesh: {mesh.shape}")
+            say(f"mesh: {mesh.shape}" + (f" ({mesh.backend} ranks, weights "
+                                         "placed)" if ranked else ""))
             stack.enter_context(sharding_ctx(mesh))
         out = generate(cfg, model, batch, args.new_tokens)
-    print(f"prefill {args.batch}×{args.prompt}: "
-          f"{out['prefill_s'] * 1e3:.1f}ms")
+    say(f"prefill {args.batch}×{args.prompt}: "
+        f"{out['prefill_s'] * 1e3:.1f}ms")
     n = args.new_tokens - 1
     rate = args.batch * n / out["decode_s"] if out["decode_s"] > 0 else 0.0
-    print(f"decode {n} steps: {out['decode_s'] * 1e3:.1f}ms ({rate:.0f} tok/s)")
-    print("request 0 continuation:", out["tokens"][0, :16].cpu().tolist())
+    say(f"decode {n} steps: {out['decode_s'] * 1e3:.1f}ms ({rate:.0f} tok/s)")
+    say("request 0 continuation:", out["tokens"][0, :16].cpu().tolist())
     return 0
 
 

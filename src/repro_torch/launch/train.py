@@ -23,11 +23,23 @@ above 1, as the reference builds it from its N forced host devices):
 the loop runs inside ``sharding_ctx``, so each step is data-parallel over
 the data shards and an MoE layer expert-parallel over the model ranks
 (``models/sharding.py``), and ``--resume`` restores the parameters with
-their shardings. N >= 512 asks for the pod mesh (data 16 x model 16),
-and ``--multi-pod`` for the multi-pod one (pod 2 x data 16 x model 16:
-32 data shards), as the reference's launcher builds them
-(``launch/mesh.py`` ``launcher_mesh``). Meshes across several cards
-(``torch.distributed``) wait for ROADMAP A9b.
+their shardings. Every shard holds every weight. N >= 512 asks for the
+pod mesh (data 16 x model 16), and ``--multi-pod`` for the multi-pod one
+(pod 2 x data 16 x model 16: 32 data shards), as the reference's launcher
+builds them (``launch/mesh.py`` ``launcher_mesh``).
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) each process
+is one rank of a rank mesh over the same rule, data N // mp x model mp
+(``launch/mesh.py`` ``init_rank_mesh``; NCCL, one rank a card, or gloo
+with ``--device cpu``), and ``sharding.place_params`` keeps on each rank
+only its shard of every weight the rule table shards: FSDP over data, TP
+and experts over model for the dense and moe families, FSDP alone for the
+others. Each rank draws the same seeded weights and batches and takes its
+data rows; rank 0 prints and writes the checkpoints (whole tensors, the
+reference's format), and a resume gives each rank its shards back::
+
+    torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch qwen3-1.7b --steps 100
 """
 from __future__ import annotations
 
@@ -43,10 +55,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
-from repro_torch.launch.mesh import Mesh, MeshAxes, launcher_mesh
-from repro_torch.models import convert
+from repro_torch.launch.mesh import (Mesh, MeshAxes, RankMesh, close_rank_mesh,
+                                     launcher_mesh, rank_launcher_mesh, reporter)
+from repro_torch.models import convert, sharding
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.optim import OptimConfig
+from repro_torch.models.optim import OptimConfig, init_opt_state
 from repro_torch.models.sharding import param_shardings, sharding_ctx
 from repro_torch.models.steps import init_train_state, make_train_step
 from repro_torch.runtime.checkpoint import CheckpointManager
@@ -62,16 +75,30 @@ class ModelState:
     back into the same model and AdamW state, every leaf (the int32 step
     too: the schedule reads it). With a ``mesh`` the parameters are
     restored with their shardings (onto the mesh's device), the rest on
-    the host, as the reference's launcher restores them."""
+    the host, as the reference's launcher restores them. On a rank mesh a
+    checkpoint holds the whole state (every rank gathers it, rank 0
+    writes it) and a rollback reads it whole and keeps each rank's
+    blocks."""
 
-    def __init__(self, cfg: ArchConfig, mesh: Mesh | None = None):
+    def __init__(self, cfg: ArchConfig, mesh: Mesh | RankMesh | None = None):
         self.cfg = cfg
         self.mesh = mesh
 
     def tree(self, model, opt_state):
+        if isinstance(self.mesh, RankMesh):
+            params, opt_state = sharding.whole_state(model, opt_state, self.mesh)
+            return convert.train_state_tree(model, opt_state, self.cfg,
+                                            params=params)
         return convert.train_state_tree(model, opt_state, self.cfg)
 
     def restore(self, ckpt: CheckpointManager, model, opt_state):
+        if isinstance(self.mesh, RankMesh):
+            params, whole = sharding.whole_like(model, opt_state)
+            like = convert.train_state_like(model, whole, self.cfg, params=params)
+            step, tree = ckpt.restore(None, like, device="cpu")
+            convert.load_train_state(tree, model, whole, self.cfg, params=params)
+            sharding.load_blocks(model, opt_state, params, whole, self.mesh)
+            return step, model, opt_state
         like = convert.train_state_like(model, opt_state, self.cfg)
         shardings = None if self.mesh is None else {
             "params": param_shardings(like["params"], self.mesh,
@@ -109,12 +136,17 @@ def run(cfg: ArchConfig, steps: int, global_batch: int, seq: int,
     keep=3)``, a checkpoint every ``ckpt_every`` steps, failures from
     ``injector``) from seeded random weights (seed 0) on ``device``
     (``None``: the card); ``resume`` first restores the latest checkpoint
-    into them. With a ``mesh`` the loop runs inside its sharding context.
-    Prints the log every 10% of the run and the events;
+    into them. With a ``mesh`` the loop runs inside its sharding context;
+    on a rank mesh the weights are placed first. Prints (rank 0 alone on a
+    rank mesh) the log every 10% of the run and the events;
     returns the model, the AdamW state, the log, the events, the step it
     started at, the loop and the checkpoint manager."""
     dev = resolve_device(device) if mesh is None else mesh.device
     model, opt = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
+    say = reporter(mesh)
+    if isinstance(mesh, RankMesh):
+        sharding.place_params(model, cfg, mesh)
+        opt = init_opt_state(model)
     state = ModelState(cfg, mesh)
     ckpt = CheckpointManager(ckpt_dir, keep=3)
     with contextlib.ExitStack() as stack:
@@ -123,7 +155,7 @@ def run(cfg: ArchConfig, steps: int, global_batch: int, seq: int,
         start = 0
         if resume and ckpt.latest_step() is not None:
             start, model, opt = state.restore(ckpt, model, opt)
-            print(f"resumed at step {start}", flush=True)
+            say(f"resumed at step {start}", flush=True)
         step_fn = make_train_step(cfg, OptimConfig(total_steps=steps))
         loop = FaultTolerantLoop(step_fn, ckpt, TrainLoopConfig(ckpt_every=ckpt_every),
                                  injector, state)
@@ -131,9 +163,9 @@ def run(cfg: ArchConfig, steps: int, global_batch: int, seq: int,
                                    data_factory(cfg, global_batch, seq, dev),
                                    steps, start_step=start)
     for s, l in log[:: max(len(log) // 10, 1)]:
-        print(f"step {s:5d}  loss {l:.4f}", flush=True)
+        say(f"step {s:5d}  loss {l:.4f}", flush=True)
     final = f"final loss {log[-1][1]:.4f}" if log else f"no step left after {start}"
-    print(f"done; {final}; events: {loop.events or 'none'}", flush=True)
+    say(f"done; {final}; events: {loop.events or 'none'}", flush=True)
     return {"model": model, "opt_state": opt, "log": log, "events": loop.events,
             "start": start, "loop": loop, "ckpt": ckpt}
 
@@ -156,18 +188,31 @@ def main(argv=None) -> int:
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
     mesh = None
-    if args.multi_pod or args.local_devices:
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if ranks > 1:
+        if args.multi_pod or args.local_devices:
+            ap.error("under torchrun the ranks are the mesh: no --local-devices "
+                     "or --multi-pod")
+        mesh = rank_launcher_mesh(ranks, args.device)
+    elif args.multi_pod or args.local_devices:
         mesh = launcher_mesh(args.local_devices, args.device, args.multi_pod)
-
-    device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced or (device.type != "cuda" and cfg.n_params() > 5e8):
-        cfg = cfg.reduced()
-        print(f"[{device.type}] using reduced config {cfg.name}")
-    print(f"device: {device}" + ("" if mesh is None else
-                                 f"; mesh: {mesh.shape} ({mesh.size} shards)"))
-    run(cfg, args.steps, args.global_batch, args.seq, args.ckpt_dir,
-        args.ckpt_every, args.resume, device=device, mesh=mesh)
+    try:
+        device = resolve_device(args.device) if mesh is None else mesh.device
+        say = reporter(mesh)
+        cfg = get_config(args.arch)
+        if args.reduced or (device.type != "cuda" and cfg.n_params() > 5e8):
+            cfg = cfg.reduced()
+            say(f"[{device.type}] using reduced config {cfg.name}")
+        where = "" if mesh is None else f"; mesh: {mesh.shape} ({mesh.size} shards)"
+        if isinstance(mesh, RankMesh):
+            where = (f"; rank mesh: data {mesh.shape['data']} x model "
+                     f"{mesh.shape['model']} ({mesh.backend}, weights placed)")
+        say(f"device: {device}{where}")
+        run(cfg, args.steps, args.global_batch, args.seq, args.ckpt_dir,
+            args.ckpt_every, args.resume, device=device, mesh=mesh)
+    finally:
+        if isinstance(mesh, RankMesh):
+            close_rank_mesh()
     return 0
 
 

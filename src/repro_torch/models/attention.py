@@ -29,7 +29,16 @@ the online softmax merges over the ranks with a ``pmax`` and two
 ``psum``s in float32. The reference's local body is an einsum, not its
 Pallas kernel, so the port's is too: ``flash_decode`` is not on this
 path. Without a context ``"shardmap"`` takes the one-hot write, as the
-reference does. Across several cards it waits for ROADMAP A9b.
+reference does.
+
+On a rank mesh (``launch/mesh.RankMesh``, weights placed by
+``sharding.place_params``) the projections are column-parallel over
+"model" (q, k, v: this rank's heads, so the flash kernels see local,
+contiguous heads) and ``wo`` row-parallel (:func:`out_proj`, the partials
+summed over model). The decode cache is this rank's: its batch rows and,
+under ``"shardmap"``, its S / M sequence rows of every head (q, k and v
+all-gathered over model first), the merges over the model group;
+otherwise every row of its own heads.
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import distributed as D
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_rope, he_init, rms_norm
-from repro_torch.models.sharding import current_ctx
+from repro_torch.models.sharding import (current_ctx, model_split, tp_enter,
+                                         tp_merge, weight)
 
 NEG_INF = -1e30
 
@@ -80,26 +90,40 @@ def init_attention(cfg: ArchConfig, generator: torch.Generator,
 
 def _project_qkv(x, x_kv, p: Attention, cfg: ArchConfig, positions,
                  positions_kv, rope: bool):
+    """q (B,Sq,H,hd), k / v (B,Skv,KV,hd); on a rank mesh with the
+    projections split over model, this rank's heads (column-parallel)."""
     B, Sq, _ = x.shape
     Skv = x_kv.shape[1]
-    x_kv = x_kv.to(x.dtype)  # whisper's bf16 encoder output under float32
-    q = x @ p.wq.to(x.dtype)
-    k = x_kv @ p.wk.to(x.dtype)
-    v = x_kv @ p.wv.to(x.dtype)
+    tp = model_split(p, "wq")
+    xq = tp_enter(x) if tp else x
+    xkv = xq if x_kv is x else (tp_enter(x_kv) if tp else x_kv)
+    xkv = xkv.to(x.dtype)  # whisper's bf16 encoder output under float32
+    q = xq @ weight(p, "wq", x.dtype)
+    k = xkv @ weight(p, "wk", x.dtype)
+    v = xkv @ weight(p, "wv", x.dtype)
     if cfg.qkv_bias:
-        q = q + p.bq.to(x.dtype)
-        k = k + p.bk.to(x.dtype)
-        v = v + p.bv.to(x.dtype)
-    q = q.reshape(B, Sq, cfg.n_heads, cfg.d_head)
-    k = k.reshape(B, Skv, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(B, Skv, cfg.n_kv_heads, cfg.d_head)
+        q = q + weight(p, "bq", x.dtype)
+        k = k + weight(p, "bk", x.dtype)
+        v = v + weight(p, "bv", x.dtype)
+    q = q.reshape(B, Sq, -1, cfg.d_head)
+    k = k.reshape(B, Skv, -1, cfg.d_head)
+    v = v.reshape(B, Skv, -1, cfg.d_head)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        # whole scales over this rank's heads: their gradients are partial
+        qn, kn = (tp_enter(t) if tp else t for t in (p.q_norm, p.k_norm))
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions_kv, cfg.rope_theta)
     return q, k, v
+
+
+def out_proj(o: torch.Tensor, p: Attention, dtype) -> torch.Tensor:
+    """``o @ wo`` (o: (..., heads * hd)); row-parallel on a rank mesh with
+    ``wo`` split over model: this rank's heads' partial, summed."""
+    y = o @ weight(p, "wo", dtype)
+    return tp_merge(y) if model_split(p, "wo") else y
 
 
 def _blocked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
@@ -163,8 +187,7 @@ def attention(x, p: Attention, cfg: ArchConfig, *, x_kv=None, causal=True,
         positions_kv = positions if Skv == Sq else torch.arange(Skv, device=x.device)
     q, k, v = _project_qkv(x, x_kv, p, cfg, positions, positions_kv, rope)
     out = attention_core(q, k, v, positions, positions_kv, cfg, causal=causal)
-    out = out.reshape(B, Sq, cfg.n_heads * cfg.d_head)
-    return out @ p.wo.to(x.dtype)
+    return out_proj(out.reshape(B, Sq, -1), p, x.dtype)
 
 
 # -- KV-cache decode -------------------------------------------------------------
@@ -217,22 +240,33 @@ def _decode_attention_smap(q, k_new, v_new, cache_k_l, cache_v_l, pos,
     """The shard_map decode (the reference's attention.py:197-259) over
     the mesh's data x model shards. q: (B, 1, H, hd); k_new / v_new:
     (B, 1, KV, hd); cache_*_l: (B, S, KV, hd), written in place. Returns
-    the (B, 1, KV, G, hd) attention output in q's dtype."""
+    the (B, 1, KV, G, hd) attention output in q's dtype.
+
+    On the one-process mesh every rank's rows are views of the one cache
+    and the merges take the ranks' partials; on a rank mesh the batch and
+    ``cache_*_l`` are this rank's (its data rows, its S / M sequence rows,
+    every head) and the merges run over the model group."""
     B, S = cache_k_l.shape[0], cache_k_l.shape[1]
     KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
-    M = ctx.model_size
-    S_loc = S // M
-    nb = ctx.data_blocks(B)
-    b_loc = B // nb
+    if ctx.ranked:
+        S_loc, b_loc, ranks = S, B, (ctx.model_rank,)
+        g = ctx.group("model")
+        pmax = lambda xs: D.pmax(xs[0], group=g)  # noqa: E731
+        psum = lambda xs: D.psum(xs[0], group=g)  # noqa: E731
+    else:
+        S_loc, ranks = S // ctx.model_size, range(ctx.model_size)
+        b_loc = B // ctx.data_blocks(B)
+        pmax, psum = D.pmax, D.psum
     dev = q.device
     outs = []
     for b0 in range(0, B, b_loc):
         rows = slice(b0, b0 + b_loc)
         qq = q[rows].reshape(b_loc, 1, KV, G, hd).float()
         scores, values = [], []
-        for rank in range(M):
-            ck = cache_k_l[rows, rank * S_loc:(rank + 1) * S_loc]
-            cv = cache_v_l[rows, rank * S_loc:(rank + 1) * S_loc]
+        for rank in ranks:
+            lo = 0 if ctx.ranked else rank * S_loc
+            ck = cache_k_l[rows, lo:lo + S_loc]
+            cv = cache_v_l[rows, lo:lo + S_loc]
             # -- 1-token in-place write, taken only on the owning rank ----
             lpos = pos - rank * S_loc
             in_range = (lpos >= 0) & (lpos < S_loc)
@@ -249,14 +283,35 @@ def _decode_attention_smap(q, k_new, v_new, cache_k_l, cache_v_l, pos,
             scores.append(torch.where(valid[None, None, None, None, :], s, NEG_INF))
             values.append(cv)
         # -- the online softmax, merged over the ranks ------------------------
-        m = D.pmax([s.amax(dim=-1) for s in scores])
+        m = pmax([s.amax(dim=-1) for s in scores])
         ps = [torch.exp(s - m[..., None]) for s in scores]
-        l = D.psum([p_.sum(dim=-1) for p_ in ps])
-        o = D.psum([torch.einsum("bkgcs,bskh->bckgh", p_.to(cv.dtype), cv).float()
-                    for p_, cv in zip(ps, values)])            # (b, 1, KV, G, hd)
+        l = psum([p_.sum(dim=-1) for p_ in ps])
+        o = psum([torch.einsum("bkgcs,bskh->bckgh", p_.to(cv.dtype), cv).float()
+                  for p_, cv in zip(ps, values)])            # (b, 1, KV, G, hd)
         norm = l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]  # (b, 1, KV, G, 1)
         outs.append((o / norm).to(q.dtype))
     return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def _rank_smap(q, k_new, v_new, cache_k_l, cache_v_l, pos, p: Attention,
+               cfg: ArchConfig, ctx) -> torch.Tensor:
+    """The shardmap decode on a rank mesh, its cache this rank's sequence
+    rows of every head: column-parallel q / k / v (this rank's heads) are
+    all-gathered over model first, and the whole output's slice of this
+    rank's heads goes through the row-parallel ``wo``. Returns the
+    attention output before ``wo``, (B, 1, heads here * hd)."""
+    B = q.shape[0]
+    tp = model_split(p, "wq")
+    if tp:
+        g = ctx.group("model")
+        q, k_new, v_new = (D.all_gather(t, group=g, dim=2)
+                           for t in (q, k_new, v_new))
+    out = _decode_attention_smap(q, k_new, v_new, cache_k_l, cache_v_l, pos,
+                                 cfg, ctx).reshape(B, 1, -1)
+    if tp:
+        w = out.shape[-1] // ctx.model_size
+        out = out[..., ctx.model_rank * w:(ctx.model_rank + 1) * w]
+    return out
 
 
 def decode_attention(x, p: Attention, cfg: ArchConfig, cache_k_l, cache_v_l,
@@ -269,21 +324,27 @@ def decode_attention(x, p: Attention, cfg: ArchConfig, cache_k_l, cache_v_l,
     attention is ``kernels.ops.flash_decode`` over the (B,KV,S,hd) views of
     the updated cache with lengths ``pos + 1``: slots past ``pos`` are what
     the einsum path masks. A q of another dtype than the cache's (float32
-    compute) is cast to the cache's, as the kernel takes one dtype."""
+    compute) is cast to the cache's, as the kernel takes one dtype.
+
+    On a rank mesh the cache is this rank's: its data rows and, under
+    "shardmap", its S / M sequence rows of every head (``lm_prefill``
+    lays it out so); otherwise every row of this rank's heads."""
     B, T = x.shape[0], x.shape[1]
     S = cache_k_l.shape[1]
-    H, hd = cfg.n_heads, cfg.d_head
     positions = pos + torch.arange(T, device=x.device)
     q, k_new, v_new = _project_qkv(x, x, p, cfg, positions, positions, rope)
     ctx = current_ctx()
     if cfg.decode_cache_update == "shardmap" and ctx is not None \
-            and S % ctx.model_size == 0:
+            and (ctx.ranked or S % ctx.model_size == 0):
         if T != 1:
             raise ValueError(f"the shardmap decode writes one token, not {T}")
-        out5 = _decode_attention_smap(q, k_new, v_new, cache_k_l, cache_v_l,
-                                      pos, cfg, ctx)
-        out = out5.reshape(B, 1, H * hd).to(x.dtype)
-        return out @ p.wo.to(x.dtype), cache_k_l, cache_v_l
+        if ctx.ranked:
+            out = _rank_smap(q, k_new, v_new, cache_k_l, cache_v_l, pos, p,
+                             cfg, ctx)
+        else:
+            out = _decode_attention_smap(q, k_new, v_new, cache_k_l, cache_v_l,
+                                         pos, cfg, ctx).reshape(B, 1, -1)
+        return out_proj(out.to(x.dtype), p, x.dtype), cache_k_l, cache_v_l
     upd = update_cache_layer_dus if cfg.decode_cache_update == "dus" \
         else update_cache_layer
     ck, cv = upd(cache_k_l, cache_v_l, k_new, v_new, pos)
@@ -294,11 +355,10 @@ def decode_attention(x, p: Attention, cfg: ArchConfig, cache_k_l, cache_v_l,
         lengths = (pos + 1).to(torch.int32).reshape(1).expand(B).contiguous()
         o = kops.flash_decode(q[:, 0].to(ck.dtype), ck.transpose(1, 2),
                               cv.transpose(1, 2), lengths)
-        out = o.reshape(B, 1, H * hd).to(x.dtype)
-        return out @ p.wo.to(x.dtype), ck, cv
+        return out_proj(o.reshape(B, 1, -1).to(x.dtype), p, x.dtype), ck, cv
 
     out = cache_attention(q, ck, cv, positions, cfg).to(x.dtype)
-    return out @ p.wo.to(x.dtype), ck, cv
+    return out_proj(out, p, x.dtype), ck, cv
 
 
 def cache_attention(q, ck, cv, positions, cfg: ArchConfig) -> torch.Tensor:
@@ -307,8 +367,8 @@ def cache_attention(q, ck, cv, positions, cfg: ArchConfig) -> torch.Tensor:
     cache's dtype; float32 scores, the causal (and sliding-window) mask, the
     probabilities in the cache's dtype against V."""
     B, T, H, hd = q.shape
-    S = ck.shape[1]
-    KV, G = cfg.n_kv_heads, H // cfg.n_kv_heads
+    S, KV = ck.shape[1], ck.shape[2]
+    G = H // KV
     qq = q.reshape(B, T, KV, G, hd).float()
     scores = torch.einsum("bckgh,bskh->bkgcs", qq, ck.float()) / math.sqrt(hd)
     kpos = torch.arange(S, device=q.device)

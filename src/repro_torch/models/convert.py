@@ -103,6 +103,23 @@ def _layout(mod: nn.Module, prefix: str = "") -> dict:
     return out
 
 
+def reference_paths(model: nn.Module) -> dict:
+    """``{parameter name: its leaf's path in the reference's pytree}``
+    ("layers.0.attn.wq" -> "layers/attn/wq"): what the sharding rules
+    match."""
+    out = {}
+
+    def walk(tree: dict, path: tuple) -> None:
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                out.update((n, "/".join(path + (k,))) for n in v.flat)
+
+    walk(_layout(model), ())
+    return out
+
+
 def _stack(blocks: list) -> dict:
     return {k: _stack([b[k] for b in blocks]) if isinstance(blocks[0][k], dict)
             else np.stack([b[k] for b in blocks]) for k in blocks[0]}
@@ -147,19 +164,21 @@ def to_jax(model: nn.Module, cfg: ArchConfig, values=None) -> dict:
     return _map(lambda names: _gather(names, values, np.float32), _layout(model))
 
 
-def train_state_tree(model: nn.Module, opt_state: dict, cfg: ArchConfig) -> dict:
+def train_state_tree(model: nn.Module, opt_state: dict, cfg: ArchConfig,
+                     params: dict | None = None) -> dict:
     """The train state as the reference's pytree, ``{"params": ...,
     "opt": {"m": ..., "v": ..., "step": int32 0-d}}`` in its stacked
     layout: fresh host arrays in the tensors' own dtypes (a dtype numpy
     cannot hold raises), filled one leaf at a time. What a checkpoint of
-    either package holds."""
+    either package holds. ``params`` (keyed as ``model.named_parameters()``)
+    stands in for the model's own tensors: a rank mesh's whole ones."""
     layout = _layout(model)
 
     def tree(values):
         values = _values(model, cfg, values)
         return _map(lambda names: _gather(names, values), layout)
 
-    return {"params": tree(None),
+    return {"params": tree(params),
             "opt": {"m": tree(opt_state["m"]), "v": tree(opt_state["v"]),
                     "step": _gather(np.array("step", dtype=object), opt_state)}}
 
@@ -179,15 +198,17 @@ def params_like(model: nn.Module) -> dict:
     return _like(_layout(model), dict(model.named_parameters()))
 
 
-def train_state_like(model: nn.Module, opt_state: dict, cfg: ArchConfig) -> dict:
+def train_state_like(model: nn.Module, opt_state: dict, cfg: ArchConfig,
+                     params: dict | None = None) -> dict:
     """:func:`train_state_tree`'s structure, shapes and dtypes as tensors
-    on the "meta" device (no data, no copy): the ``like`` of a restore."""
+    on the "meta" device (no data, no copy): the ``like`` of a restore
+    (``params`` as there)."""
     layout = _layout(model)
 
     def like(values):
         return _like(layout, _values(model, cfg, values))
 
-    return {"params": like(None),
+    return {"params": like(params),
             "opt": {"m": like(opt_state["m"]), "v": like(opt_state["v"]),
                     "step": torch.empty((), dtype=opt_state["step"].dtype,
                                         device="meta")}}
@@ -209,12 +230,13 @@ def _scatter(names: np.ndarray, src: torch.Tensor, values: dict,
 
 @torch.no_grad()
 def load_train_state(tree: dict, model: nn.Module, opt_state: dict,
-                     cfg: ArchConfig) -> tuple[nn.Module, dict]:
-    """The inverse of :func:`train_state_tree`, in place: every parameter,
-    AdamW moment and the step take their values from ``tree`` (tensors on
-    any device; stacked leaf i into block i). Keys, shapes and dtypes must
-    agree (``ValueError``: nothing is cast). Returns ``(model,
-    opt_state)``."""
+                     cfg: ArchConfig,
+                     params: dict | None = None) -> tuple[nn.Module, dict]:
+    """The inverse of :func:`train_state_tree`, in place: every parameter
+    (or ``params``' tensor of its name), AdamW moment and the step take
+    their values from ``tree`` (tensors on any device; stacked leaf i into
+    block i). Keys, shapes and dtypes must agree (``ValueError``: nothing
+    is cast). Returns ``(model, opt_state)``."""
     layout = _layout(model)
 
     def load(sub: dict, lay: dict, values: dict, where: str):
@@ -227,7 +249,8 @@ def load_train_state(tree: dict, model: nn.Module, opt_state: dict,
             else:
                 _scatter(names, sub[k], values, f"{where}/{k}")
 
-    load(tree["params"], layout, dict(model.named_parameters()),
+    load(tree["params"], layout,
+         dict(model.named_parameters()) if params is None else params,
          f"{cfg.name} params")
     load(tree["opt"]["m"], layout, opt_state["m"], f"{cfg.name} opt/m")
     load(tree["opt"]["v"], layout, opt_state["v"], f"{cfg.name} opt/v")

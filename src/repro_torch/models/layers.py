@@ -18,6 +18,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.engine import distributed as D
+from repro_torch.models.sharding import (current_ctx, model_split, tp_enter,
+                                         tp_merge, weight)
+
 COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -92,12 +96,17 @@ def init_mlp(d_model: int, d_ff: int, generator: torch.Generator,
 
 
 def mlp(x: torch.Tensor, p: MLP) -> torch.Tensor:
-    h = x @ p.w1.to(x.dtype)
+    """On a rank mesh with ``w1`` split over model: w1 / w3
+    column-parallel, w2 row-parallel, the partial outputs summed."""
+    tp = model_split(p, "w1")
+    xi = tp_enter(x) if tp else x
+    h = xi @ weight(p, "w1", x.dtype)
     if p.w3 is not None:
-        h = F.silu(h) * (x @ p.w3.to(x.dtype))
+        h = F.silu(h) * (xi @ weight(p, "w3", x.dtype))
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p.w2.to(x.dtype)
+    y = h @ weight(p, "w2", x.dtype)
+    return tp_merge(y) if tp else y
 
 
 # -- embedding / logits ----------------------------------------------------------
@@ -110,13 +119,30 @@ def init_embed(vocab: int, d_model: int,
     return nn.Parameter(w * 0.02)
 
 
-def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens.long()].to(COMPUTE_DTYPE)
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 vocab_offset: int | None = None) -> torch.Tensor:
+    """The tokens' rows of ``embed``. With ``vocab_offset`` (a rank
+    mesh's vocab-parallel block of rows from that id): the rows this rank
+    holds, zero elsewhere, summed over model (one rank holds each row)."""
+    if vocab_offset is None:
+        return embed[tokens.long()].to(COMPUTE_DTYPE)
+    V = embed.shape[0]
+    local = tokens.long() - vocab_offset
+    mine = (local >= 0) & (local < V)
+    rows = embed[local.clamp(0, V - 1)]
+    return tp_merge(torch.where(mine[..., None], rows, 0).to(COMPUTE_DTYPE))
 
 
-def logits_from_hidden(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """h: (..., d); head: (d, V) -> float32 logits."""
-    return (h @ head.to(h.dtype)).float()
+def logits_from_hidden(h: torch.Tensor, head: torch.Tensor,
+                       vocab_parallel: bool = False) -> torch.Tensor:
+    """h: (..., d); head: (d, V) -> float32 logits. A vocab-parallel head
+    (this rank's block of columns) gives every rank the whole logits
+    (all-gathered over model)."""
+    logits = (h @ head.to(h.dtype)).float()
+    if vocab_parallel:
+        logits = D.all_gather(logits, group=current_ctx().group("model"),
+                              dim=-1)
+    return logits
 
 
 def _ce_from_logits(logits: torch.Tensor,
@@ -137,24 +163,45 @@ def remat(fn, *args, enabled: bool = True):
     return fn(*args)
 
 
-def _chunk_loss(h_c, head, l_c):
-    return _ce_from_logits(logits_from_hidden(h_c, head), l_c)
+def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
+                       offset: int) -> torch.Tensor:
+    """Summed cross entropy over this rank's vocab block of the logits
+    (ids ``[offset, offset + V_local)``): the max by ``pmax``, the sum of
+    exponentials and the gold logit (held by one rank) by ``psum`` over
+    model."""
+    V = logits.shape[-1]
+    m = D.pmax(logits.detach().amax(dim=-1),
+               group=current_ctx().group("model"))
+    lse = m + torch.log(tp_merge(torch.exp(logits - m[..., None]).sum(dim=-1)))
+    local = labels.long() - offset
+    gold = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    gold = tp_merge(torch.where((local >= 0) & (local < V), gold, 0.0))
+    return torch.sum(lse - gold)
+
+
+def _chunk_loss(h_c, head, l_c, vocab_offset=None):
+    if vocab_offset is None:
+        return _ce_from_logits(logits_from_hidden(h_c, head), l_c)
+    return _vocab_parallel_ce(logits_from_hidden(tp_enter(h_c), head), l_c,
+                              vocab_offset)
 
 
 def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
-                    labels: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+                    labels: torch.Tensor, chunk: int = 2048,
+                    vocab_offset: int | None = None) -> torch.Tensor:
     """Cross entropy without materialising the whole (B, S, V) float32
     logits: a loop over sequence chunks (the last one the remainder), each
     under :func:`remat` (the reference's ``jax.checkpoint``), so the
     backward recomputes a chunk's logits and the peak is one chunk
     of them. Returns the summed loss (the caller divides by the token
     count). The reference's optional ``mask`` has no caller and is left
-    out."""
+    out. ``vocab_offset``: ``head`` is a rank mesh's vocab-parallel block
+    of columns from that id (a vocab-parallel cross entropy)."""
     S = hidden.shape[1]
     chunk = min(chunk, S)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, S, chunk):
         sl = slice(s0, s0 + chunk)
         total = total + remat(_chunk_loss, hidden[:, sl], head,
-                              labels[:, sl])
+                              labels[:, sl], vocab_offset)
     return total

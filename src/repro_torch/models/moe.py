@@ -21,8 +21,9 @@ each (token, choice) within its expert, and ``index_add_`` for the
 reference's ``jax.ops.segment_sum``. The top-k is a stable descending
 sort, so equal probabilities go to the lower expert index, as
 ``jax.lax.top_k`` orders them (``torch.topk`` makes no such promise).
-Expert parallelism across several cards (``torch.distributed``) waits
-for ROADMAP A9b.
+On a rank mesh (``launch/mesh.RankMesh``) the layer is
+:func:`_rank_moe`: this rank stores only its experts (``sharding.place_params``)
+and the merges run over the ranks' process groups.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ from torch import nn
 from repro_torch.engine import distributed as D
 from repro_torch.models.config import ArchConfig, MoESpec
 from repro_torch.models.layers import MLP, he_init, mlp
-from repro_torch.models.sharding import current_ctx
+from repro_torch.models.sharding import (current_ctx, data_pmean, model_split,
+                                         tp_enter, tp_merge, weight)
 
 
 class Experts(nn.Module):
@@ -245,6 +247,46 @@ def _mesh_moe(x, p: MoE, cfg: ArchConfig, spec: MoESpec, ctx):
     return y, E * torch.sum(frac * probs.mean(dim=0)) / k
 
 
+def _rank_moe(x, p: MoE, cfg: ArchConfig, spec: MoESpec, ctx):
+    """``moe_ffn`` on a rank mesh: ``_local_moe``'s body with the seam's
+    rank-mesh collectives. x is this data rank's block (or the whole batch
+    where it did not divide, ``ctx.batch_split``). With the experts split
+    over model (M > 1) this rank stores and runs experts
+    ``[r*E/M, (r+1)*E/M)`` with the capacity of its own tokens: the tokens
+    and gates enter its partial work (``tp_enter``) and a ``psum`` over
+    model combines the ranks' outputs. Without, every expert runs here
+    with the reference's GSPMD capacity over the global batch, this rank's
+    ranks within an expert starting after the earlier data ranks' tokens
+    (an ``all_gather`` of the per-expert counts over the data axes). The
+    aux loss is the reference's over the global batch: ``pmean`` over the
+    data axes of the routing fractions and the (differentiable) mean
+    probabilities."""
+    B, S, d = x.shape
+    E, k = spec.num_experts, spec.top_k
+    ep = ctx.model_size > 1 and model_split(p.experts, "w1")
+    cast = torch.bfloat16 if ep and cfg.moe_gather_dtype == "bf16" else None
+    w1, w3, w2 = (weight(p.experts, n, cast) for n in ("w1", "w3", "w2"))
+    xf = x.reshape(-1, d)
+    T = xf.shape[0]
+    probs, gates, idx = _route(xf, weight(p, "router"), spec)
+    dg = ctx.group("data")
+    if ep:
+        y = tp_merge(_dispatch(tp_enter(xf), tp_enter(gates), idx, w1, w3, w2,
+                               e_local=w1.shape[0], rank=ctx.model_rank,
+                               capacity=_capacity(T, spec)))
+    else:
+        n = ctx.data_size if ctx.batch_split else 1
+        offset = None
+        if n > 1:
+            counts = D.all_gather(_expert_counts(idx, E)[None], group=dg)
+            offset = counts[:ctx.data_rank].sum(dim=0)
+        y = _dispatch(xf, gates, idx, w1, w3, w2, e_local=E, rank=0,
+                      capacity=_capacity(T * n, spec), rank_offset=offset)
+    aux = E * torch.sum(D.pmean(_frac(idx, E), group=dg)
+                        * data_pmean(probs.mean(dim=0))) / k
+    return y.reshape(B, S, d), aux
+
+
 def moe_ffn(x: torch.Tensor, p: MoE, cfg: ArchConfig,
             spec: MoESpec) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux loss); the shared experts add on top."""
@@ -253,6 +295,8 @@ def moe_ffn(x: torch.Tensor, p: MoE, cfg: ArchConfig,
         y, aux = _local_moe(x, p.router, p.experts.w1, p.experts.w3,
                             p.experts.w2, spec=spec, e_local=spec.num_experts,
                             rank=0, psum=_identity, pmean=_identity)
+    elif ctx.ranked:
+        y, aux = _rank_moe(x, p, cfg, spec, ctx)
     else:
         y, aux = _mesh_moe(x, p, cfg, spec, ctx)
     if getattr(p, "shared", None) is not None:

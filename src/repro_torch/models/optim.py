@@ -27,7 +27,9 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.engine import distributed as D
 from repro_torch.models.convert import leaf_ndim
+from repro_torch.models.sharding import current_ctx, spread
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,19 +67,36 @@ def schedule(cfg: OptimConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tensors) -> torch.Tensor:
+_SPREADS = ("data", "model", "all")
+
+
+def global_norm(tensors, spreads=None) -> torch.Tensor:
     """The float32 L2 norm over all the tensors (the norm of their
-    norms)."""
+    norms). On a rank mesh ``spreads`` gives, per tensor, the axes over
+    which the ranks hold distinct blocks of it (``sharding.spread``:
+    "data", "model", "all", or None for a whole one): the squared norms of
+    each kind are ``psum``-ed over those axes only, so every block, and
+    every whole tensor, is counted once."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if spreads is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    ctx = current_ctx()
+    sq = {k: torch.zeros((), dtype=torch.float32, device=norms[0].device)
+          for k in (None,) + _SPREADS}
+    for n, k in zip(norms, spreads):
+        sq[k] = sq[k] + n.square()
+    total = sq[None]
+    for k in _SPREADS:   # the same order on every rank
+        total = total + D.psum(sq[k], group=ctx.group(k))
+    return total.sqrt()
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads, max_norm: float, spreads=None) -> torch.Tensor:
     """Scale ``grads`` in place by min(1, max_norm / norm); returns the
-    norm before the clip."""
+    norm before the clip (``spreads``: :func:`global_norm`'s)."""
     grads = list(grads)
-    norm = global_norm(grads)
+    norm = global_norm(grads, spreads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -86,7 +105,8 @@ def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(model: nn.Module, state: dict, cfg: OptimConfig) -> dict:
     """One AdamW step from the gradients in ``p.grad``, writing the
-    parameters and ``state``'s moments and step in place. The gradients
+    parameters and ``state``'s moments and step in place (on a rank mesh:
+    this rank's blocks of each, the clip by the norm over every rank). The gradients
     are consumed: clipped in place, then their float32 buffers hold each
     parameter's update (the caller drops them after the step). Returns
     ``{"grad_norm", "lr"}`` (0-d float32 tensors), as the reference's
@@ -96,7 +116,12 @@ def adamw_update(model: nn.Module, state: dict, cfg: OptimConfig) -> dict:
     if any(g is None for g in grads):
         missing = [n for n, p in params.items() if p.grad is None]
         raise ValueError(f"adamw_update: no gradient for {missing}")
-    gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    ctx = current_ctx()
+    spreads = None
+    if ctx is not None and ctx.ranked:
+        where = spread(model)
+        spreads = [where.get(n) for n in params]
+    gnorm = clip_by_global_norm(grads, cfg.clip_norm, spreads)
     state["step"] += 1
     step = state["step"].float()
     lr = schedule(cfg, state["step"])

@@ -1,4 +1,5 @@
-"""Sharding rules and the model mesh (port of ``repro.models.sharding``).
+"""Sharding rules, the model mesh and weight placement (port of
+``repro.models.sharding``).
 
 The rule table assigns each parameter a PartitionSpec by its path in the
 reference's pytree (``attn/wq``, ``experts/w1``, ...), so one table serves
@@ -6,11 +7,13 @@ both packages: the port's modules name their parameters as the reference
 names its keys, and ``convert.params_like`` lays a model out as that
 pytree (stacked layers on a leading axis, which stays unsharded).
 
-What the mesh means in the port. A mesh (``launch/mesh.py``) holds
-``data x model`` shards, every one on ONE device; work that is local to a
-shard runs shard by shard and is merged with the list-of-partials
-collectives of ``engine/distributed.py`` (``psum``, ``pmax``, ``pmean``)
-in shard order.
+A model path runs under ``sharding_ctx(mesh)``, over either kind of mesh
+of ``launch/mesh.py``.
+
+**The one-process mesh** (``Mesh``: ``data x model`` shards, every one on
+ONE device). Nothing is placed: work that is local to a shard runs shard
+by shard and is merged with the list-of-partials collectives of
+``engine/distributed.py`` (``psum``, ``pmax``, ``pmean``) in shard order.
 
 * ``data`` axes: a batch splits into ``data`` contiguous row blocks, when
   the extent divides the batch (``sanitize_pspec``'s rule; otherwise the
@@ -29,11 +32,43 @@ in shard order.
     cache's sequence dimension: rank ``r`` owns rows
     ``[r*S/M, (r+1)*S/M)``, views of the one cache tensor (no copy).
 
-* Dense tensor parallelism: ``constrain(x, *spec)`` resolves and
-  sanitizes the spec as the reference does and returns ``x`` unchanged.
-  Every shard lives on one device, so there is nothing to place, and
-  GSPMD computes the same values with or without a constraint. TP is
-  never simulated by splitting GEMMs.
+* Dense tensor parallelism is not simulated: ``constrain(x, *spec)``
+  resolves and sanitizes the spec and returns ``x`` unchanged, and every
+  GEMM runs whole.
+
+**The rank mesh** (``RankMesh``: one ``torch.distributed`` process a
+rank). :func:`place_params` keeps on each rank only its shard of every
+weight the table shards, sliced from the whole tensor by the sanitized
+spec (a plain local tensor; ``Placement`` records the global shape and
+which dims are split):
+
+* FSDP over the data axes: a weight's data dim is all-gathered where it
+  is used (:func:`weight`, an autograd op whose backward reduce-scatters
+  the gradient in the parameter's dtype), inside the checkpointed block,
+  so a remat recomputation gathers again and no gathered weight outlives
+  its block. The table's data dim is kept (not FSDP2's dim 0): storage
+  differs, values do not. A weight the data axes do not split has its
+  gradient all-reduced over them after the backward
+  (:func:`reduce_grads`).
+* TP over ``model`` (the dense and moe families): ``attn/wq|wk|wv``,
+  ``mlp/w1|w3`` and ``shared/w1|w3`` are column-parallel (output dim
+  split: this rank's heads), ``attn/wo``, ``mlp/w2`` and ``shared/w2``
+  row-parallel (input dim split, the output ``psum``-ed over ``model``),
+  ``embed`` and ``lm_head`` vocab-parallel (a masked lookup and a
+  vocab-parallel cross entropy or an all-gather of the logits). Activations
+  stay whole (replicated over ``model``): :func:`tp_enter` marks where
+  one enters a rank's partial work (identity forward, ``psum`` of the
+  gradient) and :func:`tp_merge` where the partials meet (``psum``
+  forward, identity backward). The hand kernels see only local,
+  contiguous tensors: this rank's heads. Where ``model`` does not divide
+  the heads (or the KV heads) the attention weights stay whole over it,
+  as ``sanitize_pspec`` keeps an extent it does not divide.
+* Experts over ``model``: rank ``r`` stores experts
+  ``[r*E/M, (r+1)*E/M)`` and dispatches to them alone.
+* The rwkv, ssm, hybrid, whisper and vlm families take FSDP over the data
+  axes and keep every weight whole over ``model`` (their TP is a ROADMAP
+  item): the rwkv, hybrid and encdec entry points all-gather their
+  weights once a call (:func:`whole_params`).
 
 The context is process-wide, where the reference's is thread-local: the
 backward of a checkpointed block recomputes its forward on autograd's
@@ -50,7 +85,10 @@ import dataclasses
 import re
 from typing import Any
 
-from repro_torch.launch.mesh import Mesh, MeshAxes
+import torch
+
+from repro_torch.engine import distributed as D
+from repro_torch.launch.mesh import Mesh, MeshAxes, RankMesh
 
 
 class PartitionSpec(tuple):
@@ -74,14 +112,29 @@ P = PartitionSpec
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A spec over a mesh; the tensor lives on the mesh's one device."""
+    """A spec over a mesh: on the one-process mesh the tensor lives on its
+    one device; on a rank mesh each rank holds its block (``placements``,
+    the DTensor placements of the spec)."""
 
-    mesh: Mesh
+    mesh: Any
     spec: PartitionSpec
 
     @property
     def device(self):
         return self.mesh.device
+
+    @property
+    def placements(self) -> tuple:
+        """One DTensor placement per mesh axis: ``Shard(d)`` where dim d's
+        entry names the axis, else ``Replicate()``."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = []
+        for ax in self.mesh.axis_names:
+            dims = [d for d, e in enumerate(self.spec)
+                    if e == ax or (isinstance(e, tuple) and ax in e)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
 
 
 # pattern -> spec of (D, M); D = data axes tuple, M = model axis name.
@@ -166,12 +219,40 @@ class ShardingCtx:
     body's collective over the data axis reads from the other shards (the
     MoE routing statistics of the step's first pass)."""
 
-    def __init__(self, mesh: Mesh, axes: MeshAxes | None = None):
+    def __init__(self, mesh, axes: MeshAxes | None = None):
         self.mesh = mesh
         self.axes = axes or MeshAxes.for_mesh(mesh)
         self.data_index: int | None = None
         self.gathering = False
         self.gathered: dict = {}
+        self.whole = False   # inside whole_params: weights already gathered
+        # a rank mesh's layers see this data rank's block of the batch
+        # (False: the whole batch on every rank, one it did not divide)
+        self.batch_split = True
+
+    @property
+    def ranked(self) -> bool:
+        """A mesh of ``torch.distributed`` ranks (this process one)."""
+        return isinstance(self.mesh, RankMesh)
+
+    def group(self, axis: str):
+        """A rank mesh's process group over "data" (the data axes),
+        "model", or "all" (every rank)."""
+        if axis == "data":
+            return self.mesh.group(self.axes.data)
+        if axis == "model":
+            return self.mesh.group(self.axes.model)
+        import torch.distributed as dist
+        return dist.group.WORLD
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index over the data axes (a rank mesh)."""
+        return self.mesh.index(self.axes.data)
+
+    @property
+    def model_rank(self) -> int:
+        return self.mesh.coords.get(self.axes.model, 0)
 
     @property
     def data_size(self) -> int:
@@ -181,13 +262,19 @@ class ShardingCtx:
     def model_size(self) -> int:
         return self.axes.model_size(self.mesh)
 
-    def data_blocks(self, rows: int) -> int:
-        """How many row blocks a batch of ``rows`` splits into: the data
-        extent when it divides the rows (``sanitize_pspec``), else 1; 1
-        inside a data shard's body."""
-        if self.data_index is not None:
-            return 1
+    def split(self, rows: int) -> int:
+        """How many row blocks a batch of ``rows`` splits into over the
+        data axes: their extent when it divides the rows
+        (``sanitize_pspec``), else 1."""
         return self.data_size if rows % self.data_size == 0 else 1
+
+    def data_blocks(self, rows: int) -> int:
+        """The row blocks a layer splits its batch into: :meth:`split`;
+        1 inside a data shard's body and on a rank mesh, where the batch
+        is already this shard's."""
+        if self.data_index is not None or self.ranked:
+            return 1
+        return self.split(rows)
 
     @contextlib.contextmanager
     def data_shard(self, index: int, gathering: bool = False):
@@ -233,10 +320,15 @@ def current_ctx() -> ShardingCtx | None:
 def constrain(x, *spec):
     """The reference's symbolic sharding constraint: the spec is resolved
     and sanitized against ``x``'s shape, and ``x`` comes back unchanged
-    (every shard is on one device; the values are the same)."""
+    (the one-process mesh's shards share one device; a rank mesh's
+    activations are local tensors). A DTensor is redistributed to the
+    resolved spec."""
     ctx = current_ctx()
     if ctx is not None:
-        sanitize_pspec(ctx.resolve(spec), x.shape, ctx.mesh)
+        resolved = sanitize_pspec(ctx.resolve(spec), x.shape, ctx.mesh)
+        if ctx.ranked and type(x).__name__ == "DTensor":
+            return x.redistribute(ctx.mesh.device_mesh,
+                                  NamedSharding(ctx.mesh, resolved).placements)
     return x
 
 
@@ -265,3 +357,319 @@ def sanitize_spec_tree(spec_tree, abstract_tree, mesh: Mesh):
                 for k, v in spec_tree.items()}
     return type(spec_tree)(sanitize_spec_tree(s, a, mesh)
                            for s, a in zip(spec_tree, abstract_tree))
+
+
+# -- placement on a rank mesh --------------------------------------------------------
+
+TP_FAMILIES = ("dense", "moe")
+_ATTN_PROJ = re.compile(r"(attn|xattn|shared_attn)/[wb](q|k|v|o)$")
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a placed parameter's local tensor sits in its whole one:
+    ``spec`` (sanitized, over the mesh's axes), the whole ``shape``, and
+    the dims split over the data axes and over ``model`` (``None``:
+    whole over them)."""
+
+    spec: PartitionSpec
+    shape: tuple
+    data_dim: int | None
+    model_dim: int | None
+
+
+def rank_spec(path: str, shape, mesh, axes: MeshAxes, cfg) -> PartitionSpec:
+    """The spec a rank mesh places parameter ``path`` (the reference's
+    pytree path) of ``shape`` with: the table's, sanitized; over ``model``
+    only for the TP families, and for attention only where ``model``
+    divides both the heads and the KV heads."""
+    spec = sanitize_pspec(spec_for_path(path, len(shape), axes), shape, mesh)
+    M = axes.model_size(mesh)
+    whole_model = cfg.family not in TP_FAMILIES or (
+        _ATTN_PROJ.search(path) is not None
+        and (cfg.n_heads % M or cfg.n_kv_heads % M))
+    if whole_model:
+        spec = P(*(None if e == axes.model else e for e in spec))
+    return spec
+
+
+def _placement(spec: PartitionSpec, shape, axes: MeshAxes) -> Placement:
+    D_ = axes.data if len(axes.data) > 1 else axes.data[0]
+    data_dim = next((d for d, e in enumerate(spec) if e == D_), None)
+    model_dim = next((d for d, e in enumerate(spec) if e == axes.model), None)
+    return Placement(spec, tuple(shape), data_dim, model_dim)
+
+
+def local_slice(full: torch.Tensor, spec: PartitionSpec,
+                mesh: RankMesh) -> torch.Tensor:
+    """This rank's block of ``full`` under ``spec`` (a view): each split
+    dim narrowed to the rank's index along its axes."""
+    out = full
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        ext = mesh.extent(entry)
+        n = full.shape[d] // ext
+        out = out.narrow(d, mesh.index(entry) * n, n)
+    return out
+
+
+def placements(model) -> dict:
+    """``{parameter name: Placement}`` of a placed model (empty when it
+    was never placed)."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name, pl in mod.__dict__.get("_placed", {}).items():
+            out[f"{prefix}.{name}" if prefix else name] = pl
+    return out
+
+
+@torch.no_grad()
+def place_params(model, cfg, mesh: RankMesh, axes: MeshAxes | None = None):
+    """Keep on this rank only its block of every parameter (in place:
+    each ``nn.Parameter`` keeps its identity and takes its block's data,
+    contiguous), by :func:`rank_spec` over the reference's path of the
+    parameter (``convert.reference_paths``). Every rank must hold the
+    same whole weights before (the same seed, or the reference's numpy
+    through ``convert.from_jax``). Build the optimizer state after.
+    Returns the model."""
+    from repro_torch.models.convert import reference_paths
+
+    if not isinstance(mesh, RankMesh):
+        raise ValueError(f"place_params places on a RankMesh, not {mesh!r}: "
+                         "the one-process mesh holds every weight whole")
+    axes = axes or MeshAxes.for_mesh(mesh)
+    paths = reference_paths(model)
+    for prefix, mod in model.named_modules():
+        placed = dict(mod.__dict__.get("_placed", {}))
+        for name, p in mod._parameters.items():
+            if p is None:
+                continue
+            if name in placed:
+                raise ValueError(f"{prefix}.{name} is placed already")
+            full = f"{prefix}.{name}" if prefix else name
+            spec = rank_spec(paths[full], tuple(p.shape), mesh, axes, cfg)
+            placed[name] = _placement(spec, p.shape, axes)
+            p.data = local_slice(p.data, spec, mesh).contiguous().clone()
+        if placed:
+            mod._placed = placed
+    return model
+
+
+def _placed(mod, name: str) -> Placement | None:
+    """The placement of ``mod.name`` when it is to be gathered here: a
+    placed parameter under a rank mesh's context, outside ``whole_params``."""
+    ctx = _CTX
+    if ctx is None or not ctx.ranked or ctx.whole:
+        return None
+    return mod.__dict__.get("_placed", {}).get(name)
+
+
+class _GatherData(torch.autograd.Function):
+    """A parameter's block, cast to ``dtype``, all-gathered over the data
+    axes along ``dim``; the backward reduce-scatters the gradient in the
+    parameter's own dtype (a bf16 compute copy's gradient is summed
+    across ranks in float32)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, dtype):
+        ctx.dim, ctx.group, ctx.dtype = dim, group, t.dtype
+        return D.all_gather(t.detach().to(dtype), group=group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return D.reduce_scatter(g.to(ctx.dtype), ctx.group, ctx.dim), \
+            None, None, None
+
+
+def weight(mod, name: str, dtype=None) -> torch.Tensor:
+    """``mod.name`` as the layer computes with it, cast to ``dtype``: on a
+    rank mesh a placed weight's data dim all-gathered (its model dim
+    stays this rank's block), elsewhere the parameter itself."""
+    t = getattr(mod, name)
+    pl = _placed(mod, name)
+    if pl is None or pl.data_dim is None:
+        return t if dtype is None else t.to(dtype)
+    return _GatherData.apply(t, pl.data_dim, _CTX.group("data"),
+                             dtype or t.dtype)
+
+
+def model_split(mod, name: str) -> bool:
+    """Whether this rank holds only its ``model`` block of ``mod.name``
+    (column-, row- or vocab-parallel here)."""
+    pl = _placed(mod, name)
+    return pl is not None and pl.model_dim is not None
+
+
+def model_offset(mod, name: str) -> int:
+    """The first index of this rank's ``model`` block of ``mod.name``
+    along its split dim (the vocab offset of a vocab-parallel weight)."""
+    t = getattr(mod, name)
+    pl = _placed(mod, name)
+    return _CTX.model_rank * t.shape[pl.model_dim]
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return D.psum(g, group=ctx.group), None
+
+
+class _Merge(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return D.psum(x, group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return D.pmean(x, group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return D.pmean(g, group=ctx.group), None
+
+
+def data_pmean(x: torch.Tensor) -> torch.Tensor:
+    """``pmean`` over the data axes, differentiable: each data rank's loss
+    is its share of the global batch's, so the gradient of the mean is
+    the mean of the ranks' gradients."""
+    return _MeanData.apply(x, _CTX.group("data"))
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """A whole activation entering this rank's partial work over
+    ``model``: the same values; its gradient is the ``psum`` of the
+    ranks' partial gradients."""
+    return _Enter.apply(x, _CTX.group("model"))
+
+
+def tp_merge(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' partials over ``model`` summed into the whole value
+    (``psum``); the gradient, the same on every rank, passes through."""
+    return _Merge.apply(x, _CTX.group("model"))
+
+
+@torch.no_grad()
+def reduce_grads(model) -> None:
+    """After a rank mesh's backward: every gradient of a parameter the data
+    axes do not split is all-reduced (summed) over them; the split ones
+    were reduce-scattered by :func:`weight`'s backward."""
+    ctx = _CTX
+    if ctx is None or not ctx.ranked:
+        return
+    g = ctx.group("data")
+    for mod in model.modules():
+        placed = mod.__dict__.get("_placed", {})
+        for name, p in mod._parameters.items():
+            if p is None or p.grad is None:
+                continue
+            pl = placed.get(name)
+            if pl is None or pl.data_dim is None:
+                p.grad = D.psum(p.grad, group=g)
+
+
+def spread(model) -> dict:
+    """``{parameter name: "all" | "data" | "model" | None}``: over which
+    axes a placed parameter's blocks are distinct (None: whole, the same
+    on every rank); what a norm over every rank sums once."""
+    out = {}
+    for name, pl in placements(model).items():
+        d, m = pl.data_dim is not None, pl.model_dim is not None
+        out[name] = "all" if d and m else "data" if d else "model" if m else None
+    return out
+
+
+@contextlib.contextmanager
+def whole_params(model):
+    """On a rank mesh: every placed parameter of ``model`` reads as its
+    data-gathered tensor inside the block (one all-gather each; the
+    gradient reduce-scattered back), for the families whose code reads
+    its weights directly. Elsewhere the block changes nothing."""
+    ctx = _CTX
+    if ctx is None or not ctx.ranked or ctx.whole:
+        yield model
+        return
+    swapped = []
+    for mod in model.modules():
+        for name in mod.__dict__.get("_placed", {}):
+            p = mod._parameters[name]
+            mod._parameters[name] = weight(mod, name)
+            swapped.append((mod, name, p))
+    ctx.whole = True
+    try:
+        yield model
+    finally:
+        ctx.whole = False
+        for mod, name, p in swapped:
+            mod._parameters[name] = p
+
+
+@torch.no_grad()
+def full_tensor(t: torch.Tensor, pl: Placement, mesh: RankMesh,
+                axes: MeshAxes) -> torch.Tensor:
+    """The whole tensor of a placed block ``t`` (a parameter or a moment
+    laid out as it): all-gathered over ``model`` and then the data axes
+    along their dims."""
+    if pl.model_dim is not None:
+        t = D.all_gather(t, group=mesh.group(axes.model), dim=pl.model_dim)
+    if pl.data_dim is not None:
+        t = D.all_gather(t, group=mesh.group(axes.data), dim=pl.data_dim)
+    return t
+
+
+def whole_state(model, opt_state: dict, mesh: RankMesh) -> tuple[dict, dict]:
+    """A placed model's parameters and AdamW state, whole (every rank
+    gathers them; a checkpoint's rank 0 writes them): ``({name: tensor},
+    {"m": ..., "v": ..., "step": ...})``."""
+    axes = MeshAxes.for_mesh(mesh)
+    pls = placements(model)
+
+    def whole(n, t):
+        return full_tensor(t.detach(), pls[n], mesh, axes) if n in pls else t
+
+    params = {n: whole(n, p) for n, p in model.named_parameters()}
+    return params, {"m": {n: whole(n, t) for n, t in opt_state["m"].items()},
+                    "v": {n: whole(n, t) for n, t in opt_state["v"].items()},
+                    "step": opt_state["step"]}
+
+
+def whole_like(model, opt_state: dict) -> tuple[dict, dict]:
+    """Empty host tensors of :func:`whole_state`'s shapes and dtypes: what
+    a restore reads the whole state into."""
+    pls = placements(model)
+
+    def empty(n, t):
+        shape = pls[n].shape if n in pls else t.shape
+        return torch.empty(shape, dtype=t.dtype)
+
+    return ({n: empty(n, p) for n, p in model.named_parameters()},
+            {"m": {n: empty(n, t) for n, t in opt_state["m"].items()},
+             "v": {n: empty(n, t) for n, t in opt_state["v"].items()},
+             "step": torch.empty((), dtype=opt_state["step"].dtype)})
+
+
+@torch.no_grad()
+def load_blocks(model, opt_state: dict, params: dict, opt: dict,
+                mesh: RankMesh) -> None:
+    """Write this rank's blocks of the whole ``params`` and ``opt`` (as
+    :func:`whole_state` lays them out) into the placed model and its AdamW
+    state."""
+    pls = placements(model)
+    for n, p in model.named_parameters():
+        spec = pls[n].spec if n in pls else P()
+        p.copy_(local_slice(params[n], spec, mesh))
+        opt_state["m"][n].copy_(local_slice(opt["m"][n], spec, mesh))
+        opt_state["v"][n].copy_(local_slice(opt["v"][n], spec, mesh))
+    opt_state["step"].copy_(opt["step"])

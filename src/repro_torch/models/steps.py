@@ -17,6 +17,14 @@ its share of the rows), and the clip and AdamW run once on the merged
 tree. The metrics are the global batch's. An MoE model's step first runs
 every block forward without gradients to gather the routing statistics
 the aux loss and the capacity read across the shards (``moe._mesh_moe``).
+
+On a rank mesh (``launch/mesh.RankMesh``, weights placed by
+``sharding.place_params``) each data rank takes its own row block and
+backpropagates its share of the loss; the gradient merge is the
+reduce-scatter of every gathered weight's gradient and an all-reduce of
+the rest (``sharding.reduce_grads``), the routing statistics are
+collectives inside the one forward (``moe._rank_moe``), and AdamW updates
+each rank's shards, its clip reading the global norm over every rank.
 """
 from __future__ import annotations
 
@@ -29,8 +37,8 @@ from repro_torch.engine import distributed as D
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.convert import leaf_ndim
 from repro_torch.models.optim import OptimConfig, adamw_update, init_opt_state
-from repro_torch.models.registry import ModelAPI, get_api
-from repro_torch.models.sharding import current_ctx
+from repro_torch.models.registry import ModelAPI, get_api, whole_params_for
+from repro_torch.models.sharding import current_ctx, reduce_grads
 
 
 @contextlib.contextmanager
@@ -95,7 +103,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimConfig):
         model.zero_grad(set_to_none=True)
         ctx = current_ctx()
         n = 1 if ctx is None else ctx.data_blocks(batch["tokens"].shape[0])
-        if n == 1:
+        if ctx is not None and ctx.ranked:
+            metrics = _rank_grads(model, batch, ctx)
+        elif n == 1:
             with cast_once(model, cfg):
                 loss, metrics = api.loss(model, batch, cfg)
                 loss.backward()
@@ -106,6 +116,31 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimConfig):
         model.zero_grad(set_to_none=True)
         return model, opt_state, {**{k: v.detach() for k, v in metrics.items()},
                                   **opt_metrics}
+
+    def _rank_grads(model, batch, ctx) -> dict:
+        """A rank mesh's step: this data rank's row block (the whole batch
+        where the data extent does not divide it), its loss times its
+        share of the rows backpropagated, so the reduce-scatters of the
+        gathered weights and ``reduce_grads``'s all-reduce sum the ranks'
+        gradients into the global batch's mean (``merge_grads``'s token
+        weights); the metrics are ``psum``-ed over the data axes with the
+        same weights."""
+        rows = batch["tokens"].shape[0]
+        n = ctx.split(rows)
+        if n > 1:
+            batch = data_blocks(batch, n)[ctx.data_rank]
+        w = batch["tokens"].shape[0] / rows if n > 1 else 1.0 / ctx.data_size
+        ctx.batch_split = n > 1
+        try:
+            with cast_once(model, cfg), whole_params_for(cfg, model):
+                loss, metrics = api.loss(model, batch, cfg)
+                (loss * w).backward()
+        finally:
+            ctx.batch_split = True
+        reduce_grads(model)
+        g = ctx.group("data")
+        return {k: D.psum(v.detach() * w, group=g)
+                for k, v in {"loss": loss, **metrics}.items()}
 
     def _data_parallel_grads(model, batch, ctx, n) -> dict:
         blocks = data_blocks(batch, n)

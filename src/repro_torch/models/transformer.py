@@ -23,14 +23,17 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.engine import distributed as D
 from repro_torch.models.attention import (Attention, _project_qkv,
                                           attention_core, decode_attention,
-                                          init_kv_cache)
+                                          init_kv_cache, out_proj)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_tokens,
                                        he_init, init_embed, logits_from_hidden,
                                        mlp, remat, rms_norm)
 from repro_torch.models.moe import MoE, moe_ffn
+from repro_torch.models.sharding import (current_ctx, model_offset,
+                                         model_split, weight)
 
 
 class Block(nn.Module):
@@ -89,19 +92,34 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator) -> LM:
     return LM(cfg, generator)
 
 
-def _head(model: LM, cfg: ArchConfig) -> torch.Tensor:
-    return model.embed.T if cfg.tie_embeddings else model.lm_head
+def _vocab(model: LM, name: str) -> int | None:
+    """The vocab offset of this rank's block of ``model.name`` on a rank
+    mesh that splits it over model (vocab-parallel), else None."""
+    return model_offset(model, name) if model_split(model, name) else None
+
+
+def _head(model: LM, cfg: ArchConfig) -> tuple[torch.Tensor, int | None]:
+    """The (d, V) head (this rank's vocab block on a rank mesh that splits
+    it) and its vocab offset (None: whole)."""
+    if cfg.tie_embeddings:
+        return weight(model, "embed").T, _vocab(model, "embed")
+    return weight(model, "lm_head"), _vocab(model, "lm_head")
+
+
+def _logits(model: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    head, offset = _head(model, cfg)
+    return logits_from_hidden(x, head, vocab_parallel=offset is not None)
 
 
 def embed_input(model: LM, tokens: torch.Tensor, cfg: ArchConfig,
                 patches=None) -> torch.Tensor:
     """Token embeddings, with the projected patch prefix for vlm."""
-    x = embed_tokens(model.embed, tokens)
+    x = embed_tokens(weight(model, "embed"), tokens, _vocab(model, "embed"))
     if cfg.family == "vlm":
         if patches is None:
             raise ValueError("vlm needs patch embeddings (the stub frontend's "
                              "batch['patches'])")
-        pe = patches.to(x.dtype) @ model.patch_proj.to(x.dtype)
+        pe = patches.to(x.dtype) @ weight(model, "patch_proj", x.dtype)
         x = torch.cat([pe, x], dim=1)
     return x
 
@@ -127,7 +145,7 @@ def _block(x: torch.Tensor, blk: Block, cfg: ArchConfig,
     q, k, v = _project_qkv(h_in, h_in, blk.attn, cfg, positions, positions,
                            True)
     o = attention_core(q, k, v, positions, positions, cfg, causal=True)
-    x = x + o.reshape(B, S, -1) @ blk.attn.wo.to(x.dtype)
+    x = x + out_proj(o.reshape(B, S, -1), blk.attn, x.dtype)
     f, aux = _ffn(x, blk, cfg, moe_layer)
     return x + f, aux, k, v
 
@@ -158,8 +176,9 @@ def lm_loss(model: LM, batch: dict, cfg: ArchConfig):
     hidden, aux = forward_hidden(model, tokens, cfg, batch.get("patches"))
     S = tokens.shape[1]
     hidden = hidden[:, -S:]
-    loss_sum = chunked_ce_loss(hidden[:, :-1], _head(model, cfg),
-                               tokens[:, 1:], chunk=cfg.loss_chunk)
+    head, offset = _head(model, cfg)
+    loss_sum = chunked_ce_loss(hidden[:, :-1], head, tokens[:, 1:],
+                               chunk=cfg.loss_chunk, vocab_offset=offset)
     ce = loss_sum / (tokens.shape[0] * (S - 1))
     loss = ce + cfg.moe.aux_loss_weight * aux if cfg.moe is not None else ce
     return loss, {"ce": ce, "aux": aux}
@@ -170,6 +189,30 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int,
     """An empty KV cache on ``device``: ``None`` means the CUDA card, and
     raises without one; pass ``device="cpu"`` for the CPU."""
     return init_kv_cache(cfg, cfg.n_layers, batch, max_len, dtype, device)
+
+
+def _rank_cache_rows(cfg: ArchConfig, max_len: int) -> slice | None:
+    """On a rank mesh under ``decode_cache_update="shardmap"``: this
+    rank's sequence rows of the cache (the model extent must divide
+    ``max_len``); else None."""
+    ctx = current_ctx()
+    if ctx is None or not ctx.ranked or cfg.decode_cache_update != "shardmap":
+        return None
+    M = ctx.model_size
+    if max_len % M:
+        raise ValueError(f"the shardmap cache of {max_len} rows does not split "
+                         f"over {M} model ranks")
+    n = max_len // M
+    return slice(ctx.model_rank * n, (ctx.model_rank + 1) * n)
+
+
+def _smap_rows(t: torch.Tensor, attn: Attention, rows: slice) -> torch.Tensor:
+    """A prefill's (B, S, heads here, hd) K or V as the rank-mesh shardmap
+    cache holds it: every head (all-gathered over model where the heads
+    are split), this rank's sequence rows."""
+    if model_split(attn, "wk"):
+        t = D.all_gather(t, group=current_ctx().group("model"), dim=2)
+    return t[:, rows].contiguous()
 
 
 def lm_prefill(model: LM, batch: dict, cfg: ArchConfig,
@@ -186,15 +229,19 @@ def lm_prefill(model: LM, batch: dict, cfg: ArchConfig,
     S = x.shape[1]
     max_len = max(max_len or 0, S)
     positions = torch.arange(S, device=x.device)
+    rows = _rank_cache_rows(cfg, max_len)
     ks, vs = [], []
     for blk, moe_layer in model.blocks():
         x, _, k, v = _block(x, blk, cfg, positions, moe_layer)
         if cache:
             pad = (0, 0, 0, 0, 0, max_len - S)
-            ks.append(nn.functional.pad(k, pad).to(torch.bfloat16))
-            vs.append(nn.functional.pad(v, pad).to(torch.bfloat16))
+            k, v = (nn.functional.pad(t, pad).to(torch.bfloat16) for t in (k, v))
+            if rows is not None:
+                k, v = (_smap_rows(t, blk.attn, rows) for t in (k, v))
+            ks.append(k)
+            vs.append(v)
     x = rms_norm(x[:, -1:, :], model.final_norm, cfg.norm_eps)  # per token
-    logits = logits_from_hidden(x, _head(model, cfg))
+    logits = _logits(model, x, cfg)
     if not cache:
         return None, logits
     return {"k": torch.stack(ks), "v": torch.stack(vs),
@@ -206,7 +253,7 @@ def lm_decode_step(model: LM, cache: dict, tokens: torch.Tensor,
     """One decode step. tokens: (B, 1). Returns (cache, logits (B, 1, V)):
     the cache's K and V are written in place (layer i is slot i, the
     DeepSeek first layers leading) and ``pos`` advances by the tokens."""
-    x = embed_tokens(model.embed, tokens)
+    x = embed_tokens(weight(model, "embed"), tokens, _vocab(model, "embed"))
     pos = cache["pos"]
     for i, (blk, moe_layer) in enumerate(model.blocks()):
         h, _, _ = decode_attention(rms_norm(x, blk.ln1, cfg.norm_eps),
@@ -215,6 +262,6 @@ def lm_decode_step(model: LM, cache: dict, tokens: torch.Tensor,
         x = x + h
         x = x + _ffn(x, blk, cfg, moe_layer)[0]
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = logits_from_hidden(x, _head(model, cfg))
+    logits = _logits(model, x, cfg)
     return {"k": cache["k"], "v": cache["v"],
             "pos": pos + tokens.shape[1]}, logits

@@ -26,6 +26,16 @@ release the interpreter lock.
 ``spans`` records each save's host copy, each wait for the writer, each
 write (``background`` says on which thread) and each restore's read, with
 host-clock stamps and bytes, for the callers that time them.
+
+Across ``torch.distributed`` ranks (every rank calls ``save``, ``wait``
+and ``restore`` in the same order, as the train loop does): a DTensor
+leaf is gathered whole on every rank (``full_tensor``), rank 0 alone
+writes the full tensors (the format stays the reference's, byte for
+byte), and ``wait`` ends with a barrier, so no rank reads a step before
+it is published. A restore reads every leaf; under a ``NamedSharding``
+over a rank mesh each rank keeps only its block, as a DTensor over that
+mesh: the saved layout does not matter (the reference's elastic
+restore).
 """
 from __future__ import annotations
 
@@ -42,18 +52,36 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import RankMesh
 from repro_torch.runtime.tree import flatten, unflatten
 
 IO_THREADS = 4
 
 
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
 def _host(x) -> np.ndarray:
     """A leaf as a host array: a tensor copied (synchronously, whatever its
-    device), a numpy array as it is. A tensor of a dtype numpy cannot hold
-    (bf16) raises ``TypeError``: nothing is cast."""
+    device; a DTensor gathered whole first, a collective), a numpy array as
+    it is. A tensor of a dtype numpy cannot hold (bf16) raises
+    ``TypeError``: nothing is cast."""
     if isinstance(x, torch.Tensor):
+        if _is_dtensor(x):
+            x = x.full_tensor()
         return x.detach().to("cpu", copy=True).numpy()
     return np.asarray(x)
+
+
+def _ranks() -> tuple[int, int]:
+    """(this process's rank, the world size) of the ``torch.distributed``
+    process group; (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def crc32(a: np.ndarray) -> int:
@@ -86,6 +114,8 @@ class CheckpointManager:
         nbytes = sum(a.nbytes for a in host_leaves)
         self._span("copy", step, t0, nbytes)
         self.wait()  # one in-flight save at a time
+        if _ranks()[0] != 0:
+            return  # rank 0 writes
 
         def _write(background: bool):
             t1 = time.perf_counter()
@@ -123,12 +153,16 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Block until the save in flight is published; a failure of its
-        write is raised here."""
+        write is raised here. Across ranks every rank waits for rank 0's
+        write (a barrier)."""
         if self._thread is not None:
             t0 = time.perf_counter()
             self._thread.join()
             self._thread = None
             self._span("wait", None, t0)
+        if _ranks()[1] > 1:
+            import torch.distributed as dist
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -160,10 +194,13 @@ class CheckpointManager:
         ``shardings`` (the reference's elastic restore) is a tree of
         ``sharding.NamedSharding`` over ``like``, or a prefix of it: a
         sharding, or ``None``, at a node covers its subtree. A leaf under
-        a sharding goes whole to its mesh's device, where every shard of
-        the port's mesh lives (a spec longer than the leaf's rank raises
-        ``ValueError``, as jax's placement does); a leaf under ``None``
-        goes to ``device``. The saved layout does not matter."""
+        a sharding of the one-process mesh goes whole to its mesh's
+        device, where every shard lives; under one of a rank mesh this
+        rank keeps its block, a DTensor over the mesh (an extent that does
+        not divide its dim raises ``ValueError``). A spec longer than the
+        leaf's rank raises ``ValueError``, as jax's placement does; a leaf
+        under ``None`` goes to ``device``. The saved layout does not
+        matter."""
         # the save in flight first: it may publish the latest step (the
         # reference picks the latest step before it waits)
         self.wait()
@@ -214,10 +251,28 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint step {step} leaf {i}: {t.dtype} "
                                  f"{tuple(t.shape)}, the tree wants {ref.dtype} "
                                  f"{tuple(ref.shape)}")
-            out.append(t if dev.type == "cpu" else t.to(dev))
+            if places[i] is not None and isinstance(places[i].mesh, RankMesh):
+                out.append(_rank_block(t, places[i], i))
+            else:
+                out.append(t if dev.type == "cpu" else t.to(dev))
             nbytes += a.nbytes
         self._span("read", step, t0, nbytes)
         return step, unflatten(treedef, out)
+
+
+def _rank_block(t: torch.Tensor, sh, i: int):
+    """This rank's block of the whole leaf ``t`` under ``sh`` (a
+    ``NamedSharding`` over a rank mesh), as a DTensor over the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import local_slice, sanitize_pspec
+
+    if sanitize_pspec(sh.spec, t.shape, sh.mesh) != sh.spec:
+        raise ValueError(f"checkpoint leaf {i}: spec {sh.spec} does not split "
+                         f"{tuple(t.shape)} over {sh.mesh.shape} evenly")
+    local = local_slice(t, sh.spec, sh.mesh).contiguous().to(sh.mesh.device)
+    return DTensor.from_local(local, sh.mesh.device_mesh, sh.placements,
+                              run_check=False, shape=t.shape, stride=t.stride())
 
 
 def _leaf_shardings(shardings, like, out: list, inherited=None) -> None:

@@ -8,12 +8,14 @@ SGD / Adam converging. ``torch.round`` rounds half to even as
 ``jnp.round`` does, so every result equals the reference's bit for bit.
 
 ``compressed_psum`` is the data-parallel all-reduce over a mesh's data
-shards (``launch/mesh.py``: every shard on one device): it takes the
-shards' gradient and error trees in shard order and merges them with
-``engine/distributed.py``'s collectives, as the reference's does inside
-shard_map. It is elementwise work that the reference computes in jnp, so
-it is plain torch here too. Across several cards (``torch.distributed``)
-it waits for ROADMAP A9b.
+shards, merged with ``engine/distributed.py``'s collectives as the
+reference's is inside shard_map: on the one-process mesh it takes the
+shards' gradient and error trees in shard order; on a rank mesh
+(``group=``, the data axes' process group) this rank's trees, and the
+int32 sum of the int8 payloads is a ``dist.all_reduce``. Integer sums do
+not depend on their order, so both forms give the same bits. It is
+elementwise work that the reference computes in jnp, so it is plain
+torch here too.
 """
 from __future__ import annotations
 
@@ -63,15 +65,49 @@ def decompress_grads(qs: Any, ss: Any) -> Any:
     return tree_map(dequantize, qs, ss)
 
 
-def compressed_psum(grads: list, err: list) -> tuple[Any, list]:
-    """The int8 error-feedback all-reduce of the shards' gradient trees
-    ``grads`` with their error trees ``err`` (lists in shard order).
+def _compressed_leaf(ts: list, psum, pmax) -> tuple[torch.Tensor, list]:
+    """One leaf of :func:`compressed_psum`: ``ts`` are the parts merged
+    here (every shard's, or this rank's alone), ``psum`` / ``pmax`` the
+    collectives over the data shards. Returns (mean, the parts' new
+    errors)."""
+    # the divisors are tensors on the leaves' device: CUDA divides by a
+    # host scalar as a product with its reciprocal, which can round apart
+    # from the CPU's (and the reference's) division
+    dev = ts[0].device
+    n = psum([torch.ones((), dtype=torch.float32, device=dev) for _ in ts])
+    m = pmax([t.abs().max() for t in ts])
+    s = torch.clamp(m, min=1e-12) / torch.full((), 127.0, device=dev)
+    qs = [torch.clamp(torch.round(t / s), -127, 127).to(torch.int8) for t in ts]
+    total = psum([q.to(torch.int32) for q in qs])   # the int8 payload
+    return total.to(torch.float32) * s / n, \
+        [t - q.to(torch.float32) * s for t, q in zip(ts, qs)]
+
+
+def compressed_psum(grads, err, group=None) -> tuple[Any, Any]:
+    """The int8 error-feedback all-reduce of the data shards' gradients.
 
     Every shard quantizes against one SHARED scale (``pmax`` of the local
     max-abs values) so the int32 ``psum`` of the int8 payloads dequantizes
-    exactly: mean = total * s / n. Each shard's new error is t - q * s.
-    Returns (the mean gradient tree every shard holds, the shards' new
-    error trees); bit for bit the reference's formula."""
+    exactly: mean = total * s / n. Each shard's new error is t - q * s;
+    bit for bit the reference's formula.
+
+    One-process mesh (``group=None``): ``grads`` and ``err`` are the
+    shards' trees in shard order; returns (the mean tree every shard
+    holds, the shards' new error trees). Rank mesh: ``grads`` and ``err``
+    are this rank's trees and ``group`` the data axes' process group;
+    returns (the mean tree, this rank's new error tree)."""
+    if group is not None:
+        fg, treedef = flatten(grads)
+        fe, edef = flatten(err)
+        if edef != treedef:
+            raise ValueError(f"error state {edef} does not match the "
+                             f"gradients' {treedef}")
+        sum_ = lambda xs: D.psum(xs[0], group=group)  # noqa: E731
+        max_ = lambda xs: D.pmax(xs[0], group=group)  # noqa: E731
+        out = [_compressed_leaf([g.to(torch.float32) + e], sum_, max_)
+               for g, e in zip(fg, fe)]
+        return unflatten(treedef, [m for m, _ in out]), \
+            unflatten(treedef, [e[0] for _, e in out])
     if len(grads) != len(err) or not grads:
         raise ValueError(f"{len(grads)} gradient trees, {len(err)} error trees")
     flat, treedef = [], None
@@ -86,19 +122,9 @@ def compressed_psum(grads: list, err: list) -> tuple[Any, list]:
         flat.append((fg, fe))
     means, errs = [], [[] for _ in grads]
     for j in range(treedef.num_leaves):
-        ts = [fg[j].to(torch.float32) + fe[j] for fg, fe in flat]
-        # the divisors are tensors on the leaves' device: CUDA divides by a
-        # host scalar as a product with its reciprocal, which can round apart
-        # from the CPU's (and the reference's) division
-        dev = ts[0].device
-        n = D.psum([torch.ones((), dtype=torch.float32, device=dev)
-                    for _ in ts])
-        m = D.pmax([t.abs().max() for t in ts])
-        s = torch.clamp(m, min=1e-12) / torch.full((), 127.0, device=dev)
-        qs = [torch.clamp(torch.round(t / s), -127, 127).to(torch.int8)
-              for t in ts]
-        total = D.psum([q.to(torch.int32) for q in qs])   # the int8 payload
-        means.append(total.to(torch.float32) * s / n)
-        for i, (t, q) in enumerate(zip(ts, qs)):
-            errs[i].append(t - q.to(torch.float32) * s)
+        mean, new_err = _compressed_leaf(
+            [fg[j].to(torch.float32) + fe[j] for fg, fe in flat], D.psum, D.pmax)
+        means.append(mean)
+        for i, e in enumerate(new_err):
+            errs[i].append(e)
     return unflatten(treedef, means), [unflatten(treedef, e) for e in errs]

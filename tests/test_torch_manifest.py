@@ -186,3 +186,22 @@ def test_open_widen_casts_integers_to_float32():
     assert w.columns["s"].dtype == torch.uint8
     np.testing.assert_array_equal(w.columns["k"].numpy(),
                                   np.arange(8, dtype=np.float32))
+
+
+def test_catalog_and_snapshot_names_equal_reference():
+    """``Catalog.names()`` and ``Snapshot.names()`` list the
+    ``"dataverse.name"`` keys in registration order; a snapshot keeps the
+    names it pinned, not a dataset created or dropped after it."""
+    seen = {}
+    for pk in (REF, PORT):
+        sess, _ = _fresh(pk)
+        sess.create_dataset("Dim", pk.Table({"k": np.arange(5, dtype=np.int32)}),
+                            dataverse="e")
+        snap = sess.catalog.snapshot()
+        sess.create_dataset("Late", pk.Table({"k": np.arange(3, dtype=np.int32)}),
+                            dataverse="d")
+        sess.catalog.drop("e", "Dim")
+        seen[pk is PORT] = (sess.catalog.names(), snap.names())
+        snap.release()
+    assert seen[True] == seen[False]
+    assert seen[True] == (["d.Live", "d.Late"], ["d.Live", "e.Dim"])

@@ -165,3 +165,22 @@ def test_clustered_range_over_an_upsert_run_skips_reference_blocks():
     assert out["port"] == out["ref"]
     assert out["port"][0] == 101 and out["port"][2] > 0
     assert out["port"][3] == [(0,)]
+
+
+@pytest.mark.parametrize("names,k", [(["unique1", "string4"], 5),
+                                     (["ten"], 0), (["two", "unique2"], 10_000)])
+def test_select_and_head_dict_equal_reference(names, k):
+    """``Table.select`` keeps the named columns, their meta and the row
+    count; ``head_dict(k)`` gives each column's first k rows as numpy (k
+    past the length: every row), as the reference's."""
+    ref = rsession._collect_stats(rw.generate(2000, seed=4))
+    port = tt.from_numpy({c: np.asarray(v) for c, v in ref.columns.items()},
+                         {c: dataclasses.asdict(m) for c, m in ref.meta.items()},
+                         device="cpu")
+    _assert_tables_equal(port.select(names), ref.select(names))
+    got, want = port.head_dict(k), ref.head_dict(k)
+    assert list(got) == list(want)
+    for c in want:
+        assert isinstance(got[c], np.ndarray)
+        assert got[c].dtype == want[c].dtype, c
+        np.testing.assert_array_equal(got[c], want[c], err_msg=c)
