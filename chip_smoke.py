@@ -127,9 +127,10 @@ Phases (any mismatch raises; nothing is caught):
      topk_merge and merge_join_count must launch (counted apart from phases
      3-7), and every call recorded is held against its plain version. The
      crash matrix: for each of IO_FAULT_POINTS, and for torn-write once
-     more on its second arrival (a torn run segment), a store over the same
-     base and LIVE_MIX's first four batches (cut from eight: two flushed,
-     two in the WAL) crashes once, is reopened and must equal a memory-only session
+     more on its second arrival (a torn run segment), a store over a
+     1,000,000-row base (CRASH_ROWS, cut for the script's time limit) and
+     LIVE_MIX's first four batches (cut from eight: two flushed, two in the
+     WAL) crashes once, is reopened and must equal a memory-only session
      that applied exactly the acked batches, bit for bit, with no duplicate
      key, and run e3 and e4 through the kernels. Printed beside the card:
      each batch's ack (WAL append + fsync) and WAL bytes, each flush with its
@@ -147,8 +148,8 @@ Phases (any mismatch raises; nothing is caught):
      mode and read after it: shard_map launches no kernel, kernel mode
      launches filter_count, segment_agg, block_topk + topk_merge and
      merge_join_count once per shard (printed per expression), and every
-     launch it made is held against its plain version. A 5,000,008-row
-     mesh session (625,001 rows a shard: views at 16-byte phases 0, 4, 8
+     launch it made is held against its plain version. A 1,000,008-row
+     mesh session (125,001 rows a shard: views at 16-byte phases 0, 4, 8
      and 12) runs e3, e4, e9, e12 and ranges inside one shard (block rows
      of -1 only on the other seven), each launch held against its plain
      version. Phase 6's scenario at 1,000,000 base rows with an upsert and
@@ -204,10 +205,10 @@ Phases (any mismatch raises; nothing is caught):
      zamba2-1.2b, rwkv6-1.6b and whisper-base at their published widths on
      2 x 512 tokens: a finite loss, gradients and updated weights.
  12. the training runtime: qwen3-1.7b at its published widths, its depth
-     cut only as far as the checkpoints' disk (RUNTIME_KEEP + 1 train
-     states of 24.4 GB at full depth: the kept ones and the one being
-     written) or the host's memory (two snapshots) forces, the cut and its
-     reason printed, trained through ``launch/train.run`` with a flash
+     cut to RUNTIME_MAX_LAYERS for the script's time limit, and further
+     if the checkpoints' disk (RUNTIME_KEEP + 1 train states of 24.4 GB at
+     full depth: the kept ones and the one being written) or the host's
+     memory (two snapshots) forces it, the cut and its reason printed, trained through ``launch/train.run`` with a flash
      config: RUNTIME_STEPS steps of 4 x 2,048 tokens, a checkpoint every
      RUNTIME_CKPT_EVERY steps into a fresh temporary directory (removed at
      the end), a node failure at step 2 and a straggler at 5. Launch counts
@@ -292,6 +293,24 @@ Phases (any mismatch raises; nothing is caught):
      against the meshless step, else the error text is printed and (b)
      left out. Printed beside the card: both step walls and peaks, the
      three decodes' ms a step.
+ 16. the DataFrame engine across processes (``Session`` on a RankMesh,
+     each rank holding only its row shard). (a) A one-rank NCCL group:
+     the 12 expressions at 5,000,000 rows, x ROUNDS in kernel mode and
+     once in shard_map mode, equal numpy and the meshless kernel
+     session, dtypes included; the kernel run's launches (filter_count, segment_agg,
+     block_topk and its merge, merge_join_count), zeroed before it and
+     read after it, join the ``kernels`` line (path "rank_engine"), each
+     held against its plain version on its recorded inputs. (b) Four
+     spawned gloo ranks sharing the card, 1,250,000 rows each: each
+     rank's bytes on the card after registering beside the meshless
+     session's, its answers equal (a)'s, and each expression's wall
+     (median of 7) beside the one-process 4-shard mesh's and phase 9's
+     8-shard one: the cost of distribution on one card, not a speed-up.
+
+``python3 chip_smoke.py --rank-engine`` runs phase 16 alone; under
+``torchrun --nproc-per-node 4`` (one rank a card, NCCL) the same flag runs
+16(b)'s body once, each rank's answers held against numpy and a meshless
+session on its own card.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -373,11 +392,14 @@ def sass_counts(lib_path, kernels: tuple[str, ...]) -> dict:
     return counts
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(every: bool = False) -> str:
+    """The first card's name and power limit (every card's, one a line,
+    when ``every``)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    lines = out.stdout.strip().splitlines()
+    return "\n".join(lines) if every else lines[0]
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -402,6 +424,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_START = time.perf_counter()
+
+
+def phase_header(text: str, flush: bool = True) -> None:
+    """A phase's header line, with the seconds since the script started
+    (each phase's share of the script's time limit)."""
+    print(f"{text} [{time.perf_counter() - _START:.1f} s in]", flush=flush)
 
 
 def host_ms(fn, reps: int = 7) -> float:
@@ -600,6 +631,24 @@ def oracle(raw: dict, name: str, rng):
         lk = raw["unique1"]
         return int((np.searchsorted(r, lk, "right") - np.searchsorted(r, lk, "left")).sum())
     raise KeyError(name)
+
+
+_ORACLE_ROUNDS: dict = {}
+
+
+# the expressions whose answers depend on the literals a round draws
+DRAWN = ("3_filter_count", "10_select_head", "11_range_count")
+
+
+def oracle_round(raw: dict, name: str, r: int):
+    """``oracle`` with round ``r``'s literals (``default_rng(100 + r)``,
+    as every phase draws them), computed once per table (and, for an
+    expression without literals, once for every round) and kept: phases
+    3, 9 and 16 hold their answers to the same numpy ones."""
+    key = (id(raw), name, r if name in DRAWN else None)
+    if key not in _ORACLE_ROUNDS:
+        _ORACLE_ROUNDS[key] = oracle(raw, name, np.random.default_rng(100 + r))
+    return _ORACLE_ROUNDS[key]
 
 
 # -- phase 2: kernels against their plain versions ------------------------------
@@ -845,7 +894,7 @@ def run_slice(table, raw: dict, dev) -> dict:
     for name, fn in EXPRESSIONS.items():
         before = dict(_build.LAUNCHES)
         for r in range(ROUNDS):
-            want = oracle(raw, name, np.random.default_rng(100 + r))
+            want = oracle_round(raw, name, r)
             for m in ("kernel", "gspmd"):
                 got = fn(*frames(m), np.random.default_rng(100 + r))
                 same(got, want, f"{name}[{m}] round {r}")
@@ -2179,6 +2228,9 @@ def time_string_kernels(closed: dict) -> list[dict]:
 DURABLE_TAIL = ("upsert", "delete")  # acked after the eight, left in the WAL
 CRASH_BATCHES = 4    # the crash matrix's cut: LIVE_MIX's first four batches,
 CRASH_FLUSHED = 2    # the first two flushed, the last two the WAL tail
+CRASH_ROWS = 1_000_000   # the crash matrix's base, cut from ROWS for the
+                         # script's time limit (at ROWS phase 8 took 162 s
+                         # on an H100 80GB HBM3, 700 W)
 # tests/test_lsm.py's suite and e3, e4, e8, e11 (LIVE_QUERIES), e9 and e12
 DURABLE_QUERIES = dict(LIVE_QUERIES, **{
     "9_sort_head": lambda df, dim: df.sort_values("unique1", ascending=False).head(),
@@ -2244,8 +2296,9 @@ def run_durable(table, raw: dict, dev, seed: int, card: str,
     into a tenth component), lazily again, eagerly, compacted, and opened
     once more; every state held to the newest-wins oracle through a kernel
     and a gspmd session. Then the crash matrix: a crash at each of
-    ``IO_FAULT_POINTS`` (and a torn run segment) over the base and LIVE_MIX's first four batches
-    (cut from eight; two flushed, two in the WAL), reopened and held to a
+    ``IO_FAULT_POINTS`` (and a torn run segment) over a CRASH_ROWS-row base
+    and LIVE_MIX's first four batches (cut from ROWS rows and eight
+    batches; two flushed, two in the WAL), reopened and held to a
     memory-only session that applied exactly the acked batches. Runs in a
     fresh temporary directory, removed at the end."""
     import gc
@@ -2496,9 +2549,11 @@ def run_durable(table, raw: dict, dev, seed: int, card: str,
                   f"{sorted(p.name for p in seg_dir.iterdir())}", flush=True)
 
             # -- 3. the crash matrix ------------------------------------------
-            gen = LiveOracle(raw)
+            crash_table = wisconsin.generate(CRASH_ROWS, seed=seed)
+            crash_raw = {k: v.numpy() for k, v in crash_table.columns.items()}
+            gen = LiveOracle(crash_raw)
             rng = np.random.default_rng(seed + 1)
-            batches, next_key = [], ROWS
+            batches, next_key = [], CRASH_ROWS
             for i, kind in enumerate(LIVE_MIX[:CRASH_BATCHES]):
                 batches.append((kind, _live_batch(kind, i, rng, gen, next_key)))
                 gen.apply(*batches[-1])
@@ -2510,11 +2565,11 @@ def run_durable(table, raw: dict, dev, seed: int, card: str,
                 (one flush), its visible rows by key; numpy agrees."""
                 if n not in memory:
                     sess = Session(mode="kernel", device=dev)
-                    sess.create_dataset("Live", table, dataverse="live",
+                    sess.create_dataset("Live", crash_table, dataverse="live",
                                         closed=True, primary="unique2",
                                         indexes=["onePercent"])
                     f = Feed(sess, "Live", "live", flush_rows=10**9, policy=policy)
-                    want = LiveOracle(raw)
+                    want = LiveOracle(crash_raw)
                     for kind, batch in batches[:n]:
                         getattr(f, kind)(batch)
                         want.apply(kind, batch)
@@ -2529,8 +2584,9 @@ def run_durable(table, raw: dict, dev, seed: int, card: str,
             for label, point, arrival in crash_cases:
                 dp = root / f"crash-{label}"
                 sess = Session(mode="kernel", device=dev, storage=str(dp))
-                sess.create_dataset("Live", table, dataverse="live", closed=True,
-                                    primary="unique2", indexes=["onePercent"])
+                sess.create_dataset("Live", crash_table, dataverse="live",
+                                    closed=True, primary="unique2",
+                                    indexes=["onePercent"])
                 # armed after the initial commit
                 sess.fault_plan = FaultPlan.once(point, arrival)
                 f = Feed(sess, "Live", "live", flush_rows=10**9, policy=policy)
@@ -2615,7 +2671,7 @@ def run_durable(table, raw: dict, dev, seed: int, card: str,
 MESH_SHARDS = 8             # the reference tests' mesh (tests/test_distributed.py)
 SHARD_SWEEP = (1, 2, 4, 8)  # the distribution cost on one card (Table VII's axis)
 SHARD_TIMED = ("3_filter_count", "4_group_count", "9_sort_head", "12_join_count")
-UNALIGNED_ROWS = 5_000_008  # 625,001 rows a shard: views at 16-byte phases 0/4/8/12
+UNALIGNED_ROWS = 1_000_008  # 125,001 rows a shard: views at 16-byte phases 0/4/8/12
 MESH_LIVE_ROWS = 1_000_000  # phase 6's scenario at a smaller depth
 MESH_LIVE_MIX = ("upsert", "delete")
 MESH_KERNELS = ("filter_count", "segment_agg", "topk_merge", "merge_join_count")
@@ -2681,7 +2737,7 @@ def _frames(sess):
 def check_unaligned_shards(dev, seed: int) -> None:
     """The per-shard launches on shard views at every 16-byte phase and on
     a per-shard block matrix with all -1 rows: an 8-shard kernel session
-    over 5,000,008 rows runs e3, e4, e9, e12 and clustered ranges inside one
+    over UNALIGNED_ROWS rows runs e3, e4, e9, e12 and clustered ranges inside one
     shard (count and group count); every launch it made is recorded and
     held against its plain version."""
     from repro_torch.core import physical as PH
@@ -2895,7 +2951,7 @@ def run_mesh(table, raw: dict, dev, seed: int, card: str) -> dict:
                 before = dict(_build.LAUNCHES)
                 for r in range(ROUNDS):
                     got = fn(*_frames(sess), np.random.default_rng(100 + r))
-                    same(got, oracle(raw, name, np.random.default_rng(100 + r)),
+                    same(got, oracle_round(raw, name, r),
                          f"phase 9 {name}[{m}] round {r}")
                     same(got, want[(name, r)], f"phase 9 {name}[{m}] vs meshless")
                 per_expr[name] = {k: (v - before[k]) // ROUNDS
@@ -4082,6 +4138,10 @@ RUNTIME_MEM_MARGIN = 12e9   # host bytes left beside the snapshots (and a
 # at one layer of qwen3-1.7b's widths. So its checkpoints go to a
 # RAM-backed directory (RUNTIME_SHM) where there is one; on a disk they
 # may take RUNTIME_DISK_WRITES in all, the earlier phases' writes beside.
+# phase 12's depth is also cut for the script's time limit: at 15 layers
+# it took 174.2 s on an H100 80GB HBM3 (700 W) whose host ran the script
+# 1,226 s
+RUNTIME_MAX_LAYERS = 2
 RUNTIME_SHM = "/dev/shm"
 RUNTIME_SAVES = 6
 RUNTIME_DISK_WRITES = 30e9
@@ -4122,7 +4182,8 @@ def _is_tmpfs(path: str) -> bool:
 
 
 def runtime_depth(cfg, free: int, mem: int, in_memory: bool) -> tuple[int, str]:
-    """The largest depth up to the published one at which phase 12 fits.
+    """The largest depth up to the published one and RUNTIME_MAX_LAYERS at
+    which phase 12 fits.
     Its directory holds RUNTIME_KEEP checkpoints and the one being written
     beside them (RUNTIME_DISK_MARGIN to spare). The host holds two
     snapshots (a save copies before it waits for the write in flight); in
@@ -4144,7 +4205,7 @@ def runtime_depth(cfg, free: int, mem: int, in_memory: bool) -> tuple[int, str]:
         space, host, writes = needs(layers)
         return space <= free and host <= mem and writes <= RUNTIME_DISK_WRITES
 
-    layers = cfg.n_layers
+    layers = min(cfg.n_layers, RUNTIME_MAX_LAYERS)
     while layers > 0 and not fits(layers):
         layers -= 1
     space, host, writes = needs(cfg.n_layers)
@@ -4155,7 +4216,8 @@ def runtime_depth(cfg, free: int, mem: int, in_memory: bool) -> tuple[int, str]:
            + (f"{RUNTIME_KEEP + 2} states: the RAM-backed directory's and a "
               "snapshot" if in_memory else "two snapshots")
            + f", + margin){'' if in_memory else f', and {writes:,.0f} bytes of disk writes (limit {RUNTIME_DISK_WRITES:,.0f})'}; "
-           f"there are {free:,} and {mem:,}")
+           f"there are {free:,} and {mem:,}; and the script's time limit "
+           f"caps it at {RUNTIME_MAX_LAYERS}")
     if layers == 0:
         raise AssertionError(f"phase 12: no depth fits: {why}")
     return layers, why
@@ -4940,9 +5002,10 @@ def run_mesh_models(dev, seed: int, card: str) -> dict:
 # of Python (PyTorch's meta kernels), and on the H100 machine's host
 # qwen3-1.7b's 28 layers took 84 s (pod) and 171 s (multi-pod), and
 # deepseek-moe-16b's 4 layers 56 s and 105 s (every expert rank of every
-# data shard runs in turn). qwen3-1.7b keeps 7 of 28 layers,
-# deepseek-moe-16b 2 (1 dense, 1 MoE: expert-parallel on the model axis)
-DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", ("n_layers=7",)),
+# data shard runs in turn). qwen3-1.7b keeps 2 of 28 layers (7 ran
+# 36.2 s on the multi-pod mesh), deepseek-moe-16b 2 (1 dense, 1 MoE:
+# expert-parallel on the model axis; 29.6 s)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", ("n_layers=2",)),
                 ("deepseek-moe-16b", "train_4k", ("n_layers=2",)),
                 ("qwen3-1.7b", "decode_32k", ("attn_impl=flash",)),
                 ("zamba2-1.2b", "long_500k", ()))
@@ -5248,12 +5311,13 @@ def _rank_15b(rank: int, world: int, init: str, out: str) -> None:
         close_rank_mesh()
 
 
-def _spawn_pair(fn, tmp: str, timeout: float) -> None:
-    """``fn(rank, 2, init, tmp)`` in two spawned processes, joined within
-    ``timeout`` (killed after it); a rank's failure raises here."""
+def _spawn_ranks(fn, n: int, tmp: str, timeout: float, *args) -> None:
+    """``fn(rank, n, init, tmp, *args)`` in ``n`` spawned processes, joined
+    within ``timeout`` (killed after it); a rank's failure raises here."""
     import torch.multiprocessing as mp
 
-    ctx = mp.spawn(fn, args=(2, _file_init(tmp), tmp), nprocs=2, join=False)
+    ctx = mp.spawn(fn, args=(n, _file_init(tmp), tmp, *args), nprocs=n,
+                   join=False)
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
@@ -5480,7 +5544,7 @@ def _rank_15b_run(card: str, tmp: str) -> dict:
     """15(b): the gloo probe over CUDA tensors; the data 2 x model 1 step
     where every collective passed."""
     probe_dir = tempfile.mkdtemp(dir=tmp)
-    _spawn_pair(_gloo_cuda_probe, probe_dir, RANK_B_TIMEOUT)
+    _spawn_ranks(_gloo_cuda_probe, 2, probe_dir, RANK_B_TIMEOUT)
     verdicts = [json.loads(Path(probe_dir, f"probe{r}.json").read_text())
                 for r in range(2)]
     carried = all(v[c] == "ok" for v in verdicts for c in RANK_COLLECTIVES)
@@ -5495,7 +5559,7 @@ def _rank_15b_run(card: str, tmp: str) -> dict:
         return out
     run_dir = tempfile.mkdtemp(dir=tmp)
     t0 = time.perf_counter()
-    _spawn_pair(_rank_15b, run_dir, RANK_B_TIMEOUT)
+    _spawn_ranks(_rank_15b, 2, run_dir, RANK_B_TIMEOUT)
     ranks = [json.loads(Path(run_dir, f"rank{r}.json").read_text()) for r in range(2)]
     out.update(ranks=ranks, seconds=time.perf_counter() - t0)
     print(f"  (b) [{card}] data 2 x model 1 over gloo on the one card, "
@@ -5509,6 +5573,268 @@ def _rank_15b_run(card: str, tmp: str) -> dict:
                 or x["grads"] > TRAIN_TOL["grads"] or not all(x["launches"].values()):
             raise AssertionError(f"phase 15 (b): {ranks}")
     return out
+
+
+# -- phase 16: the DataFrame engine across processes (torch.distributed ranks) --
+
+RANK_ENGINE_MODES = {"kernel": ROUNDS, "shard_map": 1}   # rounds of the 12
+RANK_ENGINE_RANKS = 4       # 16(b): gloo ranks sharing the card
+RANK_ENGINE_TIMEOUT = 300   # s: 16(b)'s four processes, their start included
+RANK_ENGINE_SHARDS = 4      # the one-process mesh 16(b)'s walls are set beside
+RANK_ENGINE_KERNELS = ("filter_count", "segment_agg", "block_topk",
+                       "merge_join_count")
+
+
+def _answer(v):
+    """One answer in a JSON-ready form that keeps its dtypes."""
+    if isinstance(v, dict):
+        return {k: [np.asarray(x).tolist(), str(np.asarray(x).dtype)]
+                for k, x in v.items()}
+    return [v.item() if isinstance(v, np.generic) else v, type(v).__name__]
+
+
+def _engine_answers(sess, rounds: int) -> dict:
+    return {f"{name}:{r}": _answer(fn(*_frames(sess), np.random.default_rng(100 + r)))
+            for name, fn in EXPRESSIONS.items() for r in range(rounds)}
+
+
+def _engine_walls(sess) -> dict:
+    """Each expression's wall (median of 7 host-clock runs, result on the
+    host), literals of one draw."""
+    return {name: host_ms(lambda fn=fn: fn(*_frames(sess), np.random.default_rng(1)))
+            for name, fn in EXPRESSIONS.items()}
+
+
+def _rank_16b(rank: int, world: int, init: str, out: str, seed: int) -> None:
+    """16(b)'s rank: one of RANK_ENGINE_RANKS gloo ranks on the one card,
+    a kernel session over its own ROWS / world rows of each table; its
+    answers, launches, memory and walls to ``out``."""
+    import torch
+
+    from repro_torch.data import wisconsin
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    torch.cuda.set_device(0)
+    mesh = init_rank_mesh(world, 1, None, rank=rank, world_size=world,
+                          local_rank=0, init_method=init, backend="gloo")
+    try:
+        Path(out, f"rank{rank}.json").write_text(json.dumps(
+            _rank_engine_body(mesh, wisconsin.generate(ROWS, seed=seed))))
+    finally:
+        close_rank_mesh()
+
+
+def _rank_engine_body(mesh, table) -> dict:
+    """A kernel session on ``mesh`` (a RankMesh) over the two datasets of
+    the 12 expressions: the rows and bytes this process holds after
+    registering, its answers and launches over ROUNDS, its walls."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    sess = _mesh_sessions(table, mesh, ("kernel",))["kernel"]
+    torch.cuda.synchronize()
+    placed_s = time.perf_counter() - t0
+    held_bytes = torch.cuda.memory_allocated()
+    rows = sess.catalog.get("bench", "data").table.columns["unique1"].shape[0]
+    _build.reset_launches()
+    answers = _engine_answers(sess, ROUNDS)
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] for k in RELATIONAL}
+    return {"rank": mesh.rank, "rows": rows, "held_bytes": held_bytes,
+            "placed_s": placed_s, "answers": answers, "launches": launches,
+            "walls_ms": _engine_walls(sess)}
+
+
+def run_rank_engine(table, raw: dict, dev, seed: int, card: str,
+                    sweep: dict | None) -> dict:
+    """Phase 16: the DataFrame engine on a mesh of ``torch.distributed``
+    ranks, each rank holding only its row shard of every table.
+    (a) A one-rank NCCL group (a FileStore rendezvous): a Session on it
+    over the ROWS-row tables in kernel and shard_map mode; the 12
+    expressions (RANK_ENGINE_MODES' rounds) equal numpy and the meshless
+    kernel session, dtypes included; every kernel launch of the kernel run is recorded and
+    held against its plain version; the launches are the
+    ``rank_engine`` path's. (b) RANK_ENGINE_RANKS gloo ranks sharing the
+    card, ROWS / RANK_ENGINE_RANKS rows each: their memory after
+    registering beside the meshless session's, their answers against (a)'s,
+    each expression's wall beside the one-process RANK_ENGINE_SHARDS-shard
+    mesh's and phase 9's 8-shard one (``sweep``) — the cost of
+    distribution on one card, not a speed-up."""
+    import torch
+
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import (close_rank_mesh, init_rank_mesh,
+                                         make_local_mesh)
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    flat = Session(mode="kernel", device=dev)
+    for name in ("data", "data_r"):
+        flat.create_dataset(name, table, dataverse="bench")
+    torch.cuda.synchronize()
+    out["meshless_bytes"] = torch.cuda.memory_allocated() - base
+    want = _engine_answers(flat, ROUNDS)
+    del flat
+    local = _mesh_sessions(table, make_local_mesh(RANK_ENGINE_SHARDS, device=dev),
+                           ("kernel",))["kernel"]
+    out["mesh_walls_ms"] = _engine_walls(local)
+    del local
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rank_engine_")
+    try:
+        mesh = init_rank_mesh(1, 1, None, rank=0, world_size=1, local_rank=0,
+                              init_method=_file_init(tmp))
+        try:
+            for m, rounds in RANK_ENGINE_MODES.items():
+                sess = _mesh_sessions(table, mesh, (m,))[m]
+                calls: list = []
+                _build.reset_launches()
+                with recording(calls):
+                    got = _engine_answers(sess, rounds)
+                torch.cuda.synchronize()
+                launches = {k: _build.LAUNCHES[k] for k in RELATIONAL}
+                for key, g in got.items():
+                    name, r = key.split(":")
+                    if g != want[key]:
+                        raise AssertionError(f"phase 16 (a) {key}[{m}]: rank "
+                                             f"mesh {g} != meshless {want[key]}")
+                    if g != _answer(oracle_round(raw, name, int(r))):
+                        raise AssertionError(f"phase 16 (a) {key}[{m}]: {g} != "
+                                             "numpy")
+                print(f"  (a) [{m}] one-rank nccl group, {ROWS:,} rows: 12 "
+                      f"expressions x {rounds} == meshless == numpy, dtypes "
+                      f"included; launches {launches}", flush=True)
+                if m == "shard_map":
+                    if any(launches.values()):
+                        raise AssertionError(f"phase 16 (a): shard_map launched "
+                                             f"kernels: {launches}")
+                    continue
+                out["launches"] = launches
+                missing = [k for k in RANK_ENGINE_KERNELS if not launches[k]]
+                if missing:
+                    raise AssertionError(f"phase 16 (a): {missing} never launched "
+                                         "on the rank engine path")
+                check_recorded(calls, "phase 16 (a) (one rank)", MESH_KERNELS)
+                del sess, calls
+        finally:
+            close_rank_mesh()
+        torch.cuda.empty_cache()
+        run_dir = tempfile.mkdtemp(dir=tmp)
+        t0 = time.perf_counter()
+        _spawn_ranks(_rank_16b, RANK_ENGINE_RANKS, run_dir, RANK_ENGINE_TIMEOUT,
+                     seed)
+        ranks = [json.loads(Path(run_dir, f"rank{r}.json").read_text())
+                 for r in range(RANK_ENGINE_RANKS)]
+        out["b_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rps = -(-ROWS // RANK_ENGINE_RANKS)
+    for x in ranks:
+        if x["rows"] != rps:
+            raise AssertionError(f"phase 16 (b): rank {x['rank']} holds "
+                                 f"{x['rows']} rows, not {rps}")
+        bad = [k for k, v in x["answers"].items() if v != want[k]]
+        if bad:
+            raise AssertionError(f"phase 16 (b): rank {x['rank']} differs from "
+                                 f"(a) on {bad}")
+        if not all(x["launches"][k] for k in RANK_ENGINE_KERNELS):
+            raise AssertionError(f"phase 16 (b): rank {x['rank']} launches "
+                                 f"{x['launches']}")
+        print(f"  (b) [{card}] rank {x['rank']}: {x['rows']:,} rows of each "
+              f"column, {x['held_bytes'] / 2**30:.3f} GiB allocated after "
+              f"registering (meshless session: {out['meshless_bytes'] / 2**30:.3f}"
+              f" GiB), placed in {x['placed_s']:.2f} s; 12 expressions x "
+              f"{ROUNDS} == (a); launches {x['launches']}", flush=True)
+    walls = {name: statistics.median(x["walls_ms"][name] for x in ranks)
+             for name in EXPRESSIONS}
+    s8 = (sweep or {}).get(MESH_SHARDS, {})
+    for name in EXPRESSIONS:
+        p9 = s8.get(name, {}).get("wall_ms")
+        print(f"  (b) [{card}] {name:16s} {RANK_ENGINE_RANKS} gloo ranks "
+              f"{walls[name]:9.3f} ms   one process, {RANK_ENGINE_SHARDS} shards "
+              f"{out['mesh_walls_ms'][name]:9.3f} ms   phase 9, {MESH_SHARDS} "
+              f"shards " + ("not measured" if p9 is None else f"{p9:9.3f} ms"),
+              flush=True)
+    print("  (b) walls: median of 7 host-clock runs per rank, the ranks' median; "
+          "the cost of distribution on one card (four processes share it, gloo "
+          "stages every collective through the host), not a speed-up", flush=True)
+    out["ranks"] = [{k: v for k, v in x.items() if k != "answers"} for x in ranks]
+    out["rank_walls_ms"] = walls
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  [{card}] phase 16 in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def rank_engine_main(seed: int) -> int:
+    """``--rank-engine``: phase 16 alone, its kernels built first. Under
+    ``torchrun`` (``WORLD_SIZE`` above 1) it runs 16(b)'s body instead on
+    one rank a card over NCCL: each rank's answers against numpy and a
+    meshless kernel session on its own card; rank 0 prints the summary."""
+    import torch
+
+    from repro_torch.data import wisconsin
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    _build.build()
+    _build.lib()
+    card = nvidia_smi()
+    table = wisconsin.generate(ROWS, seed=seed)
+    raw = {k: v.numpy() for k, v in table.columns.items()}
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        dev = torch.device("cuda", 0)
+        out = run_rank_engine(table, raw, dev, seed, card, None)
+        print(json.dumps({"rank_engine": out}))
+        return 0
+    from repro_torch.engine.session import Session
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    mesh = init_rank_mesh(world, 1, None)
+    try:
+        x = _rank_engine_body(mesh, table)   # alone on the card: its bytes
+        flat = Session(mode="kernel", device=mesh.device)
+        for name in ("data", "data_r"):
+            flat.create_dataset(name, table, dataverse="bench")
+        want = _engine_answers(flat, ROUNDS)
+        bad = [k for k, v in x["answers"].items() if v != want[k]]
+        for k, v in x["answers"].items():
+            name, r = k.split(":")
+            if v != _answer(oracle_round(raw, name, int(r))):
+                bad.append(f"{k} vs numpy")
+        if bad or x["rows"] != -(-ROWS // world) \
+                or not all(x["launches"][k] for k in RANK_ENGINE_KERNELS):
+            raise AssertionError(f"rank {mesh.rank}: {bad}, rows {x['rows']}, "
+                                 f"launches {x['launches']}")
+        every = [None] * world
+        torch.distributed.all_gather_object(
+            every, {k: v for k, v in x.items() if k != "answers"})
+        if mesh.rank == 0:
+            for y in every:
+                print(f"  [{torch.cuda.get_device_name(y['rank'] % torch.cuda.device_count())}"
+                      f"] rank {y['rank']}: {y['rows']:,} rows, "
+                      f"{y['held_bytes'] / 2**30:.3f} GiB after registering, "
+                      f"launches {y['launches']}", flush=True)
+            walls = {n: statistics.median(y["walls_ms"][n] for y in every)
+                     for n in EXPRESSIONS}
+            for n, w in walls.items():
+                print(f"  {n:16s} {world} nccl ranks, one a card {w:9.3f} ms",
+                      flush=True)
+            print(nvidia_smi(every=True))
+            print(json.dumps({"rank_engine_nccl": {
+                "world": world, "answers_equal": True, "ranks": every,
+                "walls_ms": walls}}))
+    finally:
+        close_rank_mesh()
+    return 0
 
 
 def device_breakdown(fn, top: int = 12) -> list:
@@ -5824,7 +6150,12 @@ def print_kernel_row(k: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--rank-engine", action="store_true",
+                    help="phase 16 alone (under torchrun: 16(b)'s body on "
+                         "one rank a card over NCCL)")
     args = ap.parse_args(argv)
+    if args.rank_engine:
+        return rank_engine_main(args.seed)
 
     import torch
 
@@ -5843,7 +6174,7 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
 
-    print("phase 1: build", flush=True)
+    phase_header("phase 1: build", flush=True)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.lib()
@@ -5866,19 +6197,19 @@ def main(argv=None) -> int:
     print(f"  generated {ROWS} rows in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    print("phase 2: kernels vs plain versions on the card", flush=True)
+    phase_header("phase 2: kernels vs plain versions on the card", flush=True)
     cases = check_kernels(raw, dev)
     attn_cases = check_attention_kernels(dev)
     bwd_cases = check_flash_backward(dev)
 
-    print(f"phase 3: the 12 Wisconsin expressions at {ROWS} rows", flush=True)
+    phase_header(f"phase 3: the 12 Wisconsin expressions at {ROWS} rows", flush=True)
     res = run_slice(table, raw, dev)
 
-    print(f"phase 4: the model-UDF pipeline, paper-lm over {UDF_ROWS} x "
+    phase_header(f"phase 4: the model-UDF pipeline, paper-lm over {UDF_ROWS} x "
           f"{UDF_SEQ} tokens", flush=True)
     udf = run_udf_slice(dev, args.seed)
 
-    print("phase 5: timings", flush=True)
+    phase_header("phase 5: timings", flush=True)
     print(f"  card clocks.sm, max, power, temperature: {smi_clocks()}",
           flush=True)
     def fmt(t):
@@ -5920,14 +6251,14 @@ def main(argv=None) -> int:
     if not all(math.isfinite(k["ms"]) for k in kernels + decode_rows):
         raise AssertionError("non-finite kernel time")
 
-    print(f"phase 6: live ingestion — {ROWS} rows, then {len(LIVE_MIX)} "
+    phase_header(f"phase 6: live ingestion — {ROWS} rows, then {len(LIVE_MIX)} "
           f"batches of {LIVE_BATCH} ({', '.join(LIVE_MIX)}), a view, the "
           f"compaction", flush=True)
     stringu1 = wisconsin_stringu1(raw)
     live = run_live(table, raw, dev, args.seed, card,
                     strings_hook=live_strings_hook(card, stringu1))
 
-    print(f"phase 7: the string fast path, windows and dialects at {ROWS} "
+    phase_header(f"phase 7: the string fast path, windows and dialects at {ROWS} "
           f"rows (the live part ran above, over phase 6's components)",
           flush=True)
     closed = run_strings_windows(table, raw, dev, card, stringu1)
@@ -5939,12 +6270,12 @@ def main(argv=None) -> int:
                           ("launches", "queries", "breakdowns",
                            "cumsum_unique1_deviation")},
                "live": live.pop("strings")}
-    print(f"phase 8: durability — Session(storage=dir) at {ROWS} rows + "
+    phase_header(f"phase 8: durability — Session(storage=dir) at {ROWS} rows + "
           f"{len(LIVE_MIX) + len(DURABLE_TAIL)} batches, Session.open lazy and "
           f"eager, the compaction, and the crash matrix over "
           f"{CRASH_BATCHES} batches", flush=True)
     durable = run_durable(table, raw, dev, args.seed, card, live["flushes"])
-    print(f"phase 9: the multi-device engine — the 12 expressions on a "
+    phase_header(f"phase 9: the multi-device engine — the 12 expressions on a "
           f"{MESH_SHARDS}-shard mesh of the card (shard_map and kernel), "
           f"unaligned shard views, the live scenario on the mesh at "
           f"{MESH_LIVE_ROWS} rows, S = {', '.join(map(str, SHARD_SWEEP))}",
@@ -5953,7 +6284,7 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in mesh["launches"]:
             k["launches_mesh"] = mesh["launches"][k["name"]]
-    print(f"phase 10: serving — {SERVE_ARCH} at its published config, "
+    phase_header(f"phase 10: serving — {SERVE_ARCH} at its published config, "
           f"{SERVE_BATCH} requests x ({SERVE_PROMPT} + {SERVE_NEW}) tokens, "
           f"flash and blocked; then {', '.join(a for a, _ in FAMILY_CELLS)} "
           f"at {FAMILY_BATCH} x {FAMILY_PROMPT} + {FAMILY_STEPS} steps", flush=True)
@@ -5972,7 +6303,7 @@ def main(argv=None) -> int:
         print_kernel_row(k)
     kernels.append(serving.pop("row"))
     variants += decode_rows
-    print(f"phase 11: training — {TRAIN_ARCH} at its published config, "
+    phase_header(f"phase 11: training — {TRAIN_ARCH} at its published config, "
           f"{TRAIN_STEPS} train steps on {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
           f"(flash, remat, AdamW), against blocked; then one step of "
           f"{', '.join(a for a, _ in FAMILY_CELLS)} at {FAMILY_BATCH} x "
@@ -5984,7 +6315,7 @@ def main(argv=None) -> int:
     bwd_row["max_abs_err_rel"] = bwd_cases["err"]
     kernels.append(bwd_row)
     torch.cuda.empty_cache()
-    print(f"phase 12: the training runtime — {TRAIN_ARCH} through "
+    phase_header(f"phase 12: the training runtime — {TRAIN_ARCH} through "
           f"launch/train.run (flash), {RUNTIME_STEPS} steps of {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens, checkpoints every {RUNTIME_CKPT_EVERY}, injected "
           f"{RUNTIME_SCHEDULE}, then a resume and two planted faults", flush=True)
@@ -5999,7 +6330,7 @@ def main(argv=None) -> int:
                                    "runtime": runtime["launches"]["flash_attention_bwd"]}
     bwd_row["launches"] += runtime["launches"]["flash_attention_bwd"]
     torch.cuda.empty_cache()
-    print(f"phase 13: the model mesh on one card — {MESH_ARCH} served "
+    phase_header(f"phase 13: the model mesh on one card — {MESH_ARCH} served "
           f"({MESH_SERVE_BATCH} x ({MESH_SERVE_PROMPT} + {MESH_SERVE_NEW}), "
           f"shardmap decode) and trained ({MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, "
           f"data-parallel) on a data {MESH_DATA} x model {MESH_MODEL} mesh, "
@@ -6010,7 +6341,7 @@ def main(argv=None) -> int:
         row["launches_by_path"]["mesh"] = mesh_models["launches"][name]
         row["launches"] += mesh_models["launches"][name]
     torch.cuda.empty_cache()
-    print(f"phase 14: the dry-run — {len(DRYRUN_CELLS)} cells at published width "
+    phase_header(f"phase 14: the dry-run — {len(DRYRUN_CELLS)} cells at published width "
           f"on both pod meshes of the meta device; the cost model over "
           f"{TRAIN_ARCH}'s train step and flash decode step on the card and on "
           f"meta", flush=True)
@@ -6038,7 +6369,7 @@ def main(argv=None) -> int:
         row["launches_by_path"]["cost"] = cost["launches"][name]
         row["launches"] += cost["launches"][name]
     torch.cuda.empty_cache()
-    print(f"phase 15: the model mesh across processes — {RANK_ARCH} at its "
+    phase_header(f"phase 15: the model mesh across processes — {RANK_ARCH} at its "
           f"published config on a one-rank nccl group, weights placed: a train "
           f"step against the meshless one, the shardmap and flash decodes against "
           f"the one-hot one; gloo ranks sharing the card", flush=True)
@@ -6049,6 +6380,23 @@ def main(argv=None) -> int:
         row["launches"] += ranks["launches"][name]
         if not ranks["launches"][name]:
             raise AssertionError(f"phase 15: {name} never launched on the rank path")
+    torch.cuda.empty_cache()
+    phase_header(f"phase 16: the DataFrame engine across processes — a Session on a "
+          f"one-rank nccl group at {ROWS} rows (kernel and shard_map), then "
+          f"{RANK_ENGINE_RANKS} gloo ranks sharing the card, each holding "
+          f"{-(-ROWS // RANK_ENGINE_RANKS):,} rows", flush=True)
+    rank_engine = run_rank_engine(table, raw, dev, args.seed, card,
+                                  mesh["sweep"])
+    for row in kernels:
+        if row["name"] in RELATIONAL:
+            n = rank_engine["launches"][row["name"]]
+            row.setdefault("launches_by_path", {"slice": row["launches"]})
+            row["launches_by_path"]["rank_engine"] = n
+            row["launches"] += n
+    for name in RANK_ENGINE_KERNELS:
+        if not rank_engine["launches"][name]:
+            raise AssertionError(f"phase 16: {name} never launched on the "
+                                 "rank engine path")
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -6061,6 +6409,7 @@ def main(argv=None) -> int:
                       "serving": serving, "training": training,
                       "runtime": runtime, "mesh_models": mesh_models,
                       "cost_model": cost, "rank_mesh": ranks,
+                      "rank_engine": rank_engine,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

@@ -106,7 +106,8 @@ class Dataset:
     def num_live_rows(self) -> int:
         """Visible matter rows: physical matter minus rows newer anti-matter
         has annihilated."""
-        matter = self.live_rows if self.live_rows is not None else len(self.table)
+        matter = self.live_rows if self.live_rows is not None \
+            else self.table.global_rows
         return max(matter - self.annihilated_rows, 0)
 
     def index_on(self, column: str) -> Optional[IndexInfo]:
@@ -458,4 +459,4 @@ def open_widen(table: Table) -> Table:
         else:
             cols[name] = col
             meta[name] = m
-    return Table(cols, meta, table.num_rows)
+    return table.with_columns(cols, meta)

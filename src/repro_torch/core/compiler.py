@@ -23,6 +23,16 @@ lowerings:
     launch the hand-written CUDA kernels on CUDA tensors and their plain
     versions on CPU tensors.
 
+On a mesh of ``torch.distributed`` ranks (``launch.mesh.RankMesh``) every
+mode lowers onto :class:`ShardMapStrategy`: a rank holds only its row
+shard, so even ``gspmd`` (which torch has no compiler for) runs the same
+explicit collectives. A stream is then either this rank's shard (a scan
+and the filters and projections over it) or whole and the same on every
+rank (what a merge returned: a limit, a top-k, a group-by); operators over
+a whole stream run locally (:func:`_strategy`), and a sharded stream is
+gathered before an operator that has no shard-local form (a full sort, a
+window, a materialized join) and before delivery (:func:`_whole`).
+
 Over a fed dataset every component lowers on its own (per-component index
 probes, kernel launches, visibility masks) and the results merge: scalars
 with +/max/min (``MergeScalars``), streams by concatenation
@@ -48,6 +58,7 @@ from repro_torch.engine import physical
 from repro_torch.engine.distributed import ShardBlocks
 from repro_torch.engine.index import _search
 from repro_torch.engine.table import encode_strings, is_lane_column
+from repro_torch.launch.mesh import is_rank_mesh
 from repro_torch.runtime import telemetry as tel
 
 
@@ -201,8 +212,9 @@ class ShardMapStrategy(LoweringStrategy):
 def make_strategy(ctx: "ExecContext") -> LoweringStrategy:
     """The only place the execution mode is consulted at lowering time:
     pick the collective placement. Operator choice already happened in the
-    planner."""
-    if ctx.mode in ("shard_map", "kernel") and ctx.mesh is not None:
+    planner. A rank mesh takes the explicit collectives in every mode."""
+    if ctx.mesh is not None and (ctx.mode in ("shard_map", "kernel")
+                                 or is_rank_mesh(ctx.mesh)):
         return ShardMapStrategy(ctx.mesh, ctx.data_axes)
     sharded = ctx.mesh is not None and mesh_shards(ctx.mesh, ctx.data_axes) > 1
     return LoweringStrategy(ctx.mesh if sharded else None, ctx.data_axes)
@@ -220,6 +232,48 @@ class ExecContext:
     def __post_init__(self):
         if self.strategy is None:
             self.strategy = make_strategy(self)
+
+    @property
+    def on_ranks(self) -> bool:
+        return is_rank_mesh(self.mesh)
+
+
+_LOCAL = LoweringStrategy()
+
+
+def _replicated(node: PH.PhysOp) -> bool:
+    """On a rank mesh: True where ``node``'s stream is whole and the same
+    on every rank (a merge's result, or computed from one), False where it
+    is this rank's row shard (a scan, and the filters and projections over
+    it)."""
+    if isinstance(node, (PH.TableScan, PH.IndexProbe)):
+        return False
+    if isinstance(node, (PH.LimitRows, PH.TopKSelect, PH.SortRows,
+                         PH.WindowEval, PH.JoinGather, PH.GroupAggGeneric,
+                         PH.KernelSegmentAgg)):
+        return True
+    return bool(node.children) and all(_replicated(c) for c in node.children)
+
+
+def _strategy(ctx: "ExecContext", child: PH.PhysOp) -> LoweringStrategy:
+    """The strategy for an operator over ``child``'s stream: a whole
+    stream on a rank mesh is merged already, so the operator runs locally
+    (the same on every rank)."""
+    return _LOCAL if ctx.on_ranks and _replicated(child) else ctx.strategy
+
+
+def _whole(fn: Callable, child: PH.PhysOp, ctx: "ExecContext") -> Callable:
+    """``fn`` (``child``'s lowered stream) made whole on every rank of a
+    rank mesh: this rank's shard is gathered with the others (shard order
+    is row order). The identity elsewhere."""
+    if not ctx.on_ranks or _replicated(child):
+        return fn
+    from repro_torch.engine.distributed import gather_stream
+
+    def gathered(tables, params):
+        env, mask = fn(tables, params)
+        return gather_stream(ctx.mesh, ctx.data_axes, env, mask)
+    return gathered
 
 
 @dataclasses.dataclass
@@ -356,7 +410,8 @@ def _shadowed(tables: dict, keys: torch.Tensor, shadow_sources) -> torch.Tensor:
 
 def _block_gather(blocks: Optional[tuple], zone_block: int,
                   n_shards: int = 1, blocks_per_shard: int = 0,
-                  rows_per_shard: int = 0, pad_multiple: int = 1):
+                  rows_per_shard: int = 0, pad_multiple: int = 1,
+                  own_shard: Optional[int] = None):
     """Static-slice gather of the surviving row blocks (ascending ids keep
     the original row order); None = identity.
 
@@ -365,7 +420,12 @@ def _block_gather(blocks: Optional[tuple], zone_block: int,
     shard ``s``'s row chunk and a trailing partial block clips at the
     chunk's end, so a gather never straddles shards. ``pad_multiple``
     zero-pads the gathered length to a multiple (the shard_map operators
-    split rows evenly over the mesh); pad rows carry a False mask."""
+    split rows evenly over the mesh); pad rows carry a False mask.
+
+    ``own_shard`` (a rank mesh): the columns are that shard's rows alone,
+    so only its own blocks are gathered, at local offsets; a rank with no
+    surviving block keeps one dead row (every rank still takes part in the
+    merges that follow)."""
     if blocks is None:
         return lambda col: col
     spans = []
@@ -374,13 +434,17 @@ def _block_gather(blocks: Optional[tuple], zone_block: int,
             spans.append((b * zone_block, (b + 1) * zone_block))
         else:
             s, j = divmod(b, blocks_per_shard)
-            base = s * rows_per_shard
+            if own_shard is not None and s != own_shard:
+                continue
+            base = 0 if own_shard is not None else s * rows_per_shard
             spans.append((base + j * zone_block,
                           base + min((j + 1) * zone_block, rows_per_shard)))
 
     def sel(col):
-        parts = [col[lo:hi] for lo, hi in spans]
+        parts = [col[lo:hi] for lo, hi in spans] or [col[:0]]
         out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        if not out.shape[0]:
+            return out.new_zeros((1,) + tuple(out.shape[1:]))
         pad = (-out.shape[0]) % pad_multiple
         if pad:
             out = torch.cat([out, out.new_zeros((pad,) + tuple(out.shape[1:]))])
@@ -390,10 +454,16 @@ def _block_gather(blocks: Optional[tuple], zone_block: int,
 
 def _stream_pad(ctx: ExecContext) -> int:
     """Row-count multiple a gathered stream must keep: the shard_map
-    operators split their inputs evenly over the mesh's shards."""
-    if isinstance(ctx.strategy, ShardMapStrategy):
+    operators split their inputs evenly over the one-process mesh's
+    shards (a rank's stream is its shard alone)."""
+    if isinstance(ctx.strategy, ShardMapStrategy) and not ctx.on_ranks:
         return mesh_shards(ctx.mesh, ctx.data_axes)
     return 1
+
+
+def _own_shard(ctx: ExecContext) -> Optional[int]:
+    """This rank's shard number on a rank mesh, else None."""
+    return ctx.mesh.index(tuple(ctx.data_axes)) if ctx.on_ranks else None
 
 
 def _lower_component(node, ctx: ExecContext,
@@ -405,7 +475,8 @@ def _lower_component(node, ctx: ExecContext,
     open_cast = node.open_cast
     shadow, key_col = node.shadow_sources, node.key_col
     sel = _block_gather(node.block_ids, node.zone_block, *node.shard_layout(),
-                        pad_multiple=_stream_pad(ctx))
+                        pad_multiple=_stream_pad(ctx),
+                        own_shard=_own_shard(ctx))
 
     def fn(tables, params):
         env, mask = _env_of(tables[key], open_cast)
@@ -488,10 +559,11 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
 
     if isinstance(node, PH.LimitRows):
         child = _lower_stream(node.children[0], ctx)
+        strategy = _strategy(ctx, node.children[0])
 
         def fn(tables, params):
             env, mask = child(tables, params)
-            return ctx.strategy.limit(env, mask, node.n)
+            return strategy.limit(env, mask, node.n)
         return fn
 
     if isinstance(node, PH.TopKSelect):
@@ -500,15 +572,17 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
         # swaps in the block_topk kernel, everything else is shared
         select = physical.kernel_topk_select() if node.kernel \
             else physical._select_topk
+        strategy = _strategy(ctx, node.children[0])
 
         def fn(tables, params):
             env, mask = child(tables, params)
-            return ctx.strategy.topk(env, mask, node.key, node.k,
-                                     node.ascending, select)
+            return strategy.topk(env, mask, node.key, node.k,
+                                 node.ascending, select)
         return fn
 
     if isinstance(node, PH.SortRows):
-        child = _lower_stream(node.children[0], ctx)
+        child = _whole(_lower_stream(node.children[0], ctx),
+                       node.children[0], ctx)
 
         def fn(tables, params):
             env, mask = child(tables, params)
@@ -516,7 +590,8 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
         return fn
 
     if isinstance(node, PH.WindowEval):
-        child = _lower_stream(node.children[0], ctx)
+        child = _whole(_lower_stream(node.children[0], ctx),
+                       node.children[0], ctx)
 
         def fn(tables, params):
             env, mask = child(tables, params)
@@ -525,8 +600,10 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
 
     if isinstance(node, PH.JoinGather):
         # build-key uniqueness/disjointness was proven by the planner
-        lchild = _lower_stream(node.children[0], ctx)
-        rchild = _lower_stream(node.children[1], ctx)
+        lchild = _whole(_lower_stream(node.children[0], ctx),
+                        node.children[0], ctx)
+        rchild = _whole(_lower_stream(node.children[1], ctx),
+                        node.children[1], ctx)
 
         def fn(tables, params):
             lenv, lm = lchild(tables, params)
@@ -549,10 +626,11 @@ def _lower_groupagg(node, ctx: ExecContext) -> Callable:
     else:
         child = _lower_stream(node.children[0], ctx)
         key, lo, num_groups = node.key, node.lo, node.num_groups
+        strategy = _strategy(ctx, node.children[0])
 
         def inner(tables, params):
             env, mask = child(tables, params)
-            return ctx.strategy.group_agg(env, mask, key, lo, num_groups, aggs)
+            return strategy.group_agg(env, mask, key, lo, num_groups, aggs)
 
     if node.key_values is None:
         return inner
@@ -703,12 +781,13 @@ def _lower_terminal(node: PH.PhysOp, ctx: ExecContext) -> tuple[str, Callable]:
     if isinstance(node, PH.MaskCount):
         child = _lower_stream(node.children[0], ctx)
         pred = node.predicate
+        strategy = _strategy(ctx, node.children[0])
 
         def fn(tables, params):
             env, mask = child(tables, params)
             if pred is not None:
                 mask = mask & pred.evaluate(env, params)
-            return {"count": ctx.strategy.count(mask)}
+            return {"count": strategy.count(mask)}
         return "scalar", fn
 
     if isinstance(node, PH.JoinCountOp):
@@ -717,17 +796,18 @@ def _lower_terminal(node: PH.PhysOp, ctx: ExecContext) -> tuple[str, Callable]:
     if isinstance(node, PH.ScalarAgg):
         child = _lower_stream(node.children[0], ctx)
         aggs = [(s.out_name, s.op, s.column) for s in node.aggs]
+        strategy = _strategy(ctx, node.children[0])
 
         def fn(tables, params):
             env, mask = child(tables, params)
-            return {name: ctx.strategy.agg(env, mask, op, col)
+            return {name: strategy.agg(env, mask, op, col)
                     for name, op, col in aggs}
         return "scalar", fn
 
     if isinstance(node, (PH.GroupAggGeneric, PH.KernelSegmentAgg)):
         return "grouped", _lower_groupagg(node, ctx)
 
-    return "table", _lower_stream(node, ctx)
+    return "table", _whole(_lower_stream(node, ctx), node, ctx)
 
 
 def _lower_kernel_range_count(node: PH.KernelRangeCount, ctx: ExecContext) -> Callable:
@@ -853,11 +933,20 @@ def _lower_join_count(node: PH.JoinCountOp, ctx: ExecContext) -> Callable:
     rchild = _lower_stream(node.children[1], ctx)
     left_on, right_on = node.left_on, node.right_on
     presorted = node.presorted
+    strategy = ctx.strategy
+    if ctx.on_ranks and (_replicated(node.children[0])
+                         or _replicated(node.children[1])):
+        # a whole side on a rank mesh: the other is gathered, and the
+        # join runs locally (the right keys from its stream, not from
+        # this rank's shard of an index)
+        lchild = _whole(lchild, node.children[0], ctx)
+        rchild = _whole(rchild, node.children[1], ctx)
+        presorted, strategy = False, _LOCAL
     if presorted:
         rkey_table = f"{node.presorted_key[0]}.{node.presorted_key[1]}"
         rkey_name = f"__ix_{right_on}__"
-    join = ctx.strategy.kernel_join_count if node.kernel \
-        else ctx.strategy.join_count
+    join = strategy.kernel_join_count if node.kernel \
+        else strategy.join_count
 
     def fn(tables, params):
         lenv, lm = lchild(tables, params)

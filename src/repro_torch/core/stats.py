@@ -73,9 +73,15 @@ def harvest_block_zones(table, n_shards: int = 1) -> Optional[BlockZones]:
     """A table's per-block zone maps (None when it has no numeric column or
     no rows), laid out over ``n_shards`` row partitions — one partition
     when the rows do not split evenly. O(rows) at load — never at query
-    time."""
+    time.
+
+    A rank's shard (``Table.shard`` on a RankMesh) harvests its own blocks
+    and all-gathers them over the data axes: every rank then holds the
+    per-shard layout the one-process mesh builds over the whole table."""
     from repro_torch.engine.table import compute_block_zones
 
+    if table.mesh is not None:
+        return _gathered_block_zones(table)
     n = len(table)
     if n_shards <= 1 or (n and n % n_shards):
         n_shards = 1
@@ -85,6 +91,23 @@ def harvest_block_zones(table, n_shards: int = 1) -> Optional[BlockZones]:
     nb = int(next(iter(spans.values())).shape[0])
     return BlockZones(ZONE_BLOCK_ROWS, nb, spans, n_shards,
                       n // max(n_shards, 1))
+
+
+def _gathered_block_zones(table) -> Optional[BlockZones]:
+    import torch
+
+    from repro_torch.engine import distributed as D
+    from repro_torch.engine.table import compute_block_zones
+
+    local = compute_block_zones(table, ZONE_BLOCK_ROWS, 1)
+    if not local:
+        return None
+    sh = D.Shards(table.mesh, table.data_axes)
+    dev = table.device
+    spans = {k: sh.gather([torch.from_numpy(v).to(dev)]).cpu().numpy()
+             for k, v in local.items()}
+    nb = int(next(iter(spans.values())).shape[0])
+    return BlockZones(ZONE_BLOCK_ROWS, nb, spans, sh.n, table.num_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +183,7 @@ def harvest(ds: Dataset) -> TableStats:
             index=ix.kind if ix is not None else None,
             dict_values=meta.dict_values)
     return TableStats(address=f"{ds.dataverse}.{ds.name}",
-                      rows=ds.num_live_rows, padded_rows=len(ds.table),
+                      rows=ds.num_live_rows, padded_rows=ds.table.global_rows,
                       columns=cols,
                       kind="run" if "@" in ds.name else "dataset",
                       tombstones=ds.anti_rows, shadowed=ds.annihilated_rows,

@@ -30,7 +30,17 @@ own view.
 The same collectives (and ``reduce_scatter``) have a rank form, the seam
 to ``torch.distributed``: this rank's own part and the process group of
 a ``RankMesh`` axis (``group=``). The model paths use it on a rank mesh
-(``models/sharding.py``); the DataFrame operators do not run on ranks yet.
+(``models/sharding.py``), and so does every operator below: on a
+``RankMesh`` a table's column IS this rank's shard (``Table.shard`` keeps
+only its rows), so an operator does its shard-local work once over the
+whole tensor it holds and merges over the data axes' process group
+(``Shards``). Every rank runs the same collectives in the same order
+(they plan alike) and ends with the same merged value. Where the list
+form adds float partials in shard order, the rank form gathers them and
+adds them in rank order (``Shards.psum``), so a float result is the
+same bit for bit on either mesh; integer sums are exact either way.
+Streams of unequal length across ranks (a block gather keeps each rank's
+own surviving blocks) are padded with dead rows before a gather.
 
 Each collective reports itself to the active cost counters
 (``runtime/costs.py``, ``launch/hlocost.py``): its kind (the
@@ -50,6 +60,7 @@ import torch
 
 from repro_torch.engine import physical
 from repro_torch.engine.index import _search
+from repro_torch.launch.mesh import is_rank_mesh
 from repro_torch.runtime import costs
 
 
@@ -212,21 +223,120 @@ def reduce_scatter(part: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 _MERGE = {"sum": psum, "max": pmax, "min": pmin}
 
 
+class Shards:
+    """A mesh's row shards as the operators see them. On the one-process
+    mesh: ``views`` splits each whole column into its shards' views, and
+    the merges take one partial per shard (the list form). On a
+    ``RankMesh``: ``views`` is this rank's own tensor, one part, and the
+    merges run over the data axes' process group (the rank form); ``index``
+    is this rank's shard number."""
+
+    def __init__(self, mesh, data_axes):
+        self.n = n_shards(mesh, data_axes)
+        self.group = self.index = None
+        if is_rank_mesh(mesh):
+            axes = tuple(data_axes)
+            self.group, self.index = mesh.group(axes), mesh.index(axes)
+
+    def views(self, x: torch.Tensor) -> list[torch.Tensor]:
+        return [x] if self.group is not None else shard_views(x, self.n)
+
+    def merge(self, op: str, parts: list) -> torch.Tensor:
+        """``op`` ("sum" / "max" / "min") over the partials. A float sum is
+        added in shard order on either form."""
+        if self.group is None:
+            return _MERGE[op](parts)
+        part = parts[0]
+        if op == "sum" and part.dtype.is_floating_point:
+            return _ordered_sum(part, self.group)
+        return _MERGE[op](part, group=self.group)
+
+    def psum(self, parts: list) -> torch.Tensor:
+        return self.merge("sum", parts)
+
+    def longest(self, x: torch.Tensor) -> int:
+        """The most rows any shard's ``x`` has (its own length on the
+        one-process mesh, where the views split evenly)."""
+        if self.group is None:
+            return x.shape[0]
+        n = torch.tensor(x.shape[0], dtype=torch.int64, device=x.device)
+        return int(pmax(n, group=self.group))
+
+    def gather(self, parts: list, rows: Optional[int] = None,
+               fill=0) -> torch.Tensor:
+        """The shards' parts concatenated along dim 0 in shard order. In
+        the rank form each part is first padded with ``fill`` to ``rows``
+        rows (None: the longest part)."""
+        if self.group is None:
+            return all_gather(parts)
+        x = parts[0]
+        if rows is None:
+            rows = self.longest(x)
+        if x.shape[0] < rows:
+            x = torch.cat([x, x.new_full((rows - x.shape[0],) + tuple(x.shape[1:]),
+                                         fill)])
+        if x.dtype == torch.bool:   # gloo and NCCL move bytes, not bools
+            return all_gather(x.to(torch.uint8), group=self.group).bool()
+        return all_gather(x, group=self.group)
+
+    def gather_rows(self, tensors: list, rows: int) -> list:
+        """Rank form only: each of ``tensors`` (this rank's rows, at most
+        ``rows`` of them) zero-padded to ``rows`` rows and concatenated over
+        the shards in shard order, in ONE all-gather: every tensor's rows
+        are packed side by side as bytes, gathered, and cut back into
+        their dtypes and shapes. A collective costs host time and, across
+        processes, a round trip; a stream's columns move together."""
+        packed = []
+        for t in tensors:
+            t = t.contiguous()
+            if t.shape[0] < rows:
+                t = torch.cat([t, t.new_zeros((rows - t.shape[0],)
+                                              + tuple(t.shape[1:]))])
+            packed.append(t.view(torch.uint8).reshape(rows, -1))
+        widths = [p.shape[1] for p in packed]
+        every = all_gather(torch.cat(packed, dim=1), group=self.group)
+        out, at = [], 0
+        for t, w in zip(tensors, widths):
+            cut = every[:, at:at + w].contiguous().view(t.dtype)
+            out.append(cut.reshape((every.shape[0],) + tuple(t.shape[1:])))
+            at += w
+        return out
+
+    def all_to_all(self, parts: list) -> list:
+        """Every destination's received rows on the one-process mesh; this
+        rank's alone (a list of one) on a rank mesh."""
+        if self.group is None:
+            return all_to_all(parts)
+        return [all_to_all(parts[0], group=self.group)]
+
+
+def _ordered_sum(part: torch.Tensor, group) -> torch.Tensor:
+    """The rank form of a float psum that adds in shard order: the parts
+    gathered, then added one after another as the list form adds them (an
+    all-reduce's own order is the backend's)."""
+    def merge():
+        x = part.detach().reshape((1,) + tuple(part.shape)).contiguous()
+        out = x.new_empty((group.size(),) + tuple(part.shape))
+        _gather_into(out, x, group)
+        return functools.reduce(torch.add, out.unbind(0))
+    return _ranked("all-reduce", part, group, merge, _nbytes)
+
+
 # -- scalar aggregation -----------------------------------------------------------
 
 
 def dist_count(mesh, data_axes, mask: torch.Tensor) -> torch.Tensor:
-    nsh = n_shards(mesh, data_axes)
-    return psum([m.sum(dtype=torch.int32) for m in shard_views(mask, nsh)])
+    sh = Shards(mesh, data_axes)
+    return sh.psum([m.sum(dtype=torch.int32) for m in sh.views(mask)])
 
 
 def dist_agg(mesh, data_axes, op: str, col: torch.Tensor, mask: torch.Tensor):
-    nsh = n_shards(mesh, data_axes)
-    cols, masks = shard_views(col, nsh), shard_views(mask, nsh)
+    sh = Shards(mesh, data_axes)
+    cols, masks = sh.views(col), sh.views(mask)
     if op == "mean":
-        s = psum([torch.where(m, c, 0).to(torch.float32).sum()
-                  for c, m in zip(cols, masks)])
-        n = psum([m.sum(dtype=torch.int32) for m in masks])
+        s = sh.psum([torch.where(m, c, 0).to(torch.float32).sum()
+                     for c, m in zip(cols, masks)])
+        n = sh.psum([m.sum(dtype=torch.int32) for m in masks])
         return s / n.clamp(min=1)
     if op == "count":
         op = "sum"
@@ -236,7 +346,7 @@ def dist_agg(mesh, data_axes, op: str, col: torch.Tensor, mask: torch.Tensor):
                  for c, m in zip(cols, masks)]
     if op not in _MERGE:
         raise ValueError(op)
-    return _MERGE[op](parts)
+    return sh.merge(op, parts)
 
 
 # -- group by ----------------------------------------------------------------------
@@ -248,7 +358,7 @@ def dist_group_agg(mesh, data_axes, key_col, mask, lo: int, num_groups: int,
     merge. ``aggs``: [(out_name, op, col|None)]; ``value_cols``: {col:
     tensor}. ``mean`` decomposes into psum(sum) / psum(count). Returns the
     merged (G-row) group table and its live-group mask."""
-    nsh = n_shards(mesh, data_axes)
+    sh = Shards(mesh, data_axes)
     names = sorted(value_cols)
     prim: list[tuple[str, str, Optional[str]]] = [("__n__", "count", None)]
     for o, op, c in aggs:
@@ -256,15 +366,15 @@ def dist_group_agg(mesh, data_axes, key_col, mask, lo: int, num_groups: int,
             prim.append((f"__sum_{o}", "sum", c))
         else:
             prim.append((o, op, c))
-    keys, masks = shard_views(key_col, nsh), shard_views(mask, nsh)
-    vals = {n: shard_views(value_cols[n], nsh) for n in names}
+    keys, masks = sh.views(key_col), sh.views(mask)
+    vals = {n: sh.views(value_cols[n]) for n in names}
     outs = []
-    for s in range(nsh):
+    for s in range(len(keys)):
         env = {"__key__": keys[s], **{n: vals[n][s] for n in names}}
         out, _ = physical.group_agg(env, masks[s], "__key__", lo, num_groups,
                                     prim)
         outs.append(out)
-    merged = {o: _MERGE["sum" if op == "count" else op]([d[o] for d in outs])
+    merged = {o: sh.merge("sum" if op == "count" else op, [d[o] for d in outs])
               for o, op, _ in prim}
     out = {"__key__": outs[0]["__key__"]}
     for o, op, c in aggs:
@@ -278,17 +388,40 @@ def dist_group_agg(mesh, data_axes, key_col, mask, lo: int, num_groups: int,
 # -- top-k / limit -----------------------------------------------------------------
 
 
-def _shard_env(env: dict, mask, nsh: int):
+def _shard_env(sh: Shards, env: dict, mask):
     names = sorted(env)
-    cols = {n: shard_views(env[n], nsh) for n in names}
-    masks = shard_views(mask, nsh)
-    return [({n: cols[n][s] for n in names}, masks[s]) for s in range(nsh)]
+    cols = {n: sh.views(env[n]) for n in names}
+    masks = sh.views(mask)
+    return [({n: cols[n][s] for n in names}, masks[s])
+            for s in range(len(masks))]
 
 
-def _gather_env(parts: list) -> tuple[dict, torch.Tensor]:
+def _gather_env(sh: Shards, parts: list,
+                rows: Optional[int] = None) -> tuple[dict, torch.Tensor]:
+    """The shards' (env, mask) parts concatenated in shard order; in the
+    rank form each padded to ``rows`` rows with dead ones (None: the
+    longest)."""
     names = list(parts[0][0])
-    return ({n: all_gather([e[n] for e, _ in parts]) for n in names},
-            all_gather([m for _, m in parts]))
+    if sh.group is None:
+        return ({n: sh.gather([e[n] for e, _ in parts]) for n in names},
+                sh.gather([m for _, m in parts]))
+    env, mask = parts[0]
+    if rows is None:
+        rows = sh.longest(mask)
+    *cols, mask = sh.gather_rows([env[n] for n in names] + [mask], rows)
+    return dict(zip(names, cols)), mask
+
+
+def gather_stream(mesh, data_axes, env: dict, mask) -> tuple[dict, torch.Tensor]:
+    """A row-sharded stream made whole on every rank (shard order is row
+    order; the pad rows between shards are dead): what a rank mesh does
+    before an operator that has no shard-local form (a full sort, a
+    window, a materialized join) and at result delivery. The identity on
+    the one-process mesh, whose columns are whole."""
+    sh = Shards(mesh, data_axes)
+    if sh.group is None:
+        return env, mask
+    return _gather_env(sh, [(env, mask)])
 
 
 def dist_topk(mesh, data_axes, env: dict, mask, key: str, k: int,
@@ -296,20 +429,22 @@ def dist_topk(mesh, data_axes, env: dict, mask, key: str, k: int,
     """Local top-k, a k-per-shard gather, then the final top-k. ``select``
     swaps the selection primitive (kernel mode passes block_topk); the
     merge is the same. The gathered candidates are shard-major and shards
-    are contiguous in row order, so ties still go to the lower row."""
-    nsh = n_shards(mesh, data_axes)
+    are contiguous in row order, so ties still go to the lower row. A rank
+    pads its candidates to k rows (dead ones), so that every rank sends as
+    many."""
+    sh = Shards(mesh, data_axes)
     local = [physical.topk(e, m, key, min(k, m.shape[0]), ascending,
                            select=select)
-             for e, m in _shard_env(env, mask, nsh)]
-    ge, gm = _gather_env(local)
+             for e, m in _shard_env(sh, env, mask)]
+    ge, gm = _gather_env(sh, local, k)
     return physical.topk(ge, gm, key, k, ascending, select=select)
 
 
 def dist_limit(mesh, data_axes, env: dict, mask, n: int):
     """Local compact(n), gather, then the first n (shard-major order)."""
-    nsh = n_shards(mesh, data_axes)
-    local = [physical.limit(e, m, n) for e, m in _shard_env(env, mask, nsh)]
-    ge, gm = _gather_env(local)
+    sh = Shards(mesh, data_axes)
+    local = [physical.limit(e, m, n) for e, m in _shard_env(sh, env, mask)]
+    ge, gm = _gather_env(sh, local, n)
     return physical.limit(ge, gm, n)
 
 
@@ -322,21 +457,22 @@ def dist_join_count(mesh, data_axes, lkey, lmask, rkey, rmask,
     sorted index skips that), the sorted runs are gathered and merged, each
     shard probes its own rows with two binary searches, psum. int32, as
     the reference's x64-off result."""
-    nsh = n_shards(mesh, data_axes)
+    sh = Shards(mesh, data_axes)
     sentinel = physical._maxval(rkey.dtype)
-    rks, rms = shard_views(rkey, nsh), shard_views(rmask, nsh)
+    rks, rms = sh.views(rkey), sh.views(rmask)
     runs = [rk if presorted_right
             else torch.sort(torch.where(rm, rk, sentinel)).values
             for rk, rm in zip(rks, rms)]
-    rs_g = torch.sort(all_gather(runs)).values   # merge the gathered runs
-    n_r = psum([rm.sum() for rm in rms])
+    # merge the gathered runs (a rank's run is padded with the sentinel)
+    rs_g = torch.sort(sh.gather(runs, fill=sentinel)).values
+    n_r = sh.psum([rm.sum() for rm in rms])
     parts = []
-    for lk, lm in zip(shard_views(lkey, nsh), shard_views(lmask, nsh)):
+    for lk, lm in zip(sh.views(lkey), sh.views(lmask)):
         lo = _search(rs_g, lk, "left")
         hi = torch.minimum(_search(rs_g, lk, "right"), n_r)
         parts.append(torch.where(lm, (hi - lo).clamp(min=0), 0)
                      .sum(dtype=torch.int32))
-    return psum(parts)
+    return sh.psum(parts)
 
 
 def hash_repartition_counts(mesh, data_axes, lkey, lmask, rkey, rmask,
@@ -346,7 +482,8 @@ def hash_repartition_counts(mesh, data_axes, lkey, lmask, rkey, rmask,
     and a psum. Each (source, destination) bucket holds a fixed capacity;
     what does not fit is dropped and counted. Returns (total, drops), int32
     tensors. ``capacity_factor=2`` drops nothing for uniform keys."""
-    nsh = n_shards(mesh, data_axes)
+    sh = Shards(mesh, data_axes)
+    nsh = sh.n
 
     def repartition(k, m):
         n = k.shape[0]
@@ -367,22 +504,23 @@ def hash_repartition_counts(mesh, data_axes, lkey, lmask, rkey, rmask,
         slot = torch.where(keep, slot, nsh * cap)   # trash slot for drops
         buf = torch.zeros(nsh * cap + 1, dtype=k.dtype, device=dev)
         buf[slot] = ks
-        bm = torch.zeros(nsh * cap + 1, dtype=torch.bool, device=dev)
-        bm[slot] = keep
+        bm = torch.zeros(nsh * cap + 1, dtype=torch.uint8, device=dev)
+        bm[slot] = keep.to(torch.uint8)
         dropped = m.sum(dtype=torch.int32) - keep.sum(dtype=torch.int32)
         return buf[:-1].view(nsh, cap), bm[:-1].view(nsh, cap), dropped
 
-    left = [repartition(k, m) for k, m in zip(shard_views(lkey, nsh),
-                                               shard_views(lmask, nsh))]
-    right = [repartition(k, m) for k, m in zip(shard_views(rkey, nsh),
-                                                shard_views(rmask, nsh))]
+    left = [repartition(k, m) for k, m in zip(sh.views(lkey), sh.views(lmask))]
+    right = [repartition(k, m) for k, m in zip(sh.views(rkey), sh.views(rmask))]
     # all_to_all: row d of every source's block goes to shard d
-    lbuf, lbm = all_to_all([b for b, _, _ in left]), all_to_all([b for _, b, _ in left])
-    rbuf, rbm = all_to_all([b for b, _, _ in right]), all_to_all([b for _, b, _ in right])
-    counts = [physical.join_count(lbuf[s], lbm[s], rbuf[s], rbm[s])
-              .to(torch.int32) for s in range(nsh)]
-    drops = [left[s][2] + right[s][2] for s in range(nsh)]
-    return psum(counts), psum(drops)
+    lbuf, lbm = (sh.all_to_all([b for b, _, _ in left]),
+                 sh.all_to_all([b for _, b, _ in left]))
+    rbuf, rbm = (sh.all_to_all([b for b, _, _ in right]),
+                 sh.all_to_all([b for _, b, _ in right]))
+    counts = [physical.join_count(lbuf[s], lbm[s].bool(), rbuf[s],
+                                  rbm[s].bool()).to(torch.int32)
+              for s in range(len(lbuf))]
+    drops = [lf[2] + rt[2] for lf, rt in zip(left, right)]
+    return sh.psum(counts), sh.psum(drops)
 
 
 # -- kernel-mode compositions -------------------------------------------------------
@@ -391,7 +529,8 @@ def hash_repartition_counts(mesh, data_axes, lkey, lmask, rkey, rmask,
 # merges partials with the same collectives as the operators above:
 # filter-count / group-agg psum their partials, join-count gathers the
 # sorted build side. Kernel top-k is dist_topk with the block_topk
-# selection primitive.
+# selection primitive. On a rank mesh each rank launches each kernel once,
+# over its own shard.
 
 
 class ShardBlocks:
@@ -399,7 +538,8 @@ class ShardBlocks:
     ``s`` is shard ``s``'s local kernel-block ids, ``-1``-padded at the
     end), kept on the host for the block accounting and placed on each
     device once — row ``s`` is then a view that shard ``s``'s launch takes
-    as its ``block_ids_arr``."""
+    as its ``block_ids_arr`` (on a rank mesh, the row of this rank's
+    shard)."""
 
     def __init__(self, host: np.ndarray):
         self.host = np.asarray(host, np.int32)
@@ -411,6 +551,11 @@ class ShardBlocks:
         if t is None:
             t = self._placed[device] = torch.from_numpy(self.host).to(device)
         return t
+
+    def rows(self, sh: Shards, device) -> torch.Tensor:
+        """The rows of the shards this process launches for, in order."""
+        ids = self.on(device)
+        return ids if sh.group is None else ids[sh.index:sh.index + 1]
 
 
 def _check_blocks(nsh: int, block_ids, shard_blocks):
@@ -426,14 +571,15 @@ def _check_blocks(nsh: int, block_ids, shard_blocks):
     return sb
 
 
-def _count_blocks(kernel: str, sb: ShardBlocks, nsh: int, n: int,
+def _count_blocks(kernel: str, sb: ShardBlocks, nsh: int, rows: int,
                   block: int) -> None:
-    """The true scanned / skipped block accounting, kept here where the
-    ``-1`` pads are visible (each shard's grid length over-counts by its
-    padding)."""
+    """The true scanned / skipped block accounting over every shard (the
+    same totals on every rank), kept here where the ``-1`` pads are
+    visible (each shard's grid length over-counts by its padding).
+    ``rows``: one shard's rows."""
     from repro_torch.runtime import telemetry as tel
 
-    nb_local = -(-(n // nsh) // block)
+    nb_local = -(-rows // block)
     tel.inc("kernel.blocks_scanned_total", sb.scanned, kernel=kernel)
     tel.inc("kernel.blocks_skipped_total", nsh * nb_local - sb.scanned,
             kernel=kernel)
@@ -453,17 +599,17 @@ def dist_kernel_filter_count(mesh, data_axes, cols, bounds: torch.Tensor,
     from repro_torch.kernels import ops
     from repro_torch.kernels.filter_count import BLOCK as _FC_BLOCK
 
-    nsh = n_shards(mesh, data_axes)
-    sb = _check_blocks(nsh, block_ids, shard_blocks)
+    sh = Shards(mesh, data_axes)
+    sb = _check_blocks(sh.n, block_ids, shard_blocks)
     cols = list(cols)
-    per_col = [shard_views(c, nsh) for c in cols]
-    n = cols[0].shape[0]
+    per_col = [sh.views(c) for c in cols]
     ids = None
     if sb is not None:
-        _count_blocks("filter_count", sb, nsh, n, _FC_BLOCK)
-        ids = sb.on(cols[0].device)
+        _count_blocks("filter_count", sb, sh.n, per_col[0][0].shape[0],
+                      _FC_BLOCK)
+        ids = sb.rows(sh, cols[0].device)
     parts = []
-    for s in range(nsh):
+    for s in range(len(per_col[0])):
         local = [v[s] for v in per_col]
         rows = local[0].shape[0]
         if ids is not None:
@@ -472,7 +618,7 @@ def dist_kernel_filter_count(mesh, data_axes, cols, bounds: torch.Tensor,
         else:
             parts.append(ops.filter_count(local, bounds, rows,
                                           block_ids=block_ids))
-    return psum(parts)
+    return sh.psum(parts)
 
 
 def dist_kernel_group_agg(mesh, data_axes, gids: torch.Tensor,
@@ -487,22 +633,22 @@ def dist_kernel_group_agg(mesh, data_axes, gids: torch.Tensor,
     from repro_torch.kernels import ops
     from repro_torch.kernels.segment_agg import BLOCK as _SA_BLOCK
 
-    nsh = n_shards(mesh, data_axes)
-    sb = _check_blocks(nsh, block_ids, shard_blocks)
+    sh = Shards(mesh, data_axes)
+    sb = _check_blocks(sh.n, block_ids, shard_blocks)
+    gv, vv = sh.views(gids), sh.views(values)
     ids = None
     if sb is not None:
-        _count_blocks("segment_agg", sb, nsh, gids.shape[0], _SA_BLOCK)
-        ids = sb.on(gids.device)
+        _count_blocks("segment_agg", sb, sh.n, gv[0].shape[0], _SA_BLOCK)
+        ids = sb.rows(sh, gids.device)
     parts = []
-    for s, (g, v) in enumerate(zip(shard_views(gids, nsh),
-                                   shard_views(values, nsh))):
+    for s, (g, v) in enumerate(zip(gv, vv)):
         if ids is not None:
             parts.append(ops.segment_agg(v, g, num_groups, v.shape[0], op=op,
                                          block_ids_arr=ids[s]))
         else:
             parts.append(ops.segment_agg(v, g, num_groups, v.shape[0], op=op,
                                          block_ids=block_ids))
-    return _MERGE[op](parts)
+    return sh.merge(op, parts)
 
 
 def dist_kernel_join_count(mesh, data_axes, lkey, lmask, rkey, rmask,
@@ -513,18 +659,18 @@ def dist_kernel_join_count(mesh, data_axes, lkey, lmask, rkey, rmask,
     psum."""
     from repro_torch.kernels import ops
 
-    nsh = n_shards(mesh, data_axes)
-    rms = shard_views(rmask, nsh)
+    sh = Shards(mesh, data_axes)
+    rms = sh.views(rmask)
     runs = [ops.sort_join_keys(rk, rm, presorted=presorted_right)
-            for rk, rm in zip(shard_views(rkey, nsh), rms)]
-    rs = torch.sort(all_gather(runs)).values
-    nr = psum([rm.sum(dtype=torch.int32) for rm in rms])
+            for rk, rm in zip(sh.views(rkey), rms)]
+    rs = torch.sort(sh.gather(runs, fill=ops.INT32_MAX)).values
+    nr = sh.psum([rm.sum(dtype=torch.int32) for rm in rms])
     parts = []
-    for lk, lm in zip(shard_views(lkey, nsh), shard_views(lmask, nsh)):
+    for lk, lm in zip(sh.views(lkey), sh.views(lmask)):
         ls = ops.sort_join_keys(lk, lm)
         nl = lm.sum(dtype=torch.int32)
         parts.append(ops.merge_join_count(ls, rs, nl, nr).to(torch.int32))
-    return psum(parts)
+    return sh.psum(parts)
 
 
 # -- index -------------------------------------------------------------------------
@@ -536,11 +682,10 @@ def dist_index_count(mesh, data_axes, sorted_keys, valid, lo, hi):
     ``num_valid``: pad rows sort to the +inf tail of each shard's index)."""
     from repro_torch.engine.index import index_count_local
 
-    nsh = n_shards(mesh, data_axes)
-    return psum([index_count_local(sk, v.sum(dtype=torch.int32), lo, hi)
-                 .to(torch.int32)
-                 for sk, v in zip(shard_views(sorted_keys, nsh),
-                                  shard_views(valid, nsh))])
+    sh = Shards(mesh, data_axes)
+    return sh.psum([index_count_local(sk, v.sum(dtype=torch.int32), lo, hi)
+                    .to(torch.int32)
+                    for sk, v in zip(sh.views(sorted_keys), sh.views(valid))])
 
 
 def dist_shadow_count(mesh, data_axes, sorted_keys, valid, anti_keys, lo, hi):
@@ -549,8 +694,7 @@ def dist_shadow_count(mesh, data_axes, sorted_keys, valid, anti_keys, lo, hi):
     the per-shard occurrence counts psum."""
     from repro_torch.engine.index import shadow_count_local
 
-    nsh = n_shards(mesh, data_axes)
-    return psum([shadow_count_local(sk, v.sum(dtype=torch.int32), anti_keys,
-                                    lo, hi).to(torch.int32)
-                 for sk, v in zip(shard_views(sorted_keys, nsh),
-                                  shard_views(valid, nsh))])
+    sh = Shards(mesh, data_axes)
+    return sh.psum([shadow_count_local(sk, v.sum(dtype=torch.int32), anti_keys,
+                                       lo, hi).to(torch.int32)
+                    for sk, v in zip(sh.views(sorted_keys), sh.views(valid))])

@@ -83,6 +83,20 @@ def build_index(keys: torch.Tensor, valid: torch.Tensor, column: str,
                        torch.cat([p.zone_max for p in parts]))
 
 
+def build_index_on_ranks(keys: torch.Tensor, valid: torch.Tensor, column: str,
+                         kind: str, mesh, data_axes) -> SortedIndex:
+    """The index of a rank's row shard (a ``RankMesh``): the rank sorts its
+    own rows (:func:`build_index_local`, ``row_ids`` local to the shard)
+    and the ranks all-gather their zone arrays, so every rank holds the
+    per-shard zones the one-process mesh's :func:`build_index` lays out."""
+    from repro_torch.engine import distributed as D
+
+    ix = build_index_local(keys, valid, column, kind)
+    sh = D.Shards(mesh, data_axes)
+    return dataclasses.replace(ix, zone_min=sh.gather([ix.zone_min]),
+                               zone_max=sh.gather([ix.zone_max]))
+
+
 def index_count_local(ix_keys: torch.Tensor, num_valid: torch.Tensor,
                       lo, hi) -> torch.Tensor:
     """Range count on sorted keys (index-only), int32."""

@@ -42,6 +42,7 @@ import numpy as np
 from repro_torch.core.physical_planner import STALL_WARN_FRAC
 from repro_torch.engine import lsm
 from repro_torch.engine.table import Table, is_lane_column, numpy_dtype
+from repro_torch.launch.mesh import refuse_on_ranks
 from repro_torch.runtime import telemetry as tel
 
 
@@ -78,6 +79,7 @@ class Feed:
         sleeps up to ``stall_delay_s`` along the planner's stall-pressure
         curve; at the hard cap the writer blocks up to ``stall_timeout_s``
         for the worker to catch up (the ceiling)."""
+        refuse_on_ranks(session.mesh, "Feed (ingest, upserts and deletes)")
         self.session = session
         self.dataset = dataset
         self.dataverse = dataverse

@@ -51,6 +51,7 @@ from repro_torch.core.catalog import INTERNAL_COLUMNS, Dataset, Manifest, open_w
 from repro_torch.device import resolve_device
 from repro_torch.engine.table import (ColumnMeta, Table, is_lane_column,
                                       pad_to_block)
+from repro_torch.launch.mesh import refuse_on_ranks
 from repro_torch.runtime import telemetry as tel
 from repro_torch.runtime.fault import StorageFault
 
@@ -168,6 +169,8 @@ def make_run(session, base: Dataset, table: Table,
     False) and the sorted ``anti_keys_arr`` tensor visibility probes
     search."""
     from repro_torch.core.stats import harvest_block_zones
+
+    refuse_on_ranks(session.mesh, "an LSM run")
     from repro_torch.engine.session import _collect_stats
 
     t0 = time.perf_counter()
@@ -374,6 +377,7 @@ def compact(session, ds: Dataset, manifest: Optional[Manifest] = None) -> Datase
     reconciled against the fresh base at swap time. With a durable store
     the new base's segment is written off-lock before the CAS; a lost CAS
     unlinks it (never committed)."""
+    refuse_on_ranks(session.mesh, "compaction")
     cat = session.catalog
     dv, name = ds.dataverse, ds.name
     ensure_soft(session, dv, name)  # kill-sets and host keys must be live
@@ -438,6 +442,7 @@ def merge_runs(session, ds: Dataset, start: int, end: int, level: int,
     annihilated; the merged run keeps the union of the members' anti keys
     (older components still need them). Concurrency and the segment write
     as :func:`compact`."""
+    refuse_on_ranks(session.mesh, "compaction")
     cat = session.catalog
     dv, name = ds.dataverse, ds.name
     ensure_soft(session, dv, name)  # kill-sets and host keys must be live
@@ -517,6 +522,7 @@ class BackgroundCompactor:
 
     def __init__(self, session, policy: Optional[CompactionPolicy] = None,
                  max_retries: int = 5, backoff_s: float = 0.002):
+        refuse_on_ranks(session.mesh, "BackgroundCompactor")
         self.session = session
         self.policy = policy if policy is not None else CompactionPolicy()
         self.max_retries = max_retries

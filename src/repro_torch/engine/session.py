@@ -22,6 +22,31 @@ in ``shard_map`` and ``kernel`` mode, runs each operator shard by shard
 with explicit merges (``engine/distributed.py``); zone maps, block lists
 and indexes follow the per-shard layout, and point lookups are routed to
 the owning shard.
+
+``Session(mesh=init_rank_mesh(data=S, ...))`` runs the same engine over a
+mesh of ``torch.distributed`` ranks, one process each (every rank builds
+its own session and makes the same calls). The invariants:
+
+* I1, only a rank's own rows on its device: each rank keeps rows ``[i *
+  rps, (i + 1) * rps)`` of every table (rps = ceil(n / S), ``Table.shard``)
+  plus its ``__valid__`` mask; what else it holds is small and
+  replicated (column stats, zone maps, index zones, merged results). The
+  statistics are computed per shard and merged over the data axes, so the
+  whole table never reaches the device, not even while registering.
+* I2, every rank plans alike: the stats, the gathered zone maps and so
+  the plans, prune reports and ``explain`` texts are the same on every
+  rank, and equal the one-process S-shard mesh's (a rank whose plan
+  differed would issue other collectives, and the group would hang).
+* I3, every rank answers alike: each operator merges over the data axes'
+  process group (``engine/distributed.py``, in every mode: there is no
+  GSPMD in torch, so ``gspmd`` lowers to the same explicit collectives),
+  row streams are gathered before delivery, and point lookups gather the
+  owning rank's rows; the answers and their dtypes equal the one-process
+  mesh's and the meshless session's.
+
+On a rank mesh the feed (ingest, upserts, deletes), LSM runs and
+compaction, views and durability (``storage=``, ``persist``, ``open``)
+raise ``NotImplementedError`` (ROADMAP A9b-2d).
 """
 from __future__ import annotations
 
@@ -50,6 +75,7 @@ from repro_torch.engine.table import (DICT_THRESHOLD, ColumnMeta, Table,
                                       decode_strings, dict_lane_name,
                                       is_lane_column, numpy_dtype,
                                       pack_prefix, prefix_lane_name)
+from repro_torch.launch.mesh import is_rank_mesh, refuse_on_ranks
 from repro_torch.runtime import telemetry as tel
 
 _SESSION_IDS = itertools.count()
@@ -148,8 +174,10 @@ class Session:
         collectives), or 'kernel' (the planner lowers fusable plan shapes
         onto the relational kernels — once per shard on a mesh; anything
         uncovered runs the generic operators). ``mesh``
-        (``launch.mesh.make_local_mesh``) row-shards every table over its
-        ``data_axes``; its device is the session device. ``catalog``
+        (``launch.mesh.make_local_mesh``, or ``init_rank_mesh`` for a mesh
+        of ranks, where 'auto' is always 'shard_map') row-shards every
+        table over its ``data_axes``; its device is the session device
+        (this rank's on a rank mesh). ``catalog``
         shares another session's datasets (reader sessions: each keeps its
         own plan caches).
 
@@ -169,8 +197,8 @@ class Session:
         manifest generation, and feeds write an fsynced WAL; ``open``
         recovers such a directory."""
         if mode == "auto":
-            mode = "shard_map" if mesh is not None and mesh.size > 1 \
-                else "gspmd"
+            mode = "shard_map" if mesh is not None and (
+                mesh.size > 1 or is_rank_mesh(mesh)) else "gspmd"
         if mode not in ("gspmd", "shard_map", "kernel"):
             raise ValueError(f"unknown mode {mode!r}: "
                              "expected auto | gspmd | shard_map | kernel")
@@ -188,6 +216,7 @@ class Session:
         self.fault_plan = fault_plan
         self.storage = None
         if storage is not None:
+            refuse_on_ranks(mesh, "a durable store (storage=, Session.open)")
             from repro_torch.engine import lsm
             from repro_torch.runtime.durable import DurableStore
 
@@ -374,7 +403,19 @@ class Session:
         once. ``stats_like`` (compaction: the retiring base's meta) keeps
         the string dict-lane decision sticky across components. On a mesh
         the table is row-sharded (``Table.shard``) and its zone maps and
-        indexes follow the per-shard layout."""
+        indexes follow the per-shard layout.
+
+        On a rank mesh (I1) the shard comes first: this rank's rows alone
+        move to the device, and the statistics, string lanes, zone maps
+        and index zones are computed over the shard and merged over the
+        data axes (:func:`_collect_stats_on_ranks`,
+        ``harvest_block_zones``, ``build_index_on_ranks``), equal on every
+        rank and to what the one-process mesh builds. The source table
+        (every rank is given the same one) stays where it is; the
+        clustering sort and ``host_keys`` come from it."""
+        on_ranks = is_rank_mesh(self.mesh)
+        if on_ranks and stats_like is not None:
+            refuse_on_ranks(self.mesh, "compaction")
         host_keys = None
         if primary is not None:
             keys = table.columns[primary].cpu().numpy()
@@ -384,18 +425,25 @@ class Session:
             table = Table({k: v[order.to(v.device)]
                            for k, v in table.columns.items()},
                           table.meta, table.num_rows)
-        table = _collect_stats(table.to(self.device), like=stats_like)
+        source = table
+        if on_ranks:
+            table = _collect_stats_on_ranks(
+                table.shard(self.mesh, self.data_axes), table.num_rows)
+        else:
+            table = _collect_stats(table.to(self.device), like=stats_like)
         if not closed:
             table = open_widen(table)
         if primary is not None:
             meta = dict(table.meta)
             meta[primary] = dataclasses.replace(meta[primary],
                                                 sorted_ascending=True)
-            table = Table(table.columns, meta, table.num_rows)
-            # host copy of the clustered key order: annihilation bookkeeping
-            # and point lookups binary-search it
-            host_keys = table.columns[primary].cpu().numpy()
-        if self.mesh is not None:
+            table = table.with_columns(table.columns, meta)
+            # host copy of the clustered key order (whole, on a rank mesh
+            # too): annihilation bookkeeping and point lookups search it
+            keys = (source if on_ranks else table).columns[primary]
+            host_keys = keys.cpu().numpy().astype(
+                numpy_dtype(table.columns[primary].dtype), copy=False)
+        if self.mesh is not None and not on_ranks:
             table = table.shard(self.mesh, self.data_axes)
         ds = Dataset(name=name, dataverse=dataverse, table=table, closed=closed,
                      host_keys=host_keys,
@@ -408,11 +456,15 @@ class Session:
 
     def _build_index(self, table: Table, column: str, kind: str) -> IndexInfo:
         """A sorted index, built per shard on a mesh (pad rows sort to each
-        shard's +inf tail)."""
-        from repro_torch.engine.index import build_index
+        shard's +inf tail; on a rank mesh each rank sorts its own shard)."""
+        from repro_torch.engine.index import build_index, build_index_on_ranks
 
-        ix = build_index(table.columns[column], table.valid, column, kind,
-                         self.n_shards)
+        if table.mesh is not None:
+            ix = build_index_on_ranks(table.columns[column], table.valid,
+                                      column, kind, table.mesh, table.data_axes)
+        else:
+            ix = build_index(table.columns[column], table.valid, column, kind,
+                             self.n_shards)
         return IndexInfo(name=f"{kind}:{column}", column=column, kind=kind,
                          sorted_keys=ix.sorted_keys, row_ids=ix.row_ids,
                          zone_min=ix.zone_min, zone_max=ix.zone_max)
@@ -429,6 +481,7 @@ class Session:
 
         from repro_torch.engine import lsm
 
+        refuse_on_ranks(self.mesh, "a materialized view")
         plan = getattr(frame_or_plan, "_plan", frame_or_plan)
         view = MaterializedView.from_plan(name, plan, self.device)
         lsm.ensure_soft(self, view.dataverse, view.dataset)
@@ -583,11 +636,7 @@ class Session:
                         if hi > lo:
                             # the matter prefix is clustered by the primary
                             # key: index positions are table row positions
-                            result = {c: v[lo:hi].cpu().numpy()
-                                      for c, v in comp.table.columns.items()
-                                      if c not in INTERNAL_COLUMNS
-                                      and not c.startswith("__ix")
-                                      and not is_lane_column(c)}
+                            result = _table_rows(comp.table, lo, hi)
                             found_in = f"{comp.dataverse}.{comp.name}"
                             break
             if comp.anti_rows:
@@ -739,6 +788,7 @@ class Session:
         the session's device — its rows, with the query's live-row mask as
         ``__valid__`` — as a new closed single-component dataset with fresh
         statistics and zone maps."""
+        refuse_on_ranks(self.mesh, "persist (CREATE DATASET AS)")
         raw_lits = ordered_lits(P.all_exprs(plan))
         self._ensure_bound(plan)
         with self.catalog.snapshot() as snap:
@@ -878,6 +928,34 @@ def _mount_component(session: Session, dataverse: str, seg: str,
     return ds
 
 
+def _table_rows(table: Table, lo: int, hi: int) -> dict[str, np.ndarray]:
+    """Rows ``[lo, hi)`` of the table's user columns, as numpy. On a rank's
+    shard the rows are global ids: each rank fills the ones it owns, the
+    ranks all-gather (every rank takes part; the host key copies told them
+    all the same range), and each row is taken from its owner — the same
+    answer on every rank."""
+    names = [c for c in table.columns if c not in INTERNAL_COLUMNS
+             and not c.startswith("__ix") and not is_lane_column(c)]
+    if table.mesh is None:
+        return {c: table.columns[c][lo:hi].cpu().numpy() for c in names}
+    from repro_torch.engine import distributed as D
+
+    sh = D.Shards(table.mesh, table.data_axes)
+    off, rps, width = table.row_offset, table.num_rows, hi - lo
+    a, b = max(lo, off), min(hi, off + rps)        # the rows this rank owns
+    owner = torch.arange(lo, hi) // rps
+    pick = owner * width + torch.arange(width)     # row p from its owner
+    parts = []
+    for c in names:
+        v = table.columns[c]
+        part = v.new_zeros((width,) + tuple(v.shape[1:]))
+        if b > a:
+            part[a - lo:b - lo] = v[a - off:b - off]
+        parts.append(part)
+    return {c: g.cpu()[pick].numpy()
+            for c, g in zip(names, sh.gather_rows(parts, width))}
+
+
 def _route_key(comp, key_col: str, key, n_keys: int):
     """Shard-route a point lookup inside one component: fold the clustered
     key column's per-shard zone spans into one [lo, hi] per row partition
@@ -967,6 +1045,134 @@ def _collect_stats(table: Table, like: Optional[Mapping] = None) -> Table:
             meta[name] = ColumnMeta(numpy_dtype(col.dtype), lo, hi,
                                     min(hi - lo + 1, col.numel()))
     return Table(cols, meta, table.num_rows)
+
+
+def _span(sh, x: torch.Tensor, mask: torch.Tensor):
+    """(min, max) of ``x`` over the masked rows of every shard, as Python
+    numbers, or (None, None) where no shard has such a row."""
+    if not int(sh.psum([mask.sum(dtype=torch.int64)])):
+        return None, None
+    big = torch.finfo(x.dtype) if x.dtype.is_floating_point \
+        else torch.iinfo(x.dtype)
+    lo = sh.merge("min", [torch.where(mask, x, big.max).min()])
+    hi = sh.merge("max", [torch.where(mask, x, big.min).max()])
+    return lo.item(), hi.item()
+
+
+def _distinct_rows(sh, uniq: torch.Tensor) -> int:
+    """How many distinct rows the shards' deduplicated (u, w) uint8 rows
+    hold together: each row goes to the shard a hash of its bytes names
+    (an all-to-all into fixed-capacity buckets), so equal rows meet on one
+    shard; their distinct counts psum. No shard sees more than its
+    bucket."""
+    dev, nsh = uniq.device, sh.n
+    weights = torch.arange(uniq.shape[1], dtype=torch.int64,
+                           device=dev) * 2654435761 + 1
+    dest = torch.remainder((uniq.to(torch.int64) * weights).sum(1), nsh)
+    order = torch.argsort(dest, stable=True)
+    ds, rows = dest[order], uniq[order]
+    counts = torch.bincount(dest, minlength=nsh)
+    cap = max(int(sh.merge("max", [counts.max()])), 1)
+    slot = ds * cap + torch.arange(ds.shape[0], device=dev) \
+        - (torch.cumsum(counts, 0) - counts)[ds]
+    buf = uniq.new_zeros((nsh * cap, uniq.shape[1]))
+    buf[slot] = rows
+    have = torch.zeros(nsh * cap, dtype=torch.uint8, device=dev)
+    have[slot] = 1
+    got = sh.all_to_all([buf.view(nsh, cap, -1)])[0]
+    kept = sh.all_to_all([have.view(nsh, cap)])[0].bool()
+    mine = torch.unique(got[kept], dim=0).shape[0]
+    return int(sh.psum([torch.tensor(mine, dtype=torch.int64, device=dev)]))
+
+
+def _string_dictionary(sh, col: torch.Tensor, live: torch.Tensor):
+    """A string column's sorted dictionary over the live rows of every
+    shard, its distinct count and this shard's dict-lane ids (the sorted
+    dictionary's positions; dead rows -1), as ``torch.unique`` over the
+    whole column gives them; (None, distinct, None) past DICT_THRESHOLD.
+    The shards' own dictionaries are gathered only while every one is
+    within the threshold; beyond it only the count is merged."""
+    uniq, inv = torch.unique(col[live], dim=0, return_inverse=True)
+    most = sh.longest(uniq)
+    if most > DICT_THRESHOLD:
+        return None, _distinct_rows(sh, uniq), None
+    rows = max(most, 1)
+    have = torch.ones(uniq.shape[0], dtype=torch.bool, device=col.device)
+    every = sh.gather([uniq], rows)[sh.gather([have], rows)]
+    dictionary = torch.unique(every, dim=0)
+    g = int(dictionary.shape[0])
+    if g > DICT_THRESHOLD:
+        return None, g, None
+    pos = (uniq[:, None, :] == dictionary[None]).all(-1).to(torch.int32) \
+        .argmax(1).to(torch.int32)
+    ids = torch.full((col.shape[0],), -1, dtype=torch.int32, device=col.device)
+    ids[live] = pos[inv]
+    return dictionary, g, ids
+
+
+def _collect_stats_on_ranks(table: Table, n: int) -> Table:
+    """:func:`_collect_stats` over a rank's row shard of an ``n``-row table
+    (``Table.shard`` on a RankMesh): every bound, distinct count, prefix
+    lane span and string dictionary is computed over the shard and merged
+    over the data axes (pmin / pmax / psum, a gather of the shards' small
+    dictionaries, a hash all-to-all for a large distinct count), so the
+    meta is the same on every rank and equal to the meshless session's,
+    and the lanes hold this shard's rows of the meshless lanes (pad rows
+    zero, as the one-process mesh pads them)."""
+    from repro_torch.engine import distributed as D
+
+    sh = D.Shards(table.mesh, table.data_axes)
+    meta = dict(table.meta)
+    cols = dict(table.columns)
+    live = table.valid
+    anti = cols.get("__antimatter__")
+    if anti is not None:
+        live = live & ~anti
+    dev = live.device
+    real = torch.arange(table.num_rows, device=dev) + table.row_offset < n
+    for name, col in table.columns.items():
+        if name in INTERNAL_COLUMNS or is_lane_column(name):
+            continue
+        m = meta.get(name)
+        if col.ndim == 2 and col.dtype == torch.uint8:
+            pfx = prefix_lane_name(name)
+            if pfx not in cols:
+                packed = pack_prefix(col)
+                cols[pfx] = packed
+                meta[pfx] = ColumnMeta(np.dtype(np.int32),
+                                       *_span(sh, packed, live))
+            dname = dict_lane_name(name)
+            if dname not in cols:
+                dictionary, g, ids = _string_dictionary(sh, col, live)
+                new = m if m is not None else ColumnMeta(np.dtype(np.uint8),
+                                                         is_string=True)
+                new = dataclasses.replace(new, distinct=g)
+                if dictionary is not None:
+                    cols[dname] = torch.where(real, ids, 0)
+                    meta[dname] = ColumnMeta(np.dtype(np.int32),
+                                             0 if g else None,
+                                             g - 1 if g else None, g)
+                    new = dataclasses.replace(
+                        new, dict_values=tuple(decode_strings(dictionary)))
+                meta[name] = new
+            continue
+        if m is not None and m.lo is not None:
+            continue
+        if col.ndim != 1 or not n:
+            continue
+        if col.dtype.is_floating_point:
+            lo, hi = _span(sh, col, real & ~torch.isnan(col))
+            if lo is not None:
+                meta[name] = ColumnMeta(numpy_dtype(col.dtype), float(lo),
+                                        float(hi))
+        elif col.dtype != torch.bool:
+            lo, hi = _span(sh, col, real)
+            meta[name] = ColumnMeta(numpy_dtype(col.dtype), int(lo), int(hi),
+                                    min(int(hi) - int(lo) + 1, n))
+    # the mask last, as ``Table.shard`` places it after the lanes
+    for d in (cols, meta):
+        d["__valid__"] = d.pop("__valid__")
+    return table.with_columns(cols, meta)
 
 
 def _materialize(env: dict, mask) -> dict[str, np.ndarray]:

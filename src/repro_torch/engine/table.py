@@ -100,13 +100,21 @@ class Table:
 
     def __init__(self, columns: Mapping[str, torch.Tensor | np.ndarray],
                  meta: Mapping[str, ColumnMeta] | None = None,
-                 num_rows: int | None = None):
+                 num_rows: int | None = None, *, mesh=None,
+                 data_axes: tuple = ("data",), global_rows: int | None = None,
+                 row_offset: int = 0):
         self.columns = {k: torch.as_tensor(v) for k, v in columns.items()}
         lengths = {k: int(v.shape[0]) for k, v in self.columns.items()}
         if len(set(lengths.values())) > 1:
             raise ValueError(f"ragged columns: {lengths}")
         self.num_rows = num_rows if num_rows is not None \
             else next(iter(lengths.values()), 0)
+        # a rank's row shard (``shard`` on a RankMesh, over ``data_axes``):
+        # ``num_rows`` is the rows this rank holds, ``global_rows`` the
+        # padded table's, ``row_offset`` the global row id of its first row
+        self.mesh, self.data_axes = mesh, tuple(data_axes)
+        self.global_rows = self.num_rows if global_rows is None else global_rows
+        self.row_offset = row_offset
         self.meta = dict(meta or {})
         for k, v in self.columns.items():
             if k not in self.meta:
@@ -123,33 +131,78 @@ class Table:
     def __len__(self) -> int:
         return self.num_rows
 
+    def with_columns(self, columns, meta) -> "Table":
+        """A Table of ``columns`` with this one's row layout (its shard)."""
+        return Table(columns, meta, self.num_rows, mesh=self.mesh,
+                     data_axes=self.data_axes, global_rows=self.global_rows,
+                     row_offset=self.row_offset)
+
     def select(self, names: Sequence[str]) -> "Table":
         """A Table of the named columns (the same tensors), their meta and
-        the row count."""
-        return Table({n: self.columns[n] for n in names},
-                     {n: self.meta[n] for n in names}, self.num_rows)
+        the row count (a rank's shard stays that shard)."""
+        return self.with_columns({n: self.columns[n] for n in names},
+                                 {n: self.meta[n] for n in names})
 
     def head_dict(self, k: int) -> dict[str, np.ndarray]:
-        """The first ``k`` rows of every column, as numpy arrays."""
-        return {name: col[:k].cpu().numpy() for name, col in self.columns.items()}
+        """The first ``k`` rows of every column, as numpy arrays. On a
+        rank's shard: the first ``k`` rows of the whole (padded) table,
+        the same on every rank (each rank sends its first ``k`` rows; every
+        rank takes part)."""
+        if self.mesh is None:
+            return {name: col[:k].cpu().numpy()
+                    for name, col in self.columns.items()}
+        from repro_torch.engine import distributed as D
+
+        sh = D.Shards(self.mesh, self.data_axes)
+        take = min(k, self.num_rows)
+        names = list(self.columns)
+        rows = sh.gather_rows([self.columns[n][:take] for n in names], take)
+        return {n: r[:k].cpu().numpy() for n, r in zip(names, rows)}
 
     def to(self, device) -> "Table":
-        return Table({k: v.to(device) for k, v in self.columns.items()},
-                     self.meta, self.num_rows)
+        return self.with_columns(
+            {k: v.to(device) for k, v in self.columns.items()}, self.meta)
 
     def to_numpy(self) -> dict[str, np.ndarray]:
         return {k: v.cpu().numpy() for k, v in self.columns.items()}
 
     def shard(self, mesh, data_axes: tuple[str, ...] = ("data",)) -> "Table":
         """Row-shard every column over ``data_axes``: pad the rows to a
-        multiple of the shard count (pad rows are zeros) and add the
+        multiple of the shard count S (pad rows are zeros) and add the
         ``__valid__`` mask column (always; pad rows False), so relational
-        operators ignore the pad. Every shard lives on the mesh's one
-        device, so the columns stay single tensors and shard ``s`` is the
-        view of rows ``[s * rps, (s + 1) * rps)``."""
+        operators ignore the pad. Shard ``i`` holds rows ``[i * rps, (i +
+        1) * rps)``, rps = ceil(n / S).
+
+        On the one-process mesh every shard lives on the mesh's one device,
+        so the columns stay single tensors and shard ``i`` is a view. On a
+        ``RankMesh`` this rank keeps only its own shard ``i = mesh.index(
+        data_axes)``: its rows are sliced from this table (a host table
+        stays on the host) and padded, and only they move to
+        ``mesh.device``; the result records the padded table's
+        ``global_rows`` and this shard's ``row_offset``."""
+        from repro_torch.launch.mesh import is_rank_mesh
+
         nshards = int(np.prod([mesh.shape[a] for a in data_axes]))
         n = self.num_rows
         padded = ((n + nshards - 1) // nshards) * nshards
+        meta = dict(self.meta)
+        meta["__valid__"] = ColumnMeta(dtype=np.dtype(np.bool_))
+        if is_rank_mesh(mesh):
+            rps = padded // nshards
+            lo = mesh.index(tuple(data_axes)) * rps
+            hi = min(lo + rps, n)
+            cols = dict(self.columns)
+            if "__valid__" not in cols:
+                cols["__valid__"] = torch.ones((n,), dtype=torch.bool)
+            out = {}
+            for k, v in cols.items():
+                v = v[lo:hi]
+                if v.shape[0] < rps:
+                    v = torch.cat([v, v.new_zeros((rps - v.shape[0],)
+                                                  + tuple(v.shape[1:]))])
+                out[k] = v.to(mesh.device)
+            return Table(out, meta, rps, mesh=mesh, data_axes=data_axes,
+                         global_rows=padded, row_offset=lo)
         cols = dict(self.columns)
         if "__valid__" not in cols:
             cols["__valid__"] = torch.ones((n,), dtype=torch.bool,
@@ -159,8 +212,6 @@ class Table:
             if padded != n:
                 v = torch.cat([v, v.new_zeros((padded - n,) + tuple(v.shape[1:]))])
             out[k] = v.to(mesh.device)
-        meta = dict(self.meta)
-        meta["__valid__"] = ColumnMeta(dtype=np.dtype(np.bool_))
         return Table(out, meta, padded)
 
     @property

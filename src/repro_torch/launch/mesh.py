@@ -21,7 +21,9 @@ either:
   and experts over "model"), so each rank holds only its shard of every
   weight the table shards; the collectives of ``engine/distributed.py``
   then take this rank's own part and run over the axis's process group.
-  The DataFrame engine does not run on a rank mesh yet (ROADMAP).
+  The DataFrame engine row-shards every table over the data axes with
+  each rank holding only its own shard (``Table.shard``), and merges its
+  operators' partials over the data axes' group (``engine/distributed.py``).
 
 Axis convention (as the reference):
   single-pod : (16, 16)    over ("data", "model")            — 256 shards
@@ -188,6 +190,23 @@ class RankMesh:
         return (f"RankMesh({self.shape}, rank={self.rank}, "
                 f"coords={self.coords}, device={self.device}, "
                 f"backend={self.backend})")
+
+
+def is_rank_mesh(mesh) -> bool:
+    """True for a mesh of ``torch.distributed`` ranks: each process holds
+    only its own shard, and a merge is a collective over a process group."""
+    return isinstance(mesh, RankMesh)
+
+
+def refuse_on_ranks(mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` for an engine path that does not run
+    on a ``RankMesh`` yet (ROADMAP A9b-2d: LSM ingest, mutations,
+    compaction, views and durability across ranks), rather than run it
+    replicated on every rank without saying so."""
+    if is_rank_mesh(mesh):
+        raise NotImplementedError(
+            f"{what} does not run on a RankMesh yet (ROADMAP A9b-2d); use a "
+            "meshless session or the one-process mesh (make_local_mesh)")
 
 
 def _env_int(name: str, given):

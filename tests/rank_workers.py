@@ -1,17 +1,20 @@
-"""Rank bodies for tests/test_torch_ranks.py, and the harness that runs
-them: N ``gloo`` ranks on the CPU spawned by ``torch.multiprocessing``.
+"""Rank bodies for tests/test_torch_ranks.py, tests/test_torch_ranks_paths.py
+and tests/test_torch_rank_engine.py, and the harness that runs them: N
+``gloo`` ranks on the CPU spawned by ``torch.multiprocessing``.
 
 This module imports torch and the port only (never jax or the reference),
 so each spawned rank starts light; the test module computes the
 reference's numbers in the parent and hands the ranks numpy inputs.
 Every rank writes its result with ``torch.save`` into the run's
-directory; :func:`run_ranks` returns them in rank order.
+directory; :func:`run_ranks` returns them in rank order. The ranks meet
+through a ``FileStore`` in that directory (``file://<dir>/store``): no
+port is looked for, so runs that xdist starts side by side cannot meet
+on one.
 """
 from __future__ import annotations
 
 import contextlib
 import pathlib
-import socket
 import tempfile
 import time
 
@@ -20,23 +23,13 @@ import torch
 import torch.multiprocessing as mp
 
 
-def free_port() -> int:
-    """A port on 127.0.0.1 that was free a moment ago (bound to 0, then
-    released): every test rendezvous on its own, as xdist runs several
-    test files at once."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(rank: int, world: int, port: int, body: str, out: str,
+def _rank_main(rank: int, world: int, init: str, body: str, out: str,
                payload) -> None:
     torch.set_num_threads(1)  # N ranks share the host's cores
     from repro_torch.launch.mesh import close_rank_mesh
 
     try:
-        result = globals()[body](rank, world, f"tcp://127.0.0.1:{port}",
-                                 payload)
+        result = globals()[body](rank, world, init, payload)
         torch.save(result, pathlib.Path(out) / f"rank{rank}.pt")
     finally:
         close_rank_mesh()
@@ -51,7 +44,8 @@ def run_ranks(body: str, world: int, payload, timeout: float) -> list:
     raised, so a hung rendezvous fails the test instead of stalling the
     suite."""
     with tempfile.TemporaryDirectory(prefix="ranks_") as out:
-        ctx = mp.spawn(_rank_main, args=(world, free_port(), body, out, payload),
+        init = "file://" + str(pathlib.Path(out) / "store")
+        ctx = mp.spawn(_rank_main, args=(world, init, body, out, payload),
                        nprocs=world, join=False)
         deadline = time.monotonic() + timeout
         try:
@@ -354,3 +348,274 @@ def elastic(rank, world, init, payload):
             "coords": dict(mesh22.coords), "placements": str(t["w"].placements),
             "moved": moved.to_local().clone(), "moved_placements":
             str(moved.placements)}
+
+
+# -- the DataFrame engine on ranks (tests/test_torch_rank_engine.py) -------------------
+
+
+def _engine():
+    from repro_torch.core import plan as P
+    from repro_torch.core.expr import Col
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import distributed as D
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import ops
+    return Session, AFrame, P, Col, wisconsin, ops, D
+
+
+def engine_probe(rank, world, init, payload):
+    """``engine_probe.sharded_probe`` with the port's Session on a
+    ``world``-rank mesh (its JSON, as the one-process mesh's is taken)."""
+    import json
+
+    from engine_probe import sharded_probe
+
+    mesh = _mesh(world, 1, rank, world, init)
+    return json.loads(json.dumps(sharded_probe(*_engine(), mesh)))
+
+
+def engine_replays(rank, world, init, payload):
+    """The bodies of tests/test_distributed.py:24, :54 and :89 on a
+    ``world``-rank mesh: the values they assert on (the test asserts), and
+    the rows this rank holds."""
+    Session, AFrame, _, _, wisconsin, ops, D = _engine()
+    mesh = _mesh(world, 1, rank, world, init)
+    out = {}
+    t = wisconsin.generate(10_000, seed=1)
+    for mode in ("shard_map", "kernel"):
+        sess = Session(mesh=mesh, mode=mode)
+        if mode == "shard_map":
+            sess.create_dataset("Data", t, dataverse="demo",
+                                indexes=["onePercent", "unique1"],
+                                primary="unique2")
+        else:
+            sess.create_dataset("Data", t, dataverse="demo")
+        df = AFrame("demo", "Data", session=sess)
+        ops.reset_dispatch_counts()
+        r = {"len": len(df) if mode == "shard_map" else None,
+             "n3": len(df[(df["ten"] == 3) & (df["twentyPercent"] == 2)
+                          & (df["two"] == 1)]),
+             "n3k": len(df[(df["ten"] == 3) & (df["twentyPercent"] == 3)
+                           & (df["two"] == 1)]),
+             "max": df["unique1"].max(),
+             "groups": df.groupby("oddOnePercent").agg("count"),
+             "top5": df.sort_values("unique1", ascending=False).head(5),
+             "range": len(df[(df["onePercent"] >= 10) & (df["onePercent"] <= 30)]),
+             "join": len(df.merge(AFrame("demo", "Data", session=sess),
+                                  left_on="unique1", right_on="unique1")),
+             "dispatch": dict(ops.DISPATCH_COUNTS),
+             "rows": {k: tuple(v.shape) for k, v in
+                      sess.catalog.get("demo", "Data").table.columns.items()}}
+        out[mode] = r
+    sess = Session(mesh=mesh, mode="shard_map")
+    t = wisconsin.generate(8_000, seed=2)
+    sess.create_dataset("Data", t, dataverse="d")
+    ds = sess.catalog.get("d", "Data")
+    k, m = ds.table.columns["unique1"], ds.table.valid
+    k2 = ds.table.columns["ten"]
+    out["hash"] = [int(x) for x in D.hash_repartition_counts(
+        mesh, ("data",), k, m, k, m)]
+    out["hash_dup"] = [int(x) for x in D.hash_repartition_counts(
+        mesh, ("data",), k2, m, k2, m, capacity_factor=12.0)]
+    out["ten_counts"] = np.bincount(t.columns["ten"].numpy(), minlength=10)
+    return out
+
+
+ENGINE_MODES = ("shard_map", "kernel", "gspmd")
+
+
+def engine_session(Session, mesh, mode: str, t):
+    """The datasets every engine check runs over: ``data`` and ``data_r``
+    (the 12 expressions), and ``clu`` clustered by unique2 with a
+    secondary index on onePercent (ranges that skip blocks, index zones,
+    point lookups)."""
+    sess = Session(mesh=mesh, mode=mode)
+    for name in ("data", "data_r"):
+        sess.create_dataset(name, t, dataverse="bench")
+    sess.create_dataset("clu", t, dataverse="bench", primary="unique2",
+                        indexes=["onePercent"])
+    return sess
+
+
+def engine_plans(P, Col, n: int) -> dict:
+    """Plans over ``clu`` whose explain texts and prune reports every rank
+    must share: a clustered range (blocks skipped per shard) counted,
+    grouped and maxed, and an index range count."""
+    scan = P.Filter(P.Scan("clu", "bench"), (Col("unique2") >= n // 10)
+                    & (Col("unique2") <= n // 3))
+    ix = P.Filter(P.Scan("clu", "bench"), (Col("onePercent") >= 10)
+                  & (Col("onePercent") <= 30))
+    return {"range_count": P.Agg(scan, [P.AggSpec("count", "count", None)]),
+            "group_count": P.GroupAgg(scan, ["ten"],
+                                      [P.AggSpec("count", "count", None)]),
+            "max": P.Agg(scan, [P.AggSpec("max_unique1", "max", "unique1")]),
+            "index_count": P.Agg(ix, [P.AggSpec("count", "count", None)])}
+
+
+def engine_layout(sess) -> dict:
+    """What one session's datasets hold: each column's shape, the zone
+    maps (spans and layout) and every index's zones."""
+    out = {}
+    for name in ("data", "clu"):
+        ds = sess.catalog.get("bench", name)
+        bz = ds.block_zones
+        out[name] = {
+            "shapes": {k: tuple(v.shape) for k, v in ds.table.columns.items()},
+            "global_rows": ds.table.global_rows,
+            "zones": (bz.n_shards, bz.rows_per_shard, bz.n_blocks,
+                      {k: np.asarray(v) for k, v in bz.spans.items()}),
+            "index_zones": {k: (ix.zone_min.numpy(), ix.zone_max.numpy())
+                            for k, ix in ds.indexes.items()},
+            "head": ds.table.head_dict(5),
+            "select": (ds.table.select(["unique1"]).global_rows,
+                       tuple(ds.table.select(["unique1"]).columns["unique1"].shape)),
+            "meta": {k: repr(m) for k, m in ds.table.meta.items()}}
+    return out
+
+
+def engine_blocks(fn):
+    """``fn()`` and the kernel block accounting it added: scanned and
+    skipped blocks of filter_count and segment_agg (telemetry counters)."""
+    from repro_torch.runtime import telemetry as tel
+
+    series = [(m, k) for m in ("kernel.blocks_scanned_total",
+                               "kernel.blocks_skipped_total")
+              for k in ("filter_count", "segment_agg")]
+    before = [tel.counter_value(m, kernel=k) for m, k in series]
+    out = fn()
+    return out, [tel.counter_value(m, kernel=k) - b
+                 for (m, k), b in zip(series, before)]
+
+
+def engine_others(df) -> dict:
+    """Operators beyond the 12 expressions, each over row shards on a rank
+    mesh: a stream delivered whole, a full sort, windows (ordered, and
+    partitioned), a string group-by (dictionary lanes), float and integer
+    sums, and ``explain(analyze=True)``'s measured rows."""
+    seven = df[df["onePercent"] == 7]
+    return {
+        "collect": df[df["ten"] == 3][["unique1", "ten"]].collect(),
+        "sort": seven.sort_values("unique1")[["unique1", "unique2"]].collect(),
+        "cumsum": seven.window(order_by="unique2").cumsum("unique1").collect(),
+        "row_number": df[df["twenty"] == 3].window(
+            order_by="unique1", partition_by="four").row_number().collect(),
+        "string_group": df.groupby("string4").agg("count"),
+        "mean": df["unique1"].mean(),
+        "sum": df["ten"].sum(),
+        "analyze_rows": df[df["ten"] == 2].explain(analyze=True).count("rows"),
+    }
+
+
+def engine_lookup_keys(n: int, shards: int) -> list:
+    """Keys of clu's primary (unique2 = the row number): the first row of
+    each shard, the last row, and two absent keys."""
+    rps = -(-n // shards)
+    return sorted({min(s * rps, n - 1) for s in range(shards)} | {n - 1}) \
+        + [n, -5]
+
+
+def engine_run(mesh, mode: str, t, rounds: int, shards: int):
+    """One mode's checks on ``mesh`` (a rank mesh, or the one-process mesh
+    they are held to) over table ``t``: the 12 expressions over ``rounds``
+    rounds (answer, operator, prune report), the plans of
+    ``engine_plans`` (explain text, answer, prune report), the same
+    clustered ranges with the indexes off (the kernels then take each
+    shard's block list, and the kernel block accounting is read), the
+    operators of ``engine_others`` and point lookups. Returns (the
+    results, ``engine_layout`` of the session)."""
+    from engine_probe import EXPRESSIONS
+
+    Session, AFrame, P, Col, *_ = _engine()
+    n = len(t)
+    sess = engine_session(Session, mesh, mode, t)
+    df = AFrame("bench", "data", session=sess)
+    dr = AFrame("bench", "data_r", session=sess)
+    got = {}
+    for name, fn in sorted(EXPRESSIONS.items()):
+        for r in range(rounds):
+            got[(name, r)] = fn(df, dr, np.random.default_rng(100 + r))
+            got[(name, r, "op")] = type(sess.last_physical).__name__
+            got[(name, r, "report")] = sess.last_prune_report
+    plans = engine_plans(P, Col, n)
+    for name, plan in plans.items():
+        got[(name, "explain")] = sess.explain(plan)
+        got[(name, "answer")] = sess.execute(plan)
+        got[(name, "report")] = sess.last_prune_report
+    noix = Session(mesh=mesh, mode=mode, enable_index=False)
+    noix.create_dataset("clu", t, dataverse="bench", primary="unique2")
+    for name in ("range_count", "group_count"):
+        got[(name, "no index", "explain")] = noix.explain(plans[name])
+        got[(name, "no index", "answer")], got[(name, "no index", "blocks")] = \
+            engine_blocks(lambda name=name: noix.execute(plans[name]))
+        got[(name, "no index", "report")] = noix.last_prune_report
+    for name, v in engine_others(df).items():
+        got[(name, "other")] = v
+    clu = AFrame("bench", "clu", session=sess)
+    for key in engine_lookup_keys(n, shards):
+        got[("get", key)] = clu.get(key)
+        got[("get", key, "explain")] = clu.explain_get(key)
+    return got, engine_layout(sess)
+
+
+def engine_checks(rank, world, init, payload):
+    """On a ``world``-rank mesh, for each table size of ``payload``:
+    ``engine_run`` in every mode, and the paths that must refuse a rank
+    mesh."""
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+
+    Session, AFrame, *_, wisconsin, _, _ = _engine()
+    mesh = _mesh(world, 1, rank, world, init)
+    out = {}
+    for n in payload["rows"]:
+        t = wisconsin.generate(n, seed=payload["seed"])
+        for mode in ENGINE_MODES:
+            out[(n, mode)], out[(n, mode, "layout")] = engine_run(
+                mesh, mode, t, payload["rounds"], world)
+    refused = {}
+    sess = engine_session(Session, mesh, "kernel", t)
+    df = AFrame("bench", "data", session=sess)
+    ds = sess.catalog.get("bench", "data")
+    attempts = {
+        "feed": lambda: Feed(sess, "data", "bench"),
+        "view": lambda: sess.create_view("v", df.groupby("ten").agg("count")),
+        "persist": lambda: df[df["ten"] == 3].persist("p"),
+        "compact": lambda: lsm.compact(sess, ds),
+        "storage": lambda: Session(mesh=mesh, storage=payload["store"] + f"/{rank}"),
+        "open": lambda: Session.open(payload["store"] + f"/open{rank}", mesh=mesh),
+    }
+    for what, fn in attempts.items():
+        try:
+            fn()
+            refused[what] = None
+        except NotImplementedError as e:
+            refused[what] = str(e)
+    out["refused"] = refused
+    return out
+
+
+def engine_answers(rank, world, init, payload):
+    """The 12 expressions over ``payload["rounds"]`` rounds in every mode on
+    a ``world``-rank mesh whose ranks share ``payload["device"]``: "cuda"
+    (gloo ranks on the one card) or "cpu"."""
+    from engine_probe import EXPRESSIONS
+    from repro_torch.launch.mesh import init_rank_mesh
+
+    Session, AFrame, *_, wisconsin, _, _ = _engine()
+    if payload["device"] == "cuda":
+        torch.cuda.set_device(0)
+        mesh = init_rank_mesh(world, 1, None, rank=rank, world_size=world,
+                              local_rank=0, init_method=init, backend="gloo")
+    else:
+        mesh = _mesh(world, 1, rank, world, init)
+    t = wisconsin.generate(payload["rows"], seed=payload["seed"])
+    out = {}
+    for mode in ENGINE_MODES:
+        sess = engine_session(Session, mesh, mode, t)
+        df = AFrame("bench", "data", session=sess)
+        dr = AFrame("bench", "data_r", session=sess)
+        for name, fn in sorted(EXPRESSIONS.items()):
+            for r in range(payload["rounds"]):
+                out[(mode, name, r)] = fn(df, dr, np.random.default_rng(100 + r))
+    return out

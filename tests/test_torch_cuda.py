@@ -958,3 +958,44 @@ def test_cuda_moe_counts_and_fractions_equal_bincount_and_one_hot():
         assert got.dtype == want.dtype and torch.equal(got, want)
         assert torch.equal(moe._frac(idx, E),
                            F.one_hot(idx, E).float().sum(dim=1).mean(dim=0))
+
+
+@pytest.mark.cuda
+def test_cuda_rank_engine_two_gloo_ranks_equal_the_cpu():
+    """The DataFrame engine on a mesh of two gloo ranks sharing the card,
+    each holding its half of every table on the card: the 12 expressions
+    in shard_map, kernel (the CUDA kernels, launched by each rank over its
+    own shard) and gspmd mode give the answers, dtypes included, of a
+    meshless session on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    from engine_probe import EXPRESSIONS
+    from rank_workers import ENGINE_MODES, run_ranks
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine.session import Session
+
+    rows, seed, rounds = 10_001, 7, 2
+    ranks = run_ranks("engine_answers", 2, {"rows": rows, "seed": seed,
+                                            "rounds": rounds, "device": "cuda"},
+                      240)
+    cpu = Session(mode="gspmd", device="cpu")
+    t = wisconsin.generate(rows, seed=seed)
+    for name in ("data", "data_r"):
+        cpu.create_dataset(name, t, dataverse="bench")
+    df, dr = AFrame("bench", "data", session=cpu), AFrame("bench", "data_r", session=cpu)
+    for name, fn in sorted(EXPRESSIONS.items()):
+        for r in range(rounds):
+            want = fn(df, dr, np.random.default_rng(100 + r))
+            for rank, got in enumerate(ranks):
+                for mode in ENGINE_MODES:
+                    g = got[(mode, name, r)]
+                    label = (rank, mode, name, r)
+                    if isinstance(want, dict):
+                        assert set(g) == set(want), label
+                        for k in want:
+                            assert g[k].dtype == want[k].dtype, (label, k)
+                            np.testing.assert_array_equal(g[k], want[k])
+                    else:
+                        assert type(g) is type(want) and g == want, label
+

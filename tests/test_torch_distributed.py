@@ -35,6 +35,7 @@ from repro_torch.engine import physical as tphys
 from repro_torch.kernels import ops as tops
 from repro_torch.launch.mesh import MeshAxes, make_local_mesh
 
+from engine_probe import sharded_probe
 from torch_replay import PORT, assert_same
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -457,7 +458,7 @@ _REF8 = r"""
 import json, sys
 import numpy as np
 sys.path.insert(0, TESTS)
-from test_torch_distributed import sharded_probe
+from engine_probe import sharded_probe
 from repro.core import plan as P
 from repro.core.expr import Col
 from repro.core.frame import AFrame
@@ -471,66 +472,6 @@ mesh = make_local_mesh(data=8, model=1)
 out = sharded_probe(Session, AFrame, P, Col, wisconsin, ops, D, mesh)
 print("JSON" + json.dumps(out))
 """
-
-
-def _enc(v):
-    if isinstance(v, dict):
-        return {k: [np.asarray(x).tolist(), str(np.asarray(x).dtype)]
-                for k, x in v.items()}
-    return [v, type(v).__name__]
-
-
-def sharded_probe(Session, AFrame, P, Col, wisconsin, ops, D, mesh) -> dict:
-    """The same probe for either package: the 12 Wisconsin expressions in
-    shard_map and kernel mode on ``mesh`` (10,000 rows, 8 shards: one zone
-    block a shard), explain texts and prune reports of block-skipping
-    plans over a clustered dataset, and the hash repartition's totals and
-    drops. JSON-ready."""
-    from test_torch_wisconsin import EXPRESSIONS
-
-    t = wisconsin.generate(10_000, seed=5)
-    out = {"exprs": {}, "explain": {}, "report": {}, "dispatch": {}}
-    rng = np.random.default_rng
-    for mode in ("shard_map", "kernel"):
-        sess = Session(mesh=mesh, mode=mode)
-        sess.create_dataset("data", t, dataverse="bench")
-        sess.create_dataset("data_r", t, dataverse="bench")
-        df = AFrame("bench", "data", session=sess)
-        dr = AFrame("bench", "data_r", session=sess)
-        ops.reset_dispatch_counts()
-        for name, fn in sorted(EXPRESSIONS.items()):
-            out["exprs"][f"{mode}:{name}"] = _enc(fn(df, dr, rng(11)))
-        out["dispatch"][mode] = sorted(ops.DISPATCH_COUNTS)
-        # clustered, no index: the range predicates skip zone blocks per shard
-        clu = Session(mesh=mesh, mode=mode, enable_index=False)
-        clu.create_dataset("clu", t, dataverse="bench", primary="unique2")
-        scan = P.Filter(P.Scan("clu", "bench"),
-                        (Col("unique2") >= 1000) & (Col("unique2") <= 3000))
-        plans = {
-            "range_count": P.Agg(scan, [P.AggSpec("count", "count", None)]),
-            "group_count": P.GroupAgg(scan, ["ten"],
-                                      [P.AggSpec("count", "count", None)]),
-            "max": P.Agg(scan, [P.AggSpec("max_unique1", "max", "unique1")]),
-        }
-        for name, plan in plans.items():
-            out["explain"][f"{mode}:{name}"] = clu.explain(plan)
-            try:
-                res = clu.execute(plan)
-            except Exception as e:  # the reference's sharded block gather
-                out["exprs"][f"{mode}:{name}"] = ["error", type(e).__name__]
-                continue
-            out["exprs"][f"{mode}:{name}"] = _enc(res)
-            out["report"][f"{mode}:{name}"] = {
-                k: v for k, v in clu.last_prune_report.items()
-                if k != "total_cost"}
-    ds = sess.catalog.get("bench", "data")
-    k, m = ds.table.columns["unique1"], ds.table.valid
-    out["hash"] = [int(x) for x in D.hash_repartition_counts(
-        mesh, ("data",), k, m, k, m)]
-    k2 = ds.table.columns["ten"]
-    out["hash_small"] = [int(x) for x in D.hash_repartition_counts(
-        mesh, ("data",), k2, m, k2, m, capacity_factor=1.5)]
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -572,12 +513,10 @@ def _clustered_oracle(name):
             "count": [counts.tolist(), "int32"]}
 
 
-def test_sharded_results_equal_the_8_device_reference(ref8, port8):
-    """The 12 expressions and the block-skipping plans in shard_map and
-    kernel mode: values and dtypes equal the reference's on 8 devices.
-    Where the reference's own sharded block gather fails inside the
-    installed jax (``ShardingTypeError``: a gathered length not divisible
-    by the mesh), the port's answer is held against numpy instead."""
+def exprs_meet_ref8(port8, ref8) -> None:
+    """The rules the 8-device reference's expressions hold a probe to
+    (a probe of the one-process mesh here, of the rank mesh in
+    tests/test_torch_rank_engine.py)."""
     assert sorted(port8["exprs"]) == sorted(ref8["exprs"])
     gathered_fails = 0
     for k, want in ref8["exprs"].items():
@@ -592,9 +531,7 @@ def test_sharded_results_equal_the_8_device_reference(ref8, port8):
     assert gathered_fails < len(ref8["exprs"]) // 2
 
 
-def test_sharded_explain_equals_the_8_device_reference(ref8, port8):
-    """Explain texts (per-shard zone-map notes included) and prune reports
-    equal the reference's."""
+def explain_meets_ref8(port8, ref8) -> None:
     for k, want in ref8["explain"].items():
         assert port8["explain"][k] == want, k
     assert any("8 shards, per-shard" in t for t in port8["explain"].values())
@@ -604,12 +541,31 @@ def test_sharded_explain_equals_the_8_device_reference(ref8, port8):
     assert port8["report"]["kernel:range_count"]["blocks_skipped"] > 0
 
 
-def test_sharded_repartition_and_dispatch_equal_the_8_device_reference(
-        ref8, port8):
+def repartition_meets_ref8(port8, ref8) -> None:
     assert port8["hash"] == ref8["hash"] == [10_000, 0]
     assert port8["hash_small"] == ref8["hash_small"]
     assert ref8["hash_small"][1] > 0            # drops over capacity
     assert port8["dispatch"] == ref8["dispatch"]
+
+
+def test_sharded_results_equal_the_8_device_reference(ref8, port8):
+    """The 12 expressions and the block-skipping plans in shard_map and
+    kernel mode: values and dtypes equal the reference's on 8 devices.
+    Where the reference's own sharded block gather fails inside the
+    installed jax (``ShardingTypeError``: a gathered length not divisible
+    by the mesh), the port's answer is held against numpy instead."""
+    exprs_meet_ref8(port8, ref8)
+
+
+def test_sharded_explain_equals_the_8_device_reference(ref8, port8):
+    """Explain texts (per-shard zone-map notes included) and prune reports
+    equal the reference's."""
+    explain_meets_ref8(port8, ref8)
+
+
+def test_sharded_repartition_and_dispatch_equal_the_8_device_reference(
+        ref8, port8):
+    repartition_meets_ref8(port8, ref8)
 
 
 def test_gspmd_on_a_sharded_mesh_searches_indexes_per_shard():

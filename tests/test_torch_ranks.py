@@ -28,8 +28,8 @@ their list forms; the elastic checkpoint restore (and ``constrain`` on a
 DTensor). tests/test_torch_ranks_paths.py holds the other paths and the
 launchers under ``torchrun``.
 
-Each test spawns its ranks through ``rank_workers.run_ranks`` (a port
-bound to 0, a join timeout of its own) and finishes in well under a
+Each test spawns its ranks through ``rank_workers.run_ranks`` (a
+FileStore rendezvous, a join timeout of its own) and finishes in well under a
 minute.
 """
 import dataclasses

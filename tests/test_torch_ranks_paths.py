@@ -4,8 +4,8 @@ where the model extent does not divide the heads, the MoE step with and
 without expert parallelism, the families that take FSDP alone, the
 multi-pod rank layout, and both launchers under ``torchrun``. Each rank
 test holds the ranks to the port's one-process mesh (float32 compute:
-1e-5) through ``rank_workers.run_ranks`` (a port bound to 0, a join
-timeout of its own); the launchers to a single-process run."""
+1e-5) through ``rank_workers.run_ranks`` (a FileStore rendezvous, a
+join timeout of its own); the launchers to a single-process run."""
 import dataclasses
 import json
 import os

@@ -29,6 +29,8 @@ from repro_torch.engine.table import Table as TTable
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_production_mesh
 
+from engine_probe import EXPRESSIONS
+
 N_ROWS = 8_192
 
 
@@ -61,28 +63,6 @@ def sessions(tables):
 def _frames(sess):
     F = TFrame if isinstance(sess, TSession) else RFrame
     return F("bench", "data", session=sess), F("bench", "data_r", session=sess)
-
-
-EXPRESSIONS = {
-    "1_count": lambda df, dr, rng: len(df),
-    "2_project_head": lambda df, dr, rng: df[["two", "four"]].head(),
-    "3_filter_count": lambda df, dr, rng: (lambda x: len(
-        df[(df["ten"] == x) & (df["twentyPercent"] == x % 5)
-           & (df["two"] == x % 2)]))(int(rng.integers(10))),
-    "4_group_count": lambda df, dr, rng: df.groupby("oddOnePercent").agg("count"),
-    "5_map_head": lambda df, dr, rng: df["stringu1"].map(str.upper).head(),
-    "6_max": lambda df, dr, rng: df["unique1"].max(),
-    "7_min": lambda df, dr, rng: df["unique1"].min(),
-    "8_group_max": lambda df, dr, rng: df.groupby("twenty")["four"].agg("max"),
-    "9_sort_head": lambda df, dr, rng: df.sort_values(
-        "unique1", ascending=False).head(),
-    "10_select_head": lambda df, dr, rng: df[df["ten"] == int(rng.integers(10))].head(),
-    "11_range_count": lambda df, dr, rng: (lambda a, b: len(
-        df[(df["onePercent"] >= min(a, b)) & (df["onePercent"] <= max(a, b))]))(
-        int(rng.integers(100)), int(rng.integers(100))),
-    "12_join_count": lambda df, dr, rng: len(df.merge(
-        dr, left_on="unique1", right_on="unique1")),
-}
 
 
 def _assert_same(a, b, label):
