@@ -307,10 +307,36 @@ Phases (any mismatch raises; nothing is caught):
      (median of 7) beside the one-process 4-shard mesh's and phase 9's
      8-shard one: the cost of distribution on one card, not a speed-up.
 
+ 17. the live engine across processes (feeds, upserts and deletes, LSM
+     runs, the compaction, the view and persist on a RankMesh, each rank
+     holding only its own rows of every component). (a) Phase 6's
+     scenario (the 5,000,000-row table clustered by unique2 with
+     onePercent indexed, Dim, the group-by view, LIVE_MIX's eight
+     250,000-row batches, one flush each: nine components; a persist;
+     then the full compaction) through a meshless kernel session and
+     through a kernel session on a one-rank NCCL group: over nine
+     components and after the compaction tests/test_lsm.py's suite, e3,
+     e4, e8, e9, e11 and e12, point lookups (upserted, deleted, pushed,
+     absent) and the view (== its recompute) equal between the two,
+     dtypes included, and the suite equals phase 6's numpy oracle; the
+     persisted answers equal. The rank run's launches (filter_count,
+     segment_agg, block_topk and its merge, merge_join_count), zeroed
+     before it and read after it, join the ``kernels`` line (path
+     "rank_live"), each held against its plain version on its recorded
+     inputs. (b) Four spawned gloo ranks sharing the card run the same
+     scenario beside (a) (started with the phase, joined after (a): the
+     script's time limit), 1,250,000 base rows each: each rank's bytes after the
+     flushes and after the compaction beside the meshless session's, its
+     peak during the compaction, its answers equal (a)'s, each component
+     ceil(rows / 4) rows of CUDA tensors, each flush's wall and the
+     compaction's beside (a)'s and phase 6's.
+
 ``python3 chip_smoke.py --rank-engine`` runs phase 16 alone; under
 ``torchrun --nproc-per-node 4`` (one rank a card, NCCL) the same flag runs
 16(b)'s body once, each rank's answers held against numpy and a meshless
-session on its own card.
+session on its own card. ``--rank-live`` does the same for phase 17
+(under ``torchrun``: 17(b)'s scenario on one rank a card, every rank's
+answers held against the numpy oracle on rank 0).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -5314,10 +5340,21 @@ def _rank_15b(rank: int, world: int, init: str, out: str) -> None:
 def _spawn_ranks(fn, n: int, tmp: str, timeout: float, *args) -> None:
     """``fn(rank, n, init, tmp, *args)`` in ``n`` spawned processes, joined
     within ``timeout`` (killed after it); a rank's failure raises here."""
+    _join_ranks(_start_ranks(fn, n, tmp, *args), fn, timeout)
+
+
+def _start_ranks(fn, n: int, tmp: str, *args):
+    """``fn(rank, n, init, tmp, *args)`` started in ``n`` spawned processes;
+    ``_join_ranks`` waits for them."""
     import torch.multiprocessing as mp
 
-    ctx = mp.spawn(fn, args=(n, _file_init(tmp), tmp, *args), nprocs=n,
-                   join=False)
+    return mp.spawn(fn, args=(n, _file_init(tmp), tmp, *args), nprocs=n,
+                    join=False)
+
+
+def _join_ranks(ctx, fn, timeout: float) -> None:
+    """Join the processes of ``_start_ranks`` within ``timeout`` (killed
+    after it); a rank's failure raises here."""
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
@@ -5837,6 +5874,381 @@ def rank_engine_main(seed: int) -> int:
     return 0
 
 
+RANK_LIVE_RANKS = 4         # 17(b): gloo ranks sharing the card
+RANK_LIVE_TIMEOUT = 420     # s: 17(b)'s four processes, their start included
+RANK_LIVE_QUERIES = DURABLE_QUERIES   # tests/test_lsm.py's suite, e3, e4, e8, e9, e11, e12
+RANK_LIVE_KERNELS = ("filter_count", "segment_agg", "block_topk",
+                     "merge_join_count")
+RANK_LIVE_VIEW = "by_ten"
+
+
+def _view_plan():
+    from repro_torch.core import plan as P
+
+    return P.GroupAgg(P.Scan("Live", "live"), ["ten"], [
+        P.AggSpec("count", "count", None), P.AggSpec("sum_four", "sum", "four"),
+        P.AggSpec("max_onePercent", "max", "onePercent")])
+
+
+def _live_state(sess, keys: list) -> dict:
+    """One state of the live scenario on ``sess``: RANK_LIVE_QUERIES'
+    answers, point lookups of ``keys``, and the view against its
+    recompute (raises if they differ)."""
+    from repro_torch.core.frame import AFrame
+
+    df, dim = AFrame("live", "Live", session=sess), AFrame("live", "Dim", session=sess)
+    out = {name: _answer(fn(df, dim)) for name, fn in RANK_LIVE_QUERIES.items()}
+    for k in keys:
+        row = df.get(int(k))
+        out[f"get {k}"] = None if row is None else _answer(row)
+    view = sess.read_view(RANK_LIVE_VIEW)
+    same(view, sess.execute(_view_plan()), "phase 17: the view vs its recompute")
+    out["view"] = _answer(view)
+    return out
+
+
+def _persisted(sess) -> dict:
+    """``persist`` of a filter over the nine components, then queries over
+    the new dataset."""
+    from repro_torch.core.frame import AFrame
+
+    df = AFrame("live", "Live", session=sess)
+    p = df[(df["ten"] == 3) & (df["two"] == 1)].persist("P3", dataverse="live")
+    return {"len": len(p), "group": _answer(p.groupby("twenty").agg("count")),
+            "max": _answer(p["unique1"].max()),
+            "rows": _answer(p.sort_values("unique2").head(6))}
+
+
+def _component_rows(sess) -> list:
+    """Each component's rows this process holds of each column, and their
+    devices."""
+    return [{"name": c.name, "global_rows": c.table.global_rows,
+             "held": sorted({int(v.shape[0]) for v in c.table.columns.values()}),
+             "devices": sorted({str(v.device) for v in c.table.columns.values()})}
+            for c in sess.catalog.components("live", "Live")]
+
+
+def live_scenario(sess, table, seed: int, oracle_states: list | None = None) -> dict:
+    """Phase 6's scenario on ``sess`` (meshless, or a rank mesh): the table
+    closed, clustered by unique2, onePercent indexed, Dim, the group-by
+    view, LIVE_MIX's eight batches (one flush each, compaction deferred:
+    nine components), a persist, then the full compaction. Returns each
+    state's answers (``_live_state``), the persisted answers, the walls,
+    the bytes allocated after the flushes and after the compaction, the
+    peak during the compaction and the components' rows.
+    ``oracle_states`` gets the numpy oracle's columns of each state."""
+    import torch
+
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+
+    import gc
+
+    rng = np.random.default_rng(seed)
+    gc.collect()   # earlier phases' garbage, freed mid-scenario, would skew the bytes
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    sess.create_dataset("Live", table, dataverse="live", closed=True,
+                        primary="unique2", indexes=["onePercent"])
+    sess.create_dataset("Dim", wisconsin.generate(LIVE_DIM_ROWS, seed=7),
+                        dataverse="live")
+    sess.create_view(RANK_LIVE_VIEW, _view_plan())
+    feed = Feed(sess, "Live", "live", flush_rows=LIVE_BATCH,
+                policy=lsm.CompactionPolicy(size_ratio=10.0, max_runs=64))
+    oracle = LiveOracle({k: v.numpy() for k, v in table.columns.items()})
+    next_key, walls, keys = ROWS, [], [3, ROWS + 7, -5]
+    for i, kind in enumerate(LIVE_MIX):
+        batch = _live_batch(kind, i, rng, oracle, next_key)
+        if kind == "push":
+            next_key += LIVE_BATCH
+        keys.append(int((batch if kind == "delete" else batch["unique2"])[0]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(feed, kind)(batch)
+        feed.flush()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        oracle.apply(kind, batch)
+        if i == 2:   # base and three runs with matter: the kernel join
+            joined = _union_join(sess)
+    out = {"flush_s": walls, "join4": joined, "components": len(sess.catalog.components("live", "Live")),
+           "bytes_flushed": torch.cuda.memory_allocated() - base_bytes,
+           "rows_flushed": _component_rows(sess), "keys": keys}
+    if oracle_states is not None:
+        oracle_states.append(dict(oracle.cols))
+    out["nine"] = _live_state(sess, keys)
+    out["persist"] = _persisted(sess)
+    sess.catalog.drop("live", "P3")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feed.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    out["peak_compaction"] = torch.cuda.max_memory_allocated() - base_bytes
+    out["bytes_compacted"] = torch.cuda.memory_allocated() - base_bytes
+    out["rows_compacted"] = _component_rows(sess)
+    oracle.compact()
+    if oracle_states is not None:
+        oracle_states.append(dict(oracle.cols))
+    out["one"] = _live_state(sess, keys)
+    return out
+
+
+def _rank_17b(rank: int, world: int, init: str, out: str, seed: int) -> None:
+    """17(b)'s rank: one of RANK_LIVE_RANKS gloo ranks on the one card,
+    phase 6's scenario on a kernel session holding its own rows of every
+    component; what it saw to ``out``."""
+    import torch
+
+    from repro_torch.data import wisconsin
+    from repro_torch.engine.session import Session
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    torch.cuda.set_device(0)
+    mesh = init_rank_mesh(world, 1, None, rank=rank, world_size=world,
+                          local_rank=0, init_method=init, backend="gloo")
+    try:
+        got = live_scenario(Session(mode="kernel", mesh=mesh),
+                            wisconsin.generate(ROWS, seed=seed), seed)
+        got["rank"] = mesh.rank
+        Path(out, f"rank{rank}.json").write_text(json.dumps(got))
+    finally:
+        close_rank_mesh()
+
+
+def _answers(x: dict) -> dict:
+    return {k: x[k] for k in ("nine", "one", "persist", "join4")}
+
+
+def _union_join(sess) -> int:
+    """The join count with base ∪ three runs on the left, each holding
+    matter (as phase 6's ``join_over_union``): the planner takes
+    merge_join_count over the union stream."""
+    from repro_torch.core import physical as PH
+    from repro_torch.core.frame import AFrame
+
+    n = LIVE_QUERIES["join_count"](AFrame("live", "Live", session=sess),
+                                   AFrame("live", "Dim", session=sess))
+    plan = sess.last_physical
+    if not (isinstance(plan, PH.JoinCountOp) and plan.kernel
+            and isinstance(plan.children[0], PH.PrunedUnionRuns)):
+        raise AssertionError(f"phase 17: the join over 4 components: "
+                             f"{PH.format_plan(plan)}")
+    return n
+
+
+def run_rank_live(table, raw: dict, dev, seed: int, card: str,
+                  phase6: dict | None) -> dict:
+    """Phase 17: the live engine across processes, each rank holding only
+    its own rows of every component. (a) A meshless kernel session, then a
+    kernel session on a one-rank NCCL group, run phase 6's scenario
+    (``live_scenario``); over nine components and after the compaction
+    the rank session's answers, point lookups and view equal the meshless
+    session's (dtypes included) and RANK_LIVE_QUERIES' equal phase 6's
+    numpy oracle; its persisted answers equal the meshless ones. Its
+    launches (zeroed before it, read after it) are the ``rank_live``
+    path's; every call is recorded and held against its plain version.
+    (b) RANK_LIVE_RANKS gloo ranks sharing the card run the scenario: each
+    rank's bytes after the flushes and the compaction beside the
+    meshless session's, its peak in the compaction, its answers against
+    (a)'s, its flush and compaction walls beside (a)'s and phase 6's.
+    (b)'s processes start with the phase and run beside (a)."""
+    import torch
+
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rank_live_")
+    # (b)'s processes start first and run beside (a): the phase's time is
+    # the longer of the two, not their sum (the script's time limit)
+    run_dir = tempfile.mkdtemp(dir=tmp)
+    ranks_b = _start_ranks(_rank_17b, RANK_LIVE_RANKS, run_dir, seed)
+    try:
+        states: list = []
+        t0 = time.perf_counter()
+        flat = live_scenario(Session(mode="kernel", device=dev), table, seed,
+                             states)
+        out["a_meshless_s"] = time.perf_counter() - t0
+        dim_u1 = raw_dim_unique1()
+        for state, cols in zip(("nine", "one"), states):
+            want = durable_oracle(cols, dim_u1)
+            for name in RANK_LIVE_QUERIES:
+                if flat[state][name] != _answer(want[name]):
+                    raise AssertionError(f"phase 17 (a) meshless {name} "
+                                         f"{state} != numpy")
+        del states
+        torch.cuda.empty_cache()
+        mesh = init_rank_mesh(1, 1, None, rank=0, world_size=1, local_rank=0,
+                              init_method=_file_init(tmp))
+        try:
+            calls: list = []
+            t0 = time.perf_counter()
+            _build.reset_launches()
+            with recording(calls):
+                got = live_scenario(Session(mode="kernel", mesh=mesh), table, seed)
+            torch.cuda.synchronize()
+            out["a_rank_s"] = time.perf_counter() - t0
+            launches = {k: _build.LAUNCHES[k] for k in RELATIONAL}
+        finally:
+            close_rank_mesh()
+        bad = [k for k, v in _answers(got).items() if v != _answers(flat)[k]]
+        if bad:
+            for k in bad:
+                diff = [q for q in got[k] if got[k][q] != flat[k][q]] \
+                    if isinstance(got[k], dict) else k
+                print(f"  phase 17 (a): {k} differs on {diff}", flush=True)
+            raise AssertionError(f"phase 17 (a): the one-rank session differs "
+                                 f"from the meshless one on {bad}")
+        for rows in (got["rows_flushed"], got["rows_compacted"]):
+            for c in rows:
+                if c["devices"] != [str(dev)] or c["held"] != [c["global_rows"]]:
+                    raise AssertionError(f"phase 17 (a): {c}")
+        missing = [k for k in RANK_LIVE_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"phase 17 (a): {missing} never launched on "
+                                 "the rank live path")
+        out["launches"] = launches
+        print(f"  (a) one-rank nccl group, {ROWS:,} rows + {len(LIVE_MIX)} "
+              f"batches ({got['components']} components), then the compaction: "
+              f"{len(RANK_LIVE_QUERIES)} queries, {len(got['keys'])} point "
+              f"lookups and the view == meshless (dtypes included) == numpy; "
+              f"persist == meshless; launches {launches}", flush=True)
+        check_recorded(calls, "phase 17 (a) (one rank)", MESH_KERNELS)
+        del calls
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _join_ranks(ranks_b, _rank_17b,
+                    max(RANK_LIVE_TIMEOUT - (t0 - t_phase), 1.0))
+        ranks = [json.loads(Path(run_dir, f"rank{r}.json").read_text())
+                 for r in range(RANK_LIVE_RANKS)]
+        out["b_wait_s"] = time.perf_counter() - t0
+    finally:
+        for p in ranks_b.processes:   # (a) failed: (b) is not waited for
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+    p6 = (phase6 or {}).get("flushes")
+    for x in ranks:
+        bad = [k for k, v in _answers(x).items() if v != _answers(got)[k]]
+        if bad:
+            raise AssertionError(f"phase 17 (b): rank {x['rank']} differs from "
+                                 f"(a) on {bad}")
+        for rows in (x["rows_flushed"], x["rows_compacted"]):
+            for c in rows:
+                rps = -(-c["global_rows"] // RANK_LIVE_RANKS)
+                if c["held"] != [rps] or c["devices"] != [str(dev)]:
+                    raise AssertionError(f"phase 17 (b) rank {x['rank']}: {c}")
+        print(f"  (b) [{card}] rank {x['rank']}: {x['bytes_flushed'] / 2**30:.3f} "
+              f"GiB after the flushes (meshless {flat['bytes_flushed'] / 2**30:.3f}),"
+              f" {x['bytes_compacted'] / 2**30:.3f} GiB after the compaction "
+              f"(meshless {flat['bytes_compacted'] / 2**30:.3f}), peak in the "
+              f"compaction {x['peak_compaction'] / 2**30:.3f} GiB (meshless "
+              f"{flat['peak_compaction'] / 2**30:.3f}); answers == (a); each "
+              f"component's ceil(rows / {RANK_LIVE_RANKS}) rows on {dev}",
+              flush=True)
+    for i, kind in enumerate(LIVE_MIX):
+        b = statistics.median(x["flush_s"][i] for x in ranks)
+        p = "not measured" if not p6 else f"{p6[i]['wall_s']:.3f} s"
+        print(f"  [{card}] batch {i + 1} ({kind}): {RANK_LIVE_RANKS} gloo ranks "
+              f"{b:.3f} s   one nccl rank {got['flush_s'][i]:.3f} s   meshless "
+              f"{flat['flush_s'][i]:.3f} s   phase 6 {p}", flush=True)
+    b = statistics.median(x["compact_s"] for x in ranks)
+    p = "not measured" if not phase6 else f"{phase6['compact_s']:.3f} s"
+    print(f"  [{card}] compaction: {RANK_LIVE_RANKS} gloo ranks {b:.3f} s   one "
+          f"nccl rank {got['compact_s']:.3f} s   meshless {flat['compact_s']:.3f} s"
+          f"   phase 6 {p}", flush=True)
+    print("  (b) walls: host clock per rank, the ranks' median; the cost of "
+          "distribution on one card (four processes share it, gloo stages "
+          "every collective through the host), not a speed-up; (a) and (b) "
+          "run side by side, so each wall here shares the card and the host "
+          "with the other part's work", flush=True)
+    keep = ("flush_s", "compact_s", "bytes_flushed", "bytes_compacted",
+            "peak_compaction", "components")
+    out["meshless"] = {k: flat[k] for k in keep}
+    out["one_rank"] = {k: got[k] for k in keep}
+    out["ranks"] = [dict({k: x[k] for k in keep}, rank=x["rank"]) for x in ranks]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  [{card}] phase 17 in {out['seconds']:.1f} s: (a) the meshless "
+          f"scenario {out['a_meshless_s']:.1f} s, the one-rank one "
+          f"{out['a_rank_s']:.1f} s; (b), started with (a), done "
+          f"{out['b_wait_s']:.1f} s after it", flush=True)
+    return out
+
+
+def raw_dim_unique1() -> np.ndarray:
+    from repro_torch.data import wisconsin
+
+    return wisconsin.generate(LIVE_DIM_ROWS, seed=7).columns["unique1"].numpy()
+
+
+def rank_live_main(seed: int) -> int:
+    """``--rank-live``: phase 17 alone, its kernels built first. Under
+    ``torchrun`` (``WORLD_SIZE`` above 1) it runs 17(b)'s scenario instead
+    on one rank a card over NCCL: every rank's answers against numpy on
+    rank 0; rank 0 prints the summary."""
+    import torch
+
+    from repro_torch.data import wisconsin
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    _build.build()
+    _build.lib()
+    card = nvidia_smi()
+    table = wisconsin.generate(ROWS, seed=seed)
+    raw = {k: v.numpy() for k, v in table.columns.items()}
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        out = run_rank_live(table, raw, torch.device("cuda", 0), seed, card, None)
+        print(json.dumps({"rank_live": out}))
+        return 0
+    from repro_torch.engine.session import Session
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    mesh = init_rank_mesh(world, 1, None)
+    try:
+        states: list = []
+        x = live_scenario(Session(mode="kernel", mesh=mesh), table, seed,
+                          states if mesh.rank == 0 else None)
+        every = [None] * world
+        torch.distributed.all_gather_object(every, x)
+        if mesh.rank == 0:
+            dim_u1 = raw_dim_unique1()
+            for state, cols in zip(("nine", "one"), states):
+                want = durable_oracle(cols, dim_u1)
+                for y in every:
+                    bad = [n for n in RANK_LIVE_QUERIES
+                           if y[state][n] != _answer(want[n])]
+                    if bad or _answers(y) != _answers(every[0]):
+                        raise AssertionError(f"{state}: {bad}")
+            for r, y in enumerate(every):
+                print(f"  [{torch.cuda.get_device_name(r % torch.cuda.device_count())}]"
+                      f" rank {r}: {y['bytes_flushed'] / 2**30:.3f} GiB after the "
+                      f"flushes, {y['bytes_compacted'] / 2**30:.3f} after the "
+                      f"compaction, peak {y['peak_compaction'] / 2**30:.3f}; "
+                      f"flushes {[round(s, 3) for s in y['flush_s']]} s, compaction "
+                      f"{y['compact_s']:.3f} s", flush=True)
+            print(nvidia_smi(every=True))
+            print(json.dumps({"rank_live_nccl": {
+                "world": world, "answers_equal_numpy": True,
+                "ranks": [{k: y[k] for k in ("flush_s", "compact_s",
+                                             "bytes_flushed", "bytes_compacted",
+                                             "peak_compaction")}
+                          for y in every]}}))
+    finally:
+        close_rank_mesh()
+    return 0
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -6153,9 +6565,14 @@ def main(argv=None) -> int:
     ap.add_argument("--rank-engine", action="store_true",
                     help="phase 16 alone (under torchrun: 16(b)'s body on "
                          "one rank a card over NCCL)")
+    ap.add_argument("--rank-live", action="store_true",
+                    help="phase 17 alone (under torchrun: 17(b)'s scenario "
+                         "on one rank a card over NCCL)")
     args = ap.parse_args(argv)
     if args.rank_engine:
         return rank_engine_main(args.seed)
+    if args.rank_live:
+        return rank_live_main(args.seed)
 
     import torch
 
@@ -6397,6 +6814,18 @@ def main(argv=None) -> int:
         if not rank_engine["launches"][name]:
             raise AssertionError(f"phase 16: {name} never launched on the "
                                  "rank engine path")
+    torch.cuda.empty_cache()
+    phase_header(f"phase 17: the live engine across processes — phase 6's "
+          f"scenario ({ROWS} rows, {len(LIVE_MIX)} batches, a view, persist, "
+          f"the compaction) on a one-rank nccl group against a meshless "
+          f"session, then {RANK_LIVE_RANKS} gloo ranks sharing the card",
+          flush=True)
+    rank_live = run_rank_live(table, raw, dev, args.seed, card, live)
+    for row in kernels:
+        if row["name"] in RELATIONAL:
+            n = rank_live["launches"][row["name"]]
+            row["launches_by_path"]["rank_live"] = n
+            row["launches"] += n
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -6409,7 +6838,7 @@ def main(argv=None) -> int:
                       "serving": serving, "training": training,
                       "runtime": runtime, "mesh_models": mesh_models,
                       "cost_model": cost, "rank_mesh": ranks,
-                      "rank_engine": rank_engine,
+                      "rank_engine": rank_engine, "rank_live": rank_live,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

@@ -26,6 +26,13 @@ a component a pinned snapshot still reaches is never touched.
 With a durable store attached (``runtime/durable.py``), every publish also
 commits a manifest generation to disk and reclamation unlinks the segment
 files no kept generation references.
+
+On a mesh of ``torch.distributed`` ranks each rank has its own catalog,
+and every rank makes the same calls in the same order, so run uids and
+LSNs advance alike on every rank. The engine votes before each publish
+(``engine/lsm._vote``): a CAS that fails, or a fault that fires, on one
+rank aborts the swap on all of them, and every rank holds the same
+manifests.
 """
 from __future__ import annotations
 

@@ -37,7 +37,11 @@ Over a fed dataset every component lowers on its own (per-component index
 probes, kernel launches, visibility masks) and the results merge: scalars
 with +/max/min (``MergeScalars``), streams by concatenation
 (``PrunedUnionRuns``), group-by partials by +/max/min. Newer components'
-anti-matter subtracts from every matter stream through ``_shadowed``.
+anti-matter subtracts from every matter stream through ``_shadowed``. On
+a rank mesh a union stream holds this rank's rows of each component, one
+component after another; made whole it is put back in component order,
+and a top-k or limit over it breaks ties by the whole stream's order
+(``_whole``, ``_positions``).
 """
 from __future__ import annotations
 
@@ -82,10 +86,10 @@ class LoweringStrategy:
     def agg(self, env, mask, op, column):
         return physical.agg_scalar(env, mask, op, column)
 
-    def limit(self, env, mask, n):
+    def limit(self, env, mask, n, positions=None):
         return physical.limit(env, mask, n)
 
-    def topk(self, env, mask, key, k, ascending, select):
+    def topk(self, env, mask, key, k, ascending, select, positions=None):
         return physical.topk(env, mask, key, k, ascending, select=select)
 
     def group_agg(self, env, mask, key, lo, num_groups, aggs):
@@ -164,14 +168,15 @@ class ShardMapStrategy(LoweringStrategy):
             return D.dist_count(self.mesh, self.data_axes, mask)
         return D.dist_agg(self.mesh, self.data_axes, op, env[column], mask)
 
-    def limit(self, env, mask, n):
+    def limit(self, env, mask, n, positions=None):
         from repro_torch.engine import distributed as D
-        return D.dist_limit(self.mesh, self.data_axes, env, mask, n)
+        return D.dist_limit(self.mesh, self.data_axes, env, mask, n,
+                            positions=positions)
 
-    def topk(self, env, mask, key, k, ascending, select):
+    def topk(self, env, mask, key, k, ascending, select, positions=None):
         from repro_torch.engine import distributed as D
         return D.dist_topk(self.mesh, self.data_axes, env, mask, key, k,
-                           ascending, select=select)
+                           ascending, select=select, positions=positions)
 
     def group_agg(self, env, mask, key, lo, num_groups, aggs):
         from repro_torch.engine import distributed as D
@@ -262,18 +267,55 @@ def _strategy(ctx: "ExecContext", child: PH.PhysOp) -> LoweringStrategy:
     return _LOCAL if ctx.on_ranks and _replicated(child) else ctx.strategy
 
 
+def _union_below(node: PH.PhysOp) -> Optional[PH.PrunedUnionRuns]:
+    """The union of several components whose rows ``node``'s stream
+    carries one for one (through filters, projections and dictionary
+    remaps), else None."""
+    while isinstance(node, (PH.FullScanFilter, PH.ProjectCols,
+                            PH.DictRemapCols)):
+        node = node.children[0]
+    if isinstance(node, PH.PrunedUnionRuns) and len(node.children) > 1:
+        return node
+    return None
+
+
+def _segments(tables: dict, union) -> Optional[list]:
+    """On a rank mesh: this rank's row count of each component of
+    ``union``'s stream in this run (its lowering records them), else
+    None."""
+    return None if union is None else tables[("union", id(union))]
+
+
 def _whole(fn: Callable, child: PH.PhysOp, ctx: "ExecContext") -> Callable:
     """``fn`` (``child``'s lowered stream) made whole on every rank of a
     rank mesh: this rank's shard is gathered with the others (shard order
-    is row order). The identity elsewhere."""
+    is row order; a union's rows component by component). The identity
+    elsewhere."""
     if not ctx.on_ranks or _replicated(child):
         return fn
     from repro_torch.engine.distributed import gather_stream
 
+    union = _union_below(child)
+
     def gathered(tables, params):
         env, mask = fn(tables, params)
-        return gather_stream(ctx.mesh, ctx.data_axes, env, mask)
+        return gather_stream(ctx.mesh, ctx.data_axes, env, mask,
+                             segments=_segments(tables, union))
     return gathered
+
+
+def _positions(ctx: "ExecContext", child: PH.PhysOp) -> Callable:
+    """``positions(tables, device)``: on a rank mesh, where ``child``'s
+    stream is this rank's rows of a union, each row's position in the whole
+    stream (a top-k or limit breaks ties by it); None elsewhere."""
+    union = _union_below(child) if ctx.on_ranks and not _replicated(child) \
+        else None
+    if union is None:
+        return lambda tables, device: None
+    from repro_torch.engine.distributed import union_positions
+
+    return lambda tables, device: union_positions(
+        ctx.mesh, ctx.data_axes, _segments(tables, union), device)
 
 
 @dataclasses.dataclass
@@ -314,16 +356,19 @@ class CompiledQuery:
         return self.fn(self.gather_tables(catalog), params)
 
 
-def compile_physical(phys: PH.PhysOp, ctx: ExecContext) -> CompiledQuery:
+def compile_physical(phys: PH.PhysOp, ctx: ExecContext,
+                     gathered: bool = True) -> CompiledQuery:
     """Lower one physical plan into a callable. The lowering works on a
     private copy of the plan: a literal's param slot lives on its Lit
     object, and the physical plans of one optimized plan's variants share
     Lit objects, so a later variant's slot assignment must never reach an
-    earlier variant's closure (it reads the slots when it runs)."""
+    earlier variant's closure (it reads the slots when it runs).
+    ``gathered=False`` (``Session.persist`` on a rank mesh) leaves a row
+    stream as this rank's rows instead of making it whole."""
     lowered = copy.deepcopy(phys)
     leaf_keys = PH.scan_leaves(lowered)
     lits = collect_params(PH.all_exprs(lowered))
-    kind, build = _lower_terminal(lowered, ctx)
+    kind, build = _lower_terminal(lowered, ctx, gathered)
     return CompiledQuery(phys, kind, build, leaf_keys, lits, ctx.device,
                          anti_keys=PH.anti_leaves(lowered), lowered=lowered)
 
@@ -516,6 +561,8 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
                 e, m = k(tables, params)
                 envs.append(e)
                 masks.append(m)
+            if ctx.on_ranks:   # this rank's rows of each component
+                tables[("union", id(node))] = [m.shape[0] for m in masks]
             env = {n: torch.cat([e[n] for e in envs], dim=0) for n in envs[0]}
             return env, torch.cat(masks, dim=0)
         return fn
@@ -560,10 +607,12 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
     if isinstance(node, PH.LimitRows):
         child = _lower_stream(node.children[0], ctx)
         strategy = _strategy(ctx, node.children[0])
+        positions = _positions(ctx, node.children[0])
 
         def fn(tables, params):
             env, mask = child(tables, params)
-            return strategy.limit(env, mask, node.n)
+            return strategy.limit(env, mask, node.n,
+                                  positions=positions(tables, mask.device))
         return fn
 
     if isinstance(node, PH.TopKSelect):
@@ -573,11 +622,13 @@ def _lower_stream(node: PH.PhysOp, ctx: ExecContext) -> Callable:
         select = physical.kernel_topk_select() if node.kernel \
             else physical._select_topk
         strategy = _strategy(ctx, node.children[0])
+        positions = _positions(ctx, node.children[0])
 
         def fn(tables, params):
             env, mask = child(tables, params)
-            return strategy.topk(env, mask, node.key, node.k,
-                                 node.ascending, select)
+            return strategy.topk(env, mask, node.key, node.k, node.ascending,
+                                 select,
+                                 positions=positions(tables, mask.device))
         return fn
 
     if isinstance(node, PH.SortRows):
@@ -734,7 +785,8 @@ def _lower_kernel_segment_agg(node: PH.KernelSegmentAgg, ctx: ExecContext,
 # -- terminal lowering --------------------------------------------------------
 
 
-def _lower_terminal(node: PH.PhysOp, ctx: ExecContext) -> tuple[str, Callable]:
+def _lower_terminal(node: PH.PhysOp, ctx: ExecContext,
+                    gathered: bool = True) -> tuple[str, Callable]:
     if isinstance(node, PH.MergeScalars):
         # per-component scalar programs (each with its own access path)
         # merged with +/max/min; pruned runs never compile, gather or launch
@@ -807,7 +859,8 @@ def _lower_terminal(node: PH.PhysOp, ctx: ExecContext) -> tuple[str, Callable]:
     if isinstance(node, (PH.GroupAggGeneric, PH.KernelSegmentAgg)):
         return "grouped", _lower_groupagg(node, ctx)
 
-    return "table", _whole(_lower_stream(node, ctx), node, ctx)
+    stream = _lower_stream(node, ctx)
+    return "table", _whole(stream, node, ctx) if gathered else stream
 
 
 def _lower_kernel_range_count(node: PH.KernelRangeCount, ctx: ExecContext) -> Callable:

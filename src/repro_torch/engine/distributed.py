@@ -38,9 +38,21 @@ whole tensor it holds and merges over the data axes' process group
 (they plan alike) and ends with the same merged value. Where the list
 form adds float partials in shard order, the rank form gathers them and
 adds them in rank order (``Shards.psum``), so a float result is the
-same bit for bit on either mesh; integer sums are exact either way.
+same bit for bit on either mesh; integer sums are exact either way. (Over
+a fed dataset's union stream the one-process mesh splits the concatenated
+components evenly while a rank holds its rows of each component, so a
+float sum of a generic group-by over base ∪ runs may differ there in its
+last bits.)
 Streams of unequal length across ranks (a block gather keeps each rank's
-own surviving blocks) are padded with dead rows before a gather.
+own surviving blocks) are padded with dead rows before a gather. A stream
+over a fed dataset (base ∪ runs) holds, on a rank, its rows of each
+component one after another; made whole (``gather_stream`` with the
+components' lengths) it is component-major, each component in shard
+order, as the one-process mesh and a meshless session concatenate it, and
+a top-k or limit over it breaks ties by that order (``union_positions``).
+``gather_to_host`` brings the rows a host mask keeps, from every rank, to
+every rank's host in global row order, in chunks (a compaction's merge
+input, a view's seed, the rows a tombstone retracts).
 
 Each collective reports itself to the active cost counters
 (``runtime/costs.py``, ``launch/hlocost.py``): its kind (the
@@ -412,40 +424,142 @@ def _gather_env(sh: Shards, parts: list,
     return dict(zip(names, cols)), mask
 
 
-def gather_stream(mesh, data_axes, env: dict, mask) -> tuple[dict, torch.Tensor]:
+def _union_lengths(sh: Shards, lens: list, device) -> np.ndarray:
+    """Every rank's lengths of its union stream's segments, (S, C) on the
+    host (one small all-gather; the same on every rank)."""
+    mine = torch.tensor(lens, dtype=torch.int64, device=device)
+    return sh.gather([mine]).cpu().numpy().reshape(sh.n, len(lens))
+
+
+def union_positions(mesh, data_axes, lens: list, device) -> torch.Tensor:
+    """Rank form only: each row of this rank's union stream (its ``lens[c]``
+    rows of component c, one component after another) as its position in
+    the whole, component-major stream (component c's rows of every shard,
+    in shard order, after those of every earlier component)."""
+    sh = Shards(mesh, data_axes)
+    every = _union_lengths(sh, lens, device)
+    base = np.concatenate([[0], np.cumsum(every.sum(axis=0))])[:-1]
+    before = every[:sh.index].sum(axis=0)
+    pos = [np.arange(n, dtype=np.int64) + int(base[c] + before[c])
+           for c, n in enumerate(lens)]
+    return torch.from_numpy(np.concatenate(pos)).to(device)
+
+
+def gather_stream(mesh, data_axes, env: dict, mask,
+                  segments: Optional[list] = None) -> tuple[dict, torch.Tensor]:
     """A row-sharded stream made whole on every rank (shard order is row
     order; the pad rows between shards are dead): what a rank mesh does
     before an operator that has no shard-local form (a full sort, a
     window, a materialized join) and at result delivery. The identity on
-    the one-process mesh, whose columns are whole."""
+    the one-process mesh, whose columns are whole. ``segments`` (a union
+    stream): this rank's row count of each component, in order; the
+    gathered rows are then put in component-major order."""
     sh = Shards(mesh, data_axes)
     if sh.group is None:
         return env, mask
-    return _gather_env(sh, [(env, mask)])
+    if not segments or len(segments) < 2:
+        return _gather_env(sh, [(env, mask)])
+    every = _union_lengths(sh, segments, mask.device)
+    rows = int(every.sum(axis=1).max())
+    names = list(env)
+    *cols, gm = sh.gather_rows([env[n] for n in names] + [mask], rows)
+    starts = np.cumsum(every, axis=1) - every          # within each rank
+    order = np.concatenate([np.arange(n) + r * rows + starts[r, c]
+                            for c in range(every.shape[1])
+                            for r, n in enumerate(every[:, c])])
+    idx = torch.from_numpy(order.astype(np.int64)).to(mask.device)
+    return {n: c[idx] for n, c in zip(names, cols)}, gm[idx]
+
+
+_POS = "__upos__"
+
+
+def _in_order(env: dict, mask) -> tuple[dict, torch.Tensor]:
+    """Gathered candidates put back in stream order (``_POS``, live rows
+    first) and the position column dropped."""
+    big = torch.iinfo(torch.int64).max
+    order = torch.argsort(torch.where(mask, env[_POS], big), stable=True)
+    return ({n: v[order] for n, v in env.items() if n != _POS}, mask[order])
 
 
 def dist_topk(mesh, data_axes, env: dict, mask, key: str, k: int,
-              ascending: bool, select=physical._select_topk):
+              ascending: bool, select=physical._select_topk,
+              positions: Optional[torch.Tensor] = None):
     """Local top-k, a k-per-shard gather, then the final top-k. ``select``
     swaps the selection primitive (kernel mode passes block_topk); the
     merge is the same. The gathered candidates are shard-major and shards
     are contiguous in row order, so ties still go to the lower row. A rank
     pads its candidates to k rows (dead ones), so that every rank sends as
-    many."""
+    many. ``positions`` (a rank's union stream, ``union_positions``): the
+    candidates are put in whole-stream order before the final top-k, so
+    that ties go to the lower row of the whole stream."""
     sh = Shards(mesh, data_axes)
+    if positions is not None:
+        env = dict(env, **{_POS: positions})
     local = [physical.topk(e, m, key, min(k, m.shape[0]), ascending,
                            select=select)
              for e, m in _shard_env(sh, env, mask)]
     ge, gm = _gather_env(sh, local, k)
+    if positions is not None:
+        ge, gm = _in_order(ge, gm)
     return physical.topk(ge, gm, key, k, ascending, select=select)
 
 
-def dist_limit(mesh, data_axes, env: dict, mask, n: int):
-    """Local compact(n), gather, then the first n (shard-major order)."""
+def dist_limit(mesh, data_axes, env: dict, mask, n: int,
+               positions: Optional[torch.Tensor] = None):
+    """Local compact(n), gather, then the first n (shard-major order; with
+    ``positions``, whole-stream order, as :func:`dist_topk`)."""
     sh = Shards(mesh, data_axes)
+    if positions is not None:
+        env = dict(env, **{_POS: positions})
     local = [physical.limit(e, m, n) for e, m in _shard_env(sh, env, mask)]
     ge, gm = _gather_env(sh, local, n)
+    if positions is not None:
+        ge, gm = _in_order(ge, gm)
     return physical.limit(ge, gm, n)
+
+
+# -- rows to the host -----------------------------------------------------------------
+
+GATHER_CHUNK_ROWS = 1 << 18   # rows a rank sends per collective of gather_to_host
+
+
+def gather_to_host(mesh, data_axes, columns: list, keep: np.ndarray,
+                   chunk_rows: int = GATHER_CHUNK_ROWS) -> list:
+    """Rank form only: the rows of ``columns`` (this rank's shard of a
+    component) that the host mask ``keep`` selects, from every rank, as
+    numpy arrays on every rank's HOST, in global row order (rank order,
+    each rank's rows in order). The counts per rank are exchanged first
+    (one small all-gather: a shard of pads only or of tombstones only
+    sends nothing); then the rows move in chunks of at most ``chunk_rows``
+    a rank, each chunk ONE packed all-gather (every column's rows side by
+    side as bytes, ``Shards.gather_rows``) copied to the host before the
+    next: no more than S x ``chunk_rows`` of the rows sit on a device at
+    once, never the whole component."""
+    sh = Shards(mesh, data_axes)
+    assert sh.group is not None, "gather_to_host is the rank form"
+    dev = columns[0].device
+    idx = np.flatnonzero(keep)
+    counts = sh.gather([torch.tensor([idx.size], dtype=torch.int64,
+                                     device=dev)]).cpu().numpy()
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    out = [np.empty((int(starts[-1]),) + tuple(c.shape[1:]),
+                    dtype=torch.empty((), dtype=c.dtype).numpy().dtype)
+           for c in columns]
+    at = 0
+    while at < counts.max():
+        rows = int(min(chunk_rows, counts.max() - at))
+        mine = torch.from_numpy(idx[at:at + rows]).to(dev)
+        every = sh.gather_rows([c[mine] for c in columns], rows)
+        for dst, got in zip(out, every):
+            got = got.cpu().numpy()
+            for r in range(sh.n):
+                take = int(min(max(counts[r] - at, 0), rows))
+                if take:
+                    dst[starts[r] + at:starts[r] + at + take] = \
+                        got[r * rows:r * rows + take]
+        at += rows
+    return out
 
 
 # -- joins -------------------------------------------------------------------------

@@ -27,6 +27,11 @@ that must still subtract from older components. Flush stays O(batch);
 annihilation of older components is bookkeeping (O(tombstones · log n)),
 never a rewrite.
 
+On a rank mesh every rank makes the same feed calls with the same batches:
+normalization is pure and host-side, so every rank flushes the same run
+and keeps its own rows of it (``lsm.make_run``), and every publish commits
+on every rank or on none (``lsm._vote``).
+
 With a durable store attached to the session's catalog, every validated
 batch is appended to the dataset's feed WAL and fsynced before the ack, and
 the covered prefix is truncated only after the covering flush's manifest
@@ -42,7 +47,6 @@ import numpy as np
 from repro_torch.core.physical_planner import STALL_WARN_FRAC
 from repro_torch.engine import lsm
 from repro_torch.engine.table import Table, is_lane_column, numpy_dtype
-from repro_torch.launch.mesh import refuse_on_ranks
 from repro_torch.runtime import telemetry as tel
 
 
@@ -79,7 +83,6 @@ class Feed:
         sleeps up to ``stall_delay_s`` along the planner's stall-pressure
         curve; at the hard cap the writer blocks up to ``stall_timeout_s``
         for the worker to catch up (the ceiling)."""
-        refuse_on_ranks(session.mesh, "Feed (ingest, upserts and deletes)")
         self.session = session
         self.dataset = dataset
         self.dataverse = dataverse
@@ -197,7 +200,7 @@ class Feed:
         # "pre-swap" fault point loses nothing — re-flushing replays the
         # exact same batch (normalization is pure). With a durable store the
         # on-disk WAL mirrors the buffer batch for batch.
-        lsm._fault(self.session, "flush")
+        lsm._agreed_fault(self.session, "flush")
         cols, anti_keys = _normalize_buffer(self._buffer, ds.table, key_col)
         if not len(next(iter(cols.values()))) and anti_keys is None:
             self._buffer.clear()

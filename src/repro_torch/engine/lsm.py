@@ -34,6 +34,20 @@ durable store (``runtime/durable.py``) flush- and compaction-built
 components are written to their segments off the catalog lock, before the
 publish that links them. ``_fault`` consults the session's ``fault_plan``
 (``runtime/fault.py``) at the named crash points.
+
+On a mesh of ``torch.distributed`` ranks (``launch.mesh.RankMesh``) every
+rank makes the same calls with the same batches and keeps only its own
+rows of every component: a run is sorted and block-padded on the host,
+then sharded (``Table.shard``), its statistics merged over the ranks. The
+kill-sets, host key copies and anti keys are host state, the same on every
+rank. A compaction brings each component's visible rows to every rank's
+host (``distributed.gather_to_host``, in chunks), runs the same host merge
+there, and shards the result again; the rows a tombstone retracts from a
+view come from their owners the same way. Every publish takes a vote of
+the ranks before its swap (``_vote``): a fault or a lost CAS on one rank
+aborts it on all of them, so every rank holds the same manifest (the same
+components in the same order, the same LSN and kill-sets). Fault points
+that precede collectives are agreed the same way.
 """
 from __future__ import annotations
 
@@ -51,7 +65,8 @@ from repro_torch.core.catalog import INTERNAL_COLUMNS, Dataset, Manifest, open_w
 from repro_torch.device import resolve_device
 from repro_torch.engine.table import (ColumnMeta, Table, is_lane_column,
                                       pad_to_block)
-from repro_torch.launch.mesh import refuse_on_ranks
+from repro_torch.launch.mesh import (agree, is_rank_mesh, refuse_on_ranks,
+                                     twin_mesh)
 from repro_torch.runtime import telemetry as tel
 from repro_torch.runtime.fault import StorageFault
 
@@ -71,6 +86,40 @@ def _fault(session, point: str) -> None:
     plan = getattr(session, "fault_plan", None)
     if plan is not None:
         plan.check(point)
+
+
+_VOTE_FAULT, _VOTE_CONFLICT, _VOTE_OK = 0, 1, 2
+
+
+def _vote(session, err: Optional[BaseException]) -> None:
+    """Raise ``err`` if this rank failed; on a rank mesh first agree every
+    rank's outcome (a MIN all-reduce, ``launch.mesh.agree``), so that a
+    rank whose own step succeeded raises too when a peer's failed: a
+    ``ManifestConflict`` for a peer's lost CAS, a ``StorageFault`` for its
+    fault. Every rank then goes on, or stops, together."""
+    if is_rank_mesh(session.mesh):
+        code = _VOTE_OK if err is None else _VOTE_CONFLICT \
+            if isinstance(err, ManifestConflict) else _VOTE_FAULT
+        least = agree(session.mesh, code, session.data_axes)
+        if err is None and least == _VOTE_CONFLICT:
+            err = ManifestConflict("a peer rank lost its CAS: the publish "
+                                   "is aborted on every rank")
+        elif err is None and least == _VOTE_FAULT:
+            err = StorageFault("a peer rank faulted: the step is aborted on "
+                               "every rank")
+    if err is not None:
+        raise err
+
+
+def _agreed_fault(session, point: str) -> None:
+    """``_fault`` at a point that collectives follow: on a rank mesh a fault
+    on one rank raises on every rank (``_vote``)."""
+    err = None
+    try:
+        _fault(session, point)
+    except StorageFault as e:
+        err = e
+    _vote(session, err)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -157,56 +206,71 @@ def should_compact(ds: Dataset, policy: CompactionPolicy) -> bool:
 
 
 def make_run(session, base: Dataset, table: Table,
-             anti_keys: Optional[np.ndarray] = None) -> Dataset:
+             anti_keys: Optional[np.ndarray] = None, uid: bool = True) -> Dataset:
     """Build one run from a flush batch (host columns): sort by the base's
     primary on the host → place on the session device → stats (matter only)
     → (optional) open-widen → append anti-matter rows → block-pad (+ shard
     on a mesh) → sorted indexes and block zone maps, per shard on a mesh.
-    O(batch) throughout.
+    O(batch) throughout. On a rank mesh the anti rows are appended and the
+    block padding made on the host, then the run is sharded (this rank's
+    rows alone reach the device) and its statistics merged over the ranks
+    (``_collect_stats_on_ranks``, the matter rows only): the same layout,
+    zones and meta as the one-process mesh's.
 
     ``anti_keys`` are the primary keys this run's anti-matter annihilates in
     older components: table rows flagged ``__antimatter__`` (``__valid__``
     False) and the sorted ``anti_keys_arr`` tensor visibility probes
-    search."""
+    search. ``uid=False`` leaves the run's uid to its publish
+    (``_assign_uid``; the background compactor on a rank mesh)."""
     from repro_torch.core.stats import harvest_block_zones
-
-    refuse_on_ranks(session.mesh, "an LSM run")
-    from repro_torch.engine.session import _collect_stats
+    from repro_torch.engine.session import (_collect_stats,
+                                            _collect_stats_on_ranks)
 
     t0 = time.perf_counter()
     live = table.num_rows
     primary = base.primary_index
-    meta = dict(table.meta)
+    host_keys = anti_sorted = None
     if primary is not None:
         keys = _host(table.columns[primary.column])
         if not base.closed:  # sort in the widened dtype the run stores
             keys = keys.astype(np.float32)
-        order = torch.from_numpy(np.argsort(keys, kind="stable"))
-        table = Table({k: v[order] for k, v in table.columns.items()},
-                      meta, table.num_rows)
-    # `like`: a run's dict-lane presence follows the base's, so the column
-    # set stays uniform across every component of the union
-    table = _collect_stats(table.to(session.device), like=base.table.meta)
-    if not base.closed:
-        table = open_widen(table)
-    host_keys = None
+        order = np.argsort(keys, kind="stable")
+        host_keys = keys[order]   # the matter keys as the run stores them
+        at = torch.from_numpy(order)
+        table = Table({k: v[at] for k, v in table.columns.items()},
+                      table.meta, table.num_rows)
+    n_anti = 0 if anti_keys is None else len(anti_keys)
+    if n_anti:
+        anti_sorted = np.sort(np.asarray(anti_keys).astype(host_keys.dtype))
+    if is_rank_mesh(session.mesh):
+        if n_anti:
+            table = _append_anti_rows(table, primary.column, anti_sorted)
+        table = _collect_stats_on_ranks(
+            pad_to_block(table, RUN_BLOCK).shard(session.mesh,
+                                                 session.data_axes),
+            live, like=base.table.meta)
+        if not base.closed:
+            table = open_widen(table)
+    else:
+        # `like`: a run's dict-lane presence follows the base's, so the
+        # column set stays uniform across every component of the union
+        table = _collect_stats(table.to(session.device), like=base.table.meta)
+        if not base.closed:
+            table = open_widen(table)
+        if n_anti:
+            table = _append_anti_rows(table, primary.column, anti_sorted)
+        table = pad_to_block(table, RUN_BLOCK)
+        if session.mesh is not None:
+            table = table.shard(session.mesh, session.data_axes)
     if primary is not None:
         meta = dict(table.meta)
         meta[primary.column] = dataclasses.replace(meta[primary.column],
                                                    sorted_ascending=True)
-        table = Table(table.columns, meta, table.num_rows)
-        host_keys = _host(table.columns[primary.column])
-    anti_sorted = None
-    n_anti = 0 if anti_keys is None else len(anti_keys)
-    if n_anti:
-        anti_sorted = np.sort(np.asarray(anti_keys).astype(host_keys.dtype))
-        table = _append_anti_rows(table, primary.column, anti_sorted)
-    table = pad_to_block(table, RUN_BLOCK)
-    if session.mesh is not None:
-        table = table.shard(session.mesh, session.data_axes)
+        table = table.with_columns(table.columns, meta)
     # stable component id: a per-dataset monotone uid, never reused
-    uid = session.catalog.next_run_uid(base.dataverse, base.name)
-    run = Dataset(name=f"{base.name}@run{uid}", uid=uid,
+    run_uid = session.catalog.next_run_uid(base.dataverse, base.name) \
+        if uid else -1
+    run = Dataset(name=f"{base.name}@run{run_uid}", uid=run_uid,
                   dataverse=base.dataverse, table=table, closed=base.closed,
                   engine_owned=True,
                   live_rows=live, anti_rows=n_anti,
@@ -230,6 +294,13 @@ def make_run(session, base: Dataset, table: Table,
                 dataset=ds_label)
     tel.observe("lsm.run_build_rows", live, dataset=ds_label)
     return run
+
+
+def _assign_uid(session, run: Dataset) -> None:
+    """Give a run built with ``uid=False`` its uid, at its publish."""
+    base_name = run.name.partition("@")[0]
+    run.uid = session.catalog.next_run_uid(run.dataverse, base_name)
+    run.name = f"{base_name}@run{run.uid}"
 
 
 def _append_anti_rows(table: Table, key_col: str,
@@ -270,10 +341,10 @@ def register_run(session, base: Dataset, run: Dataset) -> Optional[dict]:
         # swapped the base the caller fetched
         cur = cat.manifest(base.dataverse, base.name)
         older = cur.components
-        _fault(session, "pre-swap")
+        _agreed_fault(session, "pre-swap")     # on ranks: the publish vote
         cat.publish(base.dataverse, base.name, cur.base,
                     tuple(cur.runs) + (run,))
-        _fault(session, "post-swap")
+        _agreed_fault(session, "post-swap")
         retracted = None
         if run.anti_rows:
             gather = any((v.dataverse, v.dataset) == (base.dataverse, base.name)
@@ -308,14 +379,12 @@ def _annihilate_older(older, run: Dataset,
         if not gather:
             continue
         # the matter prefix is clustered by the primary key, so index-space
-        # positions ARE table row positions: gather the dying rows
-        idx = torch.from_numpy(np.concatenate(
-            [np.arange(l, h) for l, h in zip(lo, hi) if h > l]))
-        gathered.append({k: _host(v[idx.to(v.device)])
-                         for k, v in comp.table.columns.items()
-                         if k not in INTERNAL_COLUMNS
-                         and not k.startswith("__ix")
-                         and not is_lane_column(k)})
+        # positions ARE table row positions (global ones on a rank's
+        # shard): gather the dying rows, from their owners on a rank mesh
+        from repro_torch.engine.session import _table_rows
+
+        gathered.append(_table_rows(comp.table, np.concatenate(
+            [np.arange(l, h) for l, h in zip(lo, hi) if h > l])))
     if not gathered:
         return None
     return {k: np.concatenate([g[k] for g in gathered], axis=0)
@@ -326,7 +395,8 @@ def host_visible_mask(comp: Dataset, key_col: Optional[str],
                       annihilated: Optional[set] = None) -> np.ndarray:
     """Host-side visibility of one component's physical rows: valid matter
     minus rows newer anti-matter annihilated. ``annihilated`` overrides the
-    live kill-set with a copy captured under the catalog lock."""
+    live kill-set with a copy captured under the catalog lock. On a rank's
+    shard: the visibility of the rows this rank holds."""
     mask = _host(comp.table.valid).copy()
     anti = comp.table.columns.get("__antimatter__")
     if anti is not None:
@@ -340,11 +410,26 @@ def host_visible_mask(comp: Dataset, key_col: Optional[str],
 
 
 def _visible_columns(comp: Dataset, key_col: Optional[str],
-                     annihilated: Optional[set] = None) -> dict[str, np.ndarray]:
+                     annihilated: Optional[set] = None, names=None,
+                     mesh=None) -> dict[str, np.ndarray]:
+    """The component's visible rows of its user columns (or of ``names``),
+    on the host. On a rank mesh every rank's visible rows, in global row
+    order, gathered over ``mesh`` (the component's own by default; the
+    background compactor's worker passes its twin; a component of the
+    one-process mesh needs none)."""
     mask = host_visible_mask(comp, key_col, annihilated)
     # per-component dict lanes drop: merged outputs rebuild coherent lanes
-    return {k: _host(v)[mask] for k, v in comp.table.columns.items()
-            if k not in INTERNAL_COLUMNS and not is_lane_column(k)}
+    if names is None:
+        names = [k for k in comp.table.columns
+                 if k not in INTERNAL_COLUMNS and not is_lane_column(k)]
+    if comp.table.mesh is None:
+        return {k: _host(comp.table.columns[k])[mask] for k in names}
+    from repro_torch.engine import distributed as D
+
+    mesh = mesh if mesh is not None else comp.table.mesh
+    return dict(zip(names, D.gather_to_host(
+        mesh, comp.table.data_axes, [comp.table.columns[k] for k in names],
+        mask)))
 
 
 def _merge_meta(metas: list[ColumnMeta], total_rows: int) -> ColumnMeta:
@@ -367,6 +452,145 @@ def _merge_meta(metas: list[ColumnMeta], total_rows: int) -> ColumnMeta:
     return ColumnMeta(base.dtype, lo, hi, distinct, base.is_string, False)
 
 
+@dataclasses.dataclass
+class _Merge:
+    """One merge, planned against one manifest: ``("full",)`` folds every
+    component into a fresh base; ``("merge", start, end, level)`` folds
+    ``runs[start:end]`` into one run at ``level``. ``kills`` are the
+    members' kill-set copies, taken under the catalog lock."""
+
+    dataverse: str
+    name: str
+    action: tuple
+    manifest: Manifest
+    kills: list
+
+    @property
+    def members(self) -> tuple:
+        if self.action[0] == "full":
+            return self.manifest.components
+        _, start, end, _ = self.action
+        return tuple(self.manifest.runs[start:end])
+
+
+def _plan_merge(session, ds: Dataset, action: tuple,
+                manifest: Optional[Manifest] = None) -> _Merge:
+    cat = session.catalog
+    dv, name = ds.dataverse, ds.name
+    ensure_soft(session, dv, name)  # kill-sets and host keys must be live
+    with cat.lock:
+        m0 = manifest if manifest is not None else cat.manifest(dv, name)
+        job = _Merge(dv, name, action, m0, [])
+        # kill-set copies: a concurrent flush mutates the live sets
+        job.kills = [set(c.annihilated_keys) for c in job.members]
+    return job
+
+
+def _build_merge(session, job: _Merge, uid: bool = True) -> Dataset:
+    """Build a planned merge's component OFF the catalog lock (nothing is
+    published): the members' visible rows on the host, one host merge,
+    then a fresh base (``_build_dataset``) or run (``make_run``)."""
+    m0 = job.manifest
+    key_col = m0.base.primary_index.column \
+        if m0.base.primary_index is not None else None
+    parts = [_visible_columns(c, key_col, job.kills[i], mesh=session.mesh)
+             for i, c in enumerate(job.members)]
+    names = list(parts[0])
+    merged = {k: np.concatenate([p[k] for p in parts], axis=0) for k in names}
+    _agreed_fault(session, "mid-merge")
+    if job.action[0] == "full":
+        total = len(next(iter(merged.values()))) if names else 0
+        metas = [c.table.meta for c in job.members]
+        meta = {k: _merge_meta([mm[k] for mm in metas], total) for k in names}
+        secondary = [ix.column for ix in m0.base.indexes.values()
+                     if ix.kind == "secondary"]
+        built = session._build_dataset(job.name, Table(merged, meta),
+                                       dataverse=job.dataverse,
+                                       closed=m0.base.closed,
+                                       indexes=secondary, primary=key_col,
+                                       stats_like=m0.base.table.meta)
+        built.engine_owned = True  # merged copies, never a caller's tensors
+    else:
+        anti_parts = [m.host_anti_keys for m in job.members if m.anti_rows]
+        anti_union = np.unique(np.concatenate(anti_parts)) if anti_parts \
+            else None
+        built = make_run(session, m0.base, Table(merged), anti_keys=anti_union,
+                         uid=uid)
+        built.level = job.action[3]
+    _settle(session)
+    if session.catalog.store is not None:  # off-lock, pre-CAS
+        session.catalog.store.write_component(job.dataverse, job.name, built)
+    return built
+
+
+def _publish_merge(session, job: _Merge, built: Dataset) -> Dataset:
+    """Commit a built merge with one CAS-validated swap under the catalog
+    lock (``ManifestConflict`` when its members changed; on a rank mesh
+    the CAS outcome and the "pre-swap" fault point are voted on, so the
+    swap happens on every rank or on none). Runs flushed meanwhile
+    survive, and their tombstones are reconciled against the new
+    component."""
+    cat = session.catalog
+    dv, name, m0 = job.dataverse, job.name, job.manifest
+    kind = "full" if job.action[0] == "full" else "level"
+    try:
+        with cat.lock:
+            cur = cat.manifest(dv, name)
+            err = None
+            if kind == "full":
+                if cur.base is not m0.base \
+                        or tuple(cur.runs[:len(m0.runs)]) != tuple(m0.runs):
+                    err = ManifestConflict(
+                        f"{dv}.{name}: component set changed under a full "
+                        f"compaction (planned at lsn {m0.lsn}, now {cur.lsn})")
+            elif cur.base is not m0.base:
+                err = ManifestConflict(
+                    f"{dv}.{name}: base swapped under a level merge "
+                    f"(planned at lsn {m0.lsn}, now {cur.lsn})")
+            else:
+                members = job.members
+                try:
+                    s = cur.runs.index(members[0])  # identity: id-based eq
+                except ValueError:
+                    s = -1
+                if s < 0 or tuple(cur.runs[s:s + len(members)]) != members:
+                    err = ManifestConflict(
+                        f"{dv}.{name}: merged run segment no longer "
+                        f"contiguous (planned at lsn {m0.lsn}, now {cur.lsn})")
+            if isinstance(err, ManifestConflict):
+                tel.inc("lsm.compaction.conflicts_total", kind=kind)
+            else:
+                try:
+                    _fault(session, "pre-swap")
+                except StorageFault as e:
+                    err = e
+            _vote(session, err)                  # on ranks: the publish vote
+            if built.table.mesh is not None:     # built on a worker's twin
+                built.table.mesh = session.mesh
+            if kind == "full":
+                newer = cur.runs[len(m0.runs):]  # flushed while it built
+                cat.publish(dv, name, built, newer)
+                _agreed_fault(session, "post-swap")
+                for r in newer:  # their tombstones still shadow the new base
+                    if r.anti_rows:
+                        _annihilate_older((built,), r, gather=False)
+            else:
+                if built.uid < 0:
+                    _assign_uid(session, built)
+                tail = cur.runs[s + len(members):]
+                # tombstones that landed mid-build replay here
+                for newer in tail:
+                    if newer.anti_rows:
+                        _annihilate_older((built,), newer, gather=False)
+                cat.publish(dv, name, cur.base, cur.runs[:s] + (built,) + tail)
+                _agreed_fault(session, "post-swap")
+    except ManifestConflict:
+        if cat.store is not None:  # orphan segment: never committed
+            cat.store.discard_component(dv, name, built)
+        raise
+    return built
+
+
 def compact(session, ds: Dataset, manifest: Optional[Manifest] = None) -> Dataset:
     """Fold base ∪ runs into a fresh base with a key-ordered newest-wins
     merge: each component contributes only the matter no newer anti-matter
@@ -376,58 +600,12 @@ def compact(session, ds: Dataset, manifest: Optional[Manifest] = None) -> Datase
     segment changed); runs flushed meanwhile survive and their anti keys are
     reconciled against the fresh base at swap time. With a durable store
     the new base's segment is written off-lock before the CAS; a lost CAS
-    unlinks it (never committed)."""
-    refuse_on_ranks(session.mesh, "compaction")
-    cat = session.catalog
-    dv, name = ds.dataverse, ds.name
-    ensure_soft(session, dv, name)  # kill-sets and host keys must be live
+    unlinks it (never committed). On a rank mesh every rank merges the
+    same host rows and keeps its shard of the new base."""
     t0 = time.perf_counter()
     tel.inc("lsm.compaction.attempts_total", kind="full")
-    with cat.lock:
-        m0 = manifest if manifest is not None else cat.manifest(dv, name)
-        comps = m0.components
-        # kill-set copies: a concurrent flush mutates the live sets
-        kills = [set(c.annihilated_keys) for c in comps]
-    key_col = m0.base.primary_index.column \
-        if m0.base.primary_index is not None else None
-    parts = [_visible_columns(c, key_col, kills[i])
-             for i, c in enumerate(comps)]
-    names = list(parts[0])
-    merged = {k: np.concatenate([p[k] for p in parts], axis=0) for k in names}
-    total = len(next(iter(merged.values()))) if names else 0
-    metas = [c.table.meta for c in comps]
-    meta = {k: _merge_meta([mm[k] for mm in metas], total) for k in names}
-    secondary = [ix.column for ix in m0.base.indexes.values()
-                 if ix.kind == "secondary"]
-    _fault(session, "mid-merge")
-    new_base = session._build_dataset(name, Table(merged, meta), dataverse=dv,
-                                      closed=m0.base.closed,
-                                      indexes=secondary, primary=key_col,
-                                      stats_like=m0.base.table.meta)
-    new_base.engine_owned = True  # merged copies, never a caller's tensors
-    _settle(session)
-    if cat.store is not None:
-        cat.store.write_component(dv, name, new_base)  # off-lock, pre-CAS
-    try:
-        with cat.lock:
-            cur = cat.manifest(dv, name)
-            if cur.base is not m0.base \
-                    or tuple(cur.runs[:len(m0.runs)]) != tuple(m0.runs):
-                tel.inc("lsm.compaction.conflicts_total", kind="full")
-                raise ManifestConflict(
-                    f"{dv}.{name}: component set changed under a full "
-                    f"compaction (planned at lsn {m0.lsn}, now {cur.lsn})")
-            newer = cur.runs[len(m0.runs):]  # flushed while the merge built
-            _fault(session, "pre-swap")
-            cat.publish(dv, name, new_base, newer)
-            _fault(session, "post-swap")
-            for r in newer:  # their tombstones still shadow the fresh base
-                if r.anti_rows:
-                    _annihilate_older((new_base,), r, gather=False)
-    except ManifestConflict:
-        if cat.store is not None:  # orphan segment: never committed
-            cat.store.discard_component(dv, name, new_base)
-        raise
+    job = _plan_merge(session, ds, ("full",), manifest)
+    new_base = _publish_merge(session, job, _build_merge(session, job))
     tel.inc("lsm.compactions_total", kind="full")
     tel.observe("lsm.compaction_seconds", time.perf_counter() - t0,
                 kind="full")
@@ -442,59 +620,10 @@ def merge_runs(session, ds: Dataset, start: int, end: int, level: int,
     annihilated; the merged run keeps the union of the members' anti keys
     (older components still need them). Concurrency and the segment write
     as :func:`compact`."""
-    refuse_on_ranks(session.mesh, "compaction")
-    cat = session.catalog
-    dv, name = ds.dataverse, ds.name
-    ensure_soft(session, dv, name)  # kill-sets and host keys must be live
     t0 = time.perf_counter()
     tel.inc("lsm.compaction.attempts_total", kind="level")
-    with cat.lock:
-        m0 = manifest if manifest is not None else cat.manifest(dv, name)
-        members = tuple(m0.runs[start:end])
-        kills = [set(m.annihilated_keys) for m in members]
-    key_col = m0.base.primary_index.column \
-        if m0.base.primary_index is not None else None
-    parts = [_visible_columns(c, key_col, kills[i])
-             for i, c in enumerate(members)]
-    merged_cols = {k: np.concatenate([p[k] for p in parts], axis=0)
-                   for k in parts[0]}
-    anti_parts = [m.host_anti_keys for m in members if m.anti_rows]
-    anti_union = np.unique(np.concatenate(anti_parts)) if anti_parts else None
-    _fault(session, "mid-merge")
-    run = make_run(session, m0.base, Table(merged_cols), anti_keys=anti_union)
-    run.level = level
-    _settle(session)
-    if cat.store is not None:
-        cat.store.write_component(dv, name, run)  # off-lock, pre-CAS
-    try:
-        with cat.lock:
-            cur = cat.manifest(dv, name)
-            if cur.base is not m0.base:
-                tel.inc("lsm.compaction.conflicts_total", kind="level")
-                raise ManifestConflict(
-                    f"{dv}.{name}: base swapped under a level merge "
-                    f"(planned at lsn {m0.lsn}, now {cur.lsn})")
-            try:
-                s = cur.runs.index(members[0])  # identity: Dataset eq is id-based
-            except ValueError:
-                s = -1
-            if s < 0 or tuple(cur.runs[s:s + len(members)]) != members:
-                tel.inc("lsm.compaction.conflicts_total", kind="level")
-                raise ManifestConflict(
-                    f"{dv}.{name}: merged run segment no longer contiguous "
-                    f"(planned at lsn {m0.lsn}, now {cur.lsn})")
-            tail = cur.runs[s + len(members):]
-            # tombstones that landed mid-build replay here
-            for newer in tail:
-                if newer.anti_rows:
-                    _annihilate_older((run,), newer, gather=False)
-            _fault(session, "pre-swap")
-            cat.publish(dv, name, cur.base, cur.runs[:s] + (run,) + tail)
-            _fault(session, "post-swap")
-    except ManifestConflict:
-        if cat.store is not None:  # orphan segment: never committed
-            cat.store.discard_component(dv, name, run)
-        raise
+    job = _plan_merge(session, ds, ("merge", start, end, level), manifest)
+    run = _publish_merge(session, job, _build_merge(session, job))
     tel.inc("lsm.compactions_total", kind="level")
     tel.observe("lsm.compaction_seconds", time.perf_counter() - t0,
                 kind="level")
@@ -518,11 +647,25 @@ class BackgroundCompactor:
     components). Before a merge publishes, the
     worker waits for the device work it queued, so the swap never exposes
     unfinished tensors; readers pinned to the old manifest keep its tensors
-    until they release it."""
+    until they release it.
+
+    On a rank mesh (``launch.mesh.RankMesh``) every rank makes its session
+    calls from ONE thread, in the same order; concurrent reader threads on
+    a rank mesh are out of scope. A worker issuing collectives on the
+    group the caller's queries use would interleave with them in a
+    different order on each rank (gloo then mismatches, NCCL hangs), so
+    there the compactor runs as :class:`_RankCompactor`: each merge and the
+    manifest it merges are fixed on the caller's thread, in the same order
+    on every rank; ONE worker builds them, in that order, on process
+    groups of its own (``launch.mesh.twin_mesh``, made collectively here);
+    and a built merge is published on the caller's thread at the next
+    agreed point (a flush's notify, a query, ``wait_idle``,
+    ``wait_below``), once every rank has built it, through the publish
+    vote. No query on one rank sees a merge another rank has not
+    published."""
 
     def __init__(self, session, policy: Optional[CompactionPolicy] = None,
                  max_retries: int = 5, backoff_s: float = 0.002):
-        refuse_on_ranks(session.mesh, "BackgroundCompactor")
         self.session = session
         self.policy = policy if policy is not None else CompactionPolicy()
         self.max_retries = max_retries
@@ -536,12 +679,17 @@ class BackgroundCompactor:
         self._inflight: dict[str, int] = {}
         self._threads: dict[str, threading.Thread] = {}
         self._stop = False
+        self._ranks = _RankCompactor(self) if is_rank_mesh(session.mesh) \
+            else None
 
     # -- control -----------------------------------------------------------
 
     def notify(self, dataverse: str, name: str) -> None:
         """Mark a dataset dirty (a flush just published); returns at once,
         spawning the dataverse's worker on first use."""
+        if self._ranks is not None:
+            self._ranks.notify(dataverse, name)
+            return
         with self._cv:
             if self._stop:
                 return
@@ -557,6 +705,8 @@ class BackgroundCompactor:
 
     def wait_idle(self, timeout: float = 30.0) -> bool:
         """Block until every worker has drained its notifications."""
+        if self._ranks is not None:
+            return self._ranks.wait(timeout)
         deadline = time.perf_counter() + timeout
         with self._cv:
             while any(self._pending.values()) or any(self._inflight.values()):
@@ -571,6 +721,9 @@ class BackgroundCompactor:
         """Write-stall backpressure: block until the dataset's run count
         drops below ``cap`` (or timeout). Returns seconds stalled."""
         t0 = time.perf_counter()
+        if self._ranks is not None:
+            self._ranks.wait(timeout, below=(dataverse, name, cap))
+            return time.perf_counter() - t0
         with self._cv:
             while not self._stop:
                 try:
@@ -590,6 +743,8 @@ class BackgroundCompactor:
             self._stop = True
             self._cv.notify_all()
             threads = list(self._threads.values())
+        if self._ranks is not None:
+            threads = [self._ranks.close()]
         for t in threads:
             t.join(timeout=30.0)
 
@@ -669,6 +824,141 @@ class BackgroundCompactor:
         tel.inc(f"lsm.compactor.{key}_total")
 
 
+class _RankCompactor:
+    """:class:`BackgroundCompactor` on a rank mesh (its docstring gives the
+    design). ``_inflight`` holds the planned merges in plan order, at most
+    one a dataset; the worker builds them in that order on a copy of the
+    session whose mesh is the twin (``_worker``); :meth:`poll`, the agreed
+    point, publishes the oldest once every rank has built it (a MIN vote
+    over the data axes) and replans its dataset from the new manifest."""
+
+    def __init__(self, owner: BackgroundCompactor):
+        import queue
+
+        self.owner = owner
+        self.session = owner.session
+        self.worker_session = copy.copy(owner.session)
+        self.worker_session.mesh = twin_mesh(owner.session.mesh)
+        self._inflight: dict = {}       # (dv, name) -> [job, built, done]
+        self._queue: "queue.Queue" = queue.Queue()
+        self._done = threading.Condition()
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="lsm-compactor-ranks")
+        self._thread.start()
+        tel.set_gauge("lsm.compactor.workers", 1)
+        self.session._compactors.append(self)
+
+    def notify(self, dataverse: str, name: str) -> None:
+        self.poll()
+        if (dataverse, name) not in self._inflight:
+            self._plan((dataverse, name))
+
+    def _plan(self, key) -> None:
+        """Fix the dataset's next merge against its current manifest (the
+        caller's thread, the same on every rank) and queue its build."""
+        try:
+            base = self.session.catalog.get(*key)
+        except KeyError:
+            return  # dataset dropped
+        m = base.manifest
+        actions = self.owner.policy.plan(_ManifestView(base, m))
+        if not actions:
+            return
+        job = _plan_merge(self.session, base, actions[0], m)
+        tel.inc("lsm.compaction.attempts_total",
+                kind="full" if actions[0][0] == "full" else "level")
+        entry = [job, None, False]
+        self._inflight[key] = entry
+        self._queue.put(entry)
+
+    def _worker(self) -> None:
+        while True:
+            entry = self._queue.get()
+            if entry is None:
+                return
+            failures, delay = 0, self.owner.backoff_s
+            while True:
+                try:
+                    entry[1] = _build_merge(self.worker_session, entry[0],
+                                            uid=False)
+                    break
+                except StorageFault:
+                    # agreed: every rank's worker aborts the attempt alike
+                    self.owner._bump("faults")
+                    failures += 1
+                except Exception:  # pragma: no cover - defensive
+                    self.owner._bump("errors")
+                    break
+                if failures > self.owner.max_retries:
+                    self.owner._bump("giveups")
+                    break
+                self.owner._bump("retries")
+                time.sleep(delay)
+                delay *= 2
+            with self._done:
+                entry[2] = True
+                self._done.notify_all()
+
+    def poll(self) -> bool:
+        """The agreed point: publish, oldest first, every merge each rank
+        has built, and replan its dataset. True while a merge is still in
+        flight (the same answer on every rank)."""
+        while self._inflight:
+            key, entry = next(iter(self._inflight.items()))
+            if not agree(self.session.mesh, int(entry[2]),
+                         self.session.data_axes):
+                return True
+            del self._inflight[key]
+            job, built = entry[0], entry[1]
+            if built is None:
+                continue  # given up: the dataset stays under-compacted
+            full = job.action[0] == "full"
+            try:
+                _publish_merge(self.session, job, built)
+                self.owner._bump("compactions" if full else "level_merges")
+                tel.inc("lsm.compactions_total",
+                        kind="full" if full else "level")
+            except ManifestConflict:
+                self.owner._bump("conflicts")
+            except StorageFault:
+                self.owner._bump("faults")
+            self._plan(key)
+        return False
+
+    def wait(self, timeout: float, below=None) -> bool:
+        """Publish what every rank has built until nothing is in flight (or,
+        with ``below = (dv, name, cap)``, until the dataset holds fewer than
+        ``cap`` runs); False once the timeout has run out on any rank."""
+        deadline = time.perf_counter() + timeout
+        while True:
+            busy = self.poll()
+            if below is not None:
+                dv, name, cap = below
+                try:
+                    if len(self.session.catalog.manifest(dv, name).runs) < cap:
+                        return True
+                except KeyError:
+                    return True
+            if not busy:
+                return True
+            expired = time.perf_counter() > deadline
+            if not agree(self.session.mesh, int(not expired),
+                         self.session.data_axes):
+                return False
+            with self._done:
+                entry = next(iter(self._inflight.values()))
+                if not entry[2]:
+                    self._done.wait(0.01)
+
+    def close(self) -> threading.Thread:
+        """Stop the worker after the build in hand (an unpublished merge is
+        dropped); the caller joins the thread returned."""
+        self._queue.put(None)
+        if self in self.session._compactors:
+            self.session._compactors.remove(self)
+        return self._thread
+
+
 # -- crash recovery: rebuild soft state from hard state -----------------------
 
 
@@ -689,7 +979,9 @@ def recover(session, dataverse: str, name: str, lazy: bool = False) -> None:
     With ``lazy`` the rebuild is only MARKED: each component flips
     ``soft_stale`` and the dataset joins ``catalog.stale``; the first bind
     (query, point lookup, flush, compaction, view seed) pays it through
-    :func:`ensure_soft`."""
+    :func:`ensure_soft`. A rank mesh refuses it: recovery is the durable
+    store's (ROADMAP A9b-2e)."""
+    refuse_on_ranks(session.mesh, "soft-state recovery (lsm.recover)")
     cat = session.catalog
     if lazy:
         with cat.lock:
@@ -849,6 +1141,14 @@ class MaterializedView:
         return cls(name, child.dataverse, child.dataset, plan.keys[0],
                    list(plan.aggs), predicate, device)
 
+    def columns(self) -> list[str]:
+        """The dataset columns the view reads: its key, its aggregates'
+        columns and its predicate's."""
+        names = [self.key] + self._sum_cols + self._max_cols + self._min_cols
+        if self.predicate is not None:
+            names += sorted(self.predicate.columns())
+        return list(dict.fromkeys(names))
+
     # -- state ------------------------------------------------------------
 
     def reset(self) -> None:
@@ -908,7 +1208,13 @@ class MaterializedView:
         return True
 
     def apply_delta(self, cols: dict[str, np.ndarray],
-                    valid: Optional[np.ndarray] = None) -> None:
+                    valid: Optional[np.ndarray] = None,
+                    rows: Optional[int] = None) -> None:
+        """Apply one delta batch (``valid`` masks its rows). ``rows`` is
+        the row count the kernel-exactness gate charges when it differs
+        from the batch's (a rank mesh seeds from a component's visible
+        rows alone, and charges the component's rows, as the one-process
+        mesh does)."""
         n = len(next(iter(cols.values())))
         self.stats["refreshes"] += 1
         if n == 0:
@@ -927,7 +1233,8 @@ class MaterializedView:
         g = self._counts.shape[0]
         gid = np.where(live, keys.astype(np.int64) - self.lo, -1).astype(np.int32)
         self.stats["rows_applied"] += int(live.sum())
-        if self._delta_exact_for_kernel(n, cols, live):
+        if self._delta_exact_for_kernel(n if rows is None else rows, cols,
+                                        live):
             self._apply_kernel(cols, gid, g, n)
         else:
             self._apply_exact(cols, gid, live, g)

@@ -33,20 +33,37 @@ its own session and makes the same calls). The invariants:
   replicated (column stats, zone maps, index zones, merged results). The
   statistics are computed per shard and merged over the data axes, so the
   whole table never reaches the device, not even while registering.
+  Through ingest too: after every flush, merge and compaction each rank
+  holds ``ceil(rows / S)`` rows of each run and base, laid out as
+  ``Table.shard`` lays them out, plus small replicated state (stats, zone
+  maps, index zones, anti-key arrays, view state). A compaction's rows may
+  pass through a rank's HOST (the merge is a host merge, as the
+  reference's); the gather that brings them there moves at most
+  ``distributed.GATHER_CHUNK_ROWS`` (2^18) rows a rank per collective,
+  each chunk copied to the host before the next, so they never sit whole
+  on a device.
 * I2, every rank plans alike: the stats, the gathered zone maps and so
   the plans, prune reports and ``explain`` texts are the same on every
   rank, and equal the one-process S-shard mesh's (a rank whose plan
-  differed would issue other collectives, and the group would hang).
+  differed would issue other collectives, and the group would hang). At
+  every query, point lookup and flush each rank holds the same manifest:
+  the same components in the same order, the same LSN and kill-sets. A
+  publish (flush, merge or compaction) commits on every rank or on none:
+  before the swap the ranks take a MIN vote over the data group
+  (``launch.mesh.agree``, ``lsm._vote``), and a fault or a lost CAS on
+  one rank aborts the swap on all of them.
 * I3, every rank answers alike: each operator merges over the data axes'
   process group (``engine/distributed.py``, in every mode: there is no
   GSPMD in torch, so ``gspmd`` lowers to the same explicit collectives),
-  row streams are gathered before delivery, and point lookups gather the
-  owning rank's rows; the answers and their dtypes equal the one-process
-  mesh's and the meshless session's.
+  row streams are gathered before delivery (a union of components in
+  component order), and point lookups gather the owning rank's rows; the
+  answers, dtypes, explain texts and prune reports equal the one-process
+  mesh's, and the answers and dtypes the meshless session's.
 
-On a rank mesh the feed (ingest, upserts, deletes), LSM runs and
-compaction, views and durability (``storage=``, ``persist``, ``open``)
-raise ``NotImplementedError`` (ROADMAP A9b-2d).
+On a rank mesh every rank makes its session calls from one thread, in the
+same order. The feed, LSM runs, full, leveled and background compaction,
+views and ``persist`` run there; the durable store (``storage=``,
+``Session.open``) raises ``NotImplementedError`` (ROADMAP A9b-2e).
 """
 from __future__ import annotations
 
@@ -257,6 +274,9 @@ class Session:
         # incrementally-maintained materialized views (engine/lsm.py),
         # refreshed from each feed flush's delta batch
         self.views: dict[str, object] = {}
+        # background compactors on a rank mesh: each query is a point where
+        # the ranks agree to publish what they have all built
+        self._compactors: list = []
 
     # -- durable cold start --------------------------------------------------
 
@@ -412,10 +432,9 @@ class Session:
         ``harvest_block_zones``, ``build_index_on_ranks``), equal on every
         rank and to what the one-process mesh builds. The source table
         (every rank is given the same one) stays where it is; the
-        clustering sort and ``host_keys`` come from it."""
+        clustering sort and ``host_keys`` come from it. A table that is
+        already this rank's shard (``persist``) is taken as it is."""
         on_ranks = is_rank_mesh(self.mesh)
-        if on_ranks and stats_like is not None:
-            refuse_on_ranks(self.mesh, "compaction")
         host_keys = None
         if primary is not None:
             keys = table.columns[primary].cpu().numpy()
@@ -426,9 +445,14 @@ class Session:
                            for k, v in table.columns.items()},
                           table.meta, table.num_rows)
         source = table
-        if on_ranks:
+        if on_ranks and table.mesh is not None:
+            # already this rank's shard (persist): every row is real
+            table = _collect_stats_on_ranks(table, table.global_rows,
+                                            like=stats_like)
+        elif on_ranks:
             table = _collect_stats_on_ranks(
-                table.shard(self.mesh, self.data_axes), table.num_rows)
+                table.shard(self.mesh, self.data_axes), table.num_rows,
+                like=stats_like)
         else:
             table = _collect_stats(table.to(self.device), like=stats_like)
         if not closed:
@@ -481,7 +505,6 @@ class Session:
 
         from repro_torch.engine import lsm
 
-        refuse_on_ranks(self.mesh, "a materialized view")
         plan = getattr(frame_or_plan, "_plan", frame_or_plan)
         view = MaterializedView.from_plan(name, plan, self.device)
         lsm.ensure_soft(self, view.dataverse, view.dataset)
@@ -492,12 +515,22 @@ class Session:
         return view
 
     def _seed_view(self, view, comps) -> None:
-        """Seed (or reseed) one view from a pinned component tuple."""
-        from repro_torch.engine.lsm import host_visible_mask
+        """Seed (or reseed) one view from a pinned component tuple. On a
+        rank mesh from each component's visible rows of the view's own
+        columns, gathered to every rank's host in global row order, so its
+        sums add in the one-process mesh's order (the kernel gate charged
+        the component's rows, as there)."""
+        from repro_torch.engine.lsm import _visible_columns, host_visible_mask
 
         base = comps[0]
         key_col = base.primary_index.column \
             if base.primary_index is not None else None
+        if is_rank_mesh(self.mesh):
+            for comp in comps:
+                view.apply_delta(_visible_columns(comp, key_col,
+                                                  names=view.columns()),
+                                 rows=comp.table.global_rows)
+            return
         for comp in comps:
             cols = {k: v.cpu().numpy() for k, v in comp.table.columns.items()
                     if k not in INTERNAL_COLUMNS and not is_lane_column(k)}
@@ -541,7 +574,9 @@ class Session:
         visible rows and recompute ``op(column)`` for exactly the affected
         groups. Runs only when a retraction removed a group's current
         max/min."""
-        from repro_torch.engine.lsm import host_visible_mask
+        from repro_torch.engine.lsm import _visible_columns, host_visible_mask
+
+        names = view.columns()
 
         def recompute(op: str, column: str, group_keys: np.ndarray) -> np.ndarray:
             t0 = time.perf_counter()
@@ -554,13 +589,18 @@ class Session:
                     if ds.primary_index is not None else None
                 keys_parts, vals_parts = [], []
                 for comp in comps:
-                    mask = host_visible_mask(comp, key_col)
-                    cols = comp.table.columns
+                    if is_rank_mesh(self.mesh):
+                        # the visible rows of the view's columns, gathered
+                        cols = _visible_columns(comp, key_col, names=names)
+                        mask = np.ones(len(cols[view.key]), bool)
+                    else:
+                        mask = host_visible_mask(comp, key_col)
+                        cols = {k: v.cpu().numpy()
+                                for k, v in comp.table.columns.items()}
                     if view.predicate is not None:
-                        mask &= view._predicate_mask(
-                            {k: v.cpu().numpy() for k, v in cols.items()})
-                    keys_parts.append(cols[view.key].cpu().numpy()[mask])
-                    vals_parts.append(cols[column].cpu().numpy()[mask])
+                        mask &= view._predicate_mask(cols)
+                    keys_parts.append(cols[view.key][mask])
+                    vals_parts.append(cols[column][mask])
             keys = np.concatenate(keys_parts)
             vals = np.concatenate(vals_parts).astype(np.float64)
             # one sort, then a binary-searched slice per affected group
@@ -597,6 +637,7 @@ class Session:
         from repro_torch.engine import lsm
 
         lsm.ensure_soft(self, dataverse, dataset)
+        self._agreed_point()
         t0 = time.perf_counter()
         with self.catalog.snapshot() as snap:
             comps = list(snap.components(dataverse, dataset))
@@ -636,7 +677,8 @@ class Session:
                         if hi > lo:
                             # the matter prefix is clustered by the primary
                             # key: index positions are table row positions
-                            result = _table_rows(comp.table, lo, hi)
+                            result = _table_rows(comp.table,
+                                                 np.arange(lo, hi))
                             found_in = f"{comp.dataverse}.{comp.name}"
                             break
             if comp.anti_rows:
@@ -757,6 +799,12 @@ class Session:
             return vals if len(vals) > 1 else next(iter(vals.values()))
         return _materialize(*out)
 
+    def _agreed_point(self) -> None:
+        """On a rank mesh, publish what every rank's background compactor
+        has built (each is polled alike on every rank)."""
+        for c in list(self._compactors):
+            c.poll()
+
     def execute(self, plan: P.Plan):
         """Optimize → cost-plan (run pruning and block skipping decided at
         bind time) → compile (cached) → run → numpy. Scalar results come
@@ -767,6 +815,7 @@ class Session:
         raw_fp = plan.fingerprint()
         raw_lits = ordered_lits(P.all_exprs(plan))
         self._ensure_bound(plan)
+        self._agreed_point()
         with self.catalog.snapshot() as snap:
             with tel.span("session.execute", sid=self.sid, mode=self.mode):
                 e = self._plan_entry(plan, raw_fp, raw_lits, snap)
@@ -787,10 +836,21 @@ class Session:
         """CREATE DATASET AS <query> (paper Input 15): the result stays on
         the session's device — its rows, with the query's live-row mask as
         ``__valid__`` — as a new closed single-component dataset with fresh
-        statistics and zone maps."""
-        refuse_on_ranks(self.mesh, "persist (CREATE DATASET AS)")
+        statistics and zone maps.
+
+        On a rank mesh the result is not gathered: a stream that is this
+        rank's rows of one component, of equal length on every rank, stays
+        where it is as this rank's shard of the new dataset (no rows move;
+        its stats merge over the ranks). A union's stream, or one whose
+        block gathers left the ranks unequal, comes to every rank's host
+        in component order (``distributed.gather_to_host``, in chunks) and
+        is sharded again; a merged result (a group-by, a sort) is whole on
+        every rank already."""
+        from repro_torch.core.compiler import _replicated, _union_below
+
         raw_lits = ordered_lits(P.all_exprs(plan))
         self._ensure_bound(plan)
+        on_ranks = is_rank_mesh(self.mesh)
         with self.catalog.snapshot() as snap:
             # as the reference's: optimized (counted), then planned and
             # compiled once outside the plan cache (neither kept nor counted)
@@ -798,19 +858,48 @@ class Session:
             phys = plan_physical(e.opt, snap, mode=self.mode,
                                  decisions=self._decide(e, raw_lits),
                                  enable_index=self.enable_index)
-            cq = compile_physical(phys, self.exec_context(snap))
+            cq = compile_physical(phys, self.exec_context(snap),
+                                  gathered=not on_ranks)
             binding = _literal_binding(e.raw_lits0,
                                        ordered_lits(PH.all_exprs(phys)))
-            out = cq.run(snap, params=_bind_params(binding, raw_lits,
-                                                   self.device))
+            tables = cq.gather_tables(snap)
+            out = cq.fn(tables, _bind_params(binding, raw_lits, self.device))
         if cq.kind == "scalar":
             raise ValueError("cannot persist a scalar result")
         env, mask = out
         # per-component dict lanes do not share a dictionary: stats rebuild
         cols = {k: v for k, v in env.items() if not is_lane_column(k)}
         cols["__valid__"] = mask
-        return self.create_dataset(name, Table(cols, num_rows=int(mask.shape[0])),
-                                   dataverse)
+        if on_ranks and cq.kind == "table" and not _replicated(cq.lowered):
+            union = _union_below(cq.lowered)
+            lens = None if union is None else tables[("union", id(union))]
+            table = self._rank_result(cols, lens)
+        else:
+            table = Table(cols, num_rows=int(mask.shape[0]))
+        return self.create_dataset(name, table, dataverse)
+
+    def _rank_result(self, cols: dict, lens: Optional[list]) -> Table:
+        """A persisted stream on a rank mesh: this rank's shard of it (see
+        ``persist``)."""
+        from repro_torch.engine import distributed as D
+
+        sh = D.Shards(self.mesh, self.data_axes)
+        n = next(iter(cols.values())).shape[0]
+        mine = torch.tensor(n, dtype=torch.int64, device=self.device)
+        if lens is None and int(sh.merge("min", [mine])) == \
+                int(sh.merge("max", [mine])):
+            return Table(cols, num_rows=n, mesh=self.mesh,
+                         data_axes=self.data_axes, global_rows=sh.n * n,
+                         row_offset=sh.index * n)
+        names, parts, at = list(cols), [], 0
+        for seg in (lens or [n]):
+            keep = np.zeros(n, bool)
+            keep[at:at + seg] = True
+            parts.append(D.gather_to_host(self.mesh, self.data_axes,
+                                          [cols[k] for k in names], keep))
+            at += seg
+        return Table({k: np.concatenate([p[i] for p in parts])
+                      for i, k in enumerate(names)})
 
     def explain(self, plan: P.Plan, analyze: bool = False) -> str:
         """The costed physical plan for ``plan`` with the pruning rationale;
@@ -928,32 +1017,41 @@ def _mount_component(session: Session, dataverse: str, seg: str,
     return ds
 
 
-def _table_rows(table: Table, lo: int, hi: int) -> dict[str, np.ndarray]:
-    """Rows ``[lo, hi)`` of the table's user columns, as numpy. On a rank's
-    shard the rows are global ids: each rank fills the ones it owns, the
-    ranks all-gather (every rank takes part; the host key copies told them
-    all the same range), and each row is taken from its owner — the same
-    answer on every rank."""
+def _table_rows(table: Table, idx: np.ndarray) -> dict[str, np.ndarray]:
+    """Rows ``idx`` (table row ids, global ones on a rank's shard) of the
+    table's user columns, as numpy. On a rank's shard each rank fills the
+    rows it owns and the ranks all-gather them (every rank takes part; the
+    host key copies told them all the same rows), each row taken from its
+    owner — the same answer on every rank. At most
+    ``distributed.GATHER_CHUNK_ROWS`` rows go per all-gather, so a large
+    set (the rows a tombstone batch retracts) is never staged whole."""
     names = [c for c in table.columns if c not in INTERNAL_COLUMNS
              and not c.startswith("__ix") and not is_lane_column(c)]
     if table.mesh is None:
-        return {c: table.columns[c][lo:hi].cpu().numpy() for c in names}
+        at = torch.from_numpy(np.asarray(idx, np.int64))
+        return {c: table.columns[c][at.to(table.columns[c].device)].cpu().numpy()
+                for c in names}
     from repro_torch.engine import distributed as D
 
     sh = D.Shards(table.mesh, table.data_axes)
-    off, rps, width = table.row_offset, table.num_rows, hi - lo
-    a, b = max(lo, off), min(hi, off + rps)        # the rows this rank owns
-    owner = torch.arange(lo, hi) // rps
-    pick = owner * width + torch.arange(width)     # row p from its owner
-    parts = []
-    for c in names:
-        v = table.columns[c]
-        part = v.new_zeros((width,) + tuple(v.shape[1:]))
-        if b > a:
-            part[a - lo:b - lo] = v[a - off:b - off]
-        parts.append(part)
-    return {c: g.cpu()[pick].numpy()
-            for c, g in zip(names, sh.gather_rows(parts, width))}
+    off, rps = table.row_offset, table.num_rows
+    out: dict[str, list] = {c: [] for c in names}
+    for lo in range(0, len(idx), D.GATHER_CHUNK_ROWS):
+        rows = np.asarray(idx[lo:lo + D.GATHER_CHUNK_ROWS], np.int64)
+        width = len(rows)
+        mine = (rows >= off) & (rows < off + rps)     # the rows this rank owns
+        at = torch.from_numpy(np.flatnonzero(mine))
+        local = torch.from_numpy(rows[mine] - off)
+        pick = torch.from_numpy(rows // rps * width + np.arange(width))
+        parts = []
+        for c in names:
+            v = table.columns[c]
+            part = v.new_zeros((width,) + tuple(v.shape[1:]))
+            part[at.to(v.device)] = v[local.to(v.device)]
+            parts.append(part)
+        for c, g in zip(names, sh.gather_rows(parts, width)):
+            out[c].append(g.cpu()[pick].numpy())
+    return {c: np.concatenate(v) for c, v in out.items()}
 
 
 def _route_key(comp, key_col: str, key, n_keys: int):
@@ -1085,40 +1183,47 @@ def _distinct_rows(sh, uniq: torch.Tensor) -> int:
     return int(sh.psum([torch.tensor(mine, dtype=torch.int64, device=dev)]))
 
 
-def _string_dictionary(sh, col: torch.Tensor, live: torch.Tensor):
+def _string_dictionary(sh, col: torch.Tensor, live: torch.Tensor,
+                       want: Optional[bool] = None):
     """A string column's sorted dictionary over the live rows of every
     shard, its distinct count and this shard's dict-lane ids (the sorted
     dictionary's positions; dead rows -1), as ``torch.unique`` over the
     whole column gives them; (None, distinct, None) past DICT_THRESHOLD.
     The shards' own dictionaries are gathered only while every one is
-    within the threshold; beyond it only the count is merged."""
+    within the threshold; beyond it only the count is merged. ``want``
+    (a run or a compacted base: the dict lane follows the base's) forces
+    the lane on (True) or off (False) whatever the count."""
     uniq, inv = torch.unique(col[live], dim=0, return_inverse=True)
     most = sh.longest(uniq)
-    if most > DICT_THRESHOLD:
+    if most > DICT_THRESHOLD and not want:
         return None, _distinct_rows(sh, uniq), None
     rows = max(most, 1)
     have = torch.ones(uniq.shape[0], dtype=torch.bool, device=col.device)
     every = sh.gather([uniq], rows)[sh.gather([have], rows)]
     dictionary = torch.unique(every, dim=0)
     g = int(dictionary.shape[0])
-    if g > DICT_THRESHOLD:
+    if want is False or (want is None and g > DICT_THRESHOLD):
         return None, g, None
-    pos = (uniq[:, None, :] == dictionary[None]).all(-1).to(torch.int32) \
-        .argmax(1).to(torch.int32)
     ids = torch.full((col.shape[0],), -1, dtype=torch.int32, device=col.device)
-    ids[live] = pos[inv]
+    if uniq.shape[0]:   # a shard with no live row (a delete-only run) keeps -1
+        pos = (uniq[:, None, :] == dictionary[None]).all(-1).to(torch.int32) \
+            .argmax(1).to(torch.int32)
+        ids[live] = pos[inv]
     return dictionary, g, ids
 
 
-def _collect_stats_on_ranks(table: Table, n: int) -> Table:
-    """:func:`_collect_stats` over a rank's row shard of an ``n``-row table
-    (``Table.shard`` on a RankMesh): every bound, distinct count, prefix
-    lane span and string dictionary is computed over the shard and merged
-    over the data axes (pmin / pmax / psum, a gather of the shards' small
-    dictionaries, a hash all-to-all for a large distinct count), so the
-    meta is the same on every rank and equal to the meshless session's,
-    and the lanes hold this shard's rows of the meshless lanes (pad rows
-    zero, as the one-process mesh pads them)."""
+def _collect_stats_on_ranks(table: Table, n: int,
+                            like: Optional[Mapping] = None) -> Table:
+    """:func:`_collect_stats` over a rank's row shard of a table whose
+    first ``n`` rows are real (``Table.shard`` on a RankMesh; a run's
+    matter prefix, its anti rows and block padding after it): every bound,
+    distinct count, prefix lane span and string dictionary is computed
+    over the shard and merged over the data axes (pmin / pmax / psum, a
+    gather of the shards' small dictionaries, a hash all-to-all for a
+    large distinct count), so the meta is the same on every rank and equal
+    to the meshless session's, and the lanes hold this shard's rows of the
+    meshless lanes (rows past ``n`` zero, as the one-process mesh pads
+    them). ``like`` as :func:`_collect_stats`'s."""
     from repro_torch.engine import distributed as D
 
     sh = D.Shards(table.mesh, table.data_axes)
@@ -1143,7 +1248,9 @@ def _collect_stats_on_ranks(table: Table, n: int) -> Table:
                                        *_span(sh, packed, live))
             dname = dict_lane_name(name)
             if dname not in cols:
-                dictionary, g, ids = _string_dictionary(sh, col, live)
+                want = None if like is None else \
+                    getattr(like.get(name), "dict_values", None) is not None
+                dictionary, g, ids = _string_dictionary(sh, col, live, want)
                 new = m if m is not None else ColumnMeta(np.dtype(np.uint8),
                                                          is_string=True)
                 new = dataclasses.replace(new, distinct=g)
@@ -1169,9 +1276,12 @@ def _collect_stats_on_ranks(table: Table, n: int) -> Table:
             lo, hi = _span(sh, col, real)
             meta[name] = ColumnMeta(numpy_dtype(col.dtype), int(lo), int(hi),
                                     min(int(hi) - int(lo) + 1, n))
-    # the mask last, as ``Table.shard`` places it after the lanes
+    # the internal columns last, as the meshless build appends them after
+    # the lanes
     for d in (cols, meta):
-        d["__valid__"] = d.pop("__valid__")
+        for k in INTERNAL_COLUMNS[::-1]:
+            if k in d:
+                d[k] = d.pop(k)
     return table.with_columns(cols, meta)
 
 

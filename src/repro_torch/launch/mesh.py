@@ -200,13 +200,46 @@ def is_rank_mesh(mesh) -> bool:
 
 def refuse_on_ranks(mesh, what: str) -> None:
     """Raise ``NotImplementedError`` for an engine path that does not run
-    on a ``RankMesh`` yet (ROADMAP A9b-2d: LSM ingest, mutations,
-    compaction, views and durability across ranks), rather than run it
+    on a ``RankMesh`` yet (ROADMAP A9b-2e: the durable store across
+    ranks, a WAL and a manifest generation per rank), rather than run it
     replicated on every rank without saying so."""
     if is_rank_mesh(mesh):
         raise NotImplementedError(
-            f"{what} does not run on a RankMesh yet (ROADMAP A9b-2d); use a "
+            f"{what} does not run on a RankMesh yet (ROADMAP A9b-2e); use a "
             "meshless session or the one-process mesh (make_local_mesh)")
+
+
+def agree(mesh, code: int, data_axes=("data",)) -> int:
+    """The least of every rank's ``code`` over the data axes' process group
+    (a MIN all-reduce of one int): the vote an engine publish takes on a
+    ``RankMesh`` before it swaps a manifest, so that it commits on every
+    rank or on none. ``code`` itself off a rank mesh."""
+    if not is_rank_mesh(mesh):
+        return int(code)
+    import torch.distributed as dist
+
+    t = torch.tensor([int(code)], dtype=torch.int64, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.group(tuple(data_axes)))
+    return int(t.item())
+
+
+def twin_mesh(mesh: "RankMesh") -> "RankMesh":
+    """The same mesh over process groups of its own, made collectively
+    (every rank of the world calls it, in the same order): a thread that
+    issues collectives beside the caller's (the background compactor's
+    builds) runs them on these groups, so the two streams of collectives
+    never interleave on one group."""
+    import torch.distributed as dist
+
+    groups = {}
+    world = dist.get_world_size()
+    for key, g in mesh.groups.items():
+        every: list = [None] * world
+        dist.all_gather_object(every, dist.get_process_group_ranks(g))
+        layout = sorted({tuple(r) for r in every})
+        mine, _ = dist.new_subgroups_by_enumeration([list(r) for r in layout])
+        groups[key] = mine
+    return dataclasses.replace(mesh, groups=groups)
 
 
 def _env_int(name: str, given):

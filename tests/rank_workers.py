@@ -31,6 +31,8 @@ def _rank_main(rank: int, world: int, init: str, body: str, out: str,
     try:
         result = globals()[body](rank, world, init, payload)
         torch.save(result, pathlib.Path(out) / f"rank{rank}.pt")
+        # every rank done before any tears its connections down
+        torch.distributed.barrier()
     finally:
         close_rank_mesh()
 
@@ -575,22 +577,38 @@ def engine_checks(rank, world, init, payload):
                 mesh, mode, t, payload["rounds"], world)
     refused = {}
     sess = engine_session(Session, mesh, "kernel", t)
-    df = AFrame("bench", "data", session=sess)
-    ds = sess.catalog.get("bench", "data")
+    clu = AFrame("bench", "clu", session=sess)
+    n = len(t)
+
+    def feed():
+        rows = {k: v.numpy()[:2] for k, v in t.columns.items()}
+        rows["unique2"] = rows["unique2"] + n
+        f = Feed(sess, "clu", "bench", flush_rows=10**9,
+                 policy=lsm.CompactionPolicy(size_ratio=100.0))
+        f.push(rows)
+        f.delete(np.array([0], np.int32))
+        f.flush()
+        return len(clu), len(sess.catalog.get("bench", "clu").runs)
+
+    def view():
+        plan = clu.groupby("ten").agg_plan({"four": "sum"})
+        sess.create_view("v", plan)
+        return sess.read_view("v"), sess.execute(plan)
+
     attempts = {
-        "feed": lambda: Feed(sess, "data", "bench"),
-        "view": lambda: sess.create_view("v", df.groupby("ten").agg("count")),
-        "persist": lambda: df[df["ten"] == 3].persist("p"),
-        "compact": lambda: lsm.compact(sess, ds),
+        "feed": feed,
+        "view": view,
+        "persist": lambda: len(clu[clu["ten"] >= 0].persist("p")),
+        "compact": lambda: (lsm.compact(sess, sess.catalog.get("bench", "clu")),
+                            len(clu))[1],
         "storage": lambda: Session(mesh=mesh, storage=payload["store"] + f"/{rank}"),
         "open": lambda: Session.open(payload["store"] + f"/open{rank}", mesh=mesh),
     }
     for what, fn in attempts.items():
         try:
-            fn()
-            refused[what] = None
+            refused[what] = ("ran", fn())
         except NotImplementedError as e:
-            refused[what] = str(e)
+            refused[what] = ("refused", str(e))
     out["refused"] = refused
     return out
 
@@ -618,4 +636,165 @@ def engine_answers(rank, world, init, payload):
         for name, fn in sorted(EXPRESSIONS.items()):
             for r in range(payload["rounds"]):
                 out[(mode, name, r)] = fn(df, dr, np.random.default_rng(100 + r))
+    return out
+
+
+# -- the live engine on ranks (tests/test_torch_rank_live.py) --------------------------
+
+
+def live_pk(mesh):
+    """The port's package surface (``live_scenarios``' ``pk``) with every
+    session on ``mesh`` (a rank mesh, or the one-process mesh the ranks
+    are held to), and an ``observe`` hook that appends each dataset
+    layout to ``pk.log`` (``live_layout``)."""
+    import types
+
+    from repro_torch.core import expr
+    from repro_torch.core import plan as P
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm, table
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.engine.session import Session
+    from repro_torch.engine.table import Table
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.fault import FaultPlan
+
+    pk = types.SimpleNamespace(P=P, AFrame=AFrame, wisconsin=wisconsin, lsm=lsm,
+                               Feed=Feed, Table=Table, ops=ops, table=table,
+                               expr=expr, FaultPlan=FaultPlan, log=[])
+    pk.session = lambda mode="gspmd", **kw: Session(mesh=mesh, mode=mode, **kw)
+    pk.observe = lambda sess, label, dv, name: pk.log.append(
+        (label, live_layout(sess, dv, name)))
+    return pk
+
+
+def live_layout(sess, dv: str, name: str) -> dict:
+    """What a session holds of one dataset: its manifest (LSN, component
+    names and uids, kill-sets, live and anti rows) and, for each
+    component, the rows each column holds here, the padded table's rows,
+    the zone maps and every index's zones."""
+    m = sess.catalog.manifest(dv, name)
+    comps = []
+    for c in m.components:
+        bz = c.block_zones
+        comps.append({
+            "name": c.name, "uid": c.uid, "level": c.level,
+            "live": c.live_rows, "anti": c.anti_rows,
+            "kills": sorted(c.annihilated_keys),
+            "held": sorted({int(v.shape[0]) for v in c.table.columns.values()}),
+            "global_rows": c.table.global_rows,
+            "columns": list(c.table.columns),
+            "device": sorted({str(v.device) for v in c.table.columns.values()}),
+            "zones": None if bz is None else (
+                bz.n_shards, bz.rows_per_shard, bz.n_blocks,
+                {k: np.asarray(v) for k, v in bz.spans.items()}),
+            "index_zones": {k: (ix.zone_min.cpu().numpy(),
+                                ix.zone_max.cpu().numpy())
+                            for k, ix in c.indexes.items()},
+            "meta": {k: repr(v) for k, v in c.table.meta.items()},
+            "host_keys": None if c.host_keys is None else c.host_keys.copy(),
+        })
+    return {"lsn": m.lsn, "components": comps}
+
+
+LIVE_MODES = ("kernel", "shard_map", "gspmd")
+
+
+def live_run(mesh, base_rows: int) -> dict:
+    """live_scenarios' 4-rank replays on ``mesh``: each scenario's result
+    and the layouts it logged (``observe``)."""
+    import live_scenarios as L
+
+    pk = live_pk(mesh)
+    out = {}
+
+    def run(key, fn, *args):
+        pk.log = []
+        out[key] = fn(*args)
+        out[key + ("log",)] = list(pk.log)
+
+    for mode in LIVE_MODES:
+        run(("lsm", mode), L.lsm_suite, pk, mode, base_rows)
+        run(("extras", mode), L.lsm_extras, pk, mode, base_rows)
+        run(("view", mode), L.view_incremental, pk, mode, base_rows)
+        run(("mutated", mode), L.mutated_suite, pk, mode, base_rows)
+        for seed in range(4):
+            run(("interleave", mode, seed), L.interleavings, pk, mode, seed)
+    run(("launches",), L.launches_per_component, pk, base_rows)
+    run(("policy",), L.policy_triggers, pk)
+    run(("newest",), L.newest_wins, pk)
+    run(("leveled",), L.leveled_mutations, pk)
+    run(("retraction",), L.view_retraction, pk)
+    run(("bg_folds",), L.bg_folds, pk)
+    run(("bg_fault",), L.bg_fault, pk)
+    return out
+
+
+def live_replays(rank, world, init, payload):
+    """``live_run`` on a ``world``-rank mesh, then the one-rank "pre-swap"
+    fault: armed on rank 0 only, a flush raises on every rank and leaves
+    every rank's manifest as it was; the retry commits on all of them."""
+    import live_scenarios as L
+    from repro_torch.runtime.fault import FaultPlan, StorageFault
+
+    mesh = _mesh(world, 1, rank, world, init)
+    out = live_run(mesh, payload["base_rows"])
+    pk = live_pk(mesh)
+    sess, feed = L.fed_session(pk, "kernel", payload["base_rows"], n_pushes=1)
+    before = live_layout(sess, "d", "Live")
+    if rank == 0:
+        sess.fault_plan = FaultPlan.once("pre-swap")
+    rows = L.host_rows(pk.wisconsin.generate(L.PUSH_ROWS, seed=21))
+    rows["unique2"] = rows["unique2"] + payload["base_rows"] + L.PUSH_ROWS
+    try:
+        feed.push(rows)
+        raised = None
+    except StorageFault as e:
+        raised = str(e)
+    aborted = live_layout(sess, "d", "Live")
+    feed.flush()
+    out["fault"] = {"raised": raised, "before": before, "aborted": aborted,
+                    "committed": live_layout(sess, "d", "Live"),
+                    "len": len(pk.AFrame("d", "Live", session=sess)),
+                    "fired": list(sess.fault_plan.fired) if rank == 0 else []}
+    return out
+
+
+def live_block_skip(rank, world, init, payload):
+    """tests/test_block_skip.py's three sharded tests (:521, :583, :642) on
+    a ``world``-rank mesh, every mode."""
+    import live_scenarios as L
+    from repro_torch.runtime import telemetry as tel
+
+    pk = live_pk(_mesh(world, 1, rank, world, init))
+    out = {}
+    for mode in LIVE_MODES:
+        pk.log = []
+        out[("skip", mode)] = L.block_skip(pk, mode, tel)
+        out[("strings", mode)] = L.strings(pk, mode, tel)
+        out[("log", mode)] = list(pk.log)
+    out["lookup"] = L.routed_lookup(pk)
+    return out
+
+
+def live_card(rank, world, init, payload):
+    """tests/test_mutation.py's mutated suite (a flush of pushes, a flush
+    of upserts and deletes, the compaction) in kernel and gspmd mode on a
+    ``world``-rank mesh whose ranks share ``payload["device"]``: "cuda"
+    (gloo ranks on the one card) or "cpu"; the answers and the layouts
+    logged after each flush and the compaction."""
+    import live_scenarios as L
+    from repro_torch.launch.mesh import init_rank_mesh
+
+    if payload["device"] == "cuda":
+        torch.cuda.set_device(0)
+        mesh = init_rank_mesh(world, 1, None, rank=rank, world_size=world,
+                              local_rank=0, init_method=init, backend="gloo")
+    else:
+        mesh = _mesh(world, 1, rank, world, init)
+    pk = live_pk(mesh)
+    out = {mode: L.mutated_suite(pk, mode, payload["base_rows"])
+           for mode in ("kernel", "gspmd")}
+    out["log"] = list(pk.log)
     return out

@@ -999,3 +999,50 @@ def test_cuda_rank_engine_two_gloo_ranks_equal_the_cpu():
                     else:
                         assert type(g) is type(want) and g == want, label
 
+
+
+def _same_tree(got, want, label):
+    """Equal nested answers: dicts, lists and tuples element by element,
+    arrays with their dtypes, scalars with their types."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), label
+        for k in want:
+            _same_tree(got[k], want[k], (label, k))
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), label
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_tree(g, w, (label, i))
+    elif isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype, label
+        np.testing.assert_array_equal(got, want, err_msg=str(label))
+    else:
+        assert type(got) is type(want) and got == want, (label, got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_rank_live_two_gloo_ranks_equal_the_cpu_ranks():
+    """The live engine on two gloo ranks sharing the card: a flush of
+    pushes, a flush of upserts and deletes and the compaction, in kernel
+    (the CUDA kernels over each rank's rows) and gspmd mode, give the
+    answers, dtypes included, point lookups and persisted answers of the
+    same two ranks on the CPU, and after every flush and the compaction
+    each rank's columns of every component are CUDA tensors of
+    ceil(rows / 2) rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    from rank_workers import run_ranks
+
+    payload = {"base_rows": 10_001}
+    card = run_ranks("live_card", 2, dict(payload, device="cuda"), 300)
+    cpu = run_ranks("live_card", 2, dict(payload, device="cpu"), 300)
+    for rank, (got, want) in enumerate(zip(card, cpu)):
+        for mode in ("kernel", "gspmd"):
+            _same_tree(got[mode], want[mode], (rank, mode))
+        assert len(got["log"]) == len(want["log"]) > 0
+        for (label, g), (_, w) in zip(got["log"], want["log"]):
+            assert g["lsn"] == w["lsn"], (rank, label)
+            for c, cw in zip(g["components"], w["components"]):
+                assert c["device"] == ["cuda:0"], (rank, label, c["name"])
+                assert c["held"] == [-(-c["global_rows"] // 2)]
+                assert (c["name"], c["uid"], c["kills"]) == \
+                    (cw["name"], cw["uid"], cw["kills"])

@@ -23,8 +23,8 @@ reference on 8 forced host devices:
     rank and to the one-process mesh's), I3 (the 12 expressions, dtypes
     included, equal the reference's meshless session on every rank;
     point lookups of keys each rank owns and of absent keys equal the
-    reference's meshless lookup) — and the paths outside the slice
-    refusing a rank mesh.
+    reference's meshless lookup) — and the durable store refusing a rank
+    mesh while the feed, views, persist and compaction run there.
 """
 import os
 import pathlib
@@ -296,15 +296,26 @@ def test_each_rank_holds_only_its_rows(checks4, one_process, n):
 
 
 def test_paths_outside_the_slice_refuse_a_rank_mesh(checks4):
-    """Feeds, views, persist, compaction and durable stores raise
+    """Durable stores (``storage=``, ``Session.open``) raise
     NotImplementedError on a rank mesh, naming the ROADMAP item that will
-    bring them (they would otherwise run replicated on every rank)."""
+    bring them (they would otherwise run replicated on every rank); the
+    feed, views, persist and compaction run there (over the 3-row table:
+    a push of two rows and a delete of one, a view equal to its
+    recompute, a persisted filter, a compaction)."""
+    n = CHECK_ROWS[-1]
     for out in checks4:
         refused = out["refused"]
         assert set(refused) == {"feed", "view", "persist", "compact",
                                 "storage", "open"}
-        for what, msg in refused.items():
-            assert msg is not None and "A9b-2d" in msg, (what, msg)
+        for what in ("storage", "open"):
+            kind, msg = refused[what]
+            assert kind == "refused" and "A9b-2e" in msg, (what, msg)
+        assert refused["feed"] == ("ran", (n + 2 - 1, 1))
+        kind, (view, recompute) = refused["view"]
+        assert kind == "ran"
+        _same(view, recompute, "view")
+        assert refused["persist"] == ("ran", n + 2 - 1)
+        assert refused["compact"] == ("ran", n + 2 - 1)
 
 
 def test_the_rank_bodies_import_no_jax():
