@@ -331,12 +331,40 @@ Phases (any mismatch raises; nothing is caught):
      ceil(rows / 4) rows of CUDA tensors, each flush's wall and the
      compaction's beside (a)'s and phase 6's.
 
+ 18. the durable store across processes (``Session(storage=)``,
+     ``Session.open`` and the lazy rebuild on a RankMesh: one store in the
+     format a meshless session writes, the writer rank's I/O voted on by
+     every rank). (a) Phase 8's scenario (the 5,000,000-row base, Dim,
+     LIVE_MIX's eight batches, one flush each, DURABLE_TAIL acked into the
+     WAL; a lazy open that replays the tail, the compaction, a lazy open
+     again), the store in /dev/shm, through a meshless kernel session and
+     through a kernel session on a one-rank NCCL group: after each open
+     DURABLE_QUERIES and point lookups equal between the two, dtypes
+     included, and DURABLE_QUERIES equal phase 8's numpy oracle. The rank
+     run's launches (filter_count, segment_agg, block_topk and its merge,
+     merge_join_count), zeroed before it and read after it, join the
+     ``kernels`` line (path "rank_durable"), each held against its plain
+     version on its recorded inputs. Each ack, each flush with its
+     gathered segment write, each open's wall and ``recovery_report``,
+     the card bytes after each lazy open and the peak during it are
+     printed beside the meshless session's. (b) Four spawned gloo ranks
+     sharing the card, started with the phase and joined after (a), run
+     the crash matrix over IO_FAULT_POINTS at phase 8's cut (CRASH_ROWS
+     rows, four batches, two flushed): each crash reopened on the ranks
+     equals a memory-only rank session of exactly the acked batches and
+     numpy, each component ceil(rows / 4) rows a rank; the store they
+     left opens without a mesh on the card with the same rows, and no
+     rank's peak during its open reaches that open's bytes, nor its
+     transient beyond its shards a whole component's.
+
 ``python3 chip_smoke.py --rank-engine`` runs phase 16 alone; under
 ``torchrun --nproc-per-node 4`` (one rank a card, NCCL) the same flag runs
 16(b)'s body once, each rank's answers held against numpy and a meshless
 session on its own card. ``--rank-live`` does the same for phase 17
 (under ``torchrun``: 17(b)'s scenario on one rank a card, every rank's
-answers held against the numpy oracle on rank 0).
+answers held against the numpy oracle on rank 0), and ``--rank-durable``
+for phase 18 (under ``torchrun``: 18(b)'s crash matrix on one rank a card,
+the store on the one host, every rank's reopened rows held against numpy).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -6249,6 +6277,546 @@ def rank_live_main(seed: int) -> int:
     return 0
 
 
+# -- phase 18: the durable store across processes (torch.distributed ranks) ----
+
+RANK_DURABLE_RANKS = 4      # 18(b): gloo ranks sharing the card
+RANK_DURABLE_TIMEOUT = 420  # s: 18(b)'s four processes, their start included
+RANK_DURABLE_KERNELS = ("filter_count", "segment_agg", "topk_merge",
+                        "merge_join_count")
+RANK_DURABLE_CHECKED = ("3_filter_count", "4_group_count")   # 18(b)'s reopens
+SHM = "/dev/shm"
+
+
+def _store_dir(prefix: str) -> str:
+    """A fresh directory for the phase's stores: in RAM (``/dev/shm``)
+    where there is one, so the phase times the store's work rather than
+    the machine's disk."""
+    return tempfile.mkdtemp(prefix=prefix,
+                            dir=SHM if os.path.isdir(SHM) else None)
+
+
+def _durable_state(sess, keys: list) -> dict:
+    """DURABLE_QUERIES' answers on ``sess`` and point lookups of ``keys``."""
+    from repro_torch.core.frame import AFrame
+
+    df, dim = AFrame("live", "Live", session=sess), AFrame("live", "Dim", session=sess)
+    out = {name: _answer(fn(df, dim)) for name, fn in DURABLE_QUERIES.items()}
+    for k in keys:
+        row = df.get(int(k))
+        out[f"get {k}"] = None if row is None else _answer(row)
+    return out
+
+
+def _held(sess, dev, shards: int) -> list:
+    """Each component's rows this process holds of each column (all on
+    ``dev``), failing where a column holds more than ceil(rows /
+    ``shards``)."""
+    out = []
+    for c in sess.catalog.components("live", "Live"):
+        held = sorted({int(v.shape[0]) for v in c.table.columns.values()})
+        devs = sorted({str(v.device) for v in c.table.columns.values()})
+        if held != [-(-c.table.global_rows // shards)] or devs != [str(dev)]:
+            raise AssertionError(f"phase 18: {c.name} holds {held} rows on "
+                                 f"{devs} of {c.table.global_rows}")
+        out.append(held[0])
+    return out
+
+
+def _timed_open(open_fn) -> tuple:
+    """``open_fn()`` with its wall, the card bytes it left and its peak
+    (both above what was allocated before it)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = open_fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return sess, {"open_s": wall, "report_s": sess.recovery_report["seconds"],
+                  "replayed": sess.recovery_report["wal_replayed_batches"],
+                  "fallbacks": sum(d["manifest_fallbacks"] for d in
+                                   sess.recovery_report["datasets"].values()),
+                  "bytes": torch.cuda.memory_allocated() - base,
+                  "peak": torch.cuda.max_memory_allocated() - base}
+
+
+def durable_scenario(make, reopen, dev, shards: int, table, seed: int,
+                     oracle_states: list | None = None) -> dict:
+    """Phase 8's scenario through ``make(storage=...)`` (a meshless kernel
+    session, or one on a rank mesh): the table closed, clustered by
+    unique2, onePercent indexed, Dim, LIVE_MIX's eight batches (one flush
+    each), DURABLE_TAIL acked into the WAL, the close; a lazy open (the
+    tail replays into a tenth component) and its answers; the compaction,
+    the close, a lazy open and its answers. ``reopen(d)`` opens the store
+    lazily on the same mesh. Returns the answers, each ack's and flush's
+    wall with the segment bytes the flush wrote, each open's wall, report,
+    card bytes and peak. ``oracle_states`` gets the numpy oracle's columns
+    of each open's state."""
+    import torch
+
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.runtime import telemetry as tel
+
+    d = Path(_store_dir("chip_smoke_rank_durable_"))
+    seg = lambda: tel.counter_value("storage.segment_bytes_written_total") or 0
+    policy = lsm.CompactionPolicy(size_ratio=10.0, max_runs=64)
+    try:
+        sess = make(storage=str(d))
+        w0 = seg()
+        t0 = time.perf_counter()
+        sess.create_dataset("Live", table, dataverse="live", closed=True,
+                            primary="unique2", indexes=["onePercent"])
+        sess.create_dataset("Dim", wisconsin.generate(LIVE_DIM_ROWS, seed=7),
+                            dataverse="live")
+        torch.cuda.synchronize()
+        out = {"create_s": time.perf_counter() - t0, "create_bytes": seg() - w0,
+               "acks": [], "flushes": [], "opens": []}
+        feed = Feed(sess, "Live", "live", flush_rows=10**9, policy=policy)
+        oracle = LiveOracle({k: v.numpy() for k, v in table.columns.items()})
+        rng = np.random.default_rng(seed)
+        next_key, keys = ROWS, [3, ROWS + 7, -5]
+        for i, kind in enumerate(LIVE_MIX + DURABLE_TAIL):
+            batch = _live_batch(kind, i, rng, oracle, next_key)
+            if kind == "push":
+                next_key += LIVE_BATCH
+            keys.append(int((batch if kind == "delete" else batch["unique2"])[0]))
+            t0 = time.perf_counter()
+            getattr(feed, kind)(batch)
+            out["acks"].append(time.perf_counter() - t0)
+            oracle.apply(kind, batch)
+            if i < len(LIVE_MIX):
+                w = seg()
+                t0 = time.perf_counter()
+                feed.flush()
+                torch.cuda.synchronize()
+                out["flushes"].append({"wall_s": time.perf_counter() - t0,
+                                       "segment_bytes": seg() - w})
+        sess.close()
+        del sess, feed
+        out["keys"] = keys
+        for state in ("ten", "compacted"):
+            re, row = _timed_open(lambda: reopen(d))
+            row["held"] = _held(re, dev, shards)
+            if oracle_states is not None:
+                oracle_states.append(dict(oracle.cols))
+            out[state] = _durable_state(re, keys)
+            out["opens"].append(row)
+            if state == "ten":
+                w = seg()
+                t0 = time.perf_counter()
+                Feed(re, "Live", "live", flush_rows=10**9, policy=policy).compact()
+                torch.cuda.synchronize()
+                out["compact_s"] = time.perf_counter() - t0
+                out["compact_bytes"] = seg() - w
+                oracle.compact()
+            re.close()
+            del re
+        out["components"] = [o["held"] for o in out["opens"]]
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _crash_batches(seed: int, raw: dict) -> list:
+    """Phase 8's crash batches: LIVE_MIX's first CRASH_BATCHES over the
+    CRASH_ROWS-row base."""
+    gen = LiveOracle(raw)
+    rng = np.random.default_rng(seed + 1)
+    batches, next_key = [], CRASH_ROWS
+    for i, kind in enumerate(LIVE_MIX[:CRASH_BATCHES]):
+        batches.append((kind, _live_batch(kind, i, rng, gen, next_key)))
+        gen.apply(*batches[-1])
+        next_key += LIVE_BATCH if kind == "push" else 0
+    return batches
+
+
+def _digest(cols: dict) -> str:
+    """A hash of a table's visible rows (clustered by unique2): every
+    column's dtype, shape and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(cols):
+        v = np.ascontiguousarray(cols[k])
+        h.update(f"{k}:{v.dtype.str}:{v.shape}".encode())
+        h.update(v.tobytes())
+    return h.hexdigest()
+
+
+def rank_crash_matrix(mesh, dev, seed: int, root: Path) -> dict:
+    """18(b)'s body on ``mesh`` (the ranks share ``root``): for each of
+    IO_FAULT_POINTS, the CRASH_ROWS-row base stored, the fault armed on
+    every rank (the writer's I/O fires it; every rank raises at the same
+    call), phase 8's four batches (two flushed) until it fires, the close,
+    and a lazy reopen (after a reopen that mid-replay kills): the visible
+    rows equal a memory-only session on the ranks of exactly the acked
+    batches, and e3 / e4 equal numpy. Each reopen's wall, report, card
+    bytes and peak. The stores stay in ``root`` (the parent opens one
+    without a mesh)."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.engine.session import Session
+    from repro_torch.runtime.fault import IO_FAULT_POINTS, FaultPlan, StorageFault
+
+    table = wisconsin.generate(CRASH_ROWS, seed=seed)
+    raw = {k: v.numpy() for k, v in table.columns.items()}
+    batches = _crash_batches(seed, raw)
+    policy = lsm.CompactionPolicy(size_ratio=10.0, max_runs=64)
+    shards = mesh.extent(("data",))
+    memory: dict = {}
+
+    def create(sess):
+        sess.create_dataset("Live", table, dataverse="live", closed=True,
+                            primary="unique2", indexes=["onePercent"])
+
+    def acked_rows(n: int) -> str:
+        """A memory-only session on the ranks that applied the first n
+        batches (one flush): its rows' digest; numpy agrees."""
+        if n not in memory:
+            sess = Session(mode="kernel", mesh=mesh)
+            create(sess)
+            f = Feed(sess, "Live", "live", flush_rows=10**9, policy=policy)
+            want = LiveOracle(raw)
+            for kind, batch in batches[:n]:
+                getattr(f, kind)(batch)
+                want.apply(kind, batch)
+            f.flush()
+            got = _by_key(AFrame("live", "Live", session=sess).collect())
+            if _digest(got) != _digest(_by_key(want.cols)):
+                raise AssertionError(f"phase 18 (b): the memory-only session "
+                                     f"of {n} batches != numpy")
+            memory[n] = (_digest(got), want)
+            del sess, f
+            gc.collect()
+        return memory[n]
+
+    out = {"rank": mesh.rank, "crash": {}}
+    for point in IO_FAULT_POINTS:
+        d = root / f"crash-{point}"
+        sess = Session(mode="kernel", mesh=mesh, storage=str(d))
+        create(sess)
+        sess.fault_plan = FaultPlan.once(point)
+        f = Feed(sess, "Live", "live", flush_rows=10**9, policy=policy)
+        acked, crashed, acks = 0, False, []
+        try:
+            for i, (kind, batch) in enumerate(batches):
+                t0 = time.perf_counter()
+                getattr(f, kind)(batch)
+                acks.append(time.perf_counter() - t0)
+                acked += 1
+                if i < CRASH_FLUSHED:
+                    f.flush()
+        except StorageFault:
+            crashed = True
+        sess.close()
+        del sess, f
+        if point == "mid-replay":
+            try:
+                Session.open(str(d), mode="kernel", mesh=mesh,
+                             fault_plan=FaultPlan.once(point))
+            except StorageFault:
+                crashed = True
+            else:
+                raise AssertionError("phase 18 (b): mid-replay never fired")
+        if not crashed:
+            raise AssertionError(f"phase 18 (b): {point} never fired")
+        re, row = _timed_open(lambda: Session.open(str(d), mode="kernel",
+                                                   mesh=mesh))
+        row["held"] = _held(re, dev, shards)
+        got = _by_key(AFrame("live", "Live", session=re).collect())
+        digest, want = acked_rows(acked)
+        if _digest(got) != digest:
+            raise AssertionError(f"phase 18 (b) crash at {point}: the reopened "
+                                 f"rows != the memory-only session's")
+        w = live_oracle(want.cols, raw_dim_unique1())
+        df = AFrame("live", "Live", session=re)
+        for name in RANK_DURABLE_CHECKED:
+            if _answer(LIVE_QUERIES[name](df, None)) != _answer(w[name]):
+                raise AssertionError(f"phase 18 (b) crash at {point}: {name}")
+        row.update(acked=acked, acks=acks, digest=digest,
+                   rows=len(got["unique2"]))
+        out["crash"][point] = row
+        re.close()
+        del re
+    return out
+
+
+def _rank_18b(rank: int, world: int, init: str, out: str, seed: int,
+              root: str) -> None:
+    """18(b)'s rank: one of RANK_DURABLE_RANKS gloo ranks on the one card,
+    ``rank_crash_matrix`` over the store directory ``root`` they share;
+    what it saw to ``out``."""
+    import torch
+
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    torch.cuda.set_device(0)
+    mesh = init_rank_mesh(world, 1, None, rank=rank, world_size=world,
+                          local_rank=0, init_method=init, backend="gloo")
+    try:
+        got = rank_crash_matrix(mesh, torch.device("cuda", 0), seed, Path(root))
+        Path(out, f"rank{rank}.json").write_text(json.dumps(got))
+    finally:
+        close_rank_mesh()
+
+
+def _durable_answers(x: dict) -> dict:
+    return {k: x[k] for k in ("ten", "compacted")}
+
+
+def run_rank_durable(table, raw: dict, dev, seed: int, card: str,
+                     durable: dict | None) -> dict:
+    """Phase 18: the durable store across processes, one store the ranks
+    share in the format a meshless session writes. (a) A meshless kernel
+    session, then a kernel session on a one-rank NCCL group, run phase 8's
+    scenario with the store in RAM (``durable_scenario``); after each lazy
+    open (the WAL tail replayed; the compaction's) the rank session's
+    answers and point lookups equal the meshless session's, dtypes
+    included, and DURABLE_QUERIES' equal the numpy oracle. Its launches
+    (zeroed before it, read after it) are the ``rank_durable`` path's;
+    every call is recorded and held against its plain version. (b)
+    RANK_DURABLE_RANKS gloo ranks sharing the card run the crash matrix
+    (``rank_crash_matrix``), started with the phase and joined after (a);
+    the store they left after the mid-replay crash then opens without a
+    mesh on the card with the same rows, its bytes and peak beside each
+    rank's. Cut for the script's time limit: (b)'s crash matrix runs at
+    phase 8's cut (CRASH_ROWS rows, four batches)."""
+    import torch
+
+    from repro_torch.core.catalog import component_nbytes
+    from repro_torch.core.frame import AFrame
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rank_durable_")
+    stores = _store_dir("chip_smoke_rank_durable_b_")
+    run_dir = tempfile.mkdtemp(dir=tmp)
+    ranks_b = _start_ranks(_rank_18b, RANK_DURABLE_RANKS, run_dir, seed, stores)
+    try:
+        states: list = []
+        t0 = time.perf_counter()
+        flat = durable_scenario(
+            lambda **kw: Session(mode="kernel", device=dev, **kw),
+            lambda d: Session.open(str(d), lazy=True, mode="kernel", device=dev),
+            dev, 1, table, seed, states)
+        out["a_meshless_s"] = time.perf_counter() - t0
+        dim_u1 = raw_dim_unique1()
+        for state, cols in zip(("ten", "compacted"), states):
+            want = durable_oracle(cols, dim_u1)
+            bad = [n for n in DURABLE_QUERIES
+                   if flat[state][n] != _answer(want[n])]
+            if bad:
+                raise AssertionError(f"phase 18 (a) meshless {state}: {bad} "
+                                     "!= numpy")
+        del states
+        torch.cuda.empty_cache()
+        mesh = init_rank_mesh(1, 1, None, rank=0, world_size=1, local_rank=0,
+                              init_method=_file_init(tmp))
+        try:
+            calls: list = []
+            t0 = time.perf_counter()
+            _build.reset_launches()
+            with recording(calls):
+                got = durable_scenario(
+                    lambda **kw: Session(mode="kernel", mesh=mesh, **kw),
+                    lambda d: Session.open(str(d), lazy=True, mode="kernel",
+                                           mesh=mesh),
+                    dev, 1, table, seed)
+            torch.cuda.synchronize()
+            out["a_rank_s"] = time.perf_counter() - t0
+            launches = {k: _build.LAUNCHES[k] for k in RELATIONAL}
+        finally:
+            close_rank_mesh()
+        bad = [k for k, v in _durable_answers(got).items()
+               if v != _durable_answers(flat)[k]]
+        if bad:
+            for k in bad:
+                diff = [q for q in got[k] if got[k][q] != flat[k][q]]
+                print(f"  phase 18 (a): {k} differs on {diff}", flush=True)
+            raise AssertionError(f"phase 18 (a): the one-rank session differs "
+                                 f"from the meshless one on {bad}")
+        missing = [k for k in RANK_DURABLE_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"phase 18 (a): {missing} never launched on "
+                                 "the rank durable path")
+        out["launches"] = launches
+        print(f"  (a) one-rank nccl group, {ROWS:,} rows + {len(LIVE_MIX)} "
+              f"batches + {len(DURABLE_TAIL)} in the WAL, the store in "
+              f"{SHM if os.path.isdir(SHM) else tempfile.gettempdir()}: after "
+              f"the lazy open ({len(got['components'][0])} components) and "
+              f"after the compaction, {len(DURABLE_QUERIES)} queries and "
+              f"{len(got['keys'])} point lookups == meshless (dtypes "
+              f"included) == numpy; launches {launches}", flush=True)
+        check_recorded(calls, "phase 18 (a) (one rank)", RANK_DURABLE_KERNELS)
+        del calls
+        torch.cuda.empty_cache()
+        p8 = (durable or {}).get("acks") or []
+        for i, kind in enumerate(LIVE_MIX + DURABLE_TAIL):
+            p = "not measured" if i >= len(p8) else f"{p8[i]['ack_s'] * 1e3:.1f} ms"
+            flush = "left in the WAL" if i >= len(LIVE_MIX) else (
+                f"flush with its gathered segment write {got['flushes'][i]['wall_s']:.3f}"
+                f" s ({got['flushes'][i]['segment_bytes']:,} bytes), meshless "
+                f"{flat['flushes'][i]['wall_s']:.3f} s")
+            print(f"  [{card}] batch {i + 1} ({kind}): ack one nccl rank "
+                  f"{got['acks'][i] * 1e3:.1f} ms, meshless "
+                  f"{flat['acks'][i] * 1e3:.1f} ms, phase 8 {p}; {flush}",
+                  flush=True)
+        print(f"  [{card}] create (the base's segment gathered and written): "
+              f"one nccl rank {got['create_s']:.3f} s, meshless "
+              f"{flat['create_s']:.3f} s ({got['create_bytes']:,} segment "
+              f"bytes); compaction one nccl rank {got['compact_s']:.3f} s, "
+              f"meshless {flat['compact_s']:.3f} s", flush=True)
+        for i, state in enumerate(("with the WAL tail", "after the compaction")):
+            g, f = got["opens"][i], flat["opens"][i]
+            print(f"  [{card}] lazy open {state}: one nccl rank {g['open_s']:.3f} s "
+                  f"(recovery_report {g['report_s']:.3f} s, {g['replayed']} "
+                  f"replayed, {g['fallbacks']} fallbacks), {g['bytes']:,} card "
+                  f"bytes after, peak {g['peak']:,}; meshless {f['open_s']:.3f} s "
+                  f"({f['report_s']:.3f} s), {f['bytes']:,} bytes, peak "
+                  f"{f['peak']:,}", flush=True)
+        t0 = time.perf_counter()
+        _join_ranks(ranks_b, _rank_18b,
+                    max(RANK_DURABLE_TIMEOUT - (t0 - t_phase), 1.0))
+        ranks = [json.loads(Path(run_dir, f"rank{r}.json").read_text())
+                 for r in range(RANK_DURABLE_RANKS)]
+        out["b_wait_s"] = time.perf_counter() - t0
+        # the store the ranks left after the mid-replay crash (replayed at
+        # their reopen), opened without a mesh on the card
+        re, flat_open = _timed_open(lambda: Session.open(
+            str(Path(stores) / "crash-mid-replay"), mode="kernel", device=dev))
+        largest = max(component_nbytes(c)
+                      for c in re.catalog.components("live", "Live"))
+        digest = _digest(_by_key(AFrame("live", "Live", session=re).collect()))
+        re.close()
+        del re
+    finally:
+        for p in ranks_b.processes:   # (a) failed: (b) is not waited for
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(stores, ignore_errors=True)
+    for point in ranks[0]["crash"]:
+        cases = [x["crash"][point] for x in ranks]
+        if len({c["digest"] for c in cases}) != 1 or \
+                len({c["acked"] for c in cases}) != 1:
+            raise AssertionError(f"phase 18 (b) {point}: the ranks differ")
+        c = cases[0]
+        print(f"  (b) [{card}] crash at {point}: {c['acked']} batch(es) acked "
+              f"on every rank; reopened on {RANK_DURABLE_RANKS} gloo ranks in "
+              f"{statistics.median(x['open_s'] for x in cases):.3f} s (median; "
+              f"recovery_report {statistics.median(x['report_s'] for x in cases):.3f}"
+              f" s, {c['replayed']} replayed), {c['rows']:,} rows == the "
+              f"memory-only rank session == numpy ({', '.join(RANK_DURABLE_CHECKED)}); "
+              f"each component {c['held']} rows a rank", flush=True)
+    mid = [x["crash"]["mid-replay"] for x in ranks]
+    if digest != mid[0]["digest"]:
+        raise AssertionError("phase 18 (b): the rank-written store opened "
+                             "without a mesh differs from the ranks' reopen")
+    for x, c in zip(ranks, mid):
+        print(f"  (b) [{card}] rank {x['rank']}: {c['bytes']:,} card bytes after "
+              f"the lazy reopen, peak during it {c['peak']:,}; acks "
+              f"{[round(a * 1e3, 1) for a in c['acks']]} ms", flush=True)
+    print(f"  (b) [{card}] the rank-written store opened without a mesh: "
+          f"{flat_open['open_s']:.3f} s, {flat_open['bytes']:,} card bytes "
+          f"(its largest component {largest:,}), peak {flat_open['peak']:,}; "
+          f"rows == the ranks'", flush=True)
+    # a rank holds a quarter of each component (``_held``); beyond that, its
+    # transients during the open (the replay's run, its gathered segment
+    # write in half-shard chunks) stay under one whole component
+    over = [x["rank"] for x, c in zip(ranks, mid)
+            if c["peak"] >= flat_open["bytes"] or c["peak"] - c["bytes"] >= largest]
+    if over:
+        raise AssertionError(f"phase 18 (b): ranks {over} held a whole "
+                             "component's bytes beyond their shards during "
+                             "the open")
+    keep = ("acks", "flushes", "opens", "create_s", "compact_s")
+    out["meshless"] = {k: flat[k] for k in keep}
+    out["one_rank"] = {k: got[k] for k in keep}
+    out["ranks"] = ranks
+    out["flat_open"] = dict(flat_open, largest_component=largest)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  [{card}] phase 18 in {out['seconds']:.1f} s: (a) the meshless "
+          f"scenario {out['a_meshless_s']:.1f} s, the one-rank one "
+          f"{out['a_rank_s']:.1f} s; (b), started with (a), done "
+          f"{out['b_wait_s']:.1f} s after it", flush=True)
+    return out
+
+
+def rank_durable_main(seed: int) -> int:
+    """``--rank-durable``: phase 18 alone, its kernels built first. Under
+    ``torchrun`` (``WORLD_SIZE`` above 1) it runs 18(b)'s crash matrix
+    instead on one rank a card over NCCL, the store on the one host:
+    every rank's reopened rows equal its memory-only session's and numpy;
+    rank 0 prints the summary."""
+    import torch
+
+    from repro_torch.data import wisconsin
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    _build.build()
+    _build.lib()
+    card = nvidia_smi()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        table = wisconsin.generate(ROWS, seed=seed)
+        raw = {k: v.numpy() for k, v in table.columns.items()}
+        out = run_rank_durable(table, raw, torch.device("cuda", 0), seed,
+                               card, None)
+        print(json.dumps({"rank_durable": out}))
+        return 0
+    from repro_torch.launch.mesh import (broadcast_object, close_rank_mesh,
+                                         init_rank_mesh)
+
+    mesh = init_rank_mesh(world, 1, None)
+    root = broadcast_object(mesh, _store_dir("chip_smoke_rank_durable_nccl_")
+                            if mesh.rank == 0 else None)
+    try:
+        x = rank_crash_matrix(mesh, mesh.device, seed, Path(root))
+        every = [None] * world
+        torch.distributed.all_gather_object(every, x)
+        if mesh.rank == 0:
+            for point in every[0]["crash"]:
+                cases = [y["crash"][point] for y in every]
+                if len({c["digest"] for c in cases}) != 1:
+                    raise AssertionError(f"{point}: the ranks differ")
+                print(f"  crash at {point}: {cases[0]['acked']} acked, "
+                      f"{cases[0]['rows']:,} rows on every rank == memory-only "
+                      f"== numpy; reopen {[round(c['open_s'], 3) for c in cases]}"
+                      f" s, card bytes {[c['bytes'] for c in cases]}, peak "
+                      f"{[c['peak'] for c in cases]}", flush=True)
+            print(nvidia_smi(every=True))
+            print(json.dumps({"rank_durable_nccl": {
+                "world": world, "answers_equal_numpy": True,
+                "ranks": [y["crash"] for y in every]}}))
+        torch.distributed.barrier()
+    finally:
+        if mesh.rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+        close_rank_mesh()
+    return 0
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -6568,11 +7136,16 @@ def main(argv=None) -> int:
     ap.add_argument("--rank-live", action="store_true",
                     help="phase 17 alone (under torchrun: 17(b)'s scenario "
                          "on one rank a card over NCCL)")
+    ap.add_argument("--rank-durable", action="store_true",
+                    help="phase 18 alone (under torchrun: 18(b)'s crash "
+                         "matrix on one rank a card over NCCL)")
     args = ap.parse_args(argv)
     if args.rank_engine:
         return rank_engine_main(args.seed)
     if args.rank_live:
         return rank_live_main(args.seed)
+    if args.rank_durable:
+        return rank_durable_main(args.seed)
 
     import torch
 
@@ -6826,6 +7399,19 @@ def main(argv=None) -> int:
             n = rank_live["launches"][row["name"]]
             row["launches_by_path"]["rank_live"] = n
             row["launches"] += n
+    torch.cuda.empty_cache()
+    phase_header(f"phase 18: the durable store across processes — phase 8's "
+          f"scenario ({ROWS} rows, {len(LIVE_MIX)} batches, "
+          f"{len(DURABLE_TAIL)} in the WAL, lazy opens, the compaction) on a "
+          f"one-rank nccl group against a meshless session, then the crash "
+          f"matrix on {RANK_DURABLE_RANKS} gloo ranks sharing the card",
+          flush=True)
+    rank_durable = run_rank_durable(table, raw, dev, args.seed, card, durable)
+    for row in kernels:
+        if row["name"] in RELATIONAL:
+            n = rank_durable["launches"][row["name"]]
+            row["launches_by_path"]["rank_durable"] = n
+            row["launches"] += n
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -6839,6 +7425,7 @@ def main(argv=None) -> int:
                       "runtime": runtime, "mesh_models": mesh_models,
                       "cost_model": cost, "rank_mesh": ranks,
                       "rank_engine": rank_engine, "rank_live": rank_live,
+                      "rank_durable": rank_durable,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

@@ -32,7 +32,10 @@ and every rank makes the same calls in the same order, so run uids and
 LSNs advance alike on every rank. The engine votes before each publish
 (``engine/lsm._vote``): a CAS that fails, or a fault that fires, on one
 rank aborts the swap on all of them, and every rank holds the same
-manifests.
+manifests. With a durable store the ranks share one store: its commit,
+inside each publish, is voted on too (``runtime/durable.py``), so a crash
+before the manifest rename stops the publish on every rank; segment GC
+unlinks on the store's writer rank only.
 """
 from __future__ import annotations
 
@@ -321,7 +324,8 @@ class Catalog:
                 # written off-lock), then the manifest generation through
                 # write-temp → fsync → atomic rename. A crash before the
                 # rename leaves the previous generation + the WAL tail
-                # authoritative.
+                # authoritative. On a rank mesh the commit is voted on:
+                # it fails on every rank or on none.
                 self.store.commit(dataverse, name, m)
             self._reclaim()
             self.gc_stats()

@@ -291,13 +291,16 @@ class Shards:
             return all_gather(x.to(torch.uint8), group=self.group).bool()
         return all_gather(x, group=self.group)
 
-    def gather_rows(self, tensors: list, rows: int) -> list:
+    def gather_rows(self, tensors: list, rows: int,
+                    dst: Optional[int] = None) -> Optional[list]:
         """Rank form only: each of ``tensors`` (this rank's rows, at most
         ``rows`` of them) zero-padded to ``rows`` rows and concatenated over
         the shards in shard order, in ONE all-gather: every tensor's rows
         are packed side by side as bytes, gathered, and cut back into
         their dtypes and shapes. A collective costs host time and, across
-        processes, a round trip; a stream's columns move together."""
+        processes, a round trip; a stream's columns move together. With
+        ``dst`` (a global rank of the group) the rows are gathered to that
+        rank alone and cut on its host; the others get None."""
         packed = []
         for t in tensors:
             t = t.contiguous()
@@ -306,7 +309,18 @@ class Shards:
                                               + tuple(t.shape[1:]))])
             packed.append(t.view(torch.uint8).reshape(rows, -1))
         widths = [p.shape[1] for p in packed]
-        every = all_gather(torch.cat(packed, dim=1), group=self.group)
+        if dst is None:
+            every = all_gather(torch.cat(packed, dim=1), group=self.group)
+        else:
+            import torch.distributed as dist
+
+            mine = torch.cat(packed, dim=1)
+            got = [torch.empty_like(mine) for _ in range(self.n)] \
+                if dist.get_rank() == dst else None
+            dist.gather(mine, got, dst=dst, group=self.group)
+            if got is None:
+                return None
+            every = torch.cat(got).cpu()
         out, at = [], 0
         for t, w in zip(tensors, widths):
             cut = every[:, at:at + w].contiguous().view(t.dtype)
@@ -525,7 +539,8 @@ GATHER_CHUNK_ROWS = 1 << 18   # rows a rank sends per collective of gather_to_ho
 
 
 def gather_to_host(mesh, data_axes, columns: list, keep: np.ndarray,
-                   chunk_rows: int = GATHER_CHUNK_ROWS) -> list:
+                   chunk_rows: int = GATHER_CHUNK_ROWS,
+                   dst: Optional[int] = None) -> Optional[list]:
     """Rank form only: the rows of ``columns`` (this rank's shard of a
     component) that the host mask ``keep`` selects, from every rank, as
     numpy arrays on every rank's HOST, in global row order (rank order,
@@ -535,7 +550,10 @@ def gather_to_host(mesh, data_axes, columns: list, keep: np.ndarray,
     a rank, each chunk ONE packed all-gather (every column's rows side by
     side as bytes, ``Shards.gather_rows``) copied to the host before the
     next: no more than S x ``chunk_rows`` of the rows sit on a device at
-    once, never the whole component."""
+    once, never the whole component. With ``dst`` (a global rank of the
+    data axes' group: a durable segment's writer) each chunk is gathered
+    to that rank alone (``Shards.gather_rows``); the others send their
+    rows and get None."""
     sh = Shards(mesh, data_axes)
     assert sh.group is not None, "gather_to_host is the rank form"
     dev = columns[0].device
@@ -545,18 +563,18 @@ def gather_to_host(mesh, data_axes, columns: list, keep: np.ndarray,
     starts = np.concatenate([[0], np.cumsum(counts)])
     out = [np.empty((int(starts[-1]),) + tuple(c.shape[1:]),
                     dtype=torch.empty((), dtype=c.dtype).numpy().dtype)
-           for c in columns]
+           for c in columns] if dst in (None, mesh.rank) else None
     at = 0
     while at < counts.max():
         rows = int(min(chunk_rows, counts.max() - at))
         mine = torch.from_numpy(idx[at:at + rows]).to(dev)
-        every = sh.gather_rows([c[mine] for c in columns], rows)
-        for dst, got in zip(out, every):
+        every = sh.gather_rows([c[mine] for c in columns], rows, dst)
+        for to, got in zip(out or (), every or ()):
             got = got.cpu().numpy()
             for r in range(sh.n):
                 take = int(min(max(counts[r] - at, 0), rows))
                 if take:
-                    dst[starts[r] + at:starts[r] + at + take] = \
+                    to[starts[r] + at:starts[r] + at + take] = \
                         got[r * rows:r * rows + take]
         at += rows
     return out

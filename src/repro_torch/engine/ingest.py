@@ -35,7 +35,9 @@ on every rank or on none (``lsm._vote``).
 With a durable store attached to the session's catalog, every validated
 batch is appended to the dataset's feed WAL and fsynced before the ack, and
 the covered prefix is truncated only after the covering flush's manifest
-commit (``runtime/durable.py``).
+commit (``runtime/durable.py``). On a rank mesh the store's writer rank
+appends and truncates, and every rank votes after each (the ack vote): a
+batch is acked, and buffered, on every rank or on none.
 """
 from __future__ import annotations
 
@@ -113,6 +115,7 @@ class Feed:
         """Append a batch of arriving records (host-side buffer). The batch
         is validated against the dataset schema up front — a malformed batch
         raises here, not deep inside a device merge."""
+        self.session._on_owner()
         ds = self.session.catalog.get(self.dataverse, self.dataset)
         rows = _validate_batch(rows, ds.table)
         n = len(next(iter(rows.values())))
@@ -127,6 +130,7 @@ class Feed:
         the batch's keys is annihilated (anti-matter), the batch's rows
         survive. Duplicate keys *within* the batch resolve newest-wins —
         only each key's last row is kept."""
+        self.session._on_owner()
         self._key_column("upsert")  # primary key required; raises without one
         ds = self.session.catalog.get(self.dataverse, self.dataset)
         rows = _validate_batch(rows, ds.table)
@@ -143,6 +147,7 @@ class Feed:
         Deleting an absent key is a no-op (the tombstone annihilates
         nothing). All matter with the key dies — including duplicates a
         plain ``push`` appended."""
+        self.session._on_owner()
         key_col = self._key_column("delete")
         ds = self.session.catalog.get(self.dataverse, self.dataset)
         keys = _validate_keys(keys, ds.table, key_col)
@@ -158,7 +163,9 @@ class Feed:
         never reaches the log) and BEFORE buffering (a crash mid-append —
         the ``torn-write`` fault — leaves a CRC-invalid tail and an
         un-acked, un-buffered batch: lost consistently on both sides).
-        Without a store the buffer is the only write-ahead state."""
+        Without a store the buffer is the only write-ahead state. On a
+        rank mesh the append is voted on (``DurableStore.wal_append``): a
+        torn append on the writer raises on every rank."""
         if self._store is not None and not self._replay:
             self._store.wal_append(self.dataverse, self.dataset, kind,
                                    payload)
@@ -186,6 +193,7 @@ class Feed:
         dataset refresh from the delta (inserts) and the retraction (the
         old rows the tombstones just annihilated); the compaction policy
         may then fold components."""
+        self.session._on_owner()
         if not self._buffer:
             return
         t0 = time.perf_counter()
@@ -331,6 +339,7 @@ class Feed:
         """Merge base ∪ runs into a fresh base (single newest-wins merge +
         re-sort + index rebuild; annihilated matter and tombstones drop).
         Query results are unchanged — the LSM invariant."""
+        self.session._on_owner()
         ds = self.session.catalog.get(self.dataverse, self.dataset)
         if not ds.runs:
             return

@@ -33,7 +33,10 @@ cold-start mount ``ensure_soft`` does so lazily at the first bind. With a
 durable store (``runtime/durable.py``) flush- and compaction-built
 components are written to their segments off the catalog lock, before the
 publish that links them. ``_fault`` consults the session's ``fault_plan``
-(``runtime/fault.py``) at the named crash points.
+(``runtime/fault.py``) at the named crash points. On a rank mesh a
+segment write is collective (the component's rows gathered to the
+store's writer rank, the write voted on), and the soft-state rebuild
+merges each shard's counts, keys and zones over the ranks.
 
 On a mesh of ``torch.distributed`` ranks (``launch.mesh.RankMesh``) every
 rank makes the same calls with the same batches and keeps only its own
@@ -65,8 +68,7 @@ from repro_torch.core.catalog import INTERNAL_COLUMNS, Dataset, Manifest, open_w
 from repro_torch.device import resolve_device
 from repro_torch.engine.table import (ColumnMeta, Table, is_lane_column,
                                       pad_to_block)
-from repro_torch.launch.mesh import (agree, is_rank_mesh, refuse_on_ranks,
-                                     twin_mesh)
+from repro_torch.launch.mesh import agree, is_rank_mesh, twin_mesh
 from repro_torch.runtime import telemetry as tel
 from repro_torch.runtime.fault import StorageFault
 
@@ -872,6 +874,7 @@ class _RankCompactor:
         self._queue.put(entry)
 
     def _worker(self) -> None:
+        self.worker_session._owner = threading.get_ident()
         while True:
             entry = self._queue.get()
             if entry is None:
@@ -979,9 +982,8 @@ def recover(session, dataverse: str, name: str, lazy: bool = False) -> None:
     With ``lazy`` the rebuild is only MARKED: each component flips
     ``soft_stale`` and the dataset joins ``catalog.stale``; the first bind
     (query, point lookup, flush, compaction, view seed) pays it through
-    :func:`ensure_soft`. A rank mesh refuses it: recovery is the durable
-    store's (ROADMAP A9b-2e)."""
-    refuse_on_ranks(session.mesh, "soft-state recovery (lsm.recover)")
+    :func:`ensure_soft`. On a rank mesh every rank calls it at the same
+    point (the rebuild is collective, :func:`_rebuild_soft`)."""
     cat = session.catalog
     if lazy:
         with cat.lock:
@@ -1044,30 +1046,53 @@ def _rebuild_soft(session, comp: Dataset) -> None:
     """Rebuild one component's soft state from its table columns, through
     the passes create_dataset and make_run run (``session._build_index``,
     ``harvest_block_zones``) on the table's device, so the rebuilt state is
-    the state before the crash, bit for bit."""
+    the state before the crash, bit for bit. On a rank's shard the counts
+    are summed over the ranks and the host key copies gathered whole
+    (``distributed.gather_to_host``), as ``make_run`` keeps them; the zone
+    maps and index zones take the rank paths of ``_build_dataset``."""
     from repro_torch.core.stats import harvest_block_zones
 
     t = comp.table
     valid = t.valid
     anti_col = t.columns.get("__antimatter__")
-    comp.live_rows = int(valid.sum())
-    comp.anti_rows = 0 if anti_col is None else int(anti_col.sum())
-    comp.annihilated_rows = 0
-    comp.annihilated_keys = set()
     primary_col = None
     for ix in comp.indexes.values():
         if ix.kind == "primary":
             primary_col = ix.column
+    if t.mesh is None:
+        comp.live_rows = int(valid.sum())
+        comp.anti_rows = 0 if anti_col is None else int(anti_col.sum())
+    else:
+        from repro_torch.engine import distributed as D
+
+        sh = D.Shards(t.mesh, t.data_axes)
+        counts = [valid.sum(dtype=torch.int64)] + (
+            [] if anti_col is None else [anti_col.sum(dtype=torch.int64)])
+        summed = sh.psum([torch.stack(counts)]).tolist()
+        comp.live_rows = int(summed[0])
+        comp.anti_rows = int(summed[1]) if anti_col is not None else 0
+    comp.annihilated_rows = 0
+    comp.annihilated_keys = set()
+
+    def keys_where(mask: torch.Tensor) -> np.ndarray:
+        """The key column's rows under ``mask``, in global row order."""
+        col = t.columns[primary_col]
+        if t.mesh is None:
+            return _host(col[mask])
+        from repro_torch.engine.distributed import gather_to_host
+
+        return gather_to_host(t.mesh, t.data_axes, [col], _host(mask))[0]
+
     if comp.anti_rows and primary_col is not None:
-        anti_sorted = torch.sort(t.columns[primary_col][anti_col]).values
-        comp.anti_keys_arr = anti_sorted
-        comp.host_anti_keys = _host(anti_sorted)
+        comp.host_anti_keys = np.sort(keys_where(anti_col))
+        comp.anti_keys_arr = torch.from_numpy(comp.host_anti_keys).to(
+            valid.device)
     else:
         comp.anti_keys_arr = None
         comp.host_anti_keys = None
     if primary_col is not None:
         # the matter prefix is clustered: masking keeps the sorted order
-        comp.host_keys = _host(t.columns[primary_col][valid])
+        comp.host_keys = keys_where(valid)
     comp.block_zones = harvest_block_zones(t, session.n_shards)
     for key, ix in list(comp.indexes.items()):
         comp.indexes[key] = session._build_index(t, ix.column, ix.kind)

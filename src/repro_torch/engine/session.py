@@ -60,15 +60,21 @@ its own session and makes the same calls). The invariants:
   answers, dtypes, explain texts and prune reports equal the one-process
   mesh's, and the answers and dtypes the meshless session's.
 
-On a rank mesh every rank makes its session calls from one thread, in the
-same order. The feed, LSM runs, full, leveled and background compaction,
-views and ``persist`` run there; the durable store (``storage=``,
-``Session.open``) raises ``NotImplementedError`` (ROADMAP A9b-2e).
+On a rank mesh every rank makes its session calls from one thread (the
+one that made the session), in the same order; a call from another
+thread raises ``NotImplementedError`` (reader threads on a rank mesh,
+ROADMAP A9b-2f). The feed, LSM runs, full, leveled and background
+compaction, views, ``persist`` and the durable store (``storage=``,
+``Session.open``, ``lsm.recover``) run there. The ranks share one store
+in the format a meshless session writes (``runtime/durable.py``): global
+rank 0 writes it, every rank votes on each of its writes, and at open
+every rank reads the segments the writer chose and keeps its own rows.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 import time
 from collections.abc import Mapping
 from typing import Optional, Sequence
@@ -92,7 +98,7 @@ from repro_torch.engine.table import (DICT_THRESHOLD, ColumnMeta, Table,
                                       decode_strings, dict_lane_name,
                                       is_lane_column, numpy_dtype,
                                       pack_prefix, prefix_lane_name)
-from repro_torch.launch.mesh import is_rank_mesh, refuse_on_ranks
+from repro_torch.launch.mesh import is_rank_mesh
 from repro_torch.runtime import telemetry as tel
 
 _SESSION_IDS = itertools.count()
@@ -212,7 +218,8 @@ class Session:
         DurableStore or a path to open one at. Every manifest publish then
         commits checksummed component segments and an atomically renamed
         manifest generation, and feeds write an fsynced WAL; ``open``
-        recovers such a directory."""
+        recovers such a directory. On a rank mesh pass the path (every
+        rank does): each rank makes its view of the ranks' one store."""
         if mode == "auto":
             mode = "shard_map" if mesh is not None and (
                 mesh.size > 1 or is_rank_mesh(mesh)) else "gspmd"
@@ -231,14 +238,18 @@ class Session:
         self.device = resolve_device(device)
         self.catalog = catalog if catalog is not None else Catalog()
         self.fault_plan = fault_plan
+        # the thread a rank session's calls must come from (see _on_owner)
+        self._owner = threading.get_ident() if is_rank_mesh(mesh) else None
         self.storage = None
         if storage is not None:
-            refuse_on_ranks(mesh, "a durable store (storage=, Session.open)")
             from repro_torch.engine import lsm
             from repro_torch.runtime.durable import DurableStore
 
             store = storage if isinstance(storage, DurableStore) \
-                else DurableStore(storage)
+                else DurableStore(storage, mesh=mesh)
+            if is_rank_mesh(mesh) and store.mesh is None:
+                raise ValueError("a rank session's store is made on the "
+                                 "mesh: pass its path")
             # the store's crash points consult THIS session's FaultPlan: one
             # fault source for in-memory and I/O points alike
             store._fault = lambda point: lsm._fault(self, point)
@@ -298,13 +309,21 @@ class Session:
              batches at or below the manifest's ``wal_upto``.
 
         Returns the session with ``recovery_report`` filled. Raises
-        ``StorageLockError`` if a live process holds the directory."""
+        ``StorageLockError`` if a live process holds the directory.
+
+        On a rank mesh (``mesh=init_rank_mesh(...)``, every rank calls it)
+        the writer rank alone takes the lock, chooses each generation and
+        reads each WAL tail, and broadcasts them; every rank reads the
+        chosen segments from the one host's disk and keeps only its own
+        rows of each (sliced on the host, ``_mount_component``); the
+        rebuild and the replay are the engine's collective paths, and a
+        fault at any step raises on every rank."""
         from repro_torch.engine import ingest, lsm
         from repro_torch.runtime.durable import DurableStore
 
         t0 = time.perf_counter()
-        store = path if isinstance(path, DurableStore) else DurableStore(path)
-        corrupt0 = tel.counter_value("storage.corruption_total") or 0
+        store = path if isinstance(path, DurableStore) \
+            else DurableStore(path, mesh=kwargs.get("mesh"))
         report: dict = {"datasets": {}, "seconds": 0.0,
                         "corruption_events": 0, "wal_replayed_batches": 0}
         try:
@@ -344,7 +363,7 @@ class Session:
                             size_ratio=float("inf"), max_runs=1 << 30))
                     feed._replay = True
                     for seq, kind, payload in tail:
-                        lsm._fault(sess, "mid-replay")
+                        lsm._agreed_fault(sess, "mid-replay")
                         if kind == "delete":
                             feed.delete(payload["__keys__"])
                         else:
@@ -364,8 +383,10 @@ class Session:
             store.close()
             raise
         report["seconds"] = time.perf_counter() - t0
-        report["corruption_events"] = int(
-            (tel.counter_value("storage.corruption_total") or 0) - corrupt0)
+        # each fallback is one corrupt manifest or segment quarantined
+        # (``storage.corruption_total``), the same count on every rank
+        report["corruption_events"] = sum(
+            d["manifest_fallbacks"] for d in report["datasets"].values())
         tel.observe("storage.recovery_seconds", report["seconds"])
         sess.recovery_report = report
         return sess
@@ -373,9 +394,22 @@ class Session:
     def close(self) -> None:
         """Release the durable store (directory lock + WAL handles); a
         memory-only session does nothing. Crash tests call it to simulate
-        process death before reopening the same directory."""
+        process death before reopening the same directory. On a rank mesh
+        every rank calls it (the writer's releases the files)."""
         if self.storage is not None:
             self.storage.close()
+
+    def _on_owner(self) -> None:
+        """A rank session's entry points run on the thread that made it:
+        every rank issues its collectives from one thread in one order,
+        and a call from another thread would interleave its collectives
+        with the owner's. The background compactor's worker builds on
+        groups of its own (``lsm._RankCompactor``)."""
+        if self._owner is not None and threading.get_ident() != self._owner:
+            raise NotImplementedError(
+                "a rank session is entered from a thread other than the one "
+                "that made it: reader threads on a rank mesh are ROADMAP "
+                "A9b-2f; call it from its own thread")
 
     def _ensure_bound(self, plan: P.Plan) -> None:
         """The lazy-rebuild hook of the query path: before binding, rebuild
@@ -399,6 +433,7 @@ class Session:
         stored table by that column (clustered); ``indexes`` build sorted
         secondary indexes; ``closed=False`` stores integer columns widened
         to float32 (schema-on-read)."""
+        self._on_owner()
         t0 = time.perf_counter()
         with tel.span("session.create_dataset", sid=self.sid,
                       dataset=f"{dataverse}.{name}"):
@@ -505,6 +540,7 @@ class Session:
 
         from repro_torch.engine import lsm
 
+        self._on_owner()
         plan = getattr(frame_or_plan, "_plan", frame_or_plan)
         view = MaterializedView.from_plan(name, plan, self.device)
         lsm.ensure_soft(self, view.dataverse, view.dataset)
@@ -636,6 +672,7 @@ class Session:
         ``last_physical`` holds the PointLookup node."""
         from repro_torch.engine import lsm
 
+        self._on_owner()
         lsm.ensure_soft(self, dataverse, dataset)
         self._agreed_point()
         t0 = time.perf_counter()
@@ -811,6 +848,7 @@ class Session:
         back as Python numbers, tables as ``{column: np.ndarray}`` of the
         live rows. The query pins one catalog snapshot and runs entirely
         against it: a concurrent flush or compaction binds the NEXT query."""
+        self._on_owner()
         t0 = time.perf_counter()
         raw_fp = plan.fingerprint()
         raw_lits = ordered_lits(P.all_exprs(plan))
@@ -848,6 +886,7 @@ class Session:
         every rank already."""
         from repro_torch.core.compiler import _replicated, _union_below
 
+        self._on_owner()
         raw_lits = ordered_lits(P.all_exprs(plan))
         self._ensure_bound(plan)
         on_ranks = is_rank_mesh(self.mesh)
@@ -908,6 +947,7 @@ class Session:
         actual rows."""
         if analyze:
             return self.profile(plan)["text"]
+        self._on_owner()
         raw_lits = ordered_lits(P.all_exprs(plan))
         self._ensure_bound(plan)
         with self.catalog.snapshot() as snap:
@@ -924,6 +964,7 @@ class Session:
 
         Returns ``{"text", "result", "measures", "prune_report"}`` —
         ``result`` is exactly what ``execute(plan)`` returns."""
+        self._on_owner()
         tel.inc("session.profiles_total", sid=self.sid)
         raw_lits = ordered_lits(P.all_exprs(plan))
         self._ensure_bound(plan)
@@ -997,16 +1038,19 @@ def _mount_component(session: Session, dataverse: str, seg: str,
     only — the table columns, placed on the session device once in the
     segment's column order (and row-sharded onto the session's mesh),
     their metadata, and the index *inventory* (payloads stay None until
-    the soft-state rebuild at first bind)."""
+    the soft-state rebuild at first bind). On a mesh the columns are
+    sharded on the host: a rank's own rows alone reach its device."""
     from repro_torch.runtime.durable import _meta_from_json
 
     cols, cmeta = {}, {}
     for cname, mjson in meta["columns"]:
-        cols[cname] = torch.from_numpy(arrays[cname]).to(session.device)
+        cols[cname] = torch.from_numpy(arrays[cname])
         cmeta[cname] = _meta_from_json(mjson)
     table = Table(cols, cmeta, int(meta["num_rows"]))
     if session.mesh is not None:
         table = table.shard(session.mesh, session.data_axes)
+    else:
+        table = table.to(session.device)
     ds = Dataset(name=meta["name"], dataverse=dataverse, table=table,
                  closed=bool(meta["closed"]), live_rows=meta["live_rows"],
                  anti_rows=int(meta["anti_rows"]), level=int(meta["level"]),

@@ -102,7 +102,8 @@ class Table:
                  meta: Mapping[str, ColumnMeta] | None = None,
                  num_rows: int | None = None, *, mesh=None,
                  data_axes: tuple = ("data",), global_rows: int | None = None,
-                 row_offset: int = 0):
+                 row_offset: int = 0, real_rows: int | None = None,
+                 shard_valid: bool = False):
         self.columns = {k: torch.as_tensor(v) for k, v in columns.items()}
         lengths = {k: int(v.shape[0]) for k, v in self.columns.items()}
         if len(set(lengths.values())) > 1:
@@ -115,6 +116,11 @@ class Table:
         self.mesh, self.data_axes = mesh, tuple(data_axes)
         self.global_rows = self.num_rows if global_rows is None else global_rows
         self.row_offset = row_offset
+        # the rows of the table before ``shard`` padded it to a multiple of
+        # the shards, and whether ``shard`` added ``__valid__`` (the source
+        # had none): what a durable segment cuts back to
+        self.real_rows = self.global_rows if real_rows is None else real_rows
+        self.shard_valid = shard_valid
         self.meta = dict(meta or {})
         for k, v in self.columns.items():
             if k not in self.meta:
@@ -135,7 +141,8 @@ class Table:
         """A Table of ``columns`` with this one's row layout (its shard)."""
         return Table(columns, meta, self.num_rows, mesh=self.mesh,
                      data_axes=self.data_axes, global_rows=self.global_rows,
-                     row_offset=self.row_offset)
+                     row_offset=self.row_offset, real_rows=self.real_rows,
+                     shard_valid=self.shard_valid)
 
     def select(self, names: Sequence[str]) -> "Table":
         """A Table of the named columns (the same tensors), their meta and
@@ -179,7 +186,9 @@ class Table:
         data_axes)``: its rows are sliced from this table (a host table
         stays on the host) and padded, and only they move to
         ``mesh.device``; the result records the padded table's
-        ``global_rows`` and this shard's ``row_offset``."""
+        ``global_rows``, this shard's ``row_offset``, the rows before the
+        padding (``real_rows``) and whether ``__valid__`` was added here
+        (``shard_valid``)."""
         from repro_torch.launch.mesh import is_rank_mesh
 
         nshards = int(np.prod([mesh.shape[a] for a in data_axes]))
@@ -202,7 +211,8 @@ class Table:
                                                   + tuple(v.shape[1:]))])
                 out[k] = v.to(mesh.device)
             return Table(out, meta, rps, mesh=mesh, data_axes=data_axes,
-                         global_rows=padded, row_offset=lo)
+                         global_rows=padded, row_offset=lo, real_rows=n,
+                         shard_valid="__valid__" not in self.columns)
         cols = dict(self.columns)
         if "__valid__" not in cols:
             cols["__valid__"] = torch.ones((n,), dtype=torch.bool,

@@ -147,8 +147,9 @@ class RankMesh:
     ``shape`` maps each axis name to its extent (the reference's order);
     ``device`` is this rank's device; ``coords`` this rank's index along
     each axis; ``device_mesh`` the ``DeviceMesh`` over the ranks;
-    ``groups`` the process group of each axis, keyed by its name, and of
-    the data-axis tuple ("pod", "data") on the multi-pod layout."""
+    ``groups`` the process group of each axis, keyed by its name, of
+    the data-axis tuple ("pod", "data") on the multi-pod layout, and of
+    every rank, keyed by ``axis_names``."""
 
     shape: dict
     device: torch.device
@@ -198,22 +199,37 @@ def is_rank_mesh(mesh) -> bool:
     return isinstance(mesh, RankMesh)
 
 
-def refuse_on_ranks(mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` for an engine path that does not run
-    on a ``RankMesh`` yet (ROADMAP A9b-2e: the durable store across
-    ranks, a WAL and a manifest generation per rank), rather than run it
-    replicated on every rank without saying so."""
-    if is_rank_mesh(mesh):
-        raise NotImplementedError(
-            f"{what} does not run on a RankMesh yet (ROADMAP A9b-2e); use a "
-            "meshless session or the one-process mesh (make_local_mesh)")
+WRITER = 0   # the global rank that holds a durable store's files
+
+
+def is_writer(mesh) -> bool:
+    """True where a durable store's files are written: off a rank mesh, or
+    on its global rank :data:`WRITER` (``runtime/durable.py``)."""
+    return not is_rank_mesh(mesh) or mesh.rank == WRITER
+
+
+def broadcast_object(mesh, obj: Any = None) -> Any:
+    """The writer's ``obj``, on every rank of ``mesh`` (a pickled broadcast
+    over the group of every axis, ``broadcast_object_list``); ``obj``
+    itself off a rank mesh. Every rank calls it at the same point; the
+    others pass nothing."""
+    if not is_rank_mesh(mesh):
+        return obj
+    import torch.distributed as dist
+
+    box = [obj if mesh.rank == WRITER else None]
+    dist.broadcast_object_list(box, src=WRITER, group=mesh.group(mesh.axis_names),
+                               device=mesh.device if mesh.backend == "nccl"
+                               else None)
+    return box[0]
 
 
 def agree(mesh, code: int, data_axes=("data",)) -> int:
-    """The least of every rank's ``code`` over the data axes' process group
-    (a MIN all-reduce of one int): the vote an engine publish takes on a
-    ``RankMesh`` before it swaps a manifest, so that it commits on every
-    rank or on none. ``code`` itself off a rank mesh."""
+    """The least of every rank's ``code`` over the process group of
+    ``data_axes`` (a MIN all-reduce of one int): the vote an engine publish
+    takes on a ``RankMesh`` before it swaps a manifest, so that it commits
+    on every rank or on none (a durable store votes over every axis,
+    ``mesh.axis_names``). ``code`` itself off a rank mesh."""
     if not is_rank_mesh(mesh):
         return int(code)
     import torch.distributed as dist
@@ -315,6 +331,7 @@ def init_rank_mesh(data: int = 1, model: int = 1, device=None, *,
         mine, _ = dist.new_subgroups_by_enumeration(
             [grid[:, :, m].reshape(-1).tolist() for m in range(model)])
         groups[("pod", "data")] = mine
+    groups[names] = dist.group.WORLD   # every rank: a durable store's votes
     return RankMesh(shape, dev, dist.get_rank(), coords, dm, groups, backend)
 
 

@@ -45,6 +45,28 @@ that applied exactly the acknowledged batches.
 A corrupted segment or manifest (bad CRC, bad magic, truncation) is moved
 to ``quarantine/`` and counted in ``storage.corruption_total``; reads fall
 back to the previous manifest generation.
+
+On a mesh of ``torch.distributed`` ranks (``launch.mesh.RankMesh``) the
+ranks share ONE store, in this same format, on the one host's disk: a
+store written on ranks opens without a mesh in either package, and a
+store written without one opens on ranks. Global rank
+``launch.mesh.WRITER`` is the writer, the only process that holds
+``LOCK`` and the WAL handles and that writes, renames or unlinks a file;
+every other rank holds a follower (``mesh``'s store with no file I/O but
+the reads of the segments the writer chose at open). Every rank makes the
+same calls in the same order; each piece of the writer's I/O is followed
+by a vote of every rank (``launch.mesh.agree`` over every axis), so a
+fault, a ``StorageLockError`` or a ``StorageCorruption`` on the writer
+raises on every rank at the same call: a WAL append is acked on every
+rank or on none, a manifest commit or a WAL truncate fails on all of them
+alike. A segment holds a whole component: its rows come to the writer's
+host in global order (``distributed.gather_to_host``, in chunks), cut
+back to the rows before the shards' padding, so it holds exactly what a
+meshless session writes. At open the writer alone takes the lock,
+chooses each dataset's generation (quarantining and falling back as
+above) and reads each WAL tail, and broadcasts what it chose
+(``launch.mesh.broadcast_object``); each rank then reads the chosen
+segments itself and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -59,6 +81,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch.launch.mesh import (WRITER, agree, broadcast_object,
+                                     is_rank_mesh, is_writer)
 from repro_torch.runtime import telemetry as tel
 
 SEGMENT_MAGIC = b"RSEG\x01"      # segment format, version 1
@@ -79,6 +103,29 @@ class StorageCorruption(RuntimeError):
 class StorageLockError(RuntimeError):
     """The storage directory is already open by a live process — double
     opening would interleave two writers' segment/manifest/WAL streams."""
+
+
+# a rank's outcome in a store vote (the least wins): the writer's error
+# type, which every rank then raises, or none
+_CORRUPT, _LOCKED, _FAILED, _OK = 0, 1, 2, 3
+
+
+def _outcome(err: Optional[BaseException]) -> int:
+    if err is None:
+        return _OK
+    if isinstance(err, StorageCorruption):
+        return _CORRUPT
+    return _LOCKED if isinstance(err, StorageLockError) else _FAILED
+
+
+def _peer_error(code: int) -> BaseException:
+    """The error a rank raises for a peer's failed step (``_outcome``)."""
+    from repro_torch.runtime.fault import StorageFault
+
+    what = {_CORRUPT: StorageCorruption, _LOCKED: StorageLockError}.get(
+        code, StorageFault)
+    return what("the store's writer rank failed this step: it is aborted on "
+                "every rank")
 
 
 def _fsync_dir(path: pathlib.Path) -> None:
@@ -361,15 +408,19 @@ class DurableStore:
     manifest, and truncation happens strictly after the commit."""
 
     def __init__(self, root, fault: Optional[Callable[[str], None]] = None,
-                 keep_manifests: int = 3):
+                 keep_manifests: int = 3, mesh=None):
+        """``mesh``: a ``RankMesh`` makes this rank's view of the ranks'
+        one store (the writer's on ``launch.mesh.WRITER``, else a
+        follower's); every rank constructs it at the same point."""
         self.root = pathlib.Path(root)
         self.keep_manifests = max(int(keep_manifests), 1)
         self._fault = fault if fault is not None else (lambda point: None)
-        self.root.mkdir(parents=True, exist_ok=True)
-        (self.root / "data").mkdir(exist_ok=True)
-        (self.root / "quarantine").mkdir(exist_ok=True)
-        self._acquire_lock()
+        self.mesh = mesh if is_rank_mesh(mesh) else None
+        self.writes = is_writer(mesh)
+        self._locked = False
         self._wals: dict[tuple[str, str], WriteAheadLog] = {}
+        # the last acked WAL sequence of each dataset, on every rank
+        self._seqs: dict[tuple[str, str], int] = {}
         self._wal_covered: dict[tuple[str, str], int] = {}
         # segment files written but not yet referenced by a committed
         # manifest (flush/compaction builds persist off-lock, commit links)
@@ -383,8 +434,45 @@ class DurableStore:
         # before the first corruption/replay ever happens
         tel.inc("storage.corruption_total", 0)
         tel.inc("storage.wal_replayed_batches_total", 0)
+        self._agreed(self._open_root)
+
+    # -- the ranks' agreement --------------------------------------------------
+
+    def _vote(self, err: Optional[BaseException], mesh=None) -> None:
+        """Raise ``err`` if this rank failed; on a rank mesh first agree
+        every rank's outcome over every axis of ``mesh`` (the store's by
+        default; the background compactor's worker passes its twin), so a
+        rank whose own step succeeded raises the writer's error type too."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is not None:
+            code = agree(mesh, _outcome(err), mesh.axis_names)
+            if err is None and code != _OK:
+                err = _peer_error(code)
+        if err is not None:
+            raise err
+
+    def _agreed(self, io: Callable, mesh=None, value: bool = False):
+        """Run ``io`` (file I/O) on the writer, then the vote; with
+        ``value`` every rank returns the writer's result."""
+        out = err = None
+        if self.writes:
+            try:
+                out = io()
+            except Exception as e:  # every rank raises at this call
+                err = e
+        self._vote(err, mesh)
+        mesh = mesh if mesh is not None else self.mesh
+        if value and mesh is not None:
+            out = broadcast_object(mesh, out)
+        return out
 
     # -- lock ------------------------------------------------------------------
+
+    def _open_root(self) -> None:
+        self.root.mkdir(parents=True, exist_ok=True)
+        (self.root / "data").mkdir(exist_ok=True)
+        (self.root / "quarantine").mkdir(exist_ok=True)
+        self._acquire_lock()
 
     def _acquire_lock(self) -> None:
         lock = self.root / "LOCK"
@@ -413,9 +501,10 @@ class DurableStore:
             return
 
     def close(self) -> None:
-        """Release the directory lock and the WAL handles. Used both for
-        clean shutdown and by crash tests to simulate process death before
-        reopening the same directory."""
+        """Release the directory lock and the WAL handles (the writer's;
+        a follower holds neither). Used both for clean shutdown and by
+        crash tests to simulate process death before reopening the same
+        directory."""
         for wal in self._wals.values():
             wal.close()
         self._wals.clear()
@@ -444,37 +533,75 @@ class DurableStore:
         column metadata + index inventory) as a segment file. Idempotent:
         a component already persisted (``comp.seg_name`` set) is a no-op.
         Runs are named by their stable uid; bases by a per-dataset monotone
-        counter (never reused, like run uids)."""
+        counter (never reused, like run uids).
+
+        A rank's shard (``comp.table.mesh``, the compactor worker's twin
+        while it builds) is collective: every rank's rows come to the
+        writer's host (``gather_to_host``), cut back to ``real_rows`` and
+        without the ``__valid__`` mask the shard added, and the write is
+        voted on; every rank takes the writer's segment name."""
         if comp.seg_name is not None:
             return comp.seg_name
         key = (dv, name)
-        if comp.uid >= 0:
-            seg = f"run{comp.uid}.seg"
-        else:
-            with self._lock:
-                n = self._seg_counter.get(key)
-                if n is None:
-                    n = _max_base_counter(self._ds_dir(dv, name) / "seg") + 1
-                self._seg_counter[key] = n + 1
-            seg = f"base.{n}.seg"
         t = comp.table
-        # one host copy per column (the tensors live on the session device),
-        # in the table's column order: the header lists arrays in it
-        arrays = {k: v.cpu().numpy() for k, v in t.columns.items()}
-        meta = {
-            "name": comp.name, "uid": int(comp.uid), "level": int(comp.level),
-            "closed": bool(comp.closed), "num_rows": int(t.num_rows),
-            "live_rows": _num(comp.live_rows), "anti_rows": int(comp.anti_rows),
-            "columns": [[k, _meta_to_json(t.meta[k])] for k in t.columns],
-            "indexes": [[key, ix.name, ix.column, ix.kind]
-                        for key, ix in comp.indexes.items()],
-        }
-        write_segment(self._seg_path(dv, name, seg), arrays, meta,
-                      self._fault)
+        names = [k for k in t.columns
+                 if not (k == "__valid__" and t.shard_valid)]
+        if t.mesh is None:
+            # one host copy per column (the tensors live on the session
+            # device), in the table's column order: the header lists
+            # arrays in it
+            arrays = {k: t.columns[k].cpu().numpy() for k in names}
+        else:
+            arrays = self._gathered(t, names)
+
+        def write() -> str:
+            if comp.uid >= 0:
+                seg = f"run{comp.uid}.seg"
+            else:
+                with self._lock:
+                    n = self._seg_counter.get(key)
+                    if n is None:
+                        n = _max_base_counter(self._ds_dir(dv, name) / "seg") + 1
+                    self._seg_counter[key] = n + 1
+                seg = f"base.{n}.seg"
+            meta = {
+                "name": comp.name, "uid": int(comp.uid),
+                "level": int(comp.level), "closed": bool(comp.closed),
+                "num_rows": int(t.real_rows), "live_rows": _num(comp.live_rows),
+                "anti_rows": int(comp.anti_rows),
+                "columns": [[k, _meta_to_json(t.meta[k])] for k in names],
+                "indexes": [[key, ix.name, ix.column, ix.kind]
+                            for key, ix in comp.indexes.items()],
+            }
+            write_segment(self._seg_path(dv, name, seg), arrays, meta,
+                          self._fault)
+            return seg
+
+        seg = self._agreed(write, t.mesh, value=True)
         with self._lock:
             self._inflight.setdefault(key, set()).add(seg)
         comp.seg_name = seg
         return seg
+
+    def _gathered(self, t, names: list) -> Optional[dict]:
+        """A rank's shard's columns ``names``, whole on the writer's host
+        (None elsewhere): the rows before the shards' padding, in global
+        order, gathered to the writer alone in chunks of at most half a
+        shard a rank, so no card ever holds the whole component. Ranks of
+        the other model indices (replicas of the writer's data group) take
+        no part: their rows are the same."""
+        from repro_torch.engine.distributed import (GATHER_CHUNK_ROWS,
+                                                    gather_to_host)
+
+        mesh = t.mesh
+        if any(mesh.coords[a] for a in mesh.axis_names
+               if a not in t.data_axes):
+            return None
+        real = np.arange(t.num_rows) + t.row_offset < t.real_rows
+        chunk = min(GATHER_CHUNK_ROWS, max(-(-t.num_rows // 2), 1))
+        got = gather_to_host(mesh, t.data_axes, [t.columns[k] for k in names],
+                             real, chunk, dst=WRITER)
+        return None if got is None else dict(zip(names, got))
 
     def discard_component(self, dv: str, name: str, comp) -> None:
         """Unlink a segment written for a build that lost its CAS (manifest
@@ -489,17 +616,22 @@ class DurableStore:
             if referenced:  # pragma: no cover - defensive
                 return
             self._inflight.get(key, set()).discard(seg)
+        comp.seg_name = None
+        if not self.writes:
+            return
         try:
             self._seg_path(dv, name, seg).unlink()
             tel.inc("storage.segments_deleted_total")
         except OSError:  # pragma: no cover
             pass
-        comp.seg_name = None
 
     def maybe_unlink(self, dv: str, name: str, seg: str) -> None:
         """Retired-component GC hook (Catalog._reclaim): unlink a dead
         component's segment unless a kept manifest generation still
-        references it or it is an in-flight (uncommitted) build."""
+        references it or it is an in-flight (uncommitted) build. The
+        writer's alone: a follower never touches the directory."""
+        if not self.writes:
+            return
         key = (dv, name)
         with self._lock:
             if seg in self._inflight.get(key, set()):
@@ -522,7 +654,9 @@ class DurableStore:
         between). The record embeds ``wal_upto`` — the WAL sequence this
         publish covers — so cold start knows exactly which tail to replay.
         Old generations beyond ``keep_manifests`` are GC'd along with
-        segments no kept generation references."""
+        segments no kept generation references. On a rank mesh the
+        segment writes and the rename are voted on (the commit vote): a
+        crash before the rename stops the publish on every rank."""
         key = (dv, name)
         comps = (manifest.base,) + tuple(manifest.runs)
         for comp in comps:
@@ -539,16 +673,20 @@ class DurableStore:
         }
         record["checksum"] = _record_checksum(record)
         d = self._ds_dir(dv, name)
-        d.mkdir(parents=True, exist_ok=True)
-        final = d / f"MANIFEST.{manifest.lsn}.json"
-        tmp = d / f"MANIFEST.{manifest.lsn}.json.tmp"
-        with open(tmp, "w") as f:
-            json.dump(record, f)
-            f.flush()
-            os.fsync(f.fileno())
-        self._fault("pre-rename")
-        os.replace(tmp, final)
-        _fsync_dir(d)
+
+        def rename() -> None:
+            d.mkdir(parents=True, exist_ok=True)
+            final = d / f"MANIFEST.{manifest.lsn}.json"
+            tmp = d / f"MANIFEST.{manifest.lsn}.json.tmp"
+            with open(tmp, "w") as f:
+                json.dump(record, f)
+                f.flush()
+                os.fsync(f.fileno())
+            self._fault("pre-rename")
+            os.replace(tmp, final)
+            _fsync_dir(d)
+
+        self._agreed(rename)
         with self._lock:
             recs = self._records.setdefault(key, {})
             recs[int(manifest.lsn)] = record
@@ -574,6 +712,8 @@ class DurableStore:
             for lsn in kept:
                 referenced |= _record_segs(recs[lsn])
             referenced |= self._inflight.get(key, set())
+        if not self.writes:
+            return
         for lsn in drop:
             try:
                 (d / f"MANIFEST.{lsn}.json").unlink()
@@ -606,6 +746,10 @@ class DurableStore:
     # -- cold-start loading ----------------------------------------------------
 
     def list_datasets(self) -> list[tuple[str, str]]:
+        """The stored datasets (the writer's listing, on every rank)."""
+        return self._agreed(self._list_datasets, value=True)
+
+    def _list_datasets(self) -> list[tuple[str, str]]:
         out = []
         data = self.root / "data"
         if not data.is_dir():
@@ -622,7 +766,38 @@ class DurableStore:
         quarantined (``storage.corruption_total``) and the previous
         generation is tried — cold start degrades to the last fully-valid
         publish instead of failing. Returns ``(record, segments, report)``
-        where ``segments`` maps seg name → (arrays, meta)."""
+        where ``segments`` maps seg name → (arrays, meta).
+
+        On a rank mesh the writer alone validates, quarantines and
+        chooses; every rank gets its record and report, then reads the
+        chosen segments itself (the writer keeps the ones it verified),
+        and the reads are voted on."""
+        if self.mesh is None:
+            return self._load_dataset(dv, name)
+        held: dict = {}
+
+        def choose():
+            record, held["segments"], report = self._load_dataset(dv, name)
+            return record, report
+
+        record, report = self._agreed(choose, value=True)
+        segments, err = held.get("segments"), None
+        if segments is None:
+            try:
+                segments = {ref["seg"]: read_segment(
+                    self._seg_path(dv, name, ref["seg"]))
+                    for ref in [record["base"]] + list(record["runs"])}
+            except StorageCorruption as e:
+                err = e
+            with self._lock:
+                self._records.setdefault((dv, name), {})[int(record["lsn"])] = \
+                    record
+                self._wal_covered[(dv, name)] = int(record["wal_upto"])
+            tel.inc("storage.corruption_total", report["fallbacks"])
+        self._vote(err)
+        return record, segments, report
+
+    def _load_dataset(self, dv: str, name: str):
         d = self._ds_dir(dv, name)
         gens = sorted((int(p.name.split(".")[1]) for p in
                        d.glob("MANIFEST.*.json")), reverse=True)
@@ -681,11 +856,14 @@ class DurableStore:
             self._records.pop(key, None)
             self._inflight.pop(key, None)
             self._wal_covered.pop(key, None)
-        shutil.rmtree(self._ds_dir(dv, name), ignore_errors=True)
+            self._seqs.pop(key, None)
+        if self.writes:
+            shutil.rmtree(self._ds_dir(dv, name), ignore_errors=True)
 
     # -- WAL surface -----------------------------------------------------------
 
     def wal(self, dv: str, name: str) -> WriteAheadLog:
+        """The dataset's log (the writer's: a follower holds none)."""
         key = (dv, name)
         w = self._wals.get(key)
         if w is None:
@@ -696,10 +874,22 @@ class DurableStore:
 
     def wal_append(self, dv: str, name: str, kind: str,
                    payload: dict[str, np.ndarray]) -> int:
-        return self.wal(dv, name).append(kind, payload)
+        """The ack: append and fsync on the writer, then (on a rank mesh)
+        the vote, so the batch is acked on every rank or on none."""
+        seq = self.wal_seq(dv, name) + 1
+        self._agreed(lambda: self.wal(dv, name).append(kind, payload))
+        self._seqs[(dv, name)] = seq
+        return seq
 
     def wal_seq(self, dv: str, name: str) -> int:
-        return self.wal(dv, name).seq
+        """The last acked sequence number. The first call for a dataset
+        opens its log on the writer (a torn tail is cut there) and gives
+        every rank its sequence."""
+        key = (dv, name)
+        if key not in self._seqs:
+            self._seqs[key] = self._agreed(lambda: self.wal(dv, name).seq,
+                                           value=True)
+        return self._seqs[key]
 
     def set_wal_coverage(self, dv: str, name: str, upto: int) -> None:
         """Record the WAL sequence the NEXT manifest commit covers — called
@@ -712,16 +902,22 @@ class DurableStore:
 
     def wal_tail(self, dv: str, name: str) -> list[tuple[int, str, dict]]:
         """The replay set: records past the newest committed manifest's
-        coverage."""
-        return self.wal(dv, name).tail(self.wal_covered(dv, name))
+        coverage (the writer's reading, on every rank)."""
+        self.wal_seq(dv, name)
+        return self._agreed(
+            lambda: self.wal(dv, name).tail(self.wal_covered(dv, name)),
+            value=True)
 
     def wal_truncate(self, dv: str, name: str) -> None:
         """Drop the covered WAL prefix — strictly AFTER the covering
         manifest commit (the ``pre-wal-truncate`` crash point sits between:
         a crash there leaves covered records in the log, and replay skips
-        them by sequence number)."""
-        self._fault("pre-wal-truncate")
-        self.wal(dv, name).truncate(self.wal_covered(dv, name))
+        them by sequence number). Voted on, on a rank mesh."""
+        def cut() -> None:
+            self._fault("pre-wal-truncate")
+            self.wal(dv, name).truncate(self.wal_covered(dv, name))
+
+        self._agreed(cut)
 
     def __enter__(self) -> "DurableStore":
         return self

@@ -562,8 +562,9 @@ def engine_run(mesh, mode: str, t, rounds: int, shards: int):
 
 def engine_checks(rank, world, init, payload):
     """On a ``world``-rank mesh, for each table size of ``payload``:
-    ``engine_run`` in every mode, and the paths that must refuse a rank
-    mesh."""
+    ``engine_run`` in every mode, then the live paths over the last table
+    (feed, view, persist, compaction) and its round trip through one
+    durable store the ranks share (``storage=``, then ``Session.open``)."""
     from repro_torch.engine import lsm
     from repro_torch.engine.ingest import Feed
 
@@ -575,7 +576,6 @@ def engine_checks(rank, world, init, payload):
         for mode in ENGINE_MODES:
             out[(n, mode)], out[(n, mode, "layout")] = engine_run(
                 mesh, mode, t, payload["rounds"], world)
-    refused = {}
     sess = engine_session(Session, mesh, "kernel", t)
     clu = AFrame("bench", "clu", session=sess)
     n = len(t)
@@ -595,21 +595,32 @@ def engine_checks(rank, world, init, payload):
         sess.create_view("v", plan)
         return sess.read_view("v"), sess.execute(plan)
 
-    attempts = {
+    def stored():
+        s = Session(mesh=mesh, mode="kernel", storage=payload["store"])
+        s.create_dataset("clu", t, dataverse="bench", primary="unique2",
+                         indexes=["onePercent"])
+        rows = AFrame("bench", "clu", session=s).collect()
+        s.close()
+        return rows
+
+    def reopened():
+        s = Session.open(payload["store"], mesh=mesh, mode="kernel")
+        rows = AFrame("bench", "clu", session=s).collect()
+        held = {k: tuple(v.shape) for k, v in
+                s.catalog.get("bench", "clu").table.columns.items()}
+        s.close()
+        return rows, held
+
+    paths = {
         "feed": feed,
         "view": view,
         "persist": lambda: len(clu[clu["ten"] >= 0].persist("p")),
         "compact": lambda: (lsm.compact(sess, sess.catalog.get("bench", "clu")),
                             len(clu))[1],
-        "storage": lambda: Session(mesh=mesh, storage=payload["store"] + f"/{rank}"),
-        "open": lambda: Session.open(payload["store"] + f"/open{rank}", mesh=mesh),
+        "storage": stored,
+        "open": reopened,
     }
-    for what, fn in attempts.items():
-        try:
-            refused[what] = ("ran", fn())
-        except NotImplementedError as e:
-            refused[what] = ("refused", str(e))
-    out["refused"] = refused
+    out["paths"] = {what: ("ran", fn()) for what, fn in paths.items()}
     return out
 
 
@@ -798,3 +809,156 @@ def live_card(rank, world, init, payload):
            for mode in ("kernel", "gspmd")}
     out["log"] = list(pk.log)
     return out
+
+
+# -- the durable store on ranks (tests/test_torch_rank_durable.py) -----------------------
+
+
+def durable_pk(mesh):
+    """``durable_scenarios``' package surface with every session on
+    ``mesh`` (a rank mesh, or the one-process mesh the ranks are held
+    to); ``observe`` logs ``live_layout`` to ``pk.log``."""
+    import types
+
+    from repro_torch.core import plan as P
+    from repro_torch.core.frame import AFrame
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.engine.session import Session
+    from repro_torch.engine.table import Table
+    from repro_torch.launch.mesh import is_rank_mesh, is_writer
+    from repro_torch.runtime import telemetry as tel
+    from repro_torch.runtime.fault import FaultPlan, StorageFault
+
+    def once(fn):
+        if is_writer(mesh):
+            fn()
+        if is_rank_mesh(mesh):
+            torch.distributed.barrier()
+
+    pk = types.SimpleNamespace(P=P, AFrame=AFrame, lsm=lsm, Feed=Feed,
+                               Table=Table, tel=tel, FaultPlan=FaultPlan,
+                               StorageFault=StorageFault, once=once, log=[])
+    pk.session = lambda mode="gspmd", **kw: Session(mesh=mesh, mode=mode, **kw)
+    pk.open = lambda path, mode="gspmd", **kw: Session.open(
+        str(path), mesh=mesh, mode=mode, **kw)
+    pk.observe = lambda sess, label, name="ds": pk.log.append(
+        (label, live_layout(sess, "d", name)))
+    return pk
+
+
+DURABLE_MODES = ("kernel", "shard_map", "gspmd")
+
+
+def durable_run(mesh, root, batches, points) -> dict:
+    """``durable_scenarios``' replays on ``mesh`` with their stores under
+    ``root`` (one store a scenario, shared by the ranks): each result and
+    the layouts it logged."""
+    import durable_scenarios as S
+
+    pk = durable_pk(mesh)
+    out = {}
+
+    def run(key, fn, *args):
+        pk.log = []
+        out[key] = fn(pk, *args)
+        out[key + ("log",)] = list(pk.log)
+
+    for mode in DURABLE_MODES:
+        run(("roundtrip", mode), S.roundtrip, root, mode, batches)
+        for point in points:
+            run(("crash", mode, point), S.crash, root, mode, point, batches)
+    run(("torn",), S.torn_segment, root)
+    run(("corrupt",), S.corrupt_segment, root)
+    run(("empty",), S.empty_flush, root)
+    run(("skips",), S.replay_skips, root)
+    run(("interleaved",), S.interleaved, root)
+    run(("double",), S.double_open, root)
+    run(("lazy",), S.lazy_rebuild, root, batches)
+    run(("binds",), S.first_binds, root, batches)
+    run(("telemetry",), S.telemetry_series, root)
+    run(("gc",), S.compaction_gc, root)
+    run(("soft",), S.soft_recover)
+    return out
+
+
+def durable_opens(pk, d) -> dict:
+    """A store another writer left (segments and a WAL tail) opened on
+    ``pk``'s mesh: the rows, point lookups and replayed batches, then the
+    rows after a delete flushed here (which its writer reads back)."""
+    import durable_scenarios as S
+
+    re = pk.open(d, "kernel")
+    out = {"replayed": re.recovery_report["wal_replayed_batches"],
+           "rows": S.rows(pk, re),
+           "get": {k: re.point_lookup("d", "ds", k) for k in (0, 1, 2, 5, 99)}}
+    pk.observe(re, f"open {d.name}")
+    f = S.feed(pk, re)
+    f.delete(np.array([3], dtype=np.int32))
+    f.flush()
+    out["after"] = S.rows(pk, re)
+    re.close()
+    return out
+
+
+def durable_replays(rank, world, init, payload):
+    """``durable_run`` on a ``world``-rank mesh, then the shared format:
+    the stores the reference and the meshless port wrote
+    (``payload["from"]``) opened on the ranks, and the stores the ranks
+    leave for meshless sessions to open (the batches with their WAL tail;
+    the interleaved mutations, all in the WAL; the batches then compacted,
+    whose tree a meshless writer must match)."""
+    import pathlib
+
+    import durable_scenarios as S
+
+    mesh = _mesh(world, 1, rank, world, init)
+    root = pathlib.Path(payload["root"]) / "ranks"
+    out = durable_run(mesh, root, payload["batches"], payload["points"])
+    pk = durable_pk(mesh)
+    for writer, d in payload["from"].items():
+        pk.log = []
+        out[("from", writer)] = durable_opens(pk, pathlib.Path(d))
+        out[("from", writer, "log")] = list(pk.log)
+    S.write_scenario(pk, root / "left", "kernel", payload["batches"])
+    S.write_interleaved(pk, root / "interleaved-left")
+    S.tree_scenario(pk, root / "tree", "kernel", payload["batches"])
+    return out
+
+
+def durable_threads(rank, world, init, payload):
+    """A rank session entered from a thread that did not make it refuses
+    (reader threads on a rank mesh, ROADMAP A9b-2f), a feed's included;
+    the background compactor's worker still builds, and its merge
+    publishes."""
+    import threading
+
+    import durable_scenarios as S
+
+    mesh = _mesh(world, 1, rank, world, init)
+    pk = durable_pk(mesh)
+    sess = pk.session("kernel")
+    S.create(pk, sess)
+    got = {}
+
+    def reader():
+        for what, fn in (("query", lambda: len(pk.AFrame("d", "ds", session=sess))),
+                         ("push", lambda: S.push(S.feed(pk, sess), 16, 18))):
+            try:
+                got[what] = ("ran", fn())
+            except NotImplementedError as e:
+                got[what] = ("refused", str(e))
+
+    t = threading.Thread(target=reader)
+    t.start()
+    t.join()
+    with pk.lsm.BackgroundCompactor(
+            sess, policy=pk.lsm.CompactionPolicy(size_ratio=0.0)) as bc:
+        f = S.feed(pk, sess, compactor=bc)
+        S.push(f, 16, 24)
+        f.flush()
+        got["idle"] = bc.wait_idle(60.0)
+        got["compactions"] = bc.stats["compactions"]
+    got["rows"] = S.rows(pk, sess)
+    got["components"] = len(sess.catalog.components("d", "ds"))
+    return got

@@ -460,6 +460,69 @@ def test_cuda_durable_round_trip_mounts_on_the_card(tmp_path):
 
 
 @pytest.mark.cuda
+def test_cuda_durable_round_trip_on_a_one_rank_nccl_mesh(tmp_path):
+    """The durable store through a kernel session on a one-rank NCCL group
+    on the card: written, closed with a delete in the WAL, reopened lazily
+    on the rank with every mounted column a CUDA tensor; the counts,
+    through the kernels, and the point lookups equal a meshless reopen of
+    a copy of the same store."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run with -m cuda on the card)")
+    import shutil
+
+    from repro_torch.core.frame import AFrame
+    from repro_torch.data import wisconsin
+    from repro_torch.engine import lsm
+    from repro_torch.engine.ingest import Feed
+    from repro_torch.engine.session import Session
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    def counts(sess):
+        df = AFrame("d", "Live", session=sess)
+        return (len(df), len(df[(df["ten"] == 3) & (df["two"] == 1)]),
+                {k: v.tolist() for k, v in df.groupby("ten").agg("count").items()},
+                df.get(5_100), df.get(100)["unique2"].tolist())
+
+    d = tmp_path / "store"
+    mesh = init_rank_mesh(1, 1, None, rank=0, world_size=1, local_rank=0,
+                          init_method="file://" + str(tmp_path / "rendezvous"))
+    try:
+        sess = Session(mode="kernel", mesh=mesh, storage=str(d))
+        sess.create_dataset("Live", wisconsin.generate(20_000, seed=3),
+                            dataverse="d", indexes=["onePercent"],
+                            primary="unique2")
+        feed = Feed(sess, "Live", "d", flush_rows=10**9,
+                    policy=lsm.CompactionPolicy(size_ratio=10.0, max_runs=64))
+        up = {k: v.numpy() for k, v in
+              wisconsin.generate(1_000, seed=5).columns.items()}
+        up["unique2"] = np.arange(100, 1_100, dtype=np.int32)
+        feed.upsert(up)
+        feed.delete(np.arange(5_000, 5_500, dtype=np.int32))
+        feed.flush()
+        feed.delete(np.arange(7_000, 7_010, dtype=np.int32))  # the WAL tail
+        sess.close()
+        shutil.copytree(d, tmp_path / "copy")
+        re = Session.open(str(d), mode="kernel", mesh=mesh)
+        comps = re.catalog.components("d", "Live")
+        assert len(comps) == 3  # base, the flushed run, the replayed tail
+        for c in comps:
+            assert all(t.is_cuda for t in c.table.columns.values())
+        _build.reset_launches()
+        got = counts(re)
+        assert _build.LAUNCHES.get("filter_count", 0) >= 2
+        assert _build.LAUNCHES.get("segment_agg", 0) >= 3
+        re.close()
+    finally:
+        close_rank_mesh()
+    flat = Session.open(str(tmp_path / "copy"), mode="kernel")
+    want = counts(flat)
+    flat.close()
+    assert got[:3] == want[:3] and got[3] is None and want[3] is None
+    assert got[4] == want[4] == [100]
+
+
+@pytest.mark.cuda
 def test_cuda_per_shard_kernels_on_unaligned_views_and_empty_rows():
     """The per-shard launches of the multi-device engine, on the card,
     against the plain versions, exactly: 8 shard views of one table whose

@@ -23,8 +23,8 @@ reference on 8 forced host devices:
     rank and to the one-process mesh's), I3 (the 12 expressions, dtypes
     included, equal the reference's meshless session on every rank;
     point lookups of keys each rank owns and of absent keys equal the
-    reference's meshless lookup) — and the durable store refusing a rank
-    mesh while the feed, views, persist and compaction run there.
+    reference's meshless lookup) — and the feed, views, persist,
+    compaction and a durable store's round trip running there.
 """
 import os
 import pathlib
@@ -295,34 +295,45 @@ def test_each_rank_holds_only_its_rows(checks4, one_process, n):
                 assert g["select"] == (w["select"][0], (rps,)), label
 
 
-def test_paths_outside_the_slice_refuse_a_rank_mesh(checks4):
-    """Durable stores (``storage=``, ``Session.open``) raise
-    NotImplementedError on a rank mesh, naming the ROADMAP item that will
-    bring them (they would otherwise run replicated on every rank); the
-    feed, views, persist and compaction run there (over the 3-row table:
-    a push of two rows and a delete of one, a view equal to its
-    recompute, a persisted filter, a compaction)."""
+def test_live_and_durable_paths_run_on_a_rank_mesh(checks4):
+    """The feed, views, persist and compaction run on a rank mesh (over the
+    3-row table: a push of two rows and a delete of one, a view equal to
+    its recompute, a persisted filter, a compaction), and so does the
+    durable store: the 3-row table written through ``storage=`` into the
+    one store the ranks share comes back from ``Session.open`` on the
+    ranks with the rows it held, equal to the reference's meshless
+    session's, each rank holding one row of each column."""
     n = CHECK_ROWS[-1]
+    t = rw.generate(n, seed=SEED)
+    ref = RSession(mode="kernel")
+    ref.create_dataset("clu", t, dataverse="bench", primary="unique2",
+                       indexes=["onePercent"])
+    want = RFrame("bench", "clu", session=ref).collect()
     for out in checks4:
-        refused = out["refused"]
-        assert set(refused) == {"feed", "view", "persist", "compact",
-                                "storage", "open"}
-        for what in ("storage", "open"):
-            kind, msg = refused[what]
-            assert kind == "refused" and "A9b-2e" in msg, (what, msg)
-        assert refused["feed"] == ("ran", (n + 2 - 1, 1))
-        kind, (view, recompute) = refused["view"]
+        paths = out["paths"]
+        assert set(paths) == {"feed", "view", "persist", "compact",
+                              "storage", "open"}
+        kind, stored = paths["storage"]
+        assert kind == "ran", stored
+        _same(stored, want, "storage")
+        kind, (rows, held) = paths["open"]
+        assert kind == "ran", rows
+        _same(rows, want, "open")
+        assert {s[0] for s in held.values()} == {-(-n // CHECK_RANKS)}, held
+        assert paths["feed"] == ("ran", (n + 2 - 1, 1))
+        kind, (view, recompute) = paths["view"]
         assert kind == "ran"
         _same(view, recompute, "view")
-        assert refused["persist"] == ("ran", n + 2 - 1)
-        assert refused["compact"] == ("ran", n + 2 - 1)
+        assert paths["persist"] == ("ran", n + 2 - 1)
+        assert paths["compact"] == ("ran", n + 2 - 1)
 
 
 def test_the_rank_bodies_import_no_jax():
-    """The rank bodies and the module that gives them the expressions load
-    no jax and nothing of the reference."""
-    code = ("import sys, rank_workers, engine_probe; "
-            "rank_workers._engine(); "
+    """The rank bodies and the modules that give them the expressions and
+    the durable store's scenarios load no jax and nothing of the
+    reference, the durable bodies' package surface included."""
+    code = ("import sys, rank_workers, engine_probe, durable_scenarios; "
+            "rank_workers._engine(); rank_workers.durable_pk(None); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
