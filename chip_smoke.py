@@ -12,7 +12,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                      # serving and training on a
                                      # data 2 x model 2 mesh of the card,
                                      # and the dry-run's cost model held
-                                     # on the card against meta
+                                     # on the card against meta; the
+                                     # model, engine, live and durable
+                                     # paths on ranks; and TP over model
+                                     # for rwkv, zamba2, whisper and llava
 
 Phases (any mismatch raises; nothing is caught):
   1. header — the card's name and power limit; build the CUDA kernels from
@@ -357,6 +360,28 @@ Phases (any mismatch raises; nothing is caught):
      rank's peak during its open reaches that open's bytes, nor its
      transient beyond its shards a whole component's.
 
+ 19. tensor parallelism over model for rwkv, the hybrid, whisper and vlm
+     (every weight the reference's rule table splits over model, split).
+     zamba2-1.2b at its published width and depth (38 layers, d 2048, 64
+     SSD heads, 32 attention heads), rwkv6-1.6b, whisper-base and
+     llava-next-mistral-7b at their published widths (depths in
+     RANK_TP_FAMILIES) each serve FAMILY_BATCH x FAMILY_PROMPT + FAMILY_STEPS
+     decode steps meshless on the card (flash), then on two spawned gloo
+     ranks sharing the card, data 1 x model 2, from the same seeded
+     weights placed, teacher-forced on the meshless greedy tokens: the
+     logits of every call within ``tp_limit`` (FAMILY_TOL, or twice the
+     meshless run's own distance from a float32-compute run, where
+     larger), argmax equal where the meshless top-2 margin exceeds it,
+     each rank's parameter bytes below the meshless bytes; every
+     flash_mha_fwd and flash_decode call held against its plain version.
+     Then one train step of each family at RANK_TP_LAYERS layers (flash,
+     remat, float32 compute) on the ranks against the meshless step from
+     the same weights (TRAIN_TOL), every flash_attention_bwd call against
+     plain. B5, B6 and B7, counted on
+     each rank from just before its path to just after it, join the
+     ``kernels`` line (path "rank_tp"; each must launch), and are timed
+     at the per-rank shapes they ran at (RANK_TP_ROWS).
+
 ``python3 chip_smoke.py --rank-engine`` runs phase 16 alone; under
 ``torchrun --nproc-per-node 4`` (one rank a card, NCCL) the same flag runs
 16(b)'s body once, each rank's answers held against numpy and a meshless
@@ -364,7 +389,10 @@ session on its own card. ``--rank-live`` does the same for phase 17
 (under ``torchrun``: 17(b)'s scenario on one rank a card, every rank's
 answers held against the numpy oracle on rank 0), and ``--rank-durable``
 for phase 18 (under ``torchrun``: 18(b)'s crash matrix on one rank a card,
-the store on the one host, every rank's reopened rows held against numpy).
+the store on the one host, every rank's reopened rows held against numpy),
+and ``--rank-tp`` for phase 19 (under ``torchrun --nproc-per-node 4``: data
+1 x model 4 over NCCL, one rank a card, each rank's families held to the
+meshless runs it makes first on its own card).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -423,6 +451,8 @@ TRACE_TRIES = 6             # profiler traces taken before a kernel's absence fa
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dq_wgmma_kernel",
                "flash_bwd_dkdv_wgmma_kernel")
+BWD_F32_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dq_f32_kernel",
+                   "flash_bwd_dkdv_f32_kernel")   # the float32 route
 
 
 def sass_counts(lib_path, kernels: tuple[str, ...]) -> dict:
@@ -3743,16 +3773,19 @@ def captured_qkv_grads(n_layers: int, out: dict, ref: dict | None = None):
 
 @contextlib.contextmanager
 def captured_grads(model, out: dict, ref: dict | None = None,
-                   update: bool = True):
+                   update: bool = True, noise: tuple = ()):
     """Every parameter's gradient as the train step hands it to
     ``adamw_update`` (before the clip; on a mesh, the merged one). Without
     ``ref`` each is kept on the card under ``out[name]``; with it
     ``out[name]`` is the relative L2 difference from ``ref[name]``, a 0-d
-    tensor on the card. Without ``update`` the step leaves the weights and
-    the AdamW state as they were and reports the gradients' global norm."""
+    tensor on the card (for a name in ``noise``, a leaf whose exact
+    gradient is zero, the L2 difference itself). Without ``update`` the
+    step leaves the weights and the AdamW state as they were and reports
+    the gradients' global norm (on a rank mesh over every rank's blocks,
+    as the update's clip reads it)."""
     import torch
 
-    from repro_torch.models import optim, steps
+    from repro_torch.models import optim, sharding, steps
 
     real = steps.adamw_update
 
@@ -3765,11 +3798,17 @@ def captured_grads(model, out: dict, ref: dict | None = None,
                     out[name] = p.grad.detach().clone()
                 else:
                     want = ref[name]
-                    out[name] = torch.linalg.vector_norm(p.grad - want) \
-                        / torch.linalg.vector_norm(want).clamp_min(1e-30)
+                    out[name] = torch.linalg.vector_norm(p.grad - want)
+                    if name not in noise:
+                        out[name] /= torch.linalg.vector_norm(want).clamp_min(1e-30)
             if not update:
+                ctx = sharding.current_ctx()
+                where = sharding.spread(model) if ctx is not None and ctx.ranked \
+                    else {}   # a placed model's blocks: each counted once
+                spreads = [where[n] for n, _ in model.named_parameters()] \
+                    if where else None
                 return {"grad_norm": optim.global_norm(
-                            [p.grad for p in model.parameters()]),
+                            [p.grad for p in model.parameters()], spreads),
                         "lr": torch.full((), float("nan"))}
         return real(*a, **kw)
 
@@ -6817,6 +6856,521 @@ def rank_durable_main(seed: int) -> int:
     return 0
 
 
+# -- phase 19: tensor parallelism over model for rwkv, the hybrid, whisper, vlm --
+
+# (arch, depth): every family at its published width and depth but
+# llava-next-mistral-7b, cut to phase 10's 4 of 32 layers (two ranks each
+# build the whole seeded model before placing it: 28 GB in float32 at 32)
+RANK_TP_FAMILIES = (("zamba2-1.2b", None), ("rwkv6-1.6b", None),
+                    ("whisper-base", None), ("llava-next-mistral-7b", 4))
+RANK_TP_MODEL = 2           # 19: two gloo ranks sharing the card, data 1 x model 2
+RANK_TP_LAYERS = 2          # the train steps' depth
+RANK_TP_TIMEOUT = 900       # s: 19's two processes, their start included
+RANK_TP_KERNELS = ("flash_mha_fwd", "flash_decode", "flash_attention_bwd")
+# the per-rank shape each kernel's timing row takes: (family, kernel, dtype;
+# None: the dtype the path launched it in). The train steps run B7 in
+# float32 (``_tp_train``); its row at the same shape in bf16 is the
+# training path's dtype.
+RANK_TP_ROWS = (("zamba2-1.2b", "flash_mha_fwd", None),
+                ("llava-next-mistral-7b", "flash_decode", None),
+                ("llava-next-mistral-7b", "flash_attention_bwd", None),
+                ("llava-next-mistral-7b", "flash_attention_bwd", "torch.bfloat16"))
+
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+@contextlib.contextmanager
+def recording_shapes(shapes: dict, tag: str):
+    """The operand shapes of the first call of each attention kernel
+    (``flash_mha_fwd``: q, k, causal; ``flash_decode``: q, the cache view,
+    its longest length; ``flash_attention_bwd``: q, k, causal), with q's
+    dtype, under ``shapes[tag]``."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    got = shapes.setdefault(tag, {})
+    real = {"fwd": fa.flash_mha_fwd, "dec": da.flash_decode,
+            "bwd": fa.flash_attention_bwd}
+
+    def fwd(q, k, v, *a, **kw):
+        got.setdefault("flash_mha_fwd", [list(q.shape), list(k.shape),
+                                         kw.get("causal", True), str(q.dtype)])
+        return real["fwd"](q, k, v, *a, **kw)
+
+    def dec(q, k, v, lengths):
+        got.setdefault("flash_decode", [list(q.shape), list(k.shape),
+                                        int(lengths.max()), str(q.dtype)])
+        return real["dec"](q, k, v, lengths)
+
+    def bwd(q, k, v, *a, **kw):
+        got.setdefault("flash_attention_bwd", [list(q.shape), list(k.shape),
+                                               kw.get("causal", True),
+                                               str(q.dtype)])
+        return real["bwd"](q, k, v, *a, **kw)
+
+    fa.flash_mha_fwd, da.flash_decode, fa.flash_attention_bwd = fwd, dec, bwd
+    try:
+        yield got
+    finally:
+        fa.flash_mha_fwd, da.flash_decode = real["fwd"], real["dec"]
+        fa.flash_attention_bwd = real["bwd"]
+
+
+def _tp_reference(arch: str, layers, dev, seed: int) -> dict:
+    """The meshless serving run phase 19 holds the ranks to: FAMILY_BATCH x
+    FAMILY_PROMPT tokens prefilled, then FAMILY_STEPS greedy decode steps
+    (flash), from the seeded weights on ``dev``: the last logits of every
+    call, the greedy tokens, the parameter bytes and the wall; and the
+    largest difference of those logits from the same run in float32
+    compute teacher-forced on its tokens (``f32_gap``: how far bf16
+    rounding alone moves them)."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = _serve_cfg(arch, "flash", layers)
+    model = registry.get_api(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    batch = serve.make_batch(cfg, FAMILY_BATCH, FAMILY_PROMPT,
+                             np.random.default_rng(seed), dev)
+    max_len = registry.prefill_cache_len(cfg, FAMILY_PROMPT) + FAMILY_STEPS + 1
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, toks, _ = _logits_run(cfg, model, batch, max_len, FAMILY_STEPS)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    with float32_compute():
+        lg32, _, _ = _logits_run(cfg, model, batch, max_len, FAMILY_STEPS,
+                                 toks[:FAMILY_STEPS])
+    out = {"logits": logits.float().cpu(), "tokens": toks.cpu(),
+           "bytes": _param_bytes(model), "wall_s": wall,
+           "f32_gap": float((logits.float() - lg32.float()).abs().max())}
+    del model, lg32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve(mesh, arch: str, layers, seed: int, ref: dict, stats: dict,
+              shapes: dict) -> dict:
+    """One family served on the rank mesh from the seeded weights, placed:
+    the prefill and FAMILY_STEPS decode steps teacher-forced on the
+    meshless run's greedy tokens, every flash call held against its plain
+    version (``checking_path``); the logits' largest difference from the
+    meshless ones over every call (held to :func:`tp_limit`), argmax
+    counted where the meshless top-2 margin exceeds that limit. Launches
+    counted from just before the run to just after it."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    from repro_torch.models.sharding import place_params, sharding_ctx
+
+    dev = mesh.device
+    cfg = _serve_cfg(arch, "flash", layers)
+    model = registry.get_api(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    whole = _param_bytes(model)
+    place_params(model, cfg, mesh)
+    torch.cuda.empty_cache()
+    held = _param_bytes(model)
+    batch = serve.make_batch(cfg, FAMILY_BATCH, FAMILY_PROMPT,
+                             np.random.default_rng(seed), dev)
+    max_len = registry.prefill_cache_len(cfg, FAMILY_PROMPT) + FAMILY_STEPS + 1
+    forced = ref["tokens"][:FAMILY_STEPS].to(dev)
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with sharding_ctx(mesh), checking_path(stats), recording_shapes(shapes, arch):
+        logits, _, _ = _logits_run(cfg, model, batch, max_len, FAMILY_STEPS, forced)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES[k] for k in RANK_TP_KERNELS}
+    want = ref["logits"].to(dev)
+    gap = float((logits.float() - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tp_limit(ref)
+    bad = int(((logits.argmax(-1) != want.argmax(-1)) & sure).sum())
+    del model, logits
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "whole_bytes": whole, "rank_bytes": held,
+            "max_logit_diff": gap, "argmax_differs_beyond_margin": bad,
+            "finite": math.isfinite(gap), "wall_s": wall, "launches": launches}
+
+
+@contextlib.contextmanager
+def float32_compute():
+    """The models compute in float32 inside the block (``layers.COMPUTE_DTYPE``;
+    whisper's encoder stays bf16, as in the reference)."""
+    import torch
+
+    from repro_torch.models import layers
+
+    prev = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        layers.COMPUTE_DTYPE = prev
+
+
+def _tp_train(mesh, arch: str, seed: int, stats: dict, shapes: dict) -> dict:
+    """One train step of ``arch`` at its published width, RANK_TP_LAYERS
+    layers, FAMILY_BATCH x FAMILY_TRAIN_SEQ tokens (flash, remat), in
+    float32 compute: the meshless step's gradients first, then the same
+    weights placed and the step on the rank mesh, held to TRAIN_TOL (loss,
+    grad norm, every gradient block). Float32, so that the check sees the
+    split itself: in bf16 the two steps round every activation at other
+    places, and a leaf whose gradient is a sum that mostly cancels (a q
+    or k bias, or a head that attends almost uniformly) moves by tens of
+    percent of itself (0.2 on the reduced whisper, CPU rehearsal) with
+    nothing wrong. Whisper's key biases, whose exact gradient is zero (a
+    bias on every key moves a row's scores alike), are rounding noise in
+    both steps: their difference is held against the global gradient norm
+    (TRAIN_TOL["grad_norm"]). Every B7 call against its plain version
+    (``checking_bwd``)."""
+    with float32_compute():
+        return _tp_train_step(mesh, arch, seed, stats, shapes)
+
+
+def _tp_train_step(mesh, arch: str, seed: int, stats: dict, shapes: dict) -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import optim, registry, steps
+    from repro_torch.models.sharding import (local_slice, place_params,
+                                             placements, sharding_ctx)
+
+    dev = mesh.device
+    cfg = dataclasses.replace(_serve_cfg(arch, "flash"), n_layers=RANK_TP_LAYERS)
+    batch = serve.make_batch(cfg, FAMILY_BATCH, FAMILY_TRAIN_SEQ,
+                             np.random.default_rng(seed), dev)
+    step = steps.make_train_step(cfg, optim.OptimConfig(**TRAIN_OPT))
+    model = registry.get_api(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    ref: dict = {}
+    with captured_grads(model, ref, update=False):
+        _, _, m_ref = step(model, None, batch)
+    place_params(model, cfg, mesh)
+    pls = placements(model)
+    ref = {n: local_slice(g, pls[n].spec, mesh) for n, g in ref.items()}
+    noise = tuple(n for n in ref if n.endswith(".bk"))
+    diffs: dict = {}
+    _build.reset_launches()
+    with sharding_ctx(mesh), checking_bwd(stats), recording_shapes(shapes, arch), \
+            captured_grads(model, diffs, ref, update=False, noise=noise):
+        _, _, m = step(model, None, batch)
+    torch.cuda.synchronize(dev)
+    launches = {k: _build.LAUNCHES[k] for k in RANK_TP_KERNELS}
+    norm = float(m_ref["grad_norm"])
+    loud = {n: d for n, d in diffs.items() if n not in noise}
+    leaf, worst = _worst(loud)
+    quiet = max((float(diffs[n]) / norm for n in noise), default=0.0)
+    out = {"loss": _rel(float(m["loss"]), float(m_ref["loss"])),
+           "grad_norm": _rel(float(m["grad_norm"]), norm),
+           "grads": worst, "worst_leaf": leaf, "key_bias_noise": quiet,
+           "launches": launches}
+    del model, ref, diffs
+    torch.cuda.empty_cache()
+    out["ok"] = all(out[k] <= TRAIN_TOL[k] for k in ("loss", "grad_norm", "grads")) \
+        and quiet <= TRAIN_TOL["grad_norm"]
+    return out
+
+
+def _rank_tp_body(mesh, seed: int, refs: dict) -> dict:
+    """Phase 19 on ``mesh`` (this rank's part): each family of
+    RANK_TP_FAMILIES served against ``refs[arch]`` (the meshless run),
+    then each family's train step; the launches of B5, B6 and B7 summed
+    over the parts, each call's verdict against its plain version, and
+    the per-rank shapes of each kernel's first call."""
+    stats, bwd, shapes = _path_stats(), {}, {}
+    serve_out, train_out = {}, {}
+    for arch, layers in RANK_TP_FAMILIES:
+        serve_out[arch] = _tp_serve(mesh, arch, layers, seed, refs[arch], stats,
+                                    shapes)
+    for arch, _ in RANK_TP_FAMILIES:
+        bwd_arch: dict = {}
+        train_out[arch] = _tp_train(mesh, arch, seed, bwd_arch, shapes)
+        bwd[arch] = bwd_arch
+    launches = {k: sum(x["launches"][k] for x in (*serve_out.values(),
+                                                  *train_out.values()))
+                for k in RANK_TP_KERNELS}
+    bwd_all = {"calls": sum(b["calls"] for b in bwd.values()),
+               "bad": sum(b["bad"] for b in bwd.values()),
+               "max_err": max((b["max_err"] for b in bwd.values() if b["calls"]),
+                              default=float("nan"))}
+    return {"rank": mesh.rank, "coords": dict(mesh.coords), "serve": serve_out,
+            "train": train_out, "launches": launches, "path": stats,
+            "bwd": bwd_all, "shapes": shapes}
+
+
+def _rank_19(rank: int, world: int, init: str, out: str, seed: int) -> None:
+    """19's rank: data 1 x model ``world`` over gloo on the one card,
+    :func:`_rank_tp_body` against the parent's meshless runs in ``out``."""
+    import torch
+
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    mesh = init_rank_mesh(1, world, None, rank=rank, world_size=world,
+                          local_rank=0, init_method=init, backend="gloo")
+    try:
+        refs = torch.load(Path(out, "refs.pt"), weights_only=False)
+        x = _rank_tp_body(mesh, seed, refs)
+        Path(out, f"rank{rank}.json").write_text(json.dumps(x))
+    finally:
+        close_rank_mesh()
+
+
+def tp_limit(ref: dict) -> float:
+    """Phase 19's bound on a family's logits against the meshless run:
+    FAMILY_TOL, or where larger twice the meshless run's own distance from
+    float32 compute (``f32_gap``). A rank's partial sums over model round
+    to bf16 before they meet, so the split is another bf16 order of the
+    same sums: each bf16 run lies about ``f32_gap`` from the float32 one,
+    so the two lie within twice that of each other (rwkv6's 24 layers:
+    a gap of 0.9473, the split 0.8887 from meshless, four cards, NVIDIA
+    H100 80GB HBM3, 700 W)."""
+    return max(FAMILY_TOL, 2 * ref["f32_gap"])
+
+
+def _check_rank_tp(ranks: list, refs: dict, card: str) -> None:
+    """Print phase 19's ranks against the meshless runs; then raise where
+    a family's logits, argmax or bytes missed, a train step missed
+    TRAIN_TOL, a flash call disagreed with its plain version, or a kernel
+    never launched."""
+    M = len(ranks)
+    bad = []
+    for arch, _ in RANK_TP_FAMILIES:
+        xs = [x["serve"][arch] for x in ranks]
+        ref, limit = refs[arch], tp_limit(refs[arch])
+        print(f"  {arch} ({xs[0]['layers']} layers, published width) on data 1 x "
+              f"model {M}, {FAMILY_BATCH} x {FAMILY_PROMPT} + {FAMILY_STEPS} decode "
+              f"steps, teacher-forced: max |logit diff| vs meshless "
+              f"{[round(x['max_logit_diff'], 4) for x in xs]} (limit {limit:.4f}: "
+              f"FAMILY_TOL {FAMILY_TOL}, or twice meshless bf16 vs float32 "
+              f"{ref['f32_gap']:.4f}), argmax differing beyond the margin "
+              f"{[x['argmax_differs_beyond_margin'] for x in xs]}; [{card}] "
+              f"parameter bytes a rank {[x['rank_bytes'] for x in xs]} against "
+              f"{ref['bytes']} meshless; wall {[round(x['wall_s'], 2) for x in xs]} "
+              f"s against {ref['wall_s']:.2f} meshless; launches "
+              f"{[x['launches'] for x in xs]}", flush=True)
+        for x in xs:
+            if not x["finite"] or x["max_logit_diff"] > limit \
+                    or x["argmax_differs_beyond_margin"] \
+                    or x["rank_bytes"] >= ref["bytes"] \
+                    or x["whole_bytes"] != ref["bytes"]:
+                bad.append(f"{arch} served on the rank mesh: {x}")
+    for arch, _ in RANK_TP_FAMILIES:
+        xs = [x["train"][arch] for x in ranks]
+        print(f"  {arch} train step ({RANK_TP_LAYERS} layers, {FAMILY_BATCH} x "
+              f"{FAMILY_TRAIN_SEQ} tokens, flash, remat, float32 compute) on data "
+              f"1 x model {M} vs meshless: loss {[f'{x['loss']:.2e}' for x in xs]}, "
+              f"grad norm {[f'{x['grad_norm']:.2e}' for x in xs]}, worst leaf "
+              f"{[(x['worst_leaf'], f'{x['grads']:.2e}') for x in xs]}"
+              + (f", key-bias noise / grad norm "
+                 f"{[f'{x['key_bias_noise']:.2e}' for x in xs]}"
+                 if any(x["key_bias_noise"] for x in xs) else "")
+              + f" (limits {TRAIN_TOL}); launches {[x['launches'] for x in xs]}",
+              flush=True)
+        bad += [f"{arch}'s train step on the rank mesh: {x}" for x in xs if not x["ok"]]
+    for x in ranks:
+        p, b = x["path"], x["bwd"]
+        print(f"  rank {x['rank']}: flash_mha_fwd {p['flash_mha_fwd']['calls']} "
+              f"calls == plain ({p['flash_mha_fwd']['bad']} beyond, max |err| "
+              f"{p['flash_mha_fwd']['max_abs_err']:.3e}), flash_decode "
+              f"{p['flash_decode']['calls']} ({p['flash_decode']['bad']} beyond, "
+              f"{p['flash_decode']['max_abs_err']:.3e}), flash_attention_bwd "
+              f"{b['calls']} ({b['bad']} beyond, worst {b['max_err']:.3e} x "
+              f"scale); per-rank shapes {x['shapes']}", flush=True)
+        if p["flash_mha_fwd"]["bad"] or p["flash_decode"]["bad"] or b["bad"] \
+                or not p["flash_mha_fwd"]["calls"] or not p["flash_decode"]["calls"] \
+                or not b["calls"]:
+            bad.append(f"rank {x['rank']}: kernels vs plain {p}, {b}")
+        bad += [f"{k} never launched on rank {x['rank']}'s path"
+                for k in RANK_TP_KERNELS if not x["launches"][k]]
+    if bad:
+        raise AssertionError("phase 19: " + "; ".join(bad))
+
+
+def time_rank_tp_kernels(shapes: dict, launches: dict, dev) -> list[dict]:
+    """B5, B6 and B7 at the per-rank shapes phase 19 launched them at
+    (RANK_TP_ROWS: in the dtype the path used, and B7 in bf16 too), on
+    seeded operands laid out as the path lays them
+    (the (B,H,S,D) views of (B,S,H,D) projections; the decode cache's
+    (B,KV,S,D) views with every length the run's last), each timed as
+    phase 5's rows: the kernel alone, its plain version, SDPA, the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    for arch, name, as_dtype in RANK_TP_ROWS:
+        qs, ks, extra, dtype = shapes[arch][name]
+        dtype = as_dtype or dtype
+        dt = getattr(torch, dtype.removeprefix("torch."))
+        rate = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+
+        def views(B, H, S, D):   # (B,H,S,D) views of a (B,S,H,D) tensor
+            return torch.randn((B, S, H, D), generator=g, device=dev,
+                               dtype=dt).transpose(1, 2)
+
+        if name == "flash_decode":
+            (B, H, D), (_, KV, S, _) = qs, ks
+            q = torch.randn((B, H, D), generator=g, device=dev, dtype=dt)
+            k, v = views(B, KV, S, D), views(B, KV, S, D)
+            lens = torch.full((B,), extra, dtype=torch.int32, device=dev)
+            mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None]
+            work = da.flash_decode_cost(q, k, lens)
+            err = float((da.flash_decode(q, k, v, lens).float()
+                         - da.flash_decode_plain(q, k, v, lens).float()).abs().max())
+            row = _timed(name, ("flash_decode_split_kernel", "flash_decode_merge_kernel"),
+                         lambda: da.flash_decode(q, k, v, lens),
+                         lambda: da.flash_decode_plain(q, k, v, lens),
+                         lambda: F.scaled_dot_product_attention(
+                             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
+                         work["bytes"], work["flops"], err, launches[name],
+                         f"{arch} per rank: q ({B}, {H}, {D}), cache ({B}, {KV}, "
+                         f"{S}, {D}) {dtype}, every length {extra}",
+                         ops_per_s=rate)
+        else:
+            (B, H, S, D), (_, KV, _, _) = qs, ks
+            causal = bool(extra)
+            q, k, v = views(B, H, S, D), views(B, KV, S, D), views(B, KV, S, D)
+            qc, kc, vc = (t.contiguous() for t in (q, k, v))
+            if name == "flash_mha_fwd":
+                work = fa.flash_mha_fwd_cost(q, k, causal=causal)
+                err = float((fa.flash_mha_fwd(q, k, v, causal=causal)[0].float()
+                             - fa.flash_mha_fwd_plain(q, k, v, causal=causal)[0]
+                             .float()).abs().max())
+                row = _timed(name, "flash_fwd_bf16_kernel" if dt == torch.bfloat16
+                             else "flash_fwd_kernel",
+                             lambda: fa.flash_mha_fwd(q, k, v, causal=causal),
+                             lambda: fa.flash_mha_fwd_plain(q, k, v, causal=causal),
+                             lambda: F.scaled_dot_product_attention(
+                                 qc, kc, vc, is_causal=causal, enable_gqa=True),
+                             work["bytes"], work["flops"], err, launches[name],
+                             f"{arch} per rank: q ({B}, {H}, {S}, {D}), k, v ({B}, "
+                             f"{KV}, {S}, {D}) {dtype}, causal {causal}, (B,H,S,D) "
+                             "views of (B,S,H,D)", ops_per_s=rate)
+            else:
+                out, lse = fa.flash_mha_fwd(q, k, v, causal=causal)
+                do = views(B, H, S, D)
+                got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+                want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                    causal=causal)
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, want))
+                del got, want
+                qg, kg, vg = (t.requires_grad_(True) for t in (qc, kc, vc))
+                ref_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                                         enable_gqa=True)
+                doc = do.contiguous()
+                work = fa.flash_attention_bwd_cost(q, k, causal=causal)
+                row = _timed(name, BWD_KERNELS if dt == torch.bfloat16
+                             else BWD_F32_KERNELS,
+                             lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                            causal=causal),
+                             lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                                  do, causal=causal),
+                             lambda: torch.autograd.grad(ref_out, (qg, kg, vg), doc,
+                                                         retain_graph=True),
+                             work["bytes"], work["flops"], err, launches[name],
+                             f"{arch} per rank: q, out, dO ({B}, {H}, {S}, {D}), "
+                             f"k, v ({B}, {KV}, {S}, {D}) {dtype}, causal {causal}, "
+                             "(B,H,S,D) views of (B,S,H,D)", ops_per_s=rate)
+                del ref_out
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_rank_tp(dev, seed: int, card: str) -> dict:
+    """Phase 19: tensor parallelism over model for rwkv, the hybrid,
+    whisper and vlm. The meshless serving runs on the card first
+    (:func:`_tp_reference`), then RANK_TP_MODEL spawned gloo ranks sharing
+    the card (data 1 x model RANK_TP_MODEL) run :func:`_rank_tp_body`
+    against them; B5, B6 and B7 are then timed at the per-rank shapes the
+    ranks launched them at. Returns the numbers, the per-rank rows and the
+    launches summed over the ranks."""
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rank_tp_")
+    try:
+        refs = {arch: _tp_reference(arch, layers, dev, seed)
+                for arch, layers in RANK_TP_FAMILIES}
+        torch.save(refs, Path(tmp, "refs.pt"))
+        t0 = time.perf_counter()
+        _spawn_ranks(_rank_19, RANK_TP_MODEL, tmp, RANK_TP_TIMEOUT, seed)
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(RANK_TP_MODEL)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _check_rank_tp(ranks, refs, card)
+    launches = {k: sum(x["launches"][k] for x in ranks) for k in RANK_TP_KERNELS}
+    rows = time_rank_tp_kernels(ranks[0]["shapes"], launches, dev)
+    out = {"ranks": ranks, "launches": launches, "rows": rows,
+           "meshless": {a: {"bytes": r["bytes"], "wall_s": r["wall_s"]}
+                        for a, r in refs.items()},
+           "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase}
+    print(f"  [{card}] phase 19 in {out['seconds']:.1f} s (the ranks "
+          f"{ranks_s:.1f} s); launches on path rank_tp, both ranks: {launches}",
+          flush=True)
+    return out
+
+
+def rank_tp_main(seed: int) -> int:
+    """``--rank-tp``: phase 19 alone, its kernels built first, its kernel
+    rows printed. Under ``torchrun`` (``WORLD_SIZE`` above 1) it runs
+    :func:`_rank_tp_body` instead on data 1 x model WORLD_SIZE over NCCL,
+    one rank a card, each rank holding its families to the meshless runs
+    it makes first on its own card; rank 0 prints the summary."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    _build.build()
+    _build.lib()
+    card = nvidia_smi()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        out = run_rank_tp(torch.device("cuda", 0), seed, card)
+        for row in out["rows"]:
+            print_kernel_row(row)
+        print(json.dumps({"rank_tp": out}))
+        return 0
+    from repro_torch.launch.mesh import close_rank_mesh, init_rank_mesh
+
+    mesh = init_rank_mesh(1, world, None)
+    try:
+        refs = {arch: _tp_reference(arch, layers, mesh.device, seed)
+                for arch, layers in RANK_TP_FAMILIES}
+        x = _rank_tp_body(mesh, seed, refs)
+        every = [None] * world
+        torch.distributed.all_gather_object(every, x)
+        if mesh.rank == 0:
+            _check_rank_tp(every, refs, card)
+            print(nvidia_smi(every=True))
+            print(json.dumps({"rank_tp_nccl": {
+                "world": world, "ranks": every,
+                "meshless": {a: {"bytes": r["bytes"], "wall_s": r["wall_s"]}
+                             for a, r in refs.items()}}}))
+        torch.distributed.barrier()
+    finally:
+        close_rank_mesh()
+    return 0
+
+
 def device_breakdown(fn, top: int = 12) -> list:
     """Device time (ms) and records of one profiled call of ``fn`` per
     kernel name, the ``top`` largest (names cut to 200 characters, enough to
@@ -7139,6 +7693,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rank-durable", action="store_true",
                     help="phase 18 alone (under torchrun: 18(b)'s crash "
                          "matrix on one rank a card over NCCL)")
+    ap.add_argument("--rank-tp", action="store_true",
+                    help="phase 19 alone (under torchrun: data 1 x model "
+                         "WORLD_SIZE over NCCL, one rank a card)")
     args = ap.parse_args(argv)
     if args.rank_engine:
         return rank_engine_main(args.seed)
@@ -7146,6 +7703,8 @@ def main(argv=None) -> int:
         return rank_live_main(args.seed)
     if args.rank_durable:
         return rank_durable_main(args.seed)
+    if args.rank_tp:
+        return rank_tp_main(args.seed)
 
     import torch
 
@@ -7412,6 +7971,20 @@ def main(argv=None) -> int:
             n = rank_durable["launches"][row["name"]]
             row["launches_by_path"]["rank_durable"] = n
             row["launches"] += n
+    torch.cuda.empty_cache()
+    phase_header(f"phase 19: tensor parallelism over model — "
+          f"{', '.join(a for a, _ in RANK_TP_FAMILIES)} at their published widths "
+          f"on {RANK_TP_MODEL} gloo ranks sharing the card (data 1 x model "
+          f"{RANK_TP_MODEL}), served and trained against meshless runs",
+          flush=True)
+    rank_tp = run_rank_tp(dev, args.seed, card)
+    for row, name in ((flash_row, "flash_mha_fwd"), (bwd_row, "flash_attention_bwd"),
+                      (decode_row, "flash_decode")):
+        row["launches_by_path"]["rank_tp"] = rank_tp["launches"][name]
+        row["launches"] += rank_tp["launches"][name]
+    for row in rank_tp["rows"]:
+        print_kernel_row(row)
+    variants += rank_tp["rows"]
     print(json.dumps({"expressions": res["expr_ms"], "launches_per_run":
                       res["per_expr"], "rows": ROWS, "card": card,
                       "build_s": build_s,
@@ -7425,7 +7998,7 @@ def main(argv=None) -> int:
                       "runtime": runtime, "mesh_models": mesh_models,
                       "cost_model": cost, "rank_mesh": ranks,
                       "rank_engine": rank_engine, "rank_live": rank_live,
-                      "rank_durable": rank_durable,
+                      "rank_durable": rank_durable, "rank_tp": rank_tp,
                       "relational_variants": variants,
                       "breakdowns": res["breakdowns"], "live": live,
                       "strings": strings, "durable": durable,

@@ -33,8 +33,7 @@ is one rank of a rank mesh over the same rule, data N // mp x model mp
 (``launch/mesh.py`` ``init_rank_mesh``; NCCL, one rank a card, or gloo
 with ``--device cpu``), and ``sharding.place_params`` keeps on each rank
 only its shard of every weight the rule table shards: FSDP over data, TP
-and experts over model for the dense and moe families, FSDP alone for the
-others. Each rank draws the same seeded weights and batches and takes its
+and experts over model, every family. Each rank draws the same seeded weights and batches and takes its
 data rows; rank 0 prints and writes the checkpoints (whole tensors, the
 reference's format), and a resume gives each rank its shards back::
 

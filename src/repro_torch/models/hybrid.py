@@ -12,6 +12,13 @@ max_len): slot j holds position ``pos - ((pos - j) mod W)``. The ring's
 decode stays on plain torch, as in the reference: once the ring wraps its
 valid slots are not a prefix, which is what ``flash_decode``'s lengths
 describe.
+
+On a rank mesh (weights placed by ``sharding.place_params``) every part
+is tensor-parallel over "model" as the reference's rule table places it:
+the SSD layers (``ssm.ssm_mixer``), the shared attention (its heads,
+``attention.out_proj``), the shared MLP (``layers.mlp``), the embedding
+and the head (vocab); ``inv_proj`` and the norms stay whole. The ring
+holds this rank's KV heads.
 """
 from __future__ import annotations
 
@@ -23,12 +30,13 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (Attention, _project_qkv,
-                                          attention_core)
+                                          attention_core, out_proj)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.hybrid_groups import group_bounds
-from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_tokens,
-                                       he_init, init_embed, logits_from_hidden,
+from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_lookup,
+                                       he_init, head_logits, init_embed,
                                        mlp, remat, rms_norm)
+from repro_torch.models.sharding import local_heads, vocab_offset, weight
 from repro_torch.models.ssm import CONV_W, SSMBlock, dims, ssm_mixer
 
 NEG_INF = -1e30
@@ -91,9 +99,10 @@ def _shared_attn_full(x, emb0, model: Hybrid, cfg: ArchConfig, inv: int,
     q, k, v = _project_qkv(xin, xin, model.shared_attn, acfg, positions,
                            positions, True)
     o = attention_core(q, k, v, positions, positions, acfg, causal=True)
-    o = o.reshape(x.shape[0], x.shape[1], -1) @ model.shared_attn.wo.to(x.dtype)
+    o = out_proj(o.reshape(x.shape[0], x.shape[1], -1), model.shared_attn,
+                 x.dtype)
     o = _shared_mlp(o, model, cfg)
-    return x + o @ model.inv_proj[inv].to(x.dtype), k, v
+    return x + o @ weight(model, "inv_proj")[inv].to(x.dtype), k, v
 
 
 def _train_shared(x, emb0, model, cfg, inv, positions):
@@ -109,7 +118,7 @@ def forward_hidden(model: Hybrid, tokens: torch.Tensor,
     """The training trunk: the shared block before each group of SSD
     layers (``hybrid_groups.group_bounds``), each block checkpointed under
     ``cfg.remat`` -> the final-normed (B, S, d) hidden states."""
-    x = embed_tokens(model.embed, tokens)
+    x = embed_lookup(model, tokens)
     emb0 = x
     positions = torch.arange(x.shape[1], device=x.device)
     for inv, (s, e) in enumerate(group_bounds(cfg)):
@@ -124,8 +133,9 @@ def hybrid_loss(model: Hybrid, batch: dict, cfg: ArchConfig):
     """Next-token cross entropy -> (loss, {"ce"})."""
     tokens = batch["tokens"]
     hidden = forward_hidden(model, tokens, cfg)
-    loss_sum = chunked_ce_loss(hidden[:, :-1], model.lm_head, tokens[:, 1:],
-                               chunk=cfg.loss_chunk)
+    loss_sum = chunked_ce_loss(hidden[:, :-1], weight(model, "lm_head"),
+                               tokens[:, 1:], chunk=cfg.loss_chunk,
+                               vocab_offset=vocab_offset(model, "lm_head"))
     loss = loss_sum / (tokens.shape[0] * (tokens.shape[1] - 1))
     return loss, {"ce": loss}
 
@@ -140,18 +150,22 @@ def effective_window(cfg: ArchConfig, max_len: int) -> int:
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
     """conv (L, B, W-1, di + 2N) bf16, state (L, B, H, N, P) float32, the
     shared block's ring attn_k / attn_v (n_inv, B, W, KV, hd) bf16, pos;
-    on ``device`` (``None``: the card, raising without one)."""
+    on ``device`` (``None``: the card, raising without one). Under a rank
+    mesh's context a rank's share: its H / M heads (di / M channels, and
+    the N + N of B and C) and KV / M heads."""
     dev = resolve_device(device)
     di, H, P, N = dims(cfg)
+    Hl = local_heads(H)
     acfg = _attn_cfg(cfg)
+    KV = local_heads(acfg.n_kv_heads, acfg.n_heads)
     W = effective_window(cfg, max_len)
     n_inv = n_invocations(cfg)
     bf16 = torch.bfloat16
     shapes = {
-        "conv": ((cfg.n_layers, batch, CONV_W - 1, di + 2 * N), bf16),
-        "state": ((cfg.n_layers, batch, H, N, P), torch.float32),
-        "attn_k": ((n_inv, batch, W, acfg.n_kv_heads, acfg.d_head), bf16),
-        "attn_v": ((n_inv, batch, W, acfg.n_kv_heads, acfg.d_head), bf16),
+        "conv": ((cfg.n_layers, batch, CONV_W - 1, Hl * P + 2 * N), bf16),
+        "state": ((cfg.n_layers, batch, Hl, N, P), torch.float32),
+        "attn_k": ((n_inv, batch, W, KV, acfg.d_head), bf16),
+        "attn_v": ((n_inv, batch, W, KV, acfg.d_head), bf16),
         "pos": ((), torch.int32),
     }
     return {k: torch.zeros(s, dtype=dt, device=dev)
@@ -183,7 +197,7 @@ def _shared_attn_decode(x, emb0, model: Hybrid, cfg: ArchConfig, inv: int,
     for c, new in ((ck_inv, k_new), (cv_inv, v_new)):
         c.mul_(keep).add_(torch.einsum("st,btkh->bskh", onehot, new.to(c.dtype)))
 
-    KV, G = acfg.n_kv_heads, acfg.n_heads // acfg.n_kv_heads
+    KV, G = k_new.shape[2], acfg.n_heads // acfg.n_kv_heads  # this rank's KV
     qq = q.reshape(B, 1, KV, G, acfg.d_head).float()
     scores = torch.einsum("bckgh,bskh->bkgcs", qq, ck_inv.float()) \
         / math.sqrt(acfg.d_head)
@@ -191,10 +205,10 @@ def _shared_attn_decode(x, emb0, model: Hybrid, cfg: ArchConfig, inv: int,
     scores = torch.where(valid[None, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgcs,bskh->bckgh", probs.to(cv_inv.dtype), cv_inv)
-    out = out.reshape(B, 1, acfg.n_heads * acfg.d_head).to(x.dtype)
-    h = out @ model.shared_attn.wo.to(x.dtype)
+    out = out.reshape(B, 1, KV * G * acfg.d_head).to(x.dtype)
+    h = out_proj(out, model.shared_attn, x.dtype)
     h = _shared_mlp(h, model, cfg)
-    return x + h @ model.inv_proj[inv].to(x.dtype)
+    return x + h @ weight(model, "inv_proj")[inv].to(x.dtype)
 
 
 def hybrid_prefill(model: Hybrid, batch: dict, cfg: ArchConfig,
@@ -205,7 +219,7 @@ def hybrid_prefill(model: Hybrid, batch: dict, cfg: ArchConfig,
     S = tokens.shape[1]
     max_len = max_len or S
     W = effective_window(cfg, max_len)
-    x = embed_tokens(model.embed, tokens)
+    x = embed_lookup(model, tokens)
     emb0 = x
     dev = x.device
     positions = torch.arange(S, device=dev)
@@ -225,7 +239,7 @@ def hybrid_prefill(model: Hybrid, batch: dict, cfg: ArchConfig,
             convs.append(st["conv"].to(torch.bfloat16))
             states.append(st["state"])
     x = rms_norm(x[:, -1:, :], model.final_norm, cfg.norm_eps)
-    logits = logits_from_hidden(x, model.lm_head)
+    logits = head_logits(x, model, "lm_head")
     cache = {"conv": torch.stack(convs), "state": torch.stack(states),
              "attn_k": torch.stack(aks), "attn_v": torch.stack(avs),
              "pos": torch.tensor(S, dtype=torch.int32, device=dev)}
@@ -236,7 +250,7 @@ def hybrid_decode_step(model: Hybrid, cache: dict, tokens: torch.Tensor,
                        cfg: ArchConfig):
     """One decode step; the cache's rings are written in place, the conv
     rings and states replaced per layer, ``pos`` advanced."""
-    x = embed_tokens(model.embed, tokens)
+    x = embed_lookup(model, tokens)
     emb0 = x
     pos = cache["pos"]
     conv, state = cache["conv"], cache["state"]
@@ -251,5 +265,5 @@ def hybrid_decode_step(model: Hybrid, cache: dict, tokens: torch.Tensor,
             conv[i].copy_(st["conv"])
             state[i].copy_(st["state"])
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = logits_from_hidden(x, model.lm_head)
+    logits = head_logits(x, model, "lm_head")
     return dict(cache, pos=pos + tokens.shape[1]), logits

@@ -20,7 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.engine import distributed as D
 from repro_torch.models.sharding import (current_ctx, model_split, tp_enter,
-                                         tp_merge, weight)
+                                         tp_merge, vocab_offset, weight)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -131,6 +131,22 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
     mine = (local >= 0) & (local < V)
     rows = embed[local.clamp(0, V - 1)]
     return tp_merge(torch.where(mine[..., None], rows, 0).to(COMPUTE_DTYPE))
+
+
+def embed_lookup(mod, tokens: torch.Tensor, name: str = "embed") -> torch.Tensor:
+    """:func:`embed_tokens` of ``mod.name``: vocab-parallel on a rank mesh
+    that splits it over model."""
+    return embed_tokens(weight(mod, name), tokens, vocab_offset(mod, name))
+
+
+def head_logits(h: torch.Tensor, mod, name: str,
+                tied: bool = False) -> torch.Tensor:
+    """:func:`logits_from_hidden` with ``mod.name`` as the (d, V) head (its
+    transpose, a tied (V, d) embedding, under ``tied``): vocab-parallel on
+    a rank mesh that splits it over model."""
+    w = weight(mod, name)
+    return logits_from_hidden(h, w.T if tied else w,
+                              vocab_parallel=vocab_offset(mod, name) is not None)
 
 
 def logits_from_hidden(h: torch.Tensor, head: torch.Tensor,

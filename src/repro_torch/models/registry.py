@@ -20,9 +20,7 @@ Signatures (the port's, beside the reference's):
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import functools
 from typing import Any, Callable
 
 import torch
@@ -30,7 +28,7 @@ import torch
 from repro_torch.launch.mesh import MeshAxes
 from repro_torch.models import convert, hybrid, rwkv, transformer, whisper
 from repro_torch.models.config import ArchConfig, ShapeSpec
-from repro_torch.models.sharding import P, param_specs, whole_params
+from repro_torch.models.sharding import P, param_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,32 +40,6 @@ class ModelAPI:
     make_cache: Callable
 
 
-# the families whose code reads its weights directly: on a rank mesh each
-# call gathers them whole first (``sharding.whole_params``)
-WHOLE_FAMILIES = ("rwkv", "hybrid", "encdec")
-
-
-def whole_params_for(cfg: ArchConfig, model):
-    """``sharding.whole_params(model)`` for a family of
-    :data:`WHOLE_FAMILIES`, else a block that changes nothing. A train
-    step holds it over the loss AND its backward: a checkpointed block's
-    recomputation reads the weights again."""
-    if cfg.family in WHOLE_FAMILIES:
-        return whole_params(model)
-    return contextlib.nullcontext(model)
-
-
-def _whole(fn: Callable) -> Callable:
-    """``fn(model, ...)`` with a rank mesh's placed weights all-gathered
-    for the call (``sharding.whole_params``): the rwkv, hybrid and encdec
-    code reads its weights directly."""
-    @functools.wraps(fn)
-    def call(model, *args, **kwargs):
-        with whole_params(model):
-            return fn(model, *args, **kwargs)
-    return call
-
-
 def get_api(cfg: ArchConfig) -> ModelAPI:
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
@@ -75,17 +47,16 @@ def get_api(cfg: ArchConfig) -> ModelAPI:
                         transformer.lm_prefill, transformer.lm_decode_step,
                         transformer.make_cache)
     if fam == "rwkv":
-        return ModelAPI(rwkv.init_rwkv_lm, _whole(rwkv.rwkv_loss),
-                        _whole(rwkv.rwkv_prefill), _whole(rwkv.rwkv_decode_step),
-                        rwkv.make_cache)
+        return ModelAPI(rwkv.init_rwkv_lm, rwkv.rwkv_loss, rwkv.rwkv_prefill,
+                        rwkv.rwkv_decode_step, rwkv.make_cache)
     if fam == "hybrid":
-        return ModelAPI(hybrid.init_hybrid, _whole(hybrid.hybrid_loss),
-                        _whole(hybrid.hybrid_prefill),
-                        _whole(hybrid.hybrid_decode_step), hybrid.make_cache)
+        return ModelAPI(hybrid.init_hybrid, hybrid.hybrid_loss,
+                        hybrid.hybrid_prefill, hybrid.hybrid_decode_step,
+                        hybrid.make_cache)
     if fam == "encdec":
-        return ModelAPI(whisper.init_whisper, _whole(whisper.whisper_loss),
-                        _whole(whisper.whisper_prefill),
-                        _whole(whisper.whisper_decode_step), whisper.make_cache)
+        return ModelAPI(whisper.init_whisper, whisper.whisper_loss,
+                        whisper.whisper_prefill, whisper.whisper_decode_step,
+                        whisper.make_cache)
     raise ValueError(f"unknown family {fam}")
 
 

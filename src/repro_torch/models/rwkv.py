@@ -9,6 +9,14 @@ reference's ``lax.scan``). Decode keeps the exact O(1) recurrence. As in
 the reference, the chunked path clamps the log-decay at -4 a step (C = 16
 keeps every exponent below e^64); the sequential path has no clamp beyond
 the one in the projection.
+
+On a rank mesh (weights placed by ``sharding.place_params``) the time mix
+is tensor-parallel over "model" as the reference's rule table places it:
+``wr``, ``wk``, ``wv``, ``wg`` and ``w_lora_b`` column-parallel (this
+rank's heads), ``wo`` row-parallel, ``w_lora_a`` whole. A rank runs the
+WKV recurrence on its H / M heads alone, with its heads' slices of the
+whole ``w0``, ``u`` and ``ln_x``; the channel mix is whole, as in the
+reference. The embedding and the head are vocab-parallel.
 """
 from __future__ import annotations
 
@@ -18,9 +26,12 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (chunked_ce_loss, embed_tokens, he_init,
-                                       init_embed, layer_norm,
-                                       logits_from_hidden, remat, rms_norm)
+from repro_torch.models.layers import (chunked_ce_loss, embed_lookup,
+                                       he_init, head_logits, init_embed,
+                                       layer_norm, remat, rms_norm)
+from repro_torch.models.sharding import (current_ctx, local_heads, model_split,
+                                         rank_slice, tp_enter, tp_merge,
+                                         vocab_offset, weight)
 
 CHUNK = 16
 LW_MIN = -4.0  # per-step log-decay clamp for the chunked path
@@ -105,17 +116,36 @@ def _lerp(x, xs, mu):
     return x + (xs - x) * mu.to(x.dtype)
 
 
+def _heads(p: TimeMix, H: int) -> tuple[bool, int, int]:
+    """(tensor-parallel, this rank's head count, its first head): the
+    time mix runs H / M heads from rank r * H / M where ``wr`` is split
+    over model, else all H."""
+    if not model_split(p, "wr"):
+        return False, H, 0
+    ctx = current_ctx()
+    Hl = H // ctx.model_size
+    return True, Hl, ctx.model_rank * Hl
+
+
 def _project_rkvwg(x, xs, p: TimeMix, H: int, N: int):
+    """r, k, v, lw (B,S,H,N) and g (B,S,H*N); on a rank mesh with the
+    projections split over model, this rank's heads."""
     B, S, d = x.shape
-    r = _lerp(x, xs, p.mu_r) @ p.wr.to(x.dtype)
-    k = _lerp(x, xs, p.mu_k) @ p.wk.to(x.dtype)
-    v = _lerp(x, xs, p.mu_v) @ p.wv.to(x.dtype)
-    g = F.silu(_lerp(x, xs, p.mu_g) @ p.wg.to(x.dtype))
+    tp, Hl, h0 = _heads(p, H)
+
+    def col(h, name):  # column-parallel: a whole input, this rank's columns
+        return (tp_enter(h) if tp else h) @ weight(p, name, x.dtype)
+
+    r = col(_lerp(x, xs, p.mu_r), "wr")
+    k = col(_lerp(x, xs, p.mu_k), "wk")
+    v = col(_lerp(x, xs, p.mu_v), "wv")
+    g = F.silu(col(_lerp(x, xs, p.mu_g), "wg"))
     xw = _lerp(x, xs, p.mu_w)
-    lora = torch.tanh(xw @ p.w_lora_a.to(x.dtype)) @ p.w_lora_b.to(x.dtype)
-    lw = -torch.exp((p.w0.float() + lora.float()).clamp(-20.0, 1.386))
+    lora = col(torch.tanh(xw @ weight(p, "w_lora_a", x.dtype)), "w_lora_b")
+    w0 = rank_slice(p.w0, (h0 * N, Hl * N)) if tp else p.w0
+    lw = -torch.exp((w0.float() + lora.float()).clamp(-20.0, 1.386))
     lw = lw.clamp_min(LW_MIN)
-    shp = (B, S, H, N)
+    shp = (B, S, Hl, N)
     return r.reshape(shp), k.reshape(shp), v.reshape(shp), g, lw.reshape(shp)
 
 
@@ -187,11 +217,14 @@ def rwkv_time_mix(x, p: TimeMix, cfg: ArchConfig, x_prev=None, state=None, *,
         x_prev = torch.zeros((B, d), dtype=x.dtype, device=x.device)
     xs = _token_shift(x, x_prev)
     r, k, v, g, lw = _project_rkvwg(x, xs, p, H, N)
+    tp, Hl, h0 = _heads(p, H)
+    u = rank_slice(p.u, (h0, Hl)) if tp else p.u
+    ln_x = rank_slice(p.ln_x, (h0 * N, Hl * N)) if tp else p.ln_x
     fn = wkv6_sequential if sequential else wkv6_chunked
-    out, new_state = fn(r, k, v, lw, p.u, state)
-    out = rms_norm(out, p.ln_x.reshape(H, N), cfg.norm_eps).reshape(B, S, d)
-    out = out * g
-    return out @ p.wo.to(x.dtype), (x[:, -1, :], new_state)
+    out, new_state = fn(r, k, v, lw, u, state)
+    out = rms_norm(out, ln_x.reshape(Hl, N), cfg.norm_eps).reshape(B, S, Hl * N)
+    y = (out * g) @ weight(p, "wo", x.dtype)     # row-parallel under TP
+    return (tp_merge(y) if tp else y), (x[:, -1, :], new_state)
 
 
 def rwkv_channel_mix(x, p: ChannelMix, x_prev=None):
@@ -228,7 +261,7 @@ def rwkv_forward_hidden(model: RWKVLM, tokens: torch.Tensor,
                         cfg: ArchConfig) -> torch.Tensor:
     """The training trunk (the chunked WKV6 form), each block checkpointed
     under ``cfg.remat`` -> the final-normed (B, S, d) hidden states."""
-    x = embed_tokens(model.embed, tokens)
+    x = embed_lookup(model, tokens)
     x = layer_norm(x, model.ln0, model.ln0_b, cfg.norm_eps)
     for blk in model.layers:
         x = remat(_train_block, x, blk, cfg, enabled=cfg.remat)
@@ -239,8 +272,9 @@ def rwkv_loss(model: RWKVLM, batch: dict, cfg: ArchConfig):
     """Next-token cross entropy -> (loss, {"ce"})."""
     tokens = batch["tokens"]
     hidden = rwkv_forward_hidden(model, tokens, cfg)
-    loss_sum = chunked_ce_loss(hidden[:, :-1], model.lm_head, tokens[:, 1:],
-                               chunk=cfg.loss_chunk)
+    loss_sum = chunked_ce_loss(hidden[:, :-1], weight(model, "lm_head"),
+                               tokens[:, 1:], chunk=cfg.loss_chunk,
+                               vocab_offset=vocab_offset(model, "lm_head"))
     loss = loss_sum / (tokens.shape[0] * (tokens.shape[1] - 1))
     return loss, {"ce": loss}
 
@@ -251,10 +285,11 @@ def rwkv_loss(model: RWKVLM, batch: dict, cfg: ArchConfig):
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
     """O(1) in the sequence length: an (N x N) state per head per layer and
     the two token-shift carries (``max_len`` is not used); on ``device``
-    (``None``: the card, raising without one)."""
+    (``None``: the card, raising without one). Under a rank mesh's
+    context the state holds this rank's heads."""
     dev = resolve_device(device)
     d = cfg.d_model
-    H, N = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    H, N = local_heads(d // cfg.rwkv_head_dim), cfg.rwkv_head_dim
     L = cfg.n_layers
     bf16 = torch.bfloat16
     shapes = {"att_x": ((L, batch, d), bf16),
@@ -267,7 +302,7 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
 def rwkv_prefill(model: RWKVLM, batch: dict, cfg: ArchConfig,
                  max_len: int | None = None):
     tokens = batch["tokens"]
-    x = embed_tokens(model.embed, tokens)
+    x = embed_lookup(model, tokens)
     x = layer_norm(x, model.ln0, model.ln0_b, cfg.norm_eps)
     ax, ast, fx = [], [], []
     for blk in model.layers:
@@ -277,7 +312,7 @@ def rwkv_prefill(model: RWKVLM, batch: dict, cfg: ArchConfig,
         fx.append(c["ffn_x"].to(torch.bfloat16))
     x = layer_norm(x[:, -1:, :], model.final_norm, model.final_norm_b,
                    cfg.norm_eps)
-    logits = logits_from_hidden(x, model.lm_head)
+    logits = head_logits(x, model, "lm_head")
     cache = {"att_x": torch.stack(ax), "att_state": torch.stack(ast),
              "ffn_x": torch.stack(fx),
              "pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
@@ -289,7 +324,7 @@ def rwkv_decode_step(model: RWKVLM, cache: dict, tokens: torch.Tensor,
                      cfg: ArchConfig):
     """One decode step; each layer's carries and state are replaced in the
     cache's buffers, ``pos`` advanced."""
-    x = embed_tokens(model.embed, tokens)
+    x = embed_lookup(model, tokens)
     x = layer_norm(x, model.ln0, model.ln0_b, cfg.norm_eps)
     for i, blk in enumerate(model.layers):
         x, c = rwkv_block(x, blk, cfg,
@@ -300,5 +335,5 @@ def rwkv_decode_step(model: RWKVLM, cache: dict, tokens: torch.Tensor,
         for key in ("att_x", "att_state", "ffn_x"):
             cache[key][i].copy_(c[key])
     x = layer_norm(x, model.final_norm, model.final_norm_b, cfg.norm_eps)
-    logits = logits_from_hidden(x, model.lm_head)
+    logits = head_logits(x, model, "lm_head")
     return dict(cache, pos=cache["pos"] + tokens.shape[1]), logits

@@ -50,25 +50,30 @@ which dims are split):
   differs, values do not. A weight the data axes do not split has its
   gradient all-reduced over them after the backward
   (:func:`reduce_grads`).
-* TP over ``model`` (the dense and moe families): ``attn/wq|wk|wv``,
-  ``mlp/w1|w3`` and ``shared/w1|w3`` are column-parallel (output dim
-  split: this rank's heads), ``attn/wo``, ``mlp/w2`` and ``shared/w2``
-  row-parallel (input dim split, the output ``psum``-ed over ``model``),
-  ``embed`` and ``lm_head`` vocab-parallel (a masked lookup and a
-  vocab-parallel cross entropy or an all-gather of the logits). Activations
+* TP over ``model``, every family: ``attn|xattn|shared_attn/wq|wk|wv``,
+  ``mlp/w1|w3``, ``shared/w1|w3``, ``wkv/wr|wk|wv|wg|w_lora_b`` are
+  column-parallel (output dim split: this rank's heads), ``*/wo``,
+  ``mlp/w2``, ``shared/w2`` and ``ssm/w_out`` row-parallel (input dim
+  split, the output ``psum``-ed over ``model``), ``embed`` and
+  ``lm_head`` vocab-parallel (a masked lookup and a vocab-parallel cross
+  entropy or an all-gather of the logits). ``ssm/w_in`` is stored as the
+  table cuts it (contiguous column blocks, which do not line up with the
+  heads) and all-gathered over ``model`` where it is used
+  (:func:`model_gathered`, the backward a reduce-scatter), each rank then
+  taking its heads' columns and the shared B and C ones. Activations
   stay whole (replicated over ``model``): :func:`tp_enter` marks where
   one enters a rank's partial work (identity forward, ``psum`` of the
   gradient) and :func:`tp_merge` where the partials meet (``psum``
-  forward, identity backward). The hand kernels see only local,
-  contiguous tensors: this rank's heads. Where ``model`` does not divide
-  the heads (or the KV heads) the attention weights stay whole over it,
-  as ``sanitize_pspec`` keeps an extent it does not divide.
+  forward, identity backward); :func:`model_sum` sums a per-rank partial
+  statistic (``psum`` both ways). A whole parameter a rank uses a slice
+  of (a per-head norm, a bonus, a conv's channels) is sliced after
+  :func:`tp_enter`, so its gradient sums over ``model``. The hand kernels
+  see only local, contiguous tensors: this rank's heads. Where ``model``
+  does not divide a family's heads (attention: the heads or the KV heads;
+  rwkv's and the SSD's heads) those weights stay whole over it, as
+  ``sanitize_pspec`` keeps an extent it does not divide.
 * Experts over ``model``: rank ``r`` stores experts
   ``[r*E/M, (r+1)*E/M)`` and dispatches to them alone.
-* The rwkv, ssm, hybrid, whisper and vlm families take FSDP over the data
-  axes and keep every weight whole over ``model`` (their TP is a ROADMAP
-  item): the rwkv, hybrid and encdec entry points all-gather their
-  weights once a call (:func:`whole_params`).
 
 The context is process-wide, where the reference's is thread-local: the
 backward of a checkpointed block recomputes its forward on autograd's
@@ -225,7 +230,6 @@ class ShardingCtx:
         self.data_index: int | None = None
         self.gathering = False
         self.gathered: dict = {}
-        self.whole = False   # inside whole_params: weights already gathered
         # a rank mesh's layers see this data rank's block of the batch
         # (False: the whole batch on every rank, one it did not divide)
         self.batch_split = True
@@ -361,8 +365,9 @@ def sanitize_spec_tree(spec_tree, abstract_tree, mesh: Mesh):
 
 # -- placement on a rank mesh --------------------------------------------------------
 
-TP_FAMILIES = ("dense", "moe")
 _ATTN_PROJ = re.compile(r"(attn|xattn|shared_attn)/[wb](q|k|v|o)$")
+_WKV = re.compile(r"wkv/")
+_SSM = re.compile(r"ssm/")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -378,19 +383,42 @@ class Placement:
     model_dim: int | None
 
 
+def _head_counts(path: str, cfg) -> tuple[int, ...]:
+    """The head counts a parameter's split over ``model`` must follow:
+    the heads and the KV heads of an attention projection, rwkv's heads
+    of a ``wkv`` weight, the SSD's heads of an ``ssm`` one; () for the
+    rest."""
+    if _ATTN_PROJ.search(path):
+        return cfg.n_heads, cfg.n_kv_heads
+    if _WKV.search(path):
+        return (cfg.d_model // cfg.rwkv_head_dim,)
+    if _SSM.search(path):
+        return (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,)
+    return ()
+
+
 def rank_spec(path: str, shape, mesh, axes: MeshAxes, cfg) -> PartitionSpec:
     """The spec a rank mesh places parameter ``path`` (the reference's
-    pytree path) of ``shape`` with: the table's, sanitized; over ``model``
-    only for the TP families, and for attention only where ``model``
-    divides both the heads and the KV heads."""
+    pytree path) of ``shape`` with: the table's, sanitized, and whole over
+    ``model`` where ``model`` does not divide every count of
+    :func:`_head_counts` (a rank's block must hold whole heads)."""
     spec = sanitize_pspec(spec_for_path(path, len(shape), axes), shape, mesh)
     M = axes.model_size(mesh)
-    whole_model = cfg.family not in TP_FAMILIES or (
-        _ATTN_PROJ.search(path) is not None
-        and (cfg.n_heads % M or cfg.n_kv_heads % M))
-    if whole_model:
+    if any(n % M for n in _head_counts(path, cfg)):
         spec = P(*(None if e == axes.model else e for e in spec))
     return spec
+
+
+def local_heads(*counts: int) -> int:
+    """``counts[0]`` over the model extent M under a rank mesh's context
+    where M divides every count (a rank holds its share of the heads, as
+    :func:`rank_spec` places them), else ``counts[0]``: the heads a
+    rank's cache holds."""
+    ctx = _CTX
+    if ctx is None or not ctx.ranked:
+        return counts[0]
+    M = ctx.model_size
+    return counts[0] if any(n % M for n in counts) else counts[0] // M
 
 
 def _placement(spec: PartitionSpec, shape, axes: MeshAxes) -> Placement:
@@ -458,18 +486,18 @@ def place_params(model, cfg, mesh: RankMesh, axes: MeshAxes | None = None):
 
 def _placed(mod, name: str) -> Placement | None:
     """The placement of ``mod.name`` when it is to be gathered here: a
-    placed parameter under a rank mesh's context, outside ``whole_params``."""
+    placed parameter under a rank mesh's context."""
     ctx = _CTX
-    if ctx is None or not ctx.ranked or ctx.whole:
+    if ctx is None or not ctx.ranked:
         return None
     return mod.__dict__.get("_placed", {}).get(name)
 
 
-class _GatherData(torch.autograd.Function):
-    """A parameter's block, cast to ``dtype``, all-gathered over the data
-    axes along ``dim``; the backward reduce-scatters the gradient in the
-    parameter's own dtype (a bf16 compute copy's gradient is summed
-    across ranks in float32)."""
+class _Gather(torch.autograd.Function):
+    """A block, cast to ``dtype``, all-gathered over ``group`` along
+    ``dim``; the backward reduce-scatters the gradient in the block's own
+    dtype (a float32 parameter's gradient is summed across ranks in
+    float32)."""
 
     @staticmethod
     def forward(ctx, t, dim, group, dtype):
@@ -485,13 +513,27 @@ class _GatherData(torch.autograd.Function):
 def weight(mod, name: str, dtype=None) -> torch.Tensor:
     """``mod.name`` as the layer computes with it, cast to ``dtype``: on a
     rank mesh a placed weight's data dim all-gathered (its model dim
-    stays this rank's block), elsewhere the parameter itself."""
+    stays this rank's block; a data extent of 1 holds it whole already),
+    elsewhere the parameter itself."""
     t = getattr(mod, name)
     pl = _placed(mod, name)
-    if pl is None or pl.data_dim is None:
+    if pl is None or pl.data_dim is None or _CTX.data_size == 1:
         return t if dtype is None else t.to(dtype)
-    return _GatherData.apply(t, pl.data_dim, _CTX.group("data"),
-                             dtype or t.dtype)
+    return _Gather.apply(t, pl.data_dim, _CTX.group("data"), dtype or t.dtype)
+
+
+def model_gathered(mod, name: str, dtype=None) -> torch.Tensor:
+    """:func:`weight`, then all-gathered over ``model`` along its model
+    dim where this rank holds only its block: the whole weight, for a
+    layer whose rank takes columns the table's contiguous blocks do not
+    line up with (``ssm/w_in``). The backward reduce-scatters the
+    gradient over ``model``, so a column every rank reads gets the sum of
+    their parts."""
+    w = weight(mod, name, dtype)
+    pl = _placed(mod, name)
+    if pl is None or pl.model_dim is None:
+        return w
+    return _Gather.apply(w, pl.model_dim, _CTX.group("model"), w.dtype)
 
 
 def model_split(mod, name: str) -> bool:
@@ -507,6 +549,12 @@ def model_offset(mod, name: str) -> int:
     t = getattr(mod, name)
     pl = _placed(mod, name)
     return _CTX.model_rank * t.shape[pl.model_dim]
+
+
+def vocab_offset(mod, name: str) -> int | None:
+    """The vocab offset of this rank's block of ``mod.name`` on a rank
+    mesh that splits it over model (vocab-parallel), else None."""
+    return model_offset(mod, name) if model_split(mod, name) else None
 
 
 class _Enter(torch.autograd.Function):
@@ -528,6 +576,17 @@ class _Merge(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return D.psum(x, group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return D.psum(g, group=ctx.group), None
 
 
 class _MeanData(torch.autograd.Function):
@@ -561,13 +620,34 @@ def tp_merge(x: torch.Tensor) -> torch.Tensor:
     return _Merge.apply(x, _CTX.group("model"))
 
 
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """A per-rank partial statistic summed over ``model`` (``psum``), for
+    a value every rank then feeds into its own partial work (the gated
+    norm's sum of squares over a rank's channels): its gradient on each
+    rank holds only that rank's part, so the backward sums over ``model``
+    too."""
+    return _Sum.apply(x, _CTX.group("model"))
+
+
+def rank_slice(t: torch.Tensor, *spans: tuple[int, int]) -> torch.Tensor:
+    """The ``(start, length)`` spans of dim 0 of a whole tensor that this
+    rank's partial work reads (its heads' rows of a norm scale, a bonus, a
+    conv's channels), concatenated after :func:`tp_enter`: each rank's
+    gradient fills only its spans, and the ``psum`` gives the whole
+    tensor's."""
+    t = tp_enter(t)
+    parts = [t.narrow(0, a, n) for a, n in spans]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 @torch.no_grad()
 def reduce_grads(model) -> None:
     """After a rank mesh's backward: every gradient of a parameter the data
-    axes do not split is all-reduced (summed) over them; the split ones
-    were reduce-scattered by :func:`weight`'s backward."""
+    axes do not split is all-reduced (summed) over them (nothing to sum
+    over one data rank); the split ones were reduce-scattered by
+    :func:`weight`'s backward."""
     ctx = _CTX
-    if ctx is None or not ctx.ranked:
+    if ctx is None or not ctx.ranked or ctx.data_size == 1:
         return
     g = ctx.group("data")
     for mod in model.modules():
@@ -589,31 +669,6 @@ def spread(model) -> dict:
         d, m = pl.data_dim is not None, pl.model_dim is not None
         out[name] = "all" if d and m else "data" if d else "model" if m else None
     return out
-
-
-@contextlib.contextmanager
-def whole_params(model):
-    """On a rank mesh: every placed parameter of ``model`` reads as its
-    data-gathered tensor inside the block (one all-gather each; the
-    gradient reduce-scattered back), for the families whose code reads
-    its weights directly. Elsewhere the block changes nothing."""
-    ctx = _CTX
-    if ctx is None or not ctx.ranked or ctx.whole:
-        yield model
-        return
-    swapped = []
-    for mod in model.modules():
-        for name in mod.__dict__.get("_placed", {}):
-            p = mod._parameters[name]
-            mod._parameters[name] = weight(mod, name)
-            swapped.append((mod, name, p))
-    ctx.whole = True
-    try:
-        yield model
-    finally:
-        ctx.whole = False
-        for mod, name, p in swapped:
-            mod._parameters[name] = p
 
 
 @torch.no_grad()

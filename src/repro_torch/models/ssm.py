@@ -9,6 +9,19 @@ mask's 0 into NaN). Within a chunk the work
 is (C x C) products; the (H, N, P) state per sequence flows from chunk to
 chunk in a Python loop (the reference's ``lax.scan``). Decode is the exact
 per-step recurrence plus a ring of the last CONV_W - 1 conv inputs.
+
+On a rank mesh (weights placed by ``sharding.place_params``) the mixer is
+tensor-parallel over "model": a rank runs H / M heads. The rule table
+cuts ``w_in`` (d, 2 di + 2N + H) into contiguous column blocks, which do
+not line up with the heads (``z | x | B | C | dt``), so it is stored as
+cut and all-gathered over model in the layer (``sharding.model_gathered``,
+the backward a reduce-scatter: the B and C columns every rank reads get
+the sum of the ranks' parts); a rank then takes its heads' ``z``, ``x``
+and ``dt`` columns and all of B and C, its x channels and the B and C
+ones of the whole conv, and its heads of ``dt_bias``, ``A_log``, ``D``
+and the norm scale. The gated norm normalises over all di channels: a
+rank's sum of squares is summed over model (``sharding.model_sum``).
+``w_out`` is row-parallel, its row blocks a rank's heads.
 """
 from __future__ import annotations
 
@@ -20,6 +33,9 @@ from torch import nn
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import he_init, rms_norm
+from repro_torch.models.sharding import (current_ctx, model_gathered, model_split,
+                                         model_sum, rank_slice, tp_enter,
+                                         tp_merge, weight)
 
 SSD_CHUNK = 64
 CONV_W = 4
@@ -145,23 +161,75 @@ def ssd_sequential(xh, Bc, Cc, la, dt, state0=None):
     return torch.stack(ys, dim=1).to(xh.dtype), st
 
 
+class Share:
+    """The part of the mixer one rank runs: heads ``[h0, h0 + Hl)`` of H,
+    their di channels ``[c0, c0 + dl)``; ``tp`` where the mixer is
+    tensor-parallel (its weights split over model on a rank mesh)."""
+
+    def __init__(self, p: SSM, cfg: ArchConfig):
+        di, H, P, _ = dims(cfg)
+        self.tp = model_split(p, "w_out")   # row blocks: whole heads
+        M, r = (current_ctx().model_size, current_ctx().model_rank) \
+            if self.tp else (1, 0)
+        self.Hl, self.h0 = H // M, r * (H // M)
+        self.dl, self.c0 = self.Hl * P, self.h0 * P
+
+
+def _in_columns(w, share: Share, di: int, N: int):
+    """A rank's columns of the whole w_in (d, 2 di + 2N + H): its heads'
+    z, its heads' x, all of B and C, its heads' dt."""
+    c0, dl = share.c0, share.dl
+    return torch.cat([w.narrow(1, c0, dl), w.narrow(1, di + c0, dl),
+                      w.narrow(1, 2 * di, 2 * N),
+                      w.narrow(1, 2 * di + 2 * N + share.h0, share.Hl)], dim=1)
+
+
+def _gated_norm(h, scale, cfg: ArchConfig, share: Share):
+    """``rms_norm(h, scale)`` over all di channels, h (B,S,dl) this rank's
+    channels: the float32 sum of squares summed over model under TP."""
+    if not share.tp:
+        return rms_norm(h, scale, cfg.norm_eps)
+    ss = model_sum(h.float().square().sum(dim=-1, keepdim=True))
+    di = dims(cfg)[0]
+    inv = torch.rsqrt(ss / di + cfg.norm_eps).to(h.dtype)
+    return h * inv * scale.to(h.dtype)
+
+
 def ssm_mixer(x, p: SSM, cfg: ArchConfig, cache=None, *, sequential=False):
     """Mamba2 mixer. x: (B,S,d). cache: {conv: (B,W-1,Ch), state:
-    (B,H,N,P)}. Returns (out (B,S,d), {conv, state})."""
+    (B,H,N,P)}, this rank's channels and heads under TP. Returns (out
+    (B,S,d), {conv, state})."""
     B, S, d = x.shape
     di, H, P, N = dims(cfg)
     c = cache or {}
-    proj = x @ p.w_in.to(x.dtype)
-    z, xBC, dt_raw = proj.split([di, di + 2 * N, H], dim=-1)
-    xBC, conv_state = _causal_conv(xBC, p.conv_w, p.conv_b, c.get("conv"))
-    xc, Bc, Cc = xBC.split([di, N, N], dim=-1)
-    dt = F.softplus(dt_raw.float() + p.dt_bias)                  # (B,S,H)
-    la = -torch.exp(p.A_log.float()) * dt                       # log decay <= 0
-    xh = xc.reshape(B, S, H, P)
+    sh = Share(p, cfg)
+    Hl, dl = sh.Hl, sh.dl
+    if sh.tp:
+        # the whole w_in: gathered where it is split (where M does not
+        # divide 2 di + 2N + H it is whole, each rank's gradient partial)
+        w_in = model_gathered(p, "w_in", x.dtype) if model_split(p, "w_in") \
+            else tp_enter(weight(p, "w_in", x.dtype))
+        proj = tp_enter(x) @ _in_columns(w_in, sh, di, N)
+        # whole parameters: this rank's channels and heads
+        chans = ((sh.c0, dl), (di, 2 * N))
+        conv_w, conv_b = rank_slice(p.conv_w, *chans), rank_slice(p.conv_b, *chans)
+        heads = (sh.h0, Hl)
+        dt_bias, A_log, D = (rank_slice(t, heads) for t in (p.dt_bias, p.A_log, p.D))
+        norm = rank_slice(p.norm, (sh.c0, dl))
+    else:
+        proj = x @ weight(p, "w_in", x.dtype)
+        conv_w, conv_b, dt_bias, A_log, D, norm = (
+            p.conv_w, p.conv_b, p.dt_bias, p.A_log, p.D, p.norm)
+    z, xBC, dt_raw = proj.split([dl, dl + 2 * N, Hl], dim=-1)
+    xBC, conv_state = _causal_conv(xBC, conv_w, conv_b, c.get("conv"))
+    xc, Bc, Cc = xBC.split([dl, N, N], dim=-1)
+    dt = F.softplus(dt_raw.float() + dt_bias)                   # (B,S,Hl)
+    la = -torch.exp(A_log.float()) * dt                         # log decay <= 0
+    xh = xc.reshape(B, S, Hl, P)
     fn = ssd_sequential if sequential else ssd_chunked
     y, state = fn(xh, Bc, Cc, la, dt, c.get("state"))
-    y = y + p.D.to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(B, S, di)
-    y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
-    out = y @ p.w_out.to(x.dtype)
-    return out, {"conv": conv_state, "state": state}
+    y = y + D.to(y.dtype)[None, None, :, None] * xh
+    y = y.reshape(B, S, dl)
+    y = _gated_norm(y * F.silu(z), norm, cfg, sh)
+    out = y @ weight(p, "w_out", x.dtype)                     # row-parallel
+    return (tp_merge(out) if sh.tp else out), {"conv": conv_state, "state": state}

@@ -37,7 +37,7 @@ from repro_torch.engine import distributed as D
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.convert import leaf_ndim
 from repro_torch.models.optim import OptimConfig, adamw_update, init_opt_state
-from repro_torch.models.registry import ModelAPI, get_api, whole_params_for
+from repro_torch.models.registry import ModelAPI, get_api
 from repro_torch.models.sharding import current_ctx, reduce_grads
 
 
@@ -132,7 +132,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimConfig):
         w = batch["tokens"].shape[0] / rows if n > 1 else 1.0 / ctx.data_size
         ctx.batch_split = n > 1
         try:
-            with cast_once(model, cfg), whole_params_for(cfg, model):
+            with cast_once(model, cfg):
                 loss, metrics = api.loss(model, batch, cfg)
                 (loss * w).backward()
         finally:

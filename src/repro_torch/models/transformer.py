@@ -28,12 +28,12 @@ from repro_torch.models.attention import (Attention, _project_qkv,
                                           attention_core, decode_attention,
                                           init_kv_cache, out_proj)
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_tokens,
-                                       he_init, init_embed, logits_from_hidden,
-                                       mlp, remat, rms_norm)
+from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_lookup,
+                                       he_init, head_logits, init_embed, mlp,
+                                       remat, rms_norm)
 from repro_torch.models.moe import MoE, moe_ffn
-from repro_torch.models.sharding import (current_ctx, model_offset,
-                                         model_split, weight)
+from repro_torch.models.sharding import (current_ctx, model_split,
+                                         vocab_offset, weight)
 
 
 class Block(nn.Module):
@@ -92,29 +92,23 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator) -> LM:
     return LM(cfg, generator)
 
 
-def _vocab(model: LM, name: str) -> int | None:
-    """The vocab offset of this rank's block of ``model.name`` on a rank
-    mesh that splits it over model (vocab-parallel), else None."""
-    return model_offset(model, name) if model_split(model, name) else None
-
-
 def _head(model: LM, cfg: ArchConfig) -> tuple[torch.Tensor, int | None]:
     """The (d, V) head (this rank's vocab block on a rank mesh that splits
     it) and its vocab offset (None: whole)."""
     if cfg.tie_embeddings:
-        return weight(model, "embed").T, _vocab(model, "embed")
-    return weight(model, "lm_head"), _vocab(model, "lm_head")
+        return weight(model, "embed").T, vocab_offset(model, "embed")
+    return weight(model, "lm_head"), vocab_offset(model, "lm_head")
 
 
 def _logits(model: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    head, offset = _head(model, cfg)
-    return logits_from_hidden(x, head, vocab_parallel=offset is not None)
+    tied = cfg.tie_embeddings
+    return head_logits(x, model, "embed" if tied else "lm_head", tied=tied)
 
 
 def embed_input(model: LM, tokens: torch.Tensor, cfg: ArchConfig,
                 patches=None) -> torch.Tensor:
     """Token embeddings, with the projected patch prefix for vlm."""
-    x = embed_tokens(weight(model, "embed"), tokens, _vocab(model, "embed"))
+    x = embed_lookup(model, tokens)
     if cfg.family == "vlm":
         if patches is None:
             raise ValueError("vlm needs patch embeddings (the stub frontend's "
@@ -253,7 +247,7 @@ def lm_decode_step(model: LM, cache: dict, tokens: torch.Tensor,
     """One decode step. tokens: (B, 1). Returns (cache, logits (B, 1, V)):
     the cache's K and V are written in place (layer i is slot i, the
     DeepSeek first layers leading) and ``pos`` advances by the tokens."""
-    x = embed_tokens(weight(model, "embed"), tokens, _vocab(model, "embed"))
+    x = embed_lookup(model, tokens)
     pos = cache["pos"]
     for i, (blk, moe_layer) in enumerate(model.blocks()):
         h, _, _ = decode_attention(rms_norm(x, blk.ln1, cfg.norm_eps),

@@ -11,6 +11,16 @@ self-attention goes through ``attention.decode_attention`` (so
 ``flash_decode`` under ``attn_impl="flash"``); its cross-attention runs
 over the cached encoder K / V as the reference computes it (an einsum, no
 mask).
+
+On a rank mesh (weights placed by ``sharding.place_params``) the encoder
+and the decoder are tensor-parallel over "model" as the reference's rule
+table places them: every attention's q, k, v column-parallel and its
+``wo`` row-parallel (``attention.out_proj``), the MLPs (``layers.mlp``),
+the tied embedding vocab-parallel where the extent divides the vocab
+(whisper-base's 51,865 does not split over 2: it stays whole). The
+self- and cross-attention caches hold this rank's heads. No bias follows
+a row-parallel product here (the biases are q, k and v's, added to a
+rank's own columns).
 """
 from __future__ import annotations
 
@@ -22,11 +32,14 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (Attention, _project_qkv, attention,
-                                          attention_core, decode_attention)
+                                          attention_core, decode_attention,
+                                          out_proj)
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_tokens,
-                                       init_embed, logits_from_hidden, mlp,
+from repro_torch.models.layers import (MLP, chunked_ce_loss, embed_lookup,
+                                       head_logits, init_embed, mlp,
                                        remat, rms_norm)
+from repro_torch.models.sharding import (local_heads, model_split, tp_enter,
+                                         vocab_offset, weight)
 
 
 def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -107,12 +120,12 @@ def _dec_block(x, lp: DecBlock, enc_out, cfg: ArchConfig, positions,
     q, k, v = _project_qkv(h_in, h_in, lp.attn, cfg, positions, positions,
                            False)
     o = attention_core(q, k, v, positions, positions, cfg, causal=True)
-    x = x + o.reshape(B, S, -1) @ lp.attn.wo.to(x.dtype)
+    x = x + out_proj(o.reshape(B, S, -1), lp.attn, x.dtype)
     h_in = rms_norm(x, lp.ln2, cfg.norm_eps)
     q2, xk, xv = _project_qkv(h_in, enc_out, lp.xattn, cfg, positions,
                               enc_pos, False)
     o2 = attention_core(q2, xk, xv, positions, enc_pos, cfg, causal=False)
-    x = x + o2.reshape(B, S, -1) @ lp.xattn.wo.to(x.dtype)
+    x = x + out_proj(o2.reshape(B, S, -1), lp.xattn, x.dtype)
     x = x + mlp(rms_norm(x, lp.ln3, cfg.norm_eps), lp.mlp)
     return x, k, v, xk, xv
 
@@ -130,7 +143,7 @@ def _decoder_hidden(model: Whisper, tokens: torch.Tensor, enc_out,
     dev = enc_out.device
     positions = torch.arange(S, device=dev)
     enc_pos = torch.arange(enc_out.shape[1], device=dev)
-    x = embed_tokens(model.embed, tokens)
+    x = embed_lookup(model, tokens)
     x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
     for lp in model.dec_layers:
         x = remat(_train_dec_block, x, lp, enc_out, cfg, positions, enc_pos,
@@ -144,8 +157,9 @@ def whisper_loss(model: Whisper, batch: dict, cfg: ArchConfig):
     enc_out = encode(model, batch["frames"], cfg)
     tokens = batch["tokens"]
     hidden = _decoder_hidden(model, tokens, enc_out, cfg)
-    loss_sum = chunked_ce_loss(hidden[:, :-1], model.embed.T, tokens[:, 1:],
-                               chunk=cfg.loss_chunk)
+    loss_sum = chunked_ce_loss(hidden[:, :-1], weight(model, "embed").T,
+                               tokens[:, 1:], chunk=cfg.loss_chunk,
+                               vocab_offset=vocab_offset(model, "embed"))
     loss = loss_sum / (tokens.shape[0] * (tokens.shape[1] - 1))
     return loss, {"ce": loss}
 
@@ -156,9 +170,11 @@ def whisper_loss(model: Whisper, batch: dict, cfg: ArchConfig):
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
     """Self-attention k / v (L, B, max_len, KV, hd), cross-attention xk / xv
     (L, B, enc_len, KV, hd), all bf16, and pos; on ``device`` (``None``:
-    the card, raising without one)."""
+    the card, raising without one). Under a rank mesh's context KV is
+    this rank's share of the heads."""
     dev = resolve_device(device)
-    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+    L, hd = cfg.n_layers, cfg.d_head
+    KV = local_heads(cfg.n_kv_heads, cfg.n_heads)
     out = {}
     for key, S in (("k", max_len), ("v", max_len), ("xk", cfg.enc_len),
                    ("xv", cfg.enc_len)):
@@ -179,7 +195,7 @@ def whisper_prefill(model: Whisper, batch: dict, cfg: ArchConfig,
     dev = enc_out.device
     positions = torch.arange(S, device=dev)
     enc_pos = torch.arange(cfg.enc_len, device=dev)
-    x = embed_tokens(model.embed, tokens)
+    x = embed_lookup(model, tokens)
     x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
     ks, vs, xks, xvs = [], [], [], []
     pad = (0, 0, 0, 0, 0, max_len - S)
@@ -190,7 +206,7 @@ def whisper_prefill(model: Whisper, batch: dict, cfg: ArchConfig,
         xks.append(xk.to(torch.bfloat16))
         xvs.append(xv.to(torch.bfloat16))
     x = rms_norm(x[:, -1:, :], model.final_norm, cfg.norm_eps)
-    logits = logits_from_hidden(x, model.embed.T)
+    logits = head_logits(x, model, "embed", tied=True)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
              "xk": torch.stack(xks), "xv": torch.stack(xvs),
              "pos": torch.tensor(S, dtype=torch.int32, device=dev)}
@@ -199,26 +215,29 @@ def whisper_prefill(model: Whisper, batch: dict, cfg: ArchConfig,
 
 def _cross_decode(x, lp: Attention, cfg: ArchConfig, xk, xv):
     """Cross-attention of the new token over one layer's cached encoder
-    K / V (B, enc_len, KV, hd): all slots valid, no mask."""
+    K / V (B, enc_len, KV, hd): all slots valid, no mask. On a rank mesh
+    with the projections split over model, this rank's heads (q
+    column-parallel, ``wo`` row-parallel)."""
     B = x.shape[0]
-    q = x @ lp.wq.to(x.dtype)
+    xq = tp_enter(x) if model_split(lp, "wq") else x
+    q = xq @ weight(lp, "wq", x.dtype)
     if cfg.qkv_bias:
-        q = q + lp.bq.to(x.dtype)
-    KV, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        q = q + weight(lp, "bq", x.dtype)
+    KV, G = xk.shape[2], cfg.n_heads // cfg.n_kv_heads      # this rank's KV
     qq = q.reshape(B, 1, KV, G, cfg.d_head).float()
     scores = torch.einsum("bckgh,bskh->bkgcs", qq, xk.float()) \
         / math.sqrt(cfg.d_head)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgcs,bskh->bckgh", probs.to(xv.dtype), xv)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
-    return out @ lp.wo.to(x.dtype)
+    out = out.reshape(B, 1, KV * G * cfg.d_head).to(x.dtype)
+    return out_proj(out, lp, x.dtype)
 
 
 def whisper_decode_step(model: Whisper, cache: dict, tokens: torch.Tensor,
                         cfg: ArchConfig):
     """One decode step; the self-attention cache is written in place, the
     cross-attention cache read, ``pos`` advanced."""
-    x = embed_tokens(model.embed, tokens)
+    x = embed_lookup(model, tokens)
     pos = cache["pos"]
     x = x + sinusoid(pos + torch.arange(1, device=x.device),
                      cfg.d_model).to(x.dtype)
@@ -231,5 +250,5 @@ def whisper_decode_step(model: Whisper, cache: dict, tokens: torch.Tensor,
                               cache["xk"][i], cache["xv"][i])
         x = x + mlp(rms_norm(x, lp.ln3, cfg.norm_eps), lp.mlp)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = logits_from_hidden(x, model.embed.T)
+    logits = head_logits(x, model, "embed", tied=True)
     return dict(cache, pos=pos + tokens.shape[1]), logits

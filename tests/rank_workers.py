@@ -99,9 +99,10 @@ def _placed_model(cfg, params: dict, mesh):
     return sharding.place_params(model, cfg, mesh)
 
 
+@contextlib.contextmanager
 def _captured_grads(steps_mod, grads: dict):
-    """Wrap ``steps.adamw_update`` to copy every gradient before the
-    update consumes it."""
+    """``steps.adamw_update`` wrapped to copy every gradient before the
+    update consumes it, inside the block."""
     real = steps_mod.adamw_update
 
     def capture(model, *a, **kw):
@@ -110,6 +111,34 @@ def _captured_grads(steps_mod, grads: dict):
         return real(model, *a, **kw)
 
     steps_mod.adamw_update = capture
+    try:
+        yield grads
+    finally:
+        steps_mod.adamw_update = real
+
+
+@contextlib.contextmanager
+def _patched(module, name: str, value):
+    """``module.name`` set to ``value`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _tensors(nb: dict) -> dict:
+    """A numpy batch as the families take it: tokens int32, frames and
+    patches in bf16."""
+    return {k: torch.from_numpy(v) if k == "tokens"
+            else torch.from_numpy(v.astype(np.float32)).bfloat16()
+            for k, v in nb.items()}
+
+
+def _rows(t: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """This data rank's block of rows of ``t`` along ``dim``."""
+    return t.chunk(mesh.shape["data"], dim=dim)[mesh.coords["data"]]
 
 
 # -- rank bodies -----------------------------------------------------------------------
@@ -160,14 +189,12 @@ def seam(rank, world, init, payload):
     return out
 
 
-def placement(rank, world, init, payload):
+def _blocks(cfg, params, mesh) -> dict:
     """``convert.from_jax`` of the reference's numpy weights, then
     ``place_params``: this rank's block of every parameter, the
     placements, and the parameter bytes held."""
     from repro_torch.models import sharding
 
-    cfg, params, (data, model) = payload
-    mesh = _mesh(data, model, rank, world, init)
     m = _placed_model(cfg, params, mesh)
     return {"local": {n: p.detach().clone() for n, p in m.named_parameters()},
             "placements": sharding.placements(m),
@@ -175,14 +202,19 @@ def placement(rank, world, init, payload):
             "bytes": sum(p.numel() * p.element_size() for p in m.parameters())}
 
 
+def placement(rank, world, init, payload):
+    """:func:`_blocks` of the payload's (config, weights) on a mesh of its
+    extents."""
+    cfg, params, (data, model) = payload
+    return _blocks(cfg, params, _mesh(data, model, rank, world, init))
+
+
 def _train_step(cfg, params, batch: dict, mesh, f32: bool) -> dict:
     from repro_torch.models import optim, sharding, steps
 
-    with _float32(f32):
+    with _float32(f32), _captured_grads(steps, {}) as grads:
         m = _placed_model(cfg, params, mesh)
         state = optim.init_opt_state(m)
-        grads: dict = {}
-        _captured_grads(steps, grads)
         step = steps.make_train_step(cfg, optim.OptimConfig(total_steps=10))
         with sharding.sharding_ctx(mesh):
             _, _, met = step(m, state, batch)
@@ -201,17 +233,142 @@ def train_step(rank, world, init, payload):
                        f32)
 
 
-def family_steps(rank, world, init, payload):
-    """:func:`train_step` for each (config, weights, numpy batch) of the
-    payload on one data 2 x model 2 mesh, in float32 compute; the
-    batch's frames and patches in bf16, as the families take them."""
+def placements(rank, world, init, payload):
+    """:func:`_blocks` of each (config, weights) of the payload on one
+    mesh of its extents: ``{config name: result}``."""
+    families, (data, model) = payload
+    mesh = _mesh(data, model, rank, world, init)
+    return {cfg.name: _blocks(cfg, params, mesh) for cfg, params in families}
+
+
+def _serve_steps(cfg, params, nb: dict, new: np.ndarray, max_len: int,
+                 mesh) -> dict:
+    """The placed model in float32 compute on this data rank's rows: a
+    prefill (cache depth ``max_len``), then one decode step per row of
+    ``new`` ((steps, B, 1) tokens); each call's logits and the cache after
+    the prefill and after the last step, in float32."""
+    from repro_torch.models import sharding
+    from repro_torch.models.registry import get_api
+
+    def snap(c):
+        return {k: v.float().clone() for k, v in c.items()}
+
+    with _float32(True):
+        m = _placed_model(cfg, params, mesh)
+        api = get_api(cfg)
+        batch = {k: _rows(v, mesh) for k, v in _tensors(nb).items()}
+        toks = _rows(torch.from_numpy(new), mesh, dim=1)
+        with sharding.sharding_ctx(mesh), torch.no_grad():
+            c, lg = api.prefill(m, batch, cfg, max_len)
+            logits, caches = [lg], [snap(c)]
+            for t in toks:
+                c, lg = api.decode(m, c, t, cfg)
+                logits.append(lg)
+            caches.append(snap(c))
+    return {"logits": logits, "caches": caches}
+
+
+class _UnsummedGather(torch.autograd.Function):
+    """A planted fault for the SSD mixer's ``w_in``: the all-gather over
+    model, its backward this rank's block of its own gradient (the B and C
+    columns every rank reads not summed)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        from repro_torch.engine import distributed as D
+
+        ctx.dim, ctx.n, ctx.i = dim, group.size(), group.rank()
+        return D.all_gather(t.detach(), group=group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, dim=ctx.dim)[ctx.i].contiguous(), None, None
+
+
+def _unsummed_w_in(mod, name, dtype=None):
+    from repro_torch.models import sharding
+
+    w = sharding.weight(mod, name, dtype)
+    return _UnsummedGather.apply(w, mod._placed[name].model_dim,
+                                 sharding.current_ctx().group("model"))
+
+
+def _mixer_run(cfg, params, x: np.ndarray, r: np.ndarray, mesh,
+               plant: str | None) -> dict:
+    """Layer 0's SSD mixer of the placed hybrid on this data rank's rows of
+    ``x`` (float32), ``sum(out * r)`` backpropagated: the output, the
+    input's gradient and the mixer's gradient blocks, with ``plant``
+    ("local_norm": the gated norm over the rank's channels alone;
+    "unsummed_bc": ``w_in``'s gather without the sum in its backward)."""
+    from repro_torch.models import layers, sharding, ssm
+
+    m = _placed_model(cfg, params, mesh)
+    blk = m.layers[0].ssm
+    xt = _rows(torch.from_numpy(x), mesh).requires_grad_()
+    rt = _rows(torch.from_numpy(r), mesh)
+    fault = {None: contextlib.nullcontext(),
+             "local_norm": _patched(ssm, "_gated_norm", lambda h, scale, c, _:
+                                    layers.rms_norm(h, scale, c.norm_eps)),
+             "unsummed_bc": _patched(ssm, "model_gathered", _unsummed_w_in)}[plant]
+    with sharding.sharding_ctx(mesh), fault:
+        out, _ = ssm.ssm_mixer(xt, blk, cfg)
+        (out * rt).sum().backward()
+        sharding.reduce_grads(blk)
+    return {"out": out.detach(), "dx": xt.grad,
+            "grads": {n: p.grad for n, p in blk.named_parameters()},
+            "placements": sharding.placements(blk)}
+
+
+def _elastic_family(cfg, params, nb: dict, directory: str, rank, world,
+                    init) -> dict:
+    """A train step of the placed model on data 2 x model 2, its state
+    checkpointed through ``launch.train.ModelState`` (rank 0 writes the
+    whole tensors), then restored onto data 1 x model 4 of the same ranks
+    into a model placed from the untrained weights: the whole state before
+    the save and after the restore, and the restored blocks."""
+    from repro_torch.launch.train import ModelState
+    from repro_torch.models import optim, sharding, steps
+    from repro_torch.runtime.checkpoint import CheckpointManager
+
+    with _float32(True):
+        mesh = _mesh(2, 2, rank, world, init)
+        m = _placed_model(cfg, params, mesh)
+        state = optim.init_opt_state(m)
+        step = steps.make_train_step(cfg, optim.OptimConfig(total_steps=10))
+        with sharding.sharding_ctx(mesh):
+            step(m, state, _tensors(nb))
+        saved = sharding.whole_state(m, state, mesh)
+        cm = CheckpointManager(directory, async_save=False)
+        cm.save(1, ModelState(cfg, mesh).tree(m, state))
+        cm.wait()
+        mesh4 = _mesh(1, 4, rank, world, init)
+        m4 = _placed_model(cfg, params, mesh4)
+        s4 = optim.init_opt_state(m4)
+        got, m4, s4 = ModelState(cfg, mesh4).restore(cm, m4, s4)
+        restored = sharding.whole_state(m4, s4, mesh4)
+    return {"saved": saved, "restored": restored, "step": got,
+            "local": {n: p.detach().clone() for n, p in m4.named_parameters()},
+            "m": {n: t.clone() for n, t in s4["m"].items()},
+            "placements": sharding.placements(m4), "coords": dict(mesh4.coords)}
+
+
+def tp_families(rank, world, init, payload):
+    """The families on one data 2 x model 2 mesh, float32 compute: for
+    each (config, weights, train batch, serve batch, decode tokens) of
+    ``payload["families"]`` a train step (:func:`_train_step`) and a
+    prefill with decode steps (:func:`_serve_steps`); layer 0's SSD mixer
+    of ``payload["mixer"]`` (config, weights, x, r) as it is and with each
+    planted fault; and :func:`_elastic_family` of ``payload["elastic"]``
+    (config, weights, batch, directory)."""
     mesh = _mesh(2, 2, rank, world, init)
-    out = {}
-    for cfg, params, nb in payload:
-        batch = {k: torch.from_numpy(v) if k == "tokens"
-                 else torch.from_numpy(v.astype(np.float32)).bfloat16()
-                 for k, v in nb.items()}
-        out[cfg.name] = _train_step(cfg, params, batch, mesh, True)
+    out: dict = {"train": {}, "serve": {}, "mixer": {}}
+    for cfg, params, nb, sb, new in payload["families"]:
+        out["train"][cfg.name] = _train_step(cfg, params, _tensors(nb), mesh, True)
+        out["serve"][cfg.name] = _serve_steps(cfg, params, sb, new,
+                                              payload["max_len"], mesh)
+    for plant in (None, "local_norm", "unsummed_bc"):
+        out["mixer"][plant] = _mixer_run(*payload["mixer"], mesh, plant)
+    out["elastic"] = _elastic_family(*payload["elastic"], rank, world, init)
     return out
 
 

@@ -33,6 +33,7 @@ FileStore rendezvous, a join timeout of its own) and finishes in well under a
 minute.
 """
 import dataclasses
+import functools
 import pathlib
 import types
 
@@ -109,11 +110,10 @@ def _leaf(tree: dict, path: str):
     return tree
 
 
-def _table_blocks(arch: str, params: dict, shape: dict, coords: dict) -> dict:
-    """Every port parameter's expected block at ``coords``: the
-    reference's rule table (``repro.models.sharding.param_specs``) over
-    its own pytree, sanitized by its own rule, sliced in numpy; layer i
-    of a stacked leaf at index i."""
+def _table_specs(arch: str, params: dict, shape: dict) -> dict:
+    """``{port parameter name: its spec}``: the reference's rule table
+    (``repro.models.sharding.param_specs``) over its own pytree,
+    sanitized by its own rule at the mesh extents ``shape``."""
     specs = jsharding.param_specs(params, JMeshAxes())
     mesh = types.SimpleNamespace(shape=shape)
     model = convert.from_jax(params, get_config(arch).reduced(), device="cpu")
@@ -121,8 +121,26 @@ def _table_blocks(arch: str, params: dict, shape: dict, coords: dict) -> dict:
     for name, path in convert.reference_paths(model).items():
         full, spec = _leaf(params, path), _leaf(specs, path)
         spec = tuple(jsharding.sanitize_pspec(spec, full.shape, mesh))
-        spec += (None,) * (full.ndim - len(spec))
-        blk = _block(full, spec, shape, coords)
+        out[name] = spec + (None,) * (full.ndim - len(spec))
+    return out
+
+
+def _table_split(arch: str, params: dict, shape: dict) -> set:
+    """The parameters the rule table splits over model at ``shape``."""
+    return {n for n, spec in _table_specs(arch, params, shape).items()
+            if "model" in spec}
+
+
+def _table_blocks(arch: str, params: dict, shape: dict, coords: dict) -> dict:
+    """Every port parameter's expected block at ``coords``: the
+    reference's rule table (``repro.models.sharding.param_specs``) over
+    its own pytree, sanitized by its own rule, sliced in numpy; layer i
+    of a stacked leaf at index i."""
+    model = convert.from_jax(params, get_config(arch).reduced(), device="cpu")
+    paths = convert.reference_paths(model)
+    out = {}
+    for name, spec in _table_specs(arch, params, shape).items():
+        blk = _block(_leaf(params, paths[name]), spec, shape, coords)
         if name.split(".", 1)[0] in convert.STACKED:
             blk = blk[int(name.split(".")[1])]
         out[name] = blk
@@ -177,18 +195,39 @@ def test_seam_collectives_match_list_forms():
 # -- placement ----------------------------------------------------------------------------
 
 
+# the families placed by the whole table since tensor parallelism over
+# model reached them: one spawn places all four on data 2 x model 2
+TP_FAMILIES = ("rwkv6-1.6b", "zamba2-1.2b", "whisper-base", "llava-next-mistral-7b")
+
+
+@functools.cache
+def _tp_placements() -> dict:
+    families = [(get_config(a).reduced(), ref_params(jget_config(a).reduced()))
+                for a in TP_FAMILIES]
+    res = run_ranks("placements", 4, (families, (2, 2)), SPAWN_TIMEOUT[4])
+    return {a: [out[cfg.name] for out in res]
+            for a, (cfg, _) in zip(TP_FAMILIES, families)}
+
+
 @pytest.mark.parametrize("arch,data,model", [("qwen3-1.7b", 4, 2),
-                                             ("deepseek-moe-16b", 2, 4)])
+                                             ("deepseek-moe-16b", 2, 4)]
+                         + [(a, 2, 2) for a in TP_FAMILIES])
 def test_placed_blocks_equal_rule_table_slices(arch, data, model):
     """``convert.from_jax`` of the reference's weights, then
     ``place_params``: every rank's block of every parameter equals, bit
     for bit, the numpy slice the reference's rule table assigns it
-    (experts over model on the MoE), and no rank holds a whole copy of a
-    weight the table splits where the extents divide."""
+    (experts over model on the MoE; rwkv's time mix, the hybrid's
+    ``ssm/w_in`` in its contiguous column blocks and ``ssm/w_out``,
+    whisper's and llava's attention and MLPs over model), and no rank
+    holds a whole copy of a weight the table splits where the extents
+    divide."""
     jcfg, tcfg = jget_config(arch).reduced(), get_config(arch).reduced()
     params = ref_params(jcfg)
-    res = run_ranks("placement", data * model, (tcfg, params, (data, model)),
-                    SPAWN_TIMEOUT[data * model])
+    if arch in TP_FAMILIES:
+        res = _tp_placements()[arch]
+    else:
+        res = run_ranks("placement", data * model, (tcfg, params, (data, model)),
+                        SPAWN_TIMEOUT[data * model])
     shape = {"data": data, "model": model}
     for out in res:
         want = _table_blocks(arch, params, shape, out["coords"])
